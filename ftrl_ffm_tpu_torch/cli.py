@@ -1,0 +1,287 @@
+"""Command-line interface: the serving subset of ftrl_ffm_tpu/cli.py.
+
+The same flags as the JAX CLI (reference: src/main.cpp:13-34,
+src/include/utils/cmd_option.h:7-27) plus `--device`.  The port serves FFM:
+`--load_model` with `--eval_data` and/or `--predict_data` prints the same
+`eval loss: ..., eval auc: ...` line and writes the same
+one-probability-per-line file as the JAX CLI in serve-only mode.  Flags of
+capabilities a later slice brings raise NotImplementedError naming it.
+
+Usage:
+    python -m ftrl_ffm_tpu_torch --load_model model.ckpt --eval_data eval.ffm \
+        --predict_data eval.ffm --model_type FFM --n_fields 39 ...
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import functools
+import sys
+import time
+
+from ftrl_ffm_tpu_torch.config import Config, not_ported
+
+
+def _str2bool(v: str) -> bool:
+    # the reference accepts "true"/"false" words (README.md:63-66)
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("true", "1", "yes", "on"):
+        return True
+    if v.lower() in ("false", "0", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected true/false, got {v!r}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ftrl_ffm_tpu_torch",
+        description=(
+            "FTRL-Proximal LR / FM / FFM on libsvm / libffm data: the "
+            "PyTorch/CUDA port of ftrl_ffm_tpu (serves FFM: --load_model "
+            "with --eval_data and/or --predict_data)."
+        ),
+    )
+    # ---- reference flags (src/include/utils/cmd_option.h:49-63 defaults) ----
+    p.add_argument("--model_path", default="", help="checkpoint / model output path")
+    p.add_argument("--train_data", default="", help="training data path")
+    p.add_argument("--eval_data", default="", help="evaluation data path")
+    p.add_argument("--model_type", default="FFM", help="LR | FM | FFM")
+    p.add_argument("--init_mean", type=float, default=0.0, help="factor init mean")
+    p.add_argument("--init_stddev", type=float, default=0.02, help="factor init stddev")
+    p.add_argument("--w_alpha", type=float, default=1e-4, help="FTRL alpha")
+    p.add_argument("--w_beta", type=float, default=1.0, help="FTRL beta")
+    p.add_argument("--w_l1", type=float, default=0.1, help="L1 regularization")
+    p.add_argument("--w_l2", type=float, default=5.0, help="L2 regularization")
+    p.add_argument("--n_threads", type=int, default=1, help="host parse workers")
+    p.add_argument("--n_epochs", type=int, default=1, help="number of epochs")
+    p.add_argument("--n_fields", type=int, default=8, help="number of fields")
+    p.add_argument("--n_feats", type=int, default=10000, help="feature table rows")
+    p.add_argument("--n_factors", type=int, default=16, help="latent factors")
+    p.add_argument("--online", type=_str2bool, default=True,
+                   help="true: streaming single-pass; false: in-memory shuffled")
+    p.add_argument("--cmd", type=_str2bool, default=False,
+                   help="read training stream from stdin")
+    p.add_argument("--file_type", default="", help="libsvm | libffm (auto-detect)")
+    # ---- TPU-native extras ----
+    p.add_argument("--batch_size", type=int, default=4096, help="global batch size")
+    p.add_argument("--max_nnz", type=int, default=0,
+                   help="pad/truncate nnz per sample (0 = sniff from data)")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--factor_semantics", default="keep_init",
+                   help="keep_init | reference (see Config)")
+    p.add_argument("--update_mode", default="auto",
+                   choices=("auto", "dense", "sparse", "inplace"),
+                   help="FTRL table update strategy (see Config.update_mode)")
+    p.add_argument("--table_dtype", default="float32",
+                   choices=("float32", "bfloat16"),
+                   help="storage dtype for the factor weight table vec_w")
+    p.add_argument("--acc_dtype", default="float32",
+                   choices=("float32", "bfloat16"),
+                   help="gradient payload/accumulator dtype on the fused "
+                        "path (bfloat16 halves the dominant scatter bytes)")
+    p.add_argument("--use_pallas", default="auto",
+                   choices=("auto", "on", "off"),
+                   help="fused TPU kernel for the FFM step (auto = TPU only)")
+    p.add_argument("--compact_transfer", type=_str2bool, default=True,
+                   help="narrow host->device upload dtypes (lossless only)")
+    p.add_argument("--steps_per_call", type=int, default=1,
+                   help="train steps per device dispatch (>1 scans)")
+    p.add_argument("--lookup_mode", default="auto",
+                   choices=("auto", "replicate", "route"),
+                   help="sharded-table lookup strategy (see Config.lookup_mode)")
+    p.add_argument("--route_capacity", type=float, default=2.0,
+                   help="route-mode per-peer capacity multiple of the "
+                        "balanced share (unique-id routed: skew-immune)")
+    p.add_argument("--route_overflow_policy", default="warn",
+                   choices=("warn", "error"),
+                   help="on routed-bucket overflow: warn + count, or raise "
+                        "at epoch end (exactness guarantee)")
+    p.add_argument("--mesh_data", type=int, default=1,
+                   help="data-parallel mesh axis size (0 = all remaining devices)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="table-sharding mesh axis size")
+    p.add_argument("--eval_auc", type=_str2bool, default=True)
+    p.add_argument("--auc_mode", default="binned", choices=("binned", "exact"),
+                   help="AUC estimator: streaming histogram (O(1) memory, "
+                        "error O(1/8192) for spread scores) or exact rank "
+                        "statistic (all eval scores must fit host memory)")
+    p.add_argument("--shuffle", type=_str2bool, default=True)
+    p.add_argument("--device_cache", default="auto",
+                   choices=("auto", "on", "off"),
+                   help="offline mode: keep the whole dataset resident in "
+                        "device HBM and run epochs fully on device "
+                        "(auto = when it fits next to the model state)")
+    p.add_argument("--device_cache_layout", default="auto",
+                   choices=("auto", "replicate", "shard"),
+                   help="cached-dataset layout on a sharded mesh: replicate "
+                        "per device (global shuffle, bit-matching batches) "
+                        "or shard 1/D per device (per-slice shuffle, the "
+                        "multi-host streamed semantics, 1/D the HBM)")
+    p.add_argument("--device_cache_compact", default="auto",
+                   choices=("auto", "on", "off"),
+                   help="store the cached dataset compactly in HBM (split "
+                        "ids + DEC6 vals + packed fields, ~2x capacity; "
+                        "auto = only when raw would not fit)")
+    p.add_argument("--feed_workers", type=int, default=1,
+                   help="device-feed threads; >1 interleaves whole batches "
+                        "(compact+upload) across threads with a reorder "
+                        "buffer — update order unchanged (multi-host pins 1)")
+    p.add_argument("--compress_level", type=int, default=3, help="zstd level")
+    p.add_argument("--save_every", type=int, default=0,
+                   help="mid-training checkpoint every N steps (0 = end only)")
+    p.add_argument("--async_checkpoint", type=_str2bool, default=True,
+                   help="overlap --save_every checkpoint compression/write "
+                        "with training on a background thread (snapshot is "
+                        "taken inline; writes are crash-atomic either way)")
+    p.add_argument("--load_model", default="",
+                   help="resume from a full checkpoint (model_path saves one)")
+    p.add_argument("--auto_resume", type=_str2bool, default=False,
+                   help="if --model_path already holds a checkpoint, resume "
+                        "from it (crash -> relaunch the same command picks "
+                        "up at the last --save_every checkpoint)")
+    p.add_argument("--import_reference_model", default="",
+                   help="warm-start from a reference-format zstd weight blob "
+                        "(e.g. a model trained by the C++ binary)")
+    p.add_argument("--export_reference_model", default="",
+                   help="also export weights as a reference-compatible zstd blob")
+    p.add_argument("--import_reference_text_model", default="",
+                   help="warm-start from the reference's plain-text model "
+                        "format (FM/FFM factor rows; src/model/ffm.cpp:179)")
+    p.add_argument("--export_reference_text_model", default="",
+                   help="also export weights in the reference's plain-text "
+                        "model format (src/model/ffm.cpp:161)")
+    p.add_argument("--profile_dir", default="",
+                   help="write a jax.profiler trace of epoch 1 here")
+    p.add_argument("--predict_data", default="",
+                   help="after training, score this file ('-': stdin stream; "
+                        "requires --file_type and --max_nnz)")
+    p.add_argument("--predict_output", default="predictions.txt",
+                   help="output path for --predict_data probabilities "
+                        "('-': stdout)")
+    # ---- multi-host (SPMD over DCN; one process per host) ----
+    p.add_argument("--coordinator_address", default="",
+                   help="jax.distributed coordinator host:port (multi-host)")
+    p.add_argument("--num_processes", type=int, default=0,
+                   help="total process count for jax.distributed")
+    p.add_argument("--process_id", type=int, default=-1,
+                   help="this process's id for jax.distributed")
+    # ---- the port's own ----
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (CUDA kernels) or cpu (their "
+                        "plain PyTorch versions)")
+    return p
+
+
+# flags that are not Config fields
+_NON_CONFIG_FLAGS = (
+    "load_model",
+    "auto_resume",
+    "import_reference_model",
+    "export_reference_model",
+    "import_reference_text_model",
+    "export_reference_text_model",
+    "profile_dir",
+    "predict_data",
+    "predict_output",
+    "coordinator_address",
+    "num_processes",
+    "process_id",
+)
+
+
+def _refuse_unported(args) -> None:
+    """Raise for a flag whose capability a later slice of the port brings."""
+    later = (
+        (args.train_data or args.cmd, "training (--train_data / --cmd)", 2),
+        (args.model_path, "--model_path (writing a checkpoint)", 3),
+        (args.save_every, "--save_every", 3),
+        (args.auto_resume, "--auto_resume", 3),
+        (args.import_reference_model, "--import_reference_model", 3),
+        (args.import_reference_text_model, "--import_reference_text_model", 3),
+        (args.export_reference_model, "--export_reference_model", 3),
+        (args.export_reference_text_model, "--export_reference_text_model", 3),
+        (args.profile_dir, "--profile_dir", 9),
+        (
+            args.coordinator_address or args.num_processes
+            or args.process_id >= 0,
+            "multi-host runs (--coordinator_address / --num_processes / "
+            "--process_id)",
+            8,
+        ),
+    )
+    for given, what, item in later:
+        if given:
+            raise not_ported(what, item)
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+    cfg = Config(
+        **{k: v for k, v in vars(args).items() if k not in _NON_CONFIG_FLAGS}
+    )
+    if not args.load_model or not (args.predict_data or cfg.eval_data):
+        print(
+            "error: the PyTorch port serves a trained model: pass "
+            "--load_model with --eval_data and/or --predict_data",
+            file=sys.stderr,
+        )
+        return 2
+    if args.predict_data == "-" and (not cfg.file_type or not cfg.max_nnz):
+        # stdin cannot be sniffed or re-read: both must be explicit
+        print(
+            "error: --predict_data - (stdin) requires --file_type and "
+            "--max_nnz",
+            file=sys.stderr,
+        )
+        return 2
+    # With predictions streaming to stdout, every informational line must
+    # go to stderr or it corrupts the one-probability-per-line contract.
+    preds_on_stdout = bool(args.predict_data) and args.predict_output == "-"
+    info = functools.partial(print, file=sys.stderr) if preds_on_stdout else print
+    trainer_out = (
+        contextlib.redirect_stdout(sys.stderr)
+        if preds_on_stdout
+        else contextlib.nullcontext()
+    )
+
+    from ftrl_ffm_tpu_torch.io.checkpoint import (
+        load_checkpoint,
+        state_from_jax_arrays,
+        validate_header_compat,
+    )
+    from ftrl_ffm_tpu_torch.train import Trainer, resolve_device
+
+    device = resolve_device(cfg.device)
+    state, extra = load_checkpoint(args.load_model)
+    # fail loud on a config mismatch (n_feats/n_fields/n_factors/
+    # table_dtype/field_pad...) before shapes can silently reinterpret
+    validate_header_compat(cfg, extra, args.load_model)
+    info(f"resumed from {args.load_model} (step {int(state.step)})")
+
+    t0 = time.perf_counter()
+    if not cfg.max_nnz and args.predict_data and not cfg.eval_data:
+        from ftrl_ffm_tpu_torch.config import detect_file_type
+        from ftrl_ffm_tpu_torch.data.parser import sniff_max_nnz
+
+        cfg.file_type = cfg.file_type or detect_file_type(args.predict_data)
+        cfg.max_nnz = sniff_max_nnz(args.predict_data, cfg.file_type)
+    trainer = Trainer(cfg, state=state_from_jax_arrays(state, device))
+    with trainer_out:
+        if cfg.eval_data:
+            eval_loss, eval_auc = trainer.evaluate()
+            if cfg.eval_auc:
+                print(f"eval loss: {eval_loss:.4f}, eval auc: {eval_auc:.4f}")
+            else:
+                print(f"eval loss: {eval_loss:.4f}")
+    info(f"total time: {time.perf_counter() - t0:.4f}s")
+    if args.predict_data:
+        n = trainer.predict_file(args.predict_data, args.predict_output)
+        info(f"wrote {n} predictions to {args.predict_output}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,59 @@
+"""Field-aware factorization machine, serving path (the counterpart of
+ftrl_ffm_tpu/models/ffm.py; reference: src/model/ffm.cpp).
+
+Rows are factor-major and lane-padded: slot (k, c) = k * field_pad + c
+(Config.field_pad, ops/layout.py).  Dead lane (0, n_fields) mirrors the
+linear table, so the forward pass reads w_lin from the factor rows it
+already gathers.  The pairwise logit runs in the CUDA kernel of
+ops/ffm_cuda.py on the card, and in its plain version on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ftrl_ffm_tpu_torch.config import not_ported
+from ftrl_ffm_tpu_torch.models.base import Batch, Model, ModelState
+from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits
+from ftrl_ffm_tpu_torch.ops.interactions import linear_logits
+
+
+class FFM(Model):
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.n_fields = cfg.n_fields
+        self.n_factors = cfg.n_factors
+        # the interaction runs over field_pad >= n_fields fields; the extra
+        # fields never occur, so their slots are inert (Config.field_pad)
+        self.field_pad = cfg.field_pad
+
+    def _lin_lane(self) -> int:
+        """Dead lane (k=0, c=n_fields) that mirrors the linear table when
+        the factor row is padded (Config.field_pad)."""
+        return self.n_fields if self.field_pad > self.n_fields else -1
+
+    def _lin_read_lane(self) -> int:
+        """Lane the forward pass reads w_lin from: the mirror lane, but only
+        while the factor table is f32 (ftrl_ffm_tpu/models/ffm.py::
+        _lin_read_lane: a bf16 mirror would quantize the linear term)."""
+        lane = self._lin_lane()
+        return lane if self.cfg.table_dtype == "float32" else -1
+
+    def _w_lin_from_rows(self, state: ModelState, v: torch.Tensor, batch: Batch, lane: int):
+        """[B, F] linear weights: mirrored lane of the gathered [B*F, E]
+        rows when enabled, else the lin_w gather."""
+        if lane >= 0:
+            return v[:, lane].reshape(batch.feats.shape)
+        return self._gather_linear(state, batch.feats)
+
+    def _logits_and_grads(self, state: ModelState, batch: Batch, train: bool):
+        if train:
+            raise not_ported("FFM gradients", 2)
+        # flat [B*F, E] gather: one row-major stream into the kernel
+        v = self._gather_vec(state, batch.feats.reshape(-1))
+        w = self._w_lin_from_rows(state, v, batch, self._lin_read_lane())
+        lin = linear_logits(w, batch.vals, self.bias_weight(state))
+        logits = ffm_fused_logits(
+            v, batch.fields, batch.vals, lin, self.field_pad, self.n_factors
+        )
+        return logits, None

@@ -1,0 +1,113 @@
+"""Build and load the port's CUDA kernels.
+
+`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
+interface for sm_90a (Hopper), at first use, into `build/` inside the
+package (listed in .gitignore).  The library's name carries a hash of the
+sources and flags, so an edited kernel is never shadowed by a stale build.
+It is loaded with ctypes: no PyTorch headers in the build, which keeps it to
+seconds.  A failed build raises — there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # registers, shared memory and spills of every kernel, for the build log
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+# what the last build printed (nvcc's -Xptxas -v report) and how long it
+# took; empty and None when the library came from an earlier build
+build_log = ""
+build_seconds: float | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+        "ftrl_ffm_tpu_torch are built from source at first use"
+    )
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def _so_path(sources: list[str]) -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"libftrl_ffm_kernels-{h.hexdigest()[:16]}.so")
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ffm_logits_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.ffm_logits_launch.restype = i
+    lib.ffm_logits_stages.argtypes = [i, i]
+    lib.ffm_logits_stages.restype = i
+    lib.cuda_error_string.argtypes = [i]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+
+
+def lib() -> ctypes.CDLL:
+    """The kernel library, built on first call; raises if it cannot be."""
+    global _lib, build_log, build_seconds
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = _sources()
+        so = _so_path(sources)
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.tmp{os.getpid()}"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [_nvcc(), *FLAGS, "-o", tmp, *sources],
+                capture_output=True, text=True, timeout=600,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}) building "
+                    f"{', '.join(map(os.path.basename, sources))}:\n"
+                    f"{proc.stdout}{proc.stderr}"
+                )
+            os.replace(tmp, so)  # atomic: concurrent builders race safely
+            build_seconds = time.perf_counter() - t0
+            build_log = proc.stdout + proc.stderr
+        cdll = ctypes.CDLL(so)
+        _declare(cdll)
+        _lib = cdll
+        return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if code != 0:
+        msg = lib().cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code}: {msg}")

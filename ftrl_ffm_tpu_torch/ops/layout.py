@@ -1,0 +1,50 @@
+"""FFM factor-table layout helpers.
+
+The reference stores each feature's factor row field-major: slot
+(field c, factor k) = c * n_factors + k (reference: src/model/ffm.cpp:63-65).
+This framework stores rows **factor-major** internally: slot (k, c) =
+k * field_pad + c.  Reason: the Pallas interaction kernel processes one
+factor k at a time, and in k-major layout the per-k slice is a contiguous
+lane range [k*C', (k+1)*C') — Mosaic supports contiguous lane slices but not
+the minor-dim-splitting reshape the field-major layout would require.
+
+field_pad >= n_fields pads each per-factor block with dead lanes (fields
+that never occur) so the physical row width is a 128-lane multiple — see
+Config.field_pad.  Dead lanes are dropped on export and zero-filled on
+import.
+
+Row width and all per-coordinate FTRL math are layout-agnostic; only
+import/export and comparisons against reference-layout weights convert.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def kmajor_to_reference(x, n_fields: int, n_factors: int, field_pad: int = 0):
+    """[R, K*C'] factor-major (padded) -> [R, C*K] reference field-major."""
+    cp = field_pad or n_fields
+    r = x.shape[0]
+    return (
+        x.reshape(r, n_factors, cp)[:, :, :n_fields]
+        .transpose(0, 2, 1)
+        .reshape(r, n_fields * n_factors)
+    )
+
+
+def reference_to_kmajor(x, n_fields: int, n_factors: int, field_pad: int = 0):
+    """[R, C*K] reference field-major -> [R, K*C'] factor-major (padded,
+    dead lanes zero)."""
+    cp = field_pad or n_fields
+    r = x.shape[0]
+    kmaj = x.reshape(r, n_fields, n_factors).transpose(0, 2, 1)  # [R, K, C]
+    if cp > n_fields:
+        kmaj = np.concatenate(
+            [
+                np.asarray(kmaj),
+                np.zeros((r, n_factors, cp - n_fields), np.asarray(x).dtype),
+            ],
+            axis=2,
+        )
+    return np.asarray(kmaj).reshape(r, n_factors * cp)

@@ -1,0 +1,33 @@
+"""The kernel build (ops/_build.py): a missing toolchain raises — there is no
+fallback — and the library name follows the sources and flags."""
+
+import os
+
+import pytest
+
+from ftrl_ffm_tpu_torch.ops import _build
+
+
+def test_missing_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
+
+
+def test_library_name_follows_sources_and_flags(tmp_path, monkeypatch):
+    src = tmp_path / "k.cu"
+    src.write_text("// one\n")
+    first = _build._so_path([str(src)])
+    assert first == _build._so_path([str(src)])
+    assert os.path.dirname(first) == _build.BUILD_DIR
+    src.write_text("// two\n")
+    second = _build._so_path([str(src)])
+    assert second != first
+    monkeypatch.setattr(_build, "FLAGS", _build.FLAGS + ("-lineinfo",))
+    assert _build._so_path([str(src)]) != second
+
+
+def test_every_kernel_source_is_built():
+    names = [os.path.basename(s) for s in _build._sources()]
+    assert "ffm_logits.cu" in names

@@ -1,0 +1,87 @@
+"""The PyTorch port never imports jax, nor the JAX package.
+
+A subprocess, because this test process already imported jax
+(tests/conftest.py)."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "ftrl_ffm_tpu_torch")
+
+_MODULES = (
+    "ftrl_ffm_tpu_torch",
+    "ftrl_ffm_tpu_torch.train",
+    "ftrl_ffm_tpu_torch.cli",
+    "ftrl_ffm_tpu_torch.ops",
+    "ftrl_ffm_tpu_torch.ops.ffm_cuda",
+    "ftrl_ffm_tpu_torch.ops._build",
+    "ftrl_ffm_tpu_torch.models",
+    "ftrl_ffm_tpu_torch.io",
+    "ftrl_ffm_tpu_torch.metrics",
+    "ftrl_ffm_tpu_torch.data",
+)
+
+
+def test_torch_no_jax():
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in _MODULES)
+        + "bad = sorted(m for m in sys.modules"
+        " if m == 'jax' or m.startswith('jax.')"
+        " or m == 'ftrl_ffm_tpu' or m.startswith('ftrl_ffm_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_port_sources_name_no_jax_import():
+    pat = re.compile(r"^\s*(import|from) (jax|ftrl_ffm_tpu)\b", re.M)
+    offenders = []
+    for root, _, files in os.walk(PORT):
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(root, fn)
+                with open(path) as f:
+                    if pat.search(f.read()):
+                        offenders.append(os.path.relpath(path, REPO))
+    assert offenders == []
+
+
+def test_kernel_wrapper_refuses_other_devices():
+    """The wrapper takes its plain version only for CPU tensors: any other
+    device launches the CUDA kernel or raises."""
+    from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits
+
+    b, f, c, k = 2, 3, 4, 2
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ffm_fused_logits(
+            torch.empty((b * f, c * k), device=meta),
+            torch.empty((b, f), dtype=torch.int32, device=meta),
+            torch.empty((b, f), device=meta),
+            torch.empty((b,), device=meta),
+            c, k,
+        )
+
+
+def test_cuda_device_without_card_raises():
+    from ftrl_ffm_tpu_torch.train import resolve_device
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -1,0 +1,178 @@
+"""End to end: the JAX CLI trains and saves a checkpoint; the port's CLI
+and Python API serve it (--device cpu) and must agree with the JAX CLI's
+serve-only run on the same checkpoint: the same `eval loss`/`eval auc` line,
+eval numbers within 1e-5, and predictions equal line by line within 2e-6
+(one unit in the sixth decimal, plus a rounding flip)."""
+
+import io
+import sys
+
+import numpy as np
+import pytest
+
+from ftrl_ffm_tpu.cli import main as jax_main
+from ftrl_ffm_tpu.config import Config as JConfig
+from ftrl_ffm_tpu.io.checkpoint import load_checkpoint as j_load
+from ftrl_ffm_tpu.train import Trainer as JTrainer
+from ftrl_ffm_tpu_torch.cli import main as torch_main
+from ftrl_ffm_tpu_torch.config import Config as TConfig
+from ftrl_ffm_tpu_torch.io.checkpoint import load_checkpoint, state_from_jax_arrays
+from ftrl_ffm_tpu_torch.train import Trainer
+from tests.test_torch_models import write_7field
+
+MODEL_FLAGS = [
+    "--model_type", "FFM", "--n_fields", "7", "--n_factors", "16",
+    "--n_feats", "60", "--batch_size", "16",
+    "--w_alpha", "0.05", "--w_l1", "0.15", "--w_l2", "1.0",
+]
+SHAPE = dict(
+    model_type="FFM", n_fields=7, n_factors=16, n_feats=60, batch_size=16,
+    w_alpha=0.05, w_l1=0.15, w_l2=1.0,
+)
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """Train two epochs with the JAX CLI, then serve the checkpoint with
+    both CLIs: (paths, JAX eval line, port eval line)."""
+    d = tmp_path_factory.mktemp("serve")
+    train = write_7field(d / "train.ffm", n=64, seed=0)
+    evald = write_7field(d / "eval.ffm", n=50, seed=1)
+    ckpt = str(d / "model.ckpt")
+    assert jax_main(
+        ["--train_data", train, "--n_epochs", "2", "--model_path", ckpt, *MODEL_FLAGS]
+    ) == 0
+    lines = {}
+    for name, main, extra in (
+        ("jax", jax_main, []),
+        ("torch", torch_main, ["--device", "cpu"]),
+    ):
+        out = io.StringIO()
+        old, sys.stdout = sys.stdout, out
+        try:
+            rc = main([
+                "--load_model", ckpt, "--eval_data", evald,
+                "--predict_data", evald, "--predict_output", str(d / f"{name}.txt"),
+                *MODEL_FLAGS, *extra,
+            ])
+        finally:
+            sys.stdout = old
+        assert rc == 0
+        lines[name] = [l for l in out.getvalue().splitlines() if l.startswith("eval")]
+    return d, ckpt, evald, lines
+
+
+def test_cli_eval_line_matches_jax(served):
+    _, _, _, lines = served
+    assert len(lines["jax"]) == 1 and lines["jax"][0].startswith("eval loss: ")
+    assert lines["torch"] == lines["jax"]
+
+
+def test_cli_predictions_match_jax(served):
+    d = served[0]
+    ref = (d / "jax.txt").read_text().splitlines()
+    got = (d / "torch.txt").read_text().splitlines()
+    assert len(got) == len(ref) == 50
+    assert all(len(l) == 8 for l in got)  # "%.6f" of a probability
+    np.testing.assert_allclose(
+        np.array(got, np.float64), np.array(ref, np.float64), rtol=0, atol=2e-6
+    )
+
+
+def _trainers(ckpt, evald, **kw):
+    jstate, _ = j_load(ckpt)
+    jtr = JTrainer(JConfig(eval_data=evald, **SHAPE, **kw), state=jstate)
+    tstate, _ = load_checkpoint(ckpt)
+    ttr = Trainer(
+        TConfig(eval_data=evald, device="cpu", **SHAPE, **kw),
+        state=state_from_jax_arrays(tstate, "cpu"),
+    )
+    return jtr, ttr
+
+
+@pytest.mark.parametrize(
+    "kw", [{}, {"online": False}, {"auc_mode": "exact"}, {"eval_auc": False}]
+)
+def test_api_evaluate_matches_jax(served, kw):
+    _, ckpt, evald, _ = served
+    jtr, ttr = _trainers(ckpt, evald, **kw)
+    (jl, ja), (tl, ta) = jtr.evaluate(), ttr.evaluate()
+    assert np.isfinite(tl) and np.isfinite(ta)
+    assert abs(tl - jl) <= 1e-5
+    assert abs(ta - ja) <= 1e-5
+
+
+def test_api_predict_stdin_to_stdout(served, monkeypatch, capsys):
+    d, ckpt, evald, _ = served
+    _, ttr = _trainers(ckpt, evald, file_type="libffm", max_nnz=7)
+    with open(evald) as f:
+        monkeypatch.setattr(sys, "stdin", f)
+        n = ttr.predict_file("-", "-")
+    got = capsys.readouterr().out.splitlines()
+    assert n == 50
+    assert got == (d / "torch.txt").read_text().splitlines()
+
+
+def test_api_predict_file_counts_real_rows(served, tmp_path):
+    _, ckpt, evald, _ = served
+    _, ttr = _trainers(ckpt, evald)
+    out = tmp_path / "p.txt"
+    assert ttr.predict_file(evald, str(out)) == 50
+    probs = np.array(out.read_text().split(), np.float64)
+    assert probs.shape == (50,) and ((probs > 0) & (probs < 1)).all()
+
+
+def test_train_raises_naming_roadmap(served):
+    _, ckpt, evald, _ = served
+    _, ttr = _trainers(ckpt, evald)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        ttr.train()
+
+
+@pytest.mark.parametrize(
+    "flags,item",
+    [
+        (["--train_data", "t.ffm"], 2),
+        (["--cmd", "true"], 2),
+        (["--model_path", "m.ckpt"], 3),
+        (["--export_reference_model", "m.zst"], 3),
+        (["--import_reference_model", "m.zst"], 3),
+        (["--profile_dir", "prof"], 9),
+        (["--coordinator_address", "localhost:1234"], 8),
+    ],
+)
+def test_cli_training_flags_raise(flags, item):
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+        torch_main([*flags, "--device", "cpu"])
+
+
+def test_cli_requires_a_model_to_serve(capsys):
+    assert torch_main(["--eval_data", "e.ffm", "--device", "cpu"]) == 2
+    assert "--load_model" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize(
+    "kw,match",
+    [
+        ({"table_dtype": "bfloat16"}, "Queue 1 item 4"),
+        ({"mesh_model": 2}, "Queue 1 item 8"),
+        ({"mesh_data": 0}, "Queue 1 item 8"),
+        ({"device_cache": "on"}, "Queue 1 item 6"),
+        ({"steps_per_call": 4}, "Queue 1 item 5"),
+        ({"use_pallas": "off"}, "no counterpart"),
+    ],
+)
+def test_unported_config_raises(served, kw, match):
+    _, ckpt, evald, _ = served
+    tstate, _ = load_checkpoint(ckpt)
+    with pytest.raises((NotImplementedError, ValueError), match=match):
+        Trainer(
+            TConfig(eval_data=evald, device="cpu", **{**SHAPE, **kw}),
+            state=state_from_jax_arrays(tstate, "cpu"),
+        )
+
+
+def test_trainer_needs_a_state(served):
+    _, _, evald, _ = served
+    with pytest.raises(ValueError, match="trained state"):
+        Trainer(TConfig(eval_data=evald, device="cpu", **SHAPE))
