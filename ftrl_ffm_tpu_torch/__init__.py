@@ -6,9 +6,11 @@ hand for NVIDIA Hopper (CUDA C++ under csrc/, built at first use).  The JAX
 package ftrl_ffm_tpu is the reference the port is tested against; the port
 never imports it, nor jax.
 
-The port grows in slices (ROADMAP.md Queue 1).  It serves FFM today: load a
-checkpoint, stream eval or scoring data, compute logits with the CUDA kernel
-of ops/ffm_cuda.py, report log-loss and AUC, write probabilities.
+The port grows in slices (ROADMAP.md Queue 1).  It trains and serves FFM on
+one device today: FTRL-Proximal epochs with the fused logits-and-gradient
+kernel and the deterministic table-update kernel (ops/ffm_cuda.py,
+ops/ftrl_cuda.py), eval and scoring with the logits kernel, from a fresh
+init or a checkpoint of the JAX package.
 """
 
 from ftrl_ffm_tpu_torch.config import Config

@@ -1,14 +1,24 @@
-"""FTRL-Proximal closed form: the serving subset of ftrl_ffm_tpu/ftrl.py.
-
-Serving reads weights only, so this module holds the hyper-parameters, the
-"untouched" threshold and the closed-form weight.  The accumulator updates
-(ftrl_ffm_tpu/ftrl.py::ftrl_accumulate and the table updates) arrive with
-training (ROADMAP.md Queue 1 item 2).
+"""FTRL-Proximal core: closed form, accumulator step, the dense table
+updates and the update-kind choice (the dense half of ftrl_ffm_tpu/ftrl.py).
 
 Closed form (reference: src/include/model/ftrl_model.h:28-33):
 
     w = 0                                             if |z| <= l1
     w = -(z - sgn(z) * l1) / (l2 + (beta + sqrt(n)) / alpha)   otherwise
+
+Accumulator step for a batch-aggregated gradient (reference, per sample:
+src/model/ftrl_model.cpp:66-77):
+
+    sigma = (sqrt(n + sum_g2) - sqrt(n)) / alpha
+    z    += sum_g - sigma * w
+    n    += sum_g2
+
+The table updates here are the plain PyTorch versions of the JAX package's
+dense forms: the combined (g || g^2) payload is summed per row into a zeroed
+accumulator and the closed form runs over the whole table.  They are the
+ground truth the CUDA update kernel (ops/ftrl_cuda.py) is held against, and
+what the wrapper runs for CPU tensors.  Like the JAX functions they return
+new tensors and leave their inputs as they were.
 """
 
 from __future__ import annotations
@@ -40,3 +50,93 @@ def ftrl_weights(n: torch.Tensor, z: torch.Tensor, p: FtrlParams) -> torch.Tenso
     sgn_z = torch.where(z > 0, 1.0, -1.0).to(z.dtype)
     w = -(z - sgn_z * p.l1) / (p.l2 + (p.beta + torch.sqrt(n)) / p.alpha)
     return torch.where(torch.abs(z) <= p.l1, torch.zeros_like(w), w)
+
+
+def ftrl_accumulate(n, z, w, sum_g, sum_g2, p: FtrlParams):
+    """One accumulator step given batch-aggregated g and g^2
+    (ftrl_ffm_tpu/ftrl.py::ftrl_accumulate).  `w` is the weight the
+    gradients were computed against: the pre-update stored weight."""
+    sigma = (torch.sqrt(n + sum_g2) - torch.sqrt(n)) / p.alpha
+    return n + sum_g2, z + sum_g - sigma * w
+
+
+def bias_update(bias_n, bias_z, grad_per_sample, p: FtrlParams):
+    """FTRL step on the global bias (ftrl_ffm_tpu/ftrl.py::bias_update;
+    reference: src/model/ftrl_model.cpp:79-85).  grad_per_sample: [B]
+    dL/dlogit, already masked for padding."""
+    w = ftrl_weights(bias_n, bias_z, p)
+    sum_g = torch.sum(grad_per_sample)
+    sum_g2 = torch.sum(grad_per_sample * grad_per_sample)
+    return ftrl_accumulate(bias_n, bias_z, w, sum_g, sum_g2, p)
+
+
+def _row_sums(n_rows: int, ids: torch.Tensor, gg2: torch.Tensor) -> torch.Tensor:
+    """[n_rows, 2D] per-row sums of the payload rows.  Ids outside
+    [0, n_rows) — the padding sentinel n_feats — are dropped, as by the JAX
+    scatter's mode="drop": they land in one extra row that is cut off."""
+    ids = ids.reshape(-1).to(torch.int64)
+    keep = (ids >= 0) & (ids < n_rows)
+    acc = torch.zeros((n_rows + 1, gg2.shape[-1]), dtype=gg2.dtype, device=gg2.device)
+    acc.index_add_(0, torch.where(keep, ids, n_rows), gg2)
+    return acc[:n_rows]
+
+
+def _closed_step(n, z, w, sum_g, sum_g2, p: FtrlParams):
+    """Accumulator step, then the closed form where the coordinate has been
+    touched; untouched coordinates keep their stored weight (the init under
+    keep_init semantics)."""
+    new_n, new_z = ftrl_accumulate(n, z, w, sum_g, sum_g2, p)
+    new_w = torch.where(new_n > UNTOUCHED_N, ftrl_weights(new_n, new_z, p), w)
+    return new_n, new_z, new_w
+
+
+def dense_ftrl_update2(n_tab, z_tab, w_tab, ids, gg2, p: FtrlParams):
+    """One batched FTRL step over a whole (n, z, w) table from a combined
+    payload (ftrl_ffm_tpu/ftrl.py::dense_ftrl_update2).
+
+    Tables [R] or [R, D]; gg2 [N, 2D] with g in lanes [:D] and g^2 in [D:]
+    ([N, 2] for a 1-D table); ids [N]."""
+    acc = _row_sums(n_tab.shape[0], ids, gg2)
+    d = gg2.shape[-1] // 2
+    if n_tab.dim() == 1:
+        sum_g, sum_g2 = acc[:, 0], acc[:, 1]
+    else:
+        sum_g, sum_g2 = acc[:, :d], acc[:, d:]
+    return _closed_step(n_tab, z_tab, w_tab, sum_g, sum_g2, p)
+
+
+def dense_ftrl_update2_aug(
+    vec_n, vec_z, vec_w, lin_n, lin_z, lin_w, ids, gg2, lane: int, p: FtrlParams
+):
+    """One payload updates the factor AND the linear tables
+    (ftrl_ffm_tpu/ftrl.py::dense_ftrl_update2_aug): lane `lane` of gg2's
+    factor block (and D + lane of its squared block) carries the linear
+    gradient.  The factor closed form also runs on that lane, on purpose:
+    it keeps the dead-lane mirror of the linear table.
+
+    Returns ((vec_n, vec_z, vec_w), (lin_n, lin_z, lin_w))."""
+    acc = _row_sums(vec_n.shape[0], ids, gg2)
+    d = gg2.shape[-1] // 2
+    vec = _closed_step(vec_n, vec_z, vec_w, acc[:, :d], acc[:, d:], p)
+    lin = _closed_step(lin_n, lin_z, lin_w, acc[:, lane], acc[:, d + lane], p)
+    return vec, lin
+
+
+def select_update_kind(n_rows: int, row_width: int, nnz: int, mode: str = "auto") -> str:
+    """The table-update strategy (ftrl_ffm_tpu/ftrl.py::select_update_kind,
+    the same thresholds): "dense2" (combined-payload update), "inplace"
+    (huge tables) or "sparse2" (tables whose one accumulator would not fit).
+    The thresholds were sized for a TPU's 16 GB of HBM; the port keeps them
+    until the huge-table path arrives (ROADMAP.md Queue 1 item 7)."""
+    if mode == "dense":
+        return "dense2"
+    if mode == "sparse":
+        return "sparse2"
+    if mode == "inplace":
+        return "inplace" if row_width else "dense2"
+    d = max(1, row_width)
+    if n_rows <= 4 * nnz and 2 * n_rows * d * 4 <= (2 << 30):
+        return "dense2"
+    if n_rows * d * 4 <= (4 << 30):
+        return "inplace" if row_width else "dense2"
+    return "sparse2"

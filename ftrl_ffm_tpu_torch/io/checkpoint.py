@@ -117,7 +117,7 @@ def state_from_jax_arrays(state, device) -> ModelState:
     """Carry a state across from the JAX package: each field of `state`
     (a ModelState of either package, or anything with the same field names,
     holding numpy arrays, JAX arrays or None) becomes a tensor on `device`.
-    The serving slice takes float32 tables and an int32 step; a bfloat16
+    The port takes float32 tables and an int32 step; a bfloat16
     table arrives with ROADMAP.md Queue 1 item 4."""
     fields = state._asdict() if hasattr(state, "_asdict") else dict(state)
     out = {}

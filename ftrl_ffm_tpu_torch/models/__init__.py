@@ -5,7 +5,7 @@ from ftrl_ffm_tpu_torch.models.ffm import FFM
 
 def make_model(cfg) -> Model:
     """Model factory (reference: src/task/ftrl_online.cpp:16-26).  The port
-    serves FFM; LR and FM arrive with a later slice."""
+    trains and serves FFM; LR and FM arrive with a later slice."""
     if cfg.model_type == "FFM":
         return FFM(cfg)
     if cfg.model_type in ("LR", "FM"):

@@ -1,10 +1,11 @@
-"""Model base for serving: state, fixed-shape batches, the linear and bias
-path (the serving subset of ftrl_ffm_tpu/models/base.py).
+"""Model base: state, fixed-shape batches, init, the train step and the
+linear and bias path (the counterpart of ftrl_ffm_tpu/models/base.py).
 
 A `ModelState` holds the (n, z, w) tables as tensors on the run's device;
 the forward pass gathers one stored w row per occurrence, as in the JAX
-package.  Training (Model.train_step and the update dispatch) arrives with
-ROADMAP.md Queue 1 item 2.
+package, and each train step refreshes w for the rows it touches.  The
+train step takes the dense combined-payload update ("dense2") only; the
+huge-table forms arrive with ROADMAP.md Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -14,7 +15,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from ftrl_ffm_tpu_torch.config import Config, not_ported
-from ftrl_ffm_tpu_torch.ftrl import FtrlParams, ftrl_weights
+from ftrl_ffm_tpu_torch.ftrl import (
+    UNTOUCHED_N,
+    FtrlParams,
+    bias_update,
+    ftrl_weights,
+    select_update_kind,
+)
+from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update
 
 
 class Batch(NamedTuple):
@@ -46,6 +54,14 @@ class ModelState(NamedTuple):
     vec_z: Optional[torch.Tensor]     # [R, D] or None
     vec_w: Optional[torch.Tensor]     # [R, D] or None
     step: torch.Tensor                # int32 scalar
+
+
+class TrainOut(NamedTuple):
+    state: ModelState
+    logits: torch.Tensor    # [B] pre-update logits (train loss accounting,
+                            # like reference src/task/ftrl_online.cpp:70-80)
+    loss_sum: torch.Tensor  # scalar: sum of per-sample log-loss (masked)
+    count: torch.Tensor     # scalar: number of real samples
 
 
 # dtypes of the JAX package's transfer tiers (uint16 delta/split feature
@@ -89,11 +105,47 @@ def binary_logloss(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 class Model:
-    """Shared serving plumbing; subclasses provide the interaction math."""
+    """Shared init / step plumbing; subclasses provide the interaction math."""
 
     def __init__(self, cfg: Config):
         self.cfg = cfg
         self.params = FtrlParams(cfg.w_alpha, cfg.w_beta, cfg.w_l1, cfg.w_l2)
+
+    # ---- state ----
+    def init(self, generator: Optional[torch.Generator] = None) -> ModelState:
+        """A fresh state on the generator's device (ftrl_ffm_tpu/models/
+        base.py::Model.init).  The generator defaults to one seeded with
+        cfg.seed on cfg.device.  Under keep_init semantics the factor
+        weights start N(init_mean, init_stddev) on live lanes and zero on the
+        dead lanes of a padded row (lane (0, n_fields) mirrors the linear
+        table, which starts at 0); under reference semantics they start at
+        zero.  A torch.Generator does not reproduce JAX's random stream:
+        tests carry a JAX-made init across instead."""
+        if generator is None:
+            generator = torch.Generator(device=self.cfg.device)
+            generator.manual_seed(self.cfg.seed)
+        dev = generator.device
+        r, e = self.cfg.n_feats, self.cfg.row_width
+        zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)  # noqa: E731
+        if self.cfg.factor_semantics == "reference":
+            # the reference materializes w = f(n=0, z=0) = 0 before the first
+            # logit, so factors never leave zero (src/model/ffm.cpp:72-88)
+            vec_w = zeros(r, e)
+        else:
+            # Gaussian init like the reference's utils::init_weights
+            # (src/include/utils/utils.h:38-61), kept until a row is touched
+            vec_w = torch.randn((r, e), generator=generator, device=dev)
+            vec_w = self.cfg.init_mean + self.cfg.init_stddev * vec_w
+            cp = self.cfg.field_pad
+            if cp > self.cfg.n_fields:
+                live = torch.arange(e, device=dev) % cp < self.cfg.n_fields
+                vec_w = torch.where(live, vec_w, 0.0)
+        return ModelState(
+            bias_n=zeros(), bias_z=zeros(),
+            lin_n=zeros(r), lin_z=zeros(r), lin_w=zeros(r),
+            vec_n=zeros(r, e), vec_z=zeros(r, e), vec_w=vec_w.contiguous(),
+            step=torch.zeros((), dtype=torch.int32, device=dev),
+        )
 
     # ---- gathered weights (mode="clip" as the JAX package's jnp.take:
     # the padding sentinel id n_feats reads the last row, which its zero
@@ -115,10 +167,60 @@ class Model:
         """Returns (logits [B], factor gradients or None)."""
         raise NotImplementedError
 
+    def _train_grads(self, state: ModelState, batch: Batch):
+        """(logits [B], gg2 [B*F, 2E], lane) of one train step: the combined
+        payload already scaled by gs, and the lane that carries the linear
+        gradient (-1 when the row has no dead lane)."""
+        raise NotImplementedError
+
     # ---- public API ----
     def predict_logits(self, state: ModelState, batch: Batch) -> torch.Tensor:
         logits, _ = self._logits_and_grads(state, widen_batch(batch), train=False)
         return logits
+
+    def train_step(self, state: ModelState, batch: Batch) -> TrainOut:
+        """One deterministic mini-batch FTRL step (ftrl_ffm_tpu/models/
+        base.py::Model.train_step; reference FFM::train, src/model/
+        ffm.cpp:38-50, over the batch).
+
+        The tables of `state` are updated IN PLACE — the PyTorch form of
+        the JAX step's donated buffers — and the returned TrainOut.state is
+        `state` itself.  To compare two steps from one state, clone it
+        first.  No autograd: the gradient is the fused kernel's output."""
+        p = self.params
+        batch = widen_batch(batch)
+        nnz = batch.feats.numel()
+        kind = select_update_kind(
+            state.vec_n.shape[0], state.vec_n.shape[-1], nnz, self.cfg.update_mode
+        )
+        if kind != "dense2":
+            raise not_ported(f"the {kind!r} table update", 7)
+        if self.cfg.acc_dtype != "float32":
+            raise not_ported(f"acc_dtype={self.cfg.acc_dtype}", 4)
+        logits, gg2, lane = self._train_grads(state, batch)
+        # dL/dlogit = sigmoid(logit) - y  (reference: src/model/ffm.cpp:44)
+        gs = (torch.sigmoid(logits) - batch.y) * batch.sample_w
+        bias_n, bias_z = bias_update(state.bias_n, state.bias_z, gs, p)
+        gg2_lin = None
+        if lane < 0:
+            # linear table: g = gs * x (reference: src/model/ftrl_model.cpp:
+            # 66-77), its own [nnz, 2] payload
+            g_lin = (gs[:, None] * batch.vals).reshape(-1)
+            gg2_lin = torch.stack([g_lin, g_lin * g_lin], dim=-1)
+        ftrl_update(
+            state.vec_n, state.vec_z, state.vec_w,
+            state.lin_n, state.lin_z, state.lin_w,
+            batch.feats.reshape(-1), gg2, lane, p, gg2_lin,
+        )
+        state.bias_n.copy_(bias_n)
+        state.bias_z.copy_(bias_z)
+        count = torch.sum(batch.sample_w)
+        # inert (fully padded) batches do not count as steps
+        state.step.add_((count > 0).to(torch.int32))
+        per_loss = binary_logloss(logits, batch.y) * batch.sample_w
+        return TrainOut(
+            state=state, logits=logits, loss_sum=torch.sum(per_loss), count=count
+        )
 
     def eval_step(self, state: ModelState, batch: Batch):
         """Masked log-loss sum, count and logits for one eval batch
@@ -127,3 +229,26 @@ class Model:
         logits = self.predict_logits(state, batch)
         per_loss = binary_logloss(logits, batch.y) * batch.sample_w
         return torch.sum(per_loss), torch.sum(batch.sample_w), logits
+
+    def has_zero_weights(self, state: ModelState, table: str = "linear") -> bool:
+        """True if L1 has produced exact zeros among touched weights of
+        `table` ("linear", "factor" or "any"): the reference's
+        sparsification check (ftrl_ffm_tpu/models/base.py::has_zero_weights;
+        src/include/utils/utils.h:63-76).  Touched means n above
+        UNTOUCHED_N; the dead lanes of a padded factor row (lane (0,
+        n_fields) mirrors the linear table) do not count as factors."""
+        if table not in ("linear", "factor", "any"):
+            raise ValueError(f"unknown table {table!r}")
+
+        def zeros_among_touched(n_tab, w_tab) -> bool:
+            return bool(torch.any((n_tab > UNTOUCHED_N) & (w_tab == 0.0)))
+
+        lin = table in ("linear", "any") and zeros_among_touched(state.lin_n, state.lin_w)
+        if lin or table == "linear":
+            return lin
+        vec_n = state.vec_n
+        cp, c = self.cfg.field_pad, self.cfg.n_fields
+        if cp > c:
+            genuine = torch.arange(vec_n.shape[-1], device=vec_n.device) % cp < c
+            vec_n = torch.where(genuine, vec_n, 0.0)
+        return zeros_among_touched(vec_n, state.vec_w)

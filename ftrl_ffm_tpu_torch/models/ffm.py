@@ -1,21 +1,21 @@
-"""Field-aware factorization machine, serving path (the counterpart of
+"""Field-aware factorization machine (the counterpart of
 ftrl_ffm_tpu/models/ffm.py; reference: src/model/ffm.cpp).
 
 Rows are factor-major and lane-padded: slot (k, c) = k * field_pad + c
 (Config.field_pad, ops/layout.py).  Dead lane (0, n_fields) mirrors the
-linear table, so the forward pass reads w_lin from the factor rows it
-already gathers.  The pairwise logit runs in the CUDA kernel of
-ops/ffm_cuda.py on the card, and in its plain version on the CPU.
+linear table: every train step feeds it the linear gradient, so the forward
+pass reads w_lin from the factor rows it already gathers.  The logits and
+the training payload run in the CUDA kernels of ops/ffm_cuda.py on the
+card, and in their plain versions on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ftrl_ffm_tpu_torch.config import not_ported
 from ftrl_ffm_tpu_torch.models.base import Batch, Model, ModelState
-from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits
-from ftrl_ffm_tpu_torch.ops.interactions import linear_logits
+from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits, ffm_fused_logits_grads
+from ftrl_ffm_tpu_torch.ops.interactions import ffm_logits_and_grads, linear_logits
 
 
 class FFM(Model):
@@ -46,14 +46,41 @@ class FFM(Model):
             return v[:, lane].reshape(batch.feats.shape)
         return self._gather_linear(state, batch.feats)
 
-    def _logits_and_grads(self, state: ModelState, batch: Batch, train: bool):
-        if train:
-            raise not_ported("FFM gradients", 2)
-        # flat [B*F, E] gather: one row-major stream into the kernel
+    def _train_grads(self, state: ModelState, batch: Batch):
+        """Logits and the combined payload from the fused kernel
+        (ftrl_ffm_tpu/models/ffm.py::FFM._train_grads, its Pallas path): a
+        flat [B*F, E] gather, w_lin from the mirror lane of those rows, and
+        the linear gradient in the dead lane when the row has one."""
         v = self._gather_vec(state, batch.feats.reshape(-1))
         w = self._w_lin_from_rows(state, v, batch, self._lin_read_lane())
         lin = linear_logits(w, batch.vals, self.bias_weight(state))
-        logits = ffm_fused_logits(
-            v, batch.fields, batch.vals, lin, self.field_pad, self.n_factors
+        lane = self._lin_lane()
+        logits, gg2 = ffm_fused_logits_grads(
+            v, batch.fields, batch.vals, lin, batch.y, batch.sample_w,
+            self.field_pad, self.n_factors, aug_lane=lane,
         )
-        return logits, None
+        return logits, gg2, lane
+
+    def _logits_and_grads(self, state: ModelState, batch: Batch, train: bool):
+        if not train:
+            # flat [B*F, E] gather: one row-major stream into the kernel
+            v = self._gather_vec(state, batch.feats.reshape(-1))
+            w = self._w_lin_from_rows(state, v, batch, self._lin_read_lane())
+            lin = linear_logits(w, batch.vals, self.bias_weight(state))
+            logits = ffm_fused_logits(
+                v, batch.fields, batch.vals, lin, self.field_pad, self.n_factors
+            )
+            return logits, None
+        # the unfused formulation (ftrl_ffm_tpu/models/ffm.py's XLA path):
+        # d logit / d v [B, F, E], with d logit / d w_lin = x in the dead lane
+        read_lane = self._lin_read_lane()
+        if read_lane >= 0:
+            lin = self.bias_weight(state).expand(batch.y.shape)
+        else:
+            w = self._gather_linear(state, batch.feats)
+            lin = linear_logits(w, batch.vals, self.bias_weight(state))
+        return ffm_logits_and_grads(
+            self._gather_vec(state, batch.feats), batch.fields, batch.vals, lin,
+            self.field_pad, self.n_factors,
+            lin_lane=read_lane, grad_lane=self._lin_lane(),
+        )

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
+`nvcc` compiles every `csrc/*.cu` (one process per source, all started
+together) and links them into one shared library with a plain C
 interface for sm_90a (Hopper), at first use, into `build/` inside the
 package (listed in .gitignore).  The library's name carries a hash of the
 sources and flags, so an edited kernel is never shadowed by a stale build.
@@ -22,9 +23,9 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # registers, shared memory and spills of every kernel, for the build log
     "-Xptxas", "-v",
 )
@@ -64,11 +65,19 @@ def _so_path(sources: list[str]) -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ffm_logits_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.ffm_logits_launch.restype = i
     lib.ffm_logits_stages.argtypes = [i, i]
     lib.ffm_logits_stages.restype = i
+    lib.ffm_fused_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.ffm_fused_launch.restype = i
+    lib.ffm_fused_stages.argtypes = [i, i, i]
+    lib.ffm_fused_stages.restype = i
+    lib.ftrl_update_launch.argtypes = [
+        p, p, i, p, p, p, p, p, p, p, p, i, i, i, f, f, f, f, p,
+    ]
+    lib.ftrl_update_launch.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
 
@@ -87,19 +96,42 @@ def lib() -> ctypes.CDLL:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.tmp{os.getpid()}"
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *FLAGS, "-o", tmp, *sources],
-                capture_output=True, text=True, timeout=600,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building "
-                    f"{', '.join(map(os.path.basename, sources))}:\n"
-                    f"{proc.stdout}{proc.stderr}"
+            objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+            procs: list[subprocess.Popen] = []
+            try:
+                for src, obj in zip(sources, objs):
+                    procs.append(subprocess.Popen(
+                        [_nvcc(), *FLAGS, "-c", "-o", obj, src],
+                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                    ))
+                logs = [proc.communicate(timeout=600)[0] for proc in procs]
+                for src, proc, log in zip(sources, procs, logs):
+                    if proc.returncode != 0:
+                        raise RuntimeError(
+                            f"nvcc failed ({proc.returncode}) building "
+                            f"{os.path.basename(src)}:\n{log}"
+                        )
+                link = subprocess.run(
+                    [_nvcc(), *ARCH, "-shared", "-o", tmp, *objs],
+                    capture_output=True, text=True, timeout=600,
                 )
+                if link.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({link.returncode}) linking "
+                        f"{', '.join(map(os.path.basename, sources))}:\n"
+                        f"{link.stdout}{link.stderr}"
+                    )
+            finally:
+                for proc in procs:  # none outlives a failed build
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+                for obj in objs:
+                    if os.path.exists(obj):
+                        os.remove(obj)
             os.replace(tmp, so)  # atomic: concurrent builders race safely
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
+            build_log = "".join(logs) + link.stdout + link.stderr
         cdll = ctypes.CDLL(so)
         _declare(cdll)
         _lib = cdll

@@ -1,18 +1,41 @@
-"""FFM inference logits on the card: the counterpart of
-ftrl_ffm_tpu/ops/ffm_pallas.py::ffm_fused_logits.
+"""FFM logits and training payload on the card: the counterparts of
+ftrl_ffm_tpu/ops/ffm_pallas.py::ffm_fused_logits and ::ffm_fused_logits_grads.
 
-`ffm_fused_logits` takes the same arguments in the same layout as the JAX
-entry point.  For CUDA tensors it launches the hand-written kernel of
-csrc/ffm_logits.cu or raises; for CPU tensors it runs
-`ffm_fused_logits_plain`, the plain PyTorch version, which the tests hold
-against the JAX package and the card holds the kernel against.
+Each entry point takes the same arguments in the same layout as the JAX one.
+For CUDA tensors it launches its hand-written kernel (csrc/ffm_logits.cu,
+csrc/ffm_fused.cu) or raises; for CPU tensors it runs its `*_plain` version,
+the plain PyTorch form that the tests hold against the JAX package and the
+card holds the kernel against.  Each entry point counts its launches in its
+`launches` attribute.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ftrl_ffm_tpu_torch.ops.interactions import ffm_logits
+from ftrl_ffm_tpu_torch.ops.interactions import ffm_logits, ffm_logits_and_grads
+
+
+def _check_inputs(what: str, v: torch.Tensor, specs) -> None:
+    """Raise unless every (name, tensor, shape, dtype) of `specs` is a
+    contiguous tensor of that shape and dtype on v's device."""
+    for name, t, shape, dtype in specs:
+        if t.device != v.device:
+            raise ValueError(f"{what}: {name} on {t.device}, v on {v.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{what}: {name} is {t.dtype}, expect {dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(
+                f"{what}: {name} has shape {tuple(t.shape)}, expect {shape}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+
+
+def _device_kind(what: str, v: torch.Tensor) -> str:
+    if v.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for device {v.device}")
+    return v.device.type
 
 
 def ffm_fused_logits_plain(
@@ -38,28 +61,15 @@ def ffm_fused_logits(
     n_factors: int,
 ) -> torch.Tensor:
     """Inference-only FFM logits [B] — the serving/eval hot path."""
-    if v.device.type == "cpu":
+    if _device_kind("ffm_fused_logits", v) == "cpu":
         return ffm_fused_logits_plain(v, fields, vals, lin, n_fields, n_factors)
-    if v.device.type != "cuda":
-        raise ValueError(f"ffm_fused_logits: no kernel for device {v.device}")
     b, f = fields.shape
-    e = n_fields * n_factors
-    for name, t, shape, dtype in (
-        ("v", v, (b * f, e), torch.float32),
+    _check_inputs("ffm_fused_logits", v, (
+        ("v", v, (b * f, n_fields * n_factors), torch.float32),
         ("fields", fields, (b, f), torch.int32),
         ("vals", vals, (b, f), torch.float32),
         ("lin", lin, (b,), torch.float32),
-    ):
-        if t.device != v.device:
-            raise ValueError(f"ffm_fused_logits: {name} on {t.device}, v on {v.device}")
-        if t.dtype != dtype:
-            raise ValueError(f"ffm_fused_logits: {name} is {t.dtype}, expect {dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(
-                f"ffm_fused_logits: {name} has shape {tuple(t.shape)}, expect {shape}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"ffm_fused_logits: {name} is not contiguous")
+    ))
     from ftrl_ffm_tpu_torch.ops import _build
 
     lib = _build.lib()
@@ -77,6 +87,84 @@ def ffm_fused_logits(
     return out
 
 
-# Kernel launches since the count was last set to 0 (chip_smoke.py reads it
-# to show that the serving path went through the kernel).
+def ffm_fused_logits_grads_plain(
+    v: torch.Tensor,
+    fields: torch.Tensor,
+    vals: torch.Tensor,
+    lin: torch.Tensor,
+    y: torch.Tensor,
+    sample_w: torch.Tensor,
+    n_fields: int,
+    n_factors: int,
+    aug_lane: int = -1,
+):
+    """Plain PyTorch version of the training kernel:
+    ops/interactions.py::ffm_logits_and_grads on the [B, F, E] view, scaled
+    by gs = (sigmoid(logit) - y) * sample_w, g and g^2 side by side."""
+    b, f = fields.shape
+    logits, dv = ffm_logits_and_grads(
+        v.reshape(b, f, -1), fields, vals, lin, n_fields, n_factors,
+        grad_lane=aug_lane,
+    )
+    gs = (torch.sigmoid(logits) - y) * sample_w
+    g = (gs[:, None, None] * dv).reshape(b * f, -1)
+    return logits, torch.cat([g, g * g], dim=-1)
+
+
+def ffm_fused_logits_grads(
+    v: torch.Tensor,         # [B*F, E] gathered factor rows (factor-major)
+    fields: torch.Tensor,    # [B, F] int32
+    vals: torch.Tensor,      # [B, F] f32
+    lin: torch.Tensor,       # [B] bias + linear logits
+    y: torch.Tensor,         # [B] labels
+    sample_w: torch.Tensor,  # [B] sample weights (0 for padded samples)
+    n_fields: int,           # the rows' field stride C' (Config.field_pad)
+    n_factors: int,
+    aug_lane: int = -1,
+):
+    """FFM logits and the combined FTRL payload of one train step:
+    (logits [B], gg2 [B*F, 2E]) with the factor gradient, already scaled by
+    gs = (sigmoid(logit) - y) * sample_w, in lanes [:E] and its square in
+    [E:].  aug_lane >= 0 (a dead lane of the padded row) carries the linear
+    gradient gs * x instead, for ftrl.py::dense_ftrl_update2_aug.  The
+    combined f32 layout of ffm_pallas.py::ffm_fused_logits_grads; its split
+    and bfloat16 outputs arrive with ROADMAP.md Queue 1 items 7 and 4."""
+    if _device_kind("ffm_fused_logits_grads", v) == "cpu":
+        return ffm_fused_logits_grads_plain(
+            v, fields, vals, lin, y, sample_w, n_fields, n_factors, aug_lane
+        )
+    b, f = fields.shape
+    e = n_fields * n_factors
+    if not -1 <= aug_lane < e:
+        raise ValueError(f"ffm_fused_logits_grads: aug_lane {aug_lane} outside [-1, {e})")
+    _check_inputs("ffm_fused_logits_grads", v, (
+        ("v", v, (b * f, e), torch.float32),
+        ("fields", fields, (b, f), torch.int32),
+        ("vals", vals, (b, f), torch.float32),
+        ("lin", lin, (b,), torch.float32),
+        ("y", y, (b,), torch.float32),
+        ("sample_w", sample_w, (b,), torch.float32),
+    ))
+    from ftrl_ffm_tpu_torch.ops import _build
+
+    lib = _build.lib()
+    logits = torch.empty((b,), dtype=torch.float32, device=v.device)
+    gg2 = torch.empty((b * f, 2 * e), dtype=torch.float32, device=v.device)
+    if b == 0:
+        return logits, gg2
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        code = lib.ffm_fused_launch(
+            v.data_ptr(), fields.data_ptr(), vals.data_ptr(), lin.data_ptr(),
+            y.data_ptr(), sample_w.data_ptr(), logits.data_ptr(), gg2.data_ptr(),
+            b, f, n_fields, n_factors, aug_lane, stream,
+        )
+    _build.check(code, "ffm_fused_launch")
+    ffm_fused_logits_grads.launches += 1
+    return logits, gg2
+
+
+# Kernel launches since the count was last set to 0 (chip_smoke.py reads
+# them to show that a path went through the kernels).
 ffm_fused_logits.launches = 0
+ffm_fused_logits_grads.launches = 0

@@ -1,19 +1,24 @@
-"""Serving orchestration on one device: streamed eval and batch scoring
-(the serving subset of ftrl_ffm_tpu/train.py).
+"""Training and serving orchestration on one device (the single-process
+subset of ftrl_ffm_tpu/train.py).
 
-`Trainer.evaluate` and `Trainer.predict_file` behave as the JAX package's:
-the same stream of fixed-shape batches, the same masked log-loss with a
-compensated (Kahan) f32 chain on the device, the same binned or exact AUC,
-the same one-probability-per-line output.  Batches cross to the card through
-pinned host memory with non-blocking copies.  Training, the background
-feeder and the device-resident dataset arrive with later slices
-(ROADMAP.md Queue 1).
+`Trainer.train`, `train_epoch`, `evaluate` and `predict_file` behave as the
+JAX package's: the same streamed (online, or --cmd stdin) or shuffled
+(offline, numpy default_rng(seed)) fixed-shape batches, the same per-epoch
+lines and history, per-step loss sums kept on the device and read back
+once per epoch, the same masked eval log-loss with a compensated (Kahan)
+f32 chain on the device, the same binned or exact AUC, the same
+one-probability-per-line output.  Batches cross to the card through pinned
+host memory with non-blocking copies.  The background feeder and the
+device-resident dataset arrive with later slices (ROADMAP.md Queue 1); with
+device_cache=auto the port streams, which gives the batches the JAX
+package's cached replay gives.
 """
 
 from __future__ import annotations
 
 import contextlib
 import sys
+import time
 from typing import Optional
 
 import numpy as np
@@ -105,32 +110,43 @@ def _validate_state_shapes(cfg: Config, state: ModelState) -> None:
 
 class Trainer:
     def __init__(self, cfg: Config, state: Optional[ModelState] = None):
-        check_ported(cfg)
-        self.device = resolve_device(cfg.device)
+        """A trainer on cfg.device: a fresh seeded init, or `state` moved to
+        the device.  Training updates the state's tensors in place, so a
+        state already on the device is trained as it is (clone it to keep
+        it)."""
         # eval-/predict-only Trainers sniff format and nnz from eval_data
         sniff_src = cfg.train_data or cfg.eval_data
         if not cfg.file_type and sniff_src:
             cfg.file_type = detect_file_type(sniff_src)
+        if cfg.cmd and not cfg.file_type:
+            raise ValueError(
+                "--cmd (stdin) streaming cannot auto-detect the format; "
+                "pass --file_type libsvm|libffm"
+            )
+        if cfg.cmd and cfg.max_nnz <= 0:
+            raise ValueError("--cmd (stdin) streaming cannot sniff nnz; pass --max_nnz")
         cfg.validate_file_type()
         if cfg.max_nnz <= 0 and sniff_src:
             cfg.max_nnz = sniff_max_nnz(sniff_src, cfg.file_type)
         if cfg.max_nnz <= 0:
             raise ValueError(
-                "max_nnz unknown: pass --max_nnz or provide eval data to "
+                "max_nnz unknown: pass --max_nnz or provide train/eval data to "
                 "sniff it from"
             )
+        check_ported(cfg)
+        self.device = resolve_device(cfg.device)
         self.cfg = cfg
         self.model = make_model(cfg)
         if state is None:
-            raise ValueError(
-                "the PyTorch port serves a trained state: pass one (load it "
-                "with io/checkpoint.py::load_checkpoint); fresh model init "
-                "arrives with training, ROADMAP.md Queue 1 item 2"
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(cfg.seed)
+            self.state = self.model.init(gen)
+        else:
+            _validate_state_shapes(cfg, state)
+            self.state = ModelState(
+                *(None if t is None else t.to(self.device) for t in state)
             )
-        _validate_state_shapes(cfg, state)
-        self.state = ModelState(
-            *(None if t is None else t.to(self.device) for t in state)
-        )
+        self._steps_done = 0
 
     # ---- batch plumbing ----
     def _place_batch(self, arrays) -> Batch:
@@ -141,6 +157,37 @@ class Trainer:
         if self.device.type == "cuda":
             ts = [t.pin_memory().to(self.device, non_blocking=True) for t in ts]
         return Batch(*ts)
+
+    def _dataset(self, role: str):
+        """The offline in-memory dataset of `role` ("train" or "eval"),
+        loaded once (reference: src/task/ftrl_offline.cpp:21-42)."""
+        attr = f"_{role}_ds"
+        if not hasattr(self, attr):
+            cfg = self.cfg
+            setattr(self, attr, load_file(
+                cfg.train_data if role == "train" else cfg.eval_data,
+                cfg.file_type, cfg.max_nnz, cfg.n_feats, cfg.n_fields,
+                n_workers=cfg.n_threads,
+            ))
+        return getattr(self, attr)
+
+    def _train_batches(self, epoch_rng: np.random.Generator):
+        cfg = self.cfg
+        if cfg.online:
+            reader = StreamReader(
+                sys.stdin if cfg.cmd else cfg.train_data,
+                cfg.file_type,
+                cfg.batch_size,
+                cfg.max_nnz,
+                cfg.n_feats,
+                cfg.n_fields,
+                n_parse_threads=cfg.n_threads,
+            )
+            return reader.batches()
+        return batch_iterator(
+            self._dataset("train"), cfg.batch_size, shuffle=cfg.shuffle,
+            rng=epoch_rng, sentinel=cfg.n_feats,
+        )
 
     def _eval_batches(self):
         cfg = self.cfg
@@ -155,18 +202,69 @@ class Trainer:
                 n_parse_threads=cfg.n_threads,
             )
             return reader.batches()
-        if not hasattr(self, "_eval_ds"):
-            self._eval_ds = load_file(
-                cfg.eval_data,
-                cfg.file_type,
-                cfg.max_nnz,
-                cfg.n_feats,
-                cfg.n_fields,
-                n_workers=cfg.n_threads,
-            )
         return batch_iterator(
-            self._eval_ds, cfg.batch_size, shuffle=False, sentinel=cfg.n_feats
+            self._dataset("eval"), cfg.batch_size, shuffle=False, sentinel=cfg.n_feats
         )
+
+    # ---- training ----
+    def train_epoch(self, epoch_rng: Optional[np.random.Generator] = None) -> float:
+        """One pass over the training data; returns its mean log-loss
+        (ftrl_ffm_tpu/train.py::Trainer.train_epoch).  The per-step loss
+        sums stay on the device: one readback per epoch, closed on the host
+        in float64 (the reference accumulates double over whole passes,
+        src/task/ftrl_online.cpp:82-94)."""
+        if epoch_rng is None:
+            # persistent, so repeated calls do not repeat one permutation
+            if not hasattr(self, "_epoch_rng"):
+                self._epoch_rng = np.random.default_rng(self.cfg.seed)
+            epoch_rng = self._epoch_rng
+        sums = []
+        for arrays in self._train_batches(epoch_rng):
+            out = self.model.train_step(self.state, self._place_batch(arrays))
+            sums.append(torch.stack([out.loss_sum, out.count]))
+        self._steps_done += len(sums)
+        if not sums:
+            return float("nan")
+        ls_ct = torch.stack(sums).cpu().numpy()
+        acc = LossAccumulator()
+        acc.update(
+            np.sum(ls_ct[:, 0], dtype=np.float64), np.sum(ls_ct[:, 1], dtype=np.float64)
+        )
+        return acc.mean
+
+    def train(self, profile_dir: Optional[str] = None) -> dict:
+        """The multi-epoch run: train, then evaluate after each epoch when
+        eval_data is set, printing the reference's per-epoch lines
+        (ftrl_ffm_tpu/train.py::Trainer.train; reference:
+        src/task/ftrl_online.cpp:45-67).  Returns the history dict."""
+        if profile_dir:
+            raise not_ported("--profile_dir", 9)
+        cfg = self.cfg
+        history = {"train_loss": [], "eval_loss": [], "eval_auc": [], "route_overflow": []}
+        rng = np.random.default_rng(cfg.seed)
+        for epoch in range(1, cfg.n_epochs + 1):
+            t0 = time.perf_counter()
+            # the epoch's one loss readback waits for its last step
+            train_loss = self.train_epoch(rng)
+            dt = time.perf_counter() - t0
+            print(f"epoch {epoch} train time: {dt:.4f}s, train loss: {train_loss:.4f}")
+            history["train_loss"].append(train_loss)
+            # routed lookups drop nothing on one device
+            history["route_overflow"].append(0)
+            if cfg.eval_data:
+                t0 = time.perf_counter()
+                eval_loss, eval_auc = self.evaluate()
+                dt = time.perf_counter() - t0
+                if cfg.eval_auc:
+                    print(
+                        f"epoch {epoch} eval time: {dt:.4f}s, "
+                        f"eval loss: {eval_loss:.4f}, eval auc: {eval_auc:.4f}"
+                    )
+                else:
+                    print(f"epoch {epoch} eval time: {dt:.4f}s, eval loss: {eval_loss:.4f}")
+                history["eval_loss"].append(eval_loss)
+                history["eval_auc"].append(eval_auc)
+        return history
 
     # ---- serving ----
     def evaluate(self) -> tuple[float, float]:
@@ -244,6 +342,3 @@ class Trainer:
                 f.write("".join(f"{p:.6f}\n" for p in probs[mask]))
                 total += int(mask.sum())
         return total
-
-    def train(self, profile_dir: Optional[str] = None) -> dict:
-        raise not_ported("Trainer.train", 2)

@@ -31,3 +31,26 @@ def test_library_name_follows_sources_and_flags(tmp_path, monkeypatch):
 def test_every_kernel_source_is_built():
     names = [os.path.basename(s) for s in _build._sources()]
     assert "ffm_logits.cu" in names
+    assert "ffm_fused.cu" in names and "ftrl_update.cu" in names
+
+
+def test_every_kernel_is_declared():
+    """Each C entry point the wrappers call has its ctypes signature."""
+    import ctypes
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = _Fn()
+            setattr(self, name, fn)
+            return fn
+
+    class _Fn:
+        argtypes = None
+        restype = None
+
+    lib = Lib()
+    _build._declare(lib)
+    for name in ("ffm_logits_launch", "ffm_fused_launch", "ftrl_update_launch"):
+        fn = getattr(lib, name)
+        assert fn.restype is ctypes.c_int and ctypes.c_void_p in fn.argtypes
+    assert lib.ftrl_update_launch.argtypes.count(ctypes.c_float) == 4

@@ -20,8 +20,14 @@ _MODULES = (
     "ftrl_ffm_tpu_torch.cli",
     "ftrl_ffm_tpu_torch.ops",
     "ftrl_ffm_tpu_torch.ops.ffm_cuda",
+    "ftrl_ffm_tpu_torch.ops.ftrl_cuda",
+    "ftrl_ffm_tpu_torch.ops.interactions",
     "ftrl_ffm_tpu_torch.ops._build",
+    "ftrl_ffm_tpu_torch.ftrl",
+    "ftrl_ffm_tpu_torch.config",
     "ftrl_ffm_tpu_torch.models",
+    "ftrl_ffm_tpu_torch.models.base",
+    "ftrl_ffm_tpu_torch.models.ffm",
     "ftrl_ffm_tpu_torch.io",
     "ftrl_ffm_tpu_torch.metrics",
     "ftrl_ffm_tpu_torch.data",
@@ -74,6 +80,27 @@ def test_kernel_wrapper_refuses_other_devices():
             torch.empty((b, f), device=meta),
             torch.empty((b,), device=meta),
             c, k,
+        )
+
+
+def test_training_wrappers_refuse_other_devices():
+    """The training kernels' wrappers, like the logits one, take their plain
+    versions only for CPU tensors."""
+    from ftrl_ffm_tpu_torch.ftrl import FtrlParams
+    from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits_grads
+    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update
+
+    b, f, c, k, r = 2, 3, 4, 2, 5
+    meta = torch.device("meta")
+    e = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=meta)  # noqa: E731
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ffm_fused_logits_grads(
+            e(b * f, c * k), e(b, f, dtype=torch.int32), e(b, f), e(b), e(b), e(b), c, k
+        )
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ftrl_update(
+            e(r, c * k), e(r, c * k), e(r, c * k), e(r), e(r), e(r),
+            e(b * f, dtype=torch.int32), e(b * f, 2 * c * k), 0, FtrlParams(),
         )
 
 
