@@ -6,8 +6,10 @@ train, time.
 Drives the port's serving and training paths (ftrl_ffm_tpu_torch) at full
 width: FFM with 39 fields (field_pad 40), 16 factors, 640-float
 factor-major rows and batches of 16,384 — serving a seeded random state of a
-1,000,000-row table, training a fresh 100,000-row one (bench.py's model) —
-on Criteo-shaped libffm files.  Phases, each printing its own lines:
+1,000,000-row table, training a fresh 100,000-row one (bench.py's model,
+the "dense2" update) and a fresh 1,000,000-row one (the README quick
+start's table, the huge-table "inplace" update) — on Criteo-shaped libffm
+files.  Phases, each printing its own lines:
 
   1. no card      -> exit 1 at once, no result printed
   2. build        -> nvcc builds every kernel from csrc/ (build seconds)
@@ -17,11 +19,17 @@ on Criteo-shaped libffm files.  Phases, each printing its own lines:
                      rtol=1e-4, atol=1e-5)
   3b. fused       -> the training kernel (logits + payload) against its plain
                      version, the same way (logits rtol=1e-4, atol=1e-5;
-                     payload rtol=1e-4, atol=1e-6)
+                     payload rtol=1e-4, atol=1e-6), combined and split output
   3c. update      -> the FTRL update kernel against its plain version on
                      random tables with duplicate and sentinel ids: touched
                      rows rtol=1e-5, atol=1e-6, untouched rows bit-identical,
                      the same call twice bit-identical
+  3d. scatter     -> the z/A scatter against its plain version, the same way;
+                     untouched A exactly 0
+  3e. pass        -> the closed-form pass (kernel #3) against its plain
+                     version at R=1M, E=640 and edge shapes: rtol=1e-6,
+                     atol=1e-7; coordinates with A = 0 keep their n and z
+                     bits; the same call twice bit-identical
   4. serving      -> Trainer.evaluate() and Trainer.predict_file() with the
                      launch counts set to 0 just before and read just after;
                      outputs held against the plain version and a CPU run
@@ -33,6 +41,15 @@ on Criteo-shaped libffm files.  Phases, each printing its own lines:
                      examples/s, the card's name and power limit beside them
   5b. train time  -> the training kernels and their plain versions, the
                      device train step, host parse, train_epoch() examples/s
+  4c. 1M training -> the same for the 1M-row table, whose update auto
+                     resolves to "inplace": launch counts, the stale linear
+                     tables and their reconcile, chained steps against the
+                     plain versions and against update_mode=dense, two runs
+                     bit-identical, a small in-place run on the CPU and the
+                     card; device memory peaks
+  5c. 1M time     -> the pass, the scatter and the split kernel against their
+                     plain versions, the device train step under inplace and
+                     dense, host parse, train_epoch() examples/s
 
 Any failure raises and ends the run with a non-zero code.  The next-to-last
 line is the kernels' JSON record, the last line the device record.  It
@@ -42,6 +59,7 @@ imports nothing of JAX: the port is the program under test.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -63,6 +81,9 @@ TRAIN_FEATS = 100_000  # bench.py's table
 RTOL, ATOL = 1e-4, 1e-5  # kernel against plain: f32 sums in another order
 GRAD_ATOL = 1e-6  # payload: the JAX suite's kernel-vs-XLA bound
 UPD_RTOL, UPD_ATOL = 1e-5, 1e-6  # update kernel against plain, touched rows
+# the closed-form pass against plain: the same operations, each rounded on
+# its own (the JAX suite's Pallas-vs-XLA bound, tests/test_ffm_pallas.py)
+PASS_RTOL, PASS_ATOL = 1e-6, 1e-7
 # chained train steps, kernels against plain versions: ulp noise compounds
 # through the closed form's |z| <= l1 threshold (the JAX suite's bound)
 CHAIN_RTOL, CHAIN_ATOL = 2e-3, 5e-5
@@ -168,28 +189,50 @@ def fused_inputs(b, f, cp, k, gen, device, fields, n_real):
     return v, fld, vals, lin, y, sw
 
 
-def update_inputs(r, e, n, hi, gen, device, p, lane):
-    """Tables, ids and payloads for ftrl_update.  The tables are what
-    training leaves: a touched coordinate (n > 0) holds w = closed form of
-    (n, z), an untouched one its init.  Ids repeat, are drawn from [0, hi)
-    so rows hi..r-1 stay untouched, and 2% are the padding sentinel r."""
+def ftrl_tables(gen, device, p, *shape):
+    """(n, z, w) as training leaves them: a touched coordinate (n > 0, 70%)
+    holds w = closed form of (n, z), an untouched one its init."""
     from ftrl_ffm_tpu_torch.ftrl import UNTOUCHED_N, ftrl_weights
 
-    def table(*shape):
-        n_tab = torch.rand(shape, generator=gen, device=device) * 3 + 1e-3
-        n_tab = torch.where(torch.rand(shape, generator=gen, device=device) < 0.7, n_tab, 0.0)
-        z_tab = torch.randn(shape, generator=gen, device=device)
-        init = torch.randn(shape, generator=gen, device=device) * 0.02
-        w_tab = torch.where(n_tab > UNTOUCHED_N, ftrl_weights(n_tab, z_tab, p), init)
-        return [n_tab, z_tab, w_tab]
+    n_tab = torch.rand(shape, generator=gen, device=device) * 3 + 1e-3
+    n_tab = torch.where(torch.rand(shape, generator=gen, device=device) < 0.7, n_tab, 0.0)
+    z_tab = torch.randn(shape, generator=gen, device=device)
+    init = torch.randn(shape, generator=gen, device=device) * 0.02
+    w_tab = torch.where(n_tab > UNTOUCHED_N, ftrl_weights(n_tab, z_tab, p), init)
+    return [n_tab, z_tab, w_tab]
 
-    tables = table(r, e) + table(r)
+
+def random_ids(n, hi, r, gen, device):
+    """[N] int32 ids that repeat, drawn from [0, hi) so rows hi..r-1 stay
+    untouched, 2% of them the padding sentinel r."""
     ids = torch.randint(0, hi, (n,), generator=gen, device=device, dtype=torch.int32)
     ids[torch.randperm(n, generator=gen, device=device)[: n // 50]] = r
+    return ids
+
+
+def update_inputs(r, e, n, hi, gen, device, p, lane):
+    """Tables, ids and payloads for ftrl_update (ftrl_tables, random_ids)."""
+    tables = ftrl_tables(gen, device, p, r, e) + ftrl_tables(gen, device, p, r)
+    ids = random_ids(n, hi, r, gen, device)
     g = torch.randn((n, e), generator=gen, device=device) * 0.1
     gl = torch.randn((n,), generator=gen, device=device) * 0.1
     gg2_lin = None if lane >= 0 else torch.stack([gl, gl * gl], dim=-1)
     return tables, ids, torch.cat([g, g * g], dim=-1), gg2_lin
+
+
+def scatter_inputs(r, e, n, hi, gen, device):
+    """z [R, E], ids (random_ids) and a split payload g, g^2 for za_scatter."""
+    z = torch.randn((r, e), generator=gen, device=device)
+    g = torch.randn((n, e), generator=gen, device=device) * 0.1
+    return z, random_ids(n, hi, r, gen, device), g, g * g
+
+
+def pass_inputs(r, e, gen, device, p):
+    """n, z', w (ftrl_tables) and A for closed_form_pass; A is 0 on 40% of
+    the coordinates (rows and lanes no id touched)."""
+    a = torch.rand((r, e), generator=gen, device=device) * 0.5
+    a = torch.where(torch.rand((r, e), generator=gen, device=device) < 0.6, a, 0.0)
+    return (*ftrl_tables(gen, device, p, r, e), a)
 
 
 def clone_state(state):
@@ -199,23 +242,32 @@ def clone_state(state):
 @contextlib.contextmanager
 def plain_kernels():
     """Within: Model.train_step runs the plain PyTorch versions of the
-    training kernels (the in-place update copies the plain result in)."""
+    training kernels (the in-place updates copy the plain result in)."""
     import ftrl_ffm_tpu_torch.models.base as mbase
     import ftrl_ffm_tpu_torch.models.ffm as mffm
+    from ftrl_ffm_tpu_torch.ftrl import dense_ftrl_update_inplace
     from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits_grads_plain
     from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update_plain
 
-    def update(*args):
-        vec, lin = ftrl_update_plain(*args)
+    def update(*args, **kw):
+        vec, lin = ftrl_update_plain(*args, **kw)
         for dst, src in zip(args[:6], (*vec, *lin)):
             dst.copy_(src)
 
-    saved = mffm.ffm_fused_logits_grads, mbase.ftrl_update
-    mffm.ffm_fused_logits_grads, mbase.ftrl_update = ffm_fused_logits_grads_plain, update
+    def inplace(*args):
+        for dst, src in zip(args[:3], dense_ftrl_update_inplace(*args)):
+            dst.copy_(src)
+
+    names = ("ftrl_update", "ftrl_update_inplace")
+    saved = mffm.ffm_fused_logits_grads, *(getattr(mbase, n) for n in names)
+    mffm.ffm_fused_logits_grads = ffm_fused_logits_grads_plain
+    mbase.ftrl_update, mbase.ftrl_update_inplace = update, inplace
     try:
         yield
     finally:
-        mffm.ffm_fused_logits_grads, mbase.ftrl_update = saved
+        mffm.ffm_fused_logits_grads = saved[0]
+        for n, f in zip(names, saved[1:]):
+            setattr(mbase, n, f)
 
 
 def interleaved_ms(kern, plain, kern_iters: int, plain_iters: int):
@@ -258,7 +310,14 @@ def main() -> int:
         ffm_fused_logits_grads_plain,
         ffm_fused_logits_plain,
     )
-    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update, ftrl_update_plain
+    from ftrl_ffm_tpu_torch.ftrl import closed_form_pass_plain, select_update_kind
+    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import (
+        closed_form_pass,
+        ftrl_update,
+        ftrl_update_plain,
+        za_scatter,
+        za_scatter_plain,
+    )
     from ftrl_ffm_tpu_torch.ops.interactions import linear_logits
     from ftrl_ffm_tpu_torch.train import Trainer
 
@@ -322,7 +381,11 @@ def main() -> int:
         ("no_aug", 200, 8, 8, 16, "random", 8, -1),
         ("e15_scalar", 31, 6, 5, 3, "random", 4, 4),
     ]
-    fused_err = None
+    # the split output (g, g^2 apart, the in-place update's payload) on
+    # these cases: against the plain split, and bit for bit the halves of
+    # the combined output
+    split_cases = {"criteo", "odd_b", "out_of_range", "e15_scalar"}
+    fused_err = split_err = None
     for label, b, f, c, k, kind, real, aug in fused_cases:
         args = fused_inputs(b, f, c, k, gen, device, kind, real)
         logits, gg2 = ffm_fused_logits_grads(*args, c, k, aug_lane=aug)
@@ -339,7 +402,29 @@ def main() -> int:
         require(ok, f"ffm_fused {label} disagrees")
         if label == "criteo":
             fused_err = err
-        del args, logits, gg2, ref_logits, ref_gg2
+        del ref_logits, ref_gg2
+        if label in split_cases:
+            e = c * k
+            s_logits, g, g2 = ffm_fused_logits_grads(*args, c, k, aug_lane=aug,
+                                                     combined_out=False)
+            torch.cuda.synchronize()
+            same = (torch.equal(s_logits, logits) and torch.equal(g, gg2[:, :e])
+                    and torch.equal(g2, gg2[:, e:]))
+            del gg2
+            ref = ffm_fused_logits_grads_plain(*args, c, k, aug_lane=aug, combined_out=False)
+            torch.cuda.synchronize()
+            err = max((x - y).abs().max().item() for x, y in zip((s_logits, g, g2), ref))
+            ok = (torch.allclose(s_logits, ref[0], rtol=RTOL, atol=ATOL)
+                  and all(torch.allclose(x, y, rtol=RTOL, atol=GRAD_ATOL)
+                          for x, y in zip((g, g2), ref[1:])))
+            print(f"kernel ffm_fused split {label}: g, g2 [{b * f}, {e}] max_abs_err={err:.3e} "
+                  f"{'ok' if ok else 'MISMATCH'}; the combined output's halves bit for "
+                  f"bit={same}")
+            require(ok and same, f"ffm_fused split {label} disagrees")
+            if label == "criteo":
+                split_err = err
+            del s_logits, g, g2, ref
+        del args, logits
 
     # ---- 3c. the update kernel against its plain version ----
     p = FtrlParams()
@@ -358,12 +443,12 @@ def main() -> int:
             ftrl_update(*got, ids, gg2, lane, p, gg2_lin)
             torch.cuda.synchronize()
             runs.append(got)
-        vec, lin = ftrl_update_plain(*tables, ids, gg2, lane, p, gg2_lin)
+        want = list(itertools.chain(*ftrl_update_plain(*tables, ids, gg2, lane, p, gg2_lin)))
         torch.cuda.synchronize()
         touched = torch.zeros(r, dtype=torch.bool, device=device)
         touched[ids[ids < r].long()] = True
         err, ok = 0.0, True
-        for got, want, before in zip(runs[0], (*vec, *lin), tables):
+        for got, want, before in zip(runs[0], want, tables):
             err = max(err, (got[touched] - want[touched]).abs().max().item())
             ok &= torch.allclose(got[touched], want[touched], rtol=UPD_RTOL, atol=UPD_ATOL)
             ok &= torch.equal(got[~touched], want[~touched])
@@ -376,7 +461,88 @@ def main() -> int:
         require(same, f"ftrl_update {label} is not deterministic")
         if label == "bench_aug":
             update_err = err
-        del tables, ids, gg2, gg2_lin, runs, vec, lin
+        del tables, ids, gg2, gg2_lin, runs, want
+
+    # ---- 3d. the z/A scatter against its plain version ----
+    # (label, R, E, N, ids drawn from [0, hi)); main_1m is the 1M path's
+    # shape: about 472k distinct rows of 1M touched
+    scatter_cases = [
+        ("main_1m", N_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, N_FEATS),
+        ("small", 5000, 128, 8000, 4000),
+        ("e15_dups", 50, 15, 1000, 40),
+    ]
+    scatter_err = None
+    for label, r, e, n, hi in scatter_cases:
+        z, ids, g, g2 = scatter_inputs(r, e, n, hi, gen, device)
+        runs = []
+        for _ in range(2):
+            got = (z.clone(), torch.zeros_like(z))
+            za_scatter(*got, ids, g, g2)
+            torch.cuda.synchronize()
+            runs.append(got)
+        want = za_scatter_plain(z, ids, g, g2)
+        torch.cuda.synchronize()
+        touched = torch.zeros(r, dtype=torch.bool, device=device)
+        touched[ids[ids < r].long()] = True
+        err = max((x[touched] - y[touched]).abs().max().item() for x, y in zip(runs[0], want))
+        ok = all(torch.allclose(x[touched], y[touched], rtol=UPD_RTOL, atol=UPD_ATOL)
+                 for x, y in zip(runs[0], want))
+        ok &= torch.equal(runs[0][0][~touched], z[~touched])
+        ok &= bool((runs[0][1][~touched] == 0).all())
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        print(f"kernel za_scatter {label}: R={r} E={e} N={n} touched rows "
+              f"{int(touched.sum())} max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}; "
+              f"repeat bit-identical={same}")
+        require(ok, f"za_scatter {label} disagrees")
+        require(same, f"za_scatter {label} is not deterministic")
+        if label == "main_1m":
+            scatter_err = err
+        del z, ids, g, g2, runs, want, touched
+
+    # ---- 3e. the closed-form pass (kernel #3) against its plain version ----
+    # (label, R, E, offset): the 1M path's tables, odd and prime R with E
+    # not a multiple of 4, and tables 4 bytes off 16-byte alignment (offset
+    # 1: the scalar loop)
+    pass_cases = [
+        ("main_1m", N_FEATS, cp * N_FACTORS, 0),
+        ("r41_e15", 41, 15, 0),
+        ("prime_r_e641", 7919, 641, 0),
+        ("e1", 1001, 1, 0),
+        ("unaligned", 333, 128, 1),
+    ]
+    pass_err = None
+    for label, r, e, off in pass_cases:
+        tabs = pass_inputs(r, e, gen, device, p)
+
+        def shifted(t):  # t's values `off` floats into a fresh buffer
+            buf = torch.empty(t.numel() + off, device=device)
+            buf[off:] = t.reshape(-1)
+            return buf[off:].view(r, e)
+
+        runs = []
+        for _ in range(2):
+            got = [shifted(t) for t in tabs]
+            closed_form_pass(*got, p)
+            torch.cuda.synchronize()
+            runs.append(got[:3])
+            del got
+        want = closed_form_pass_plain(*tabs, p)
+        torch.cuda.synchronize()
+        errs = {t: (x - y).abs().max().item() for t, x, y in zip("nzw", runs[0], want)}
+        err = max(errs.values())
+        ok = all(torch.allclose(x, y, rtol=PASS_RTOL, atol=PASS_ATOL)
+                 for x, y in zip(runs[0], want))
+        idle = tabs[3] == 0
+        kept = all(torch.equal(x[idle], y[idle]) for x, y in zip(runs[0][:2], tabs[:2]))
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        print(f"kernel ftrl_pass {label}: R={r} E={e} offset={off} max_abs_err={err:.3e} {errs} "
+              f"{'ok' if ok else 'MISMATCH'}; A=0 coordinates keep n, z bits={kept}; "
+              f"repeat bit-identical={same}")
+        require(ok and kept, f"ftrl_pass {label} disagrees")
+        require(same, f"ftrl_pass {label} is not deterministic")
+        if label == "main_1m":
+            pass_err = err
+        del tabs, runs, want, idle
 
     # ---- 4. serving through the entry points ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -606,6 +772,175 @@ def main() -> int:
               f"{tparse_ms:.3f} ms/batch; train_epoch() {teps} examples/s "
               f"(n_feats={TRAIN_FEATS}, B={BATCH}, {N_ROWS} rows) [{where}]")
 
+        # ---- 4c. training the 1M-row table through the entry points ----
+        # the serving and 100k states go first: the 1M state is 7.7 GB, its
+        # accumulator A 2.56 GB, rows and payload 4.9 GB, each clone 7.7 GB
+        del trainer, state, model, placed, cycle, ttrainer, tmodel, tplaced, tcycle
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        big_p, big_e = os.path.join(tmp, "train1m.ffm"), os.path.join(tmp, "eval1m.ffm")
+        t0 = time.perf_counter()
+        write_criteo_split([(big_p, N_ROWS), (big_e, BATCH)], N_FEATS, seed=13)
+        print(f"train 1M: wrote {N_ROWS} + {BATCH} Criteo-shaped rows in "
+              f"{time.perf_counter() - t0:.1f} s")
+        bcfg = Config(
+            model_type="FFM", n_fields=N_FIELDS, n_factors=N_FACTORS, n_feats=N_FEATS,
+            batch_size=BATCH, train_data=big_p, eval_data=big_e, n_epochs=2,
+            device="cuda", n_threads=4,
+        )
+        btrainer = Trainer(bcfg)
+        bmodel = btrainer.model
+        kind = select_update_kind(N_FEATS, bcfg.row_width, BATCH * bcfg.max_nnz,
+                                  bcfg.update_mode)
+        require(kind == "inplace", f"update_mode=auto resolves to {kind!r} at 1M, expect inplace")
+        counted = (ffm_fused_logits_grads, za_scatter, closed_form_pass, ftrl_update,
+                   ffm_fused_logits)
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        bhist = btrainer.train()
+        t_big = time.perf_counter() - t0
+        big = {fn.__name__: fn.launches for fn in counted}
+        bsteps = btrainer._steps_done
+        print(f"train 1M: Trainer.train() 2 epochs in {t_big:.2f} s (first): {bsteps} steps, "
+              f"update kind {kind!r}; launches {big}; history {bhist}; device memory peak "
+              f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+        require(bsteps == 2 * n_batches, f"{bsteps} train steps, expect {2 * n_batches}")
+        for fn in ("ffm_fused_logits_grads", "za_scatter", "closed_form_pass"):
+            require(big[fn] == bsteps, f"{fn} launched {big[fn]} times in {bsteps} steps")
+        require(big["ftrl_update"] == 0, "the in-place path launched the linear update")
+        require(big["ffm_fused_logits"] == 2, "eval did not run through ffm_logits")
+        require(all(math.isfinite(x) for k in ("train_loss", "eval_loss", "eval_auc")
+                    for x in bhist[k]), "non-finite training history")
+        require(bhist["train_loss"][1] < bhist["train_loss"][0],
+                "epoch 2 train loss is not below epoch 1's")
+        require(bhist["eval_auc"][-1] > 0.5, "eval AUC not above 0.5")
+        # the linear tables ride stale; logical_state takes them from the
+        # mirror lane
+        stale = bool((btrainer.state.lin_z == 0).all() and (btrainer.state.lin_n == 0).all())
+        lstate = btrainer.logical_state
+        mirrored = all(torch.equal(getattr(lstate, f"lin_{t}"), getattr(lstate, f"vec_{t}")[:, N_FIELDS])
+                       for t in "nzw")
+        print(f"train 1M: raw lin_z, lin_n all zero={stale}; logical_state lin tables = "
+              f"mirror lane {N_FIELDS} bit for bit={mirrored}; has_zero_weights(linear)="
+              f"{bmodel.has_zero_weights(btrainer.state)}")
+        require(stale and mirrored and bool((lstate.lin_n > 0).any()),
+                "the stale linear tables or their reconcile are off")
+
+        # 3 chained train_steps from one state: the kernels against the
+        # plain versions, twice for the bits, and update_mode=dense
+        bbatches = [btrainer._place_batch(a) for a in itertools.islice(StreamReader(
+            big_p, "libffm", BATCH, N_FIELDS, N_FEATS, N_FIELDS, log_every=0
+        ).batches(), 3)]
+        base = btrainer.state  # not stepped below: each chain steps a clone
+
+        def chain(mdl, ctx=contextlib.nullcontext):
+            s = clone_state(base)
+            with ctx():
+                losses = [mdl.train_step(s, b).loss_sum.item() for b in bbatches]
+            return s, losses
+
+        torch.cuda.reset_peak_memory_stats(device)
+        s_kern, l_kern = chain(bmodel)
+        s_again, _ = chain(bmodel)
+        same = all(torch.equal(a, b) for a, b in zip(s_kern, s_again))
+        del s_again
+        s_plain, l_plain = chain(bmodel, plain_kernels)
+        names = ("vec_n", "vec_z", "vec_w")
+        perr = {n: (getattr(s_kern, n) - getattr(s_plain, n)).abs().max().item() for n in names}
+        plain_ok = all(torch.allclose(getattr(s_kern, n), getattr(s_plain, n),
+                                      rtol=CHAIN_RTOL, atol=CHAIN_ATOL) for n in names)
+        ldiff = max(abs(a - b) / abs(b) for a, b in zip(l_kern, l_plain))
+        del s_plain
+        dmodel = make_model(dataclasses.replace(bcfg, update_mode="dense"))
+        ftrl_update.launches = 0
+        s_dense, l_dense = chain(dmodel)
+        dense_launches = ftrl_update.launches
+        s_sync = bmodel.sync_lin_from_mirror(s_kern)
+        names = ("lin_n", "lin_z", "lin_w", "vec_n", "vec_z", "vec_w")
+        derr = {n: (getattr(s_sync, n) - getattr(s_dense, n)).abs().max().item() for n in names}
+        dense_ok = all(torch.allclose(getattr(s_sync, n), getattr(s_dense, n),
+                                      rtol=CHAIN_RTOL, atol=CHAIN_ATOL) for n in names)
+        print(f"train 1M: 3 chained steps, kernels vs plain: loss rel diff {ldiff:.2e}, "
+              f"max |diff| {perr}; two kernel runs bit-identical={same}; inplace vs dense "
+              f"({dense_launches} ftrl_update launches): max |diff| {derr}, losses "
+              f"{l_kern} vs {l_dense}; device memory peak "
+              f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+        require(plain_ok, "chained in-place steps disagree with the plain versions")
+        require(same, "two runs of the same in-place steps differ")
+        require(dense_ok and dense_launches == len(bbatches),
+                "in-place and dense steps from one state disagree")
+        del s_kern, s_dense, s_sync, base, lstate
+
+        # small in-place training on the CPU (plain versions) and on the
+        # card, one init
+        small_i = dict(small_t, update_mode="inplace")
+        init = make_model(Config(device="cpu", **small_i)).init(
+            torch.Generator().manual_seed(SEED + 3))
+        ires = {}
+        for dev in ("cpu", "cuda"):
+            scfg = Config(train_data=st_p, eval_data=se_p, device=dev, **small_i)
+            ires[dev] = Trainer(scfg, state=clone_state(init)).train()
+        print(f"train 1M: small in-place run eval loss cpu={ires['cpu']['eval_loss']} "
+              f"cuda={ires['cuda']['eval_loss']}")
+        require(abs(ires["cpu"]["eval_loss"][-1] - ires["cuda"]["eval_loss"][-1]) <= 1e-4,
+                "cpu and cuda in-place training reach different eval losses")
+
+        # ---- 5c. 1M training timings ----
+        e = cp * N_FACTORS
+        tabs = pass_inputs(N_FEATS, e, gen, device, p)
+        pruns, pass_ms, pass_plain_ms = interleaved_ms(
+            lambda: closed_form_pass(*tabs, p), lambda: closed_form_pass_plain(*tabs, p), 10, 3)
+        gbps = 7 * N_FEATS * e * 4 / (pass_ms * 1e-3) / 1e9
+        print(f"timing: ftrl_pass R={N_FEATS} E={e}: kernel {pruns['kernel']} ms, plain "
+              f"{pruns['plain']} ms; kernel streams its 7 tables at {gbps:.0f} GB/s [{where}]")
+        zero_ms = cuda_ms(lambda: torch.zeros_like(tabs[0]), 10)
+        del tabs
+        z, ids, g, g2 = scatter_inputs(N_FEATS, e, BATCH * N_FIELDS, N_FEATS, gen, device)
+        a = torch.zeros_like(z)
+        sruns, sc_ms, sc_plain_ms = interleaved_ms(
+            lambda: za_scatter(z, a, ids, g, g2), lambda: za_scatter_plain(z, ids, g, g2), 10, 3)
+        print(f"timing: za_scatter R={N_FEATS} E={e} N={BATCH * N_FIELDS} (stable sort "
+              f"included): kernel {sruns['kernel']} ms, plain {sruns['plain']} ms; zeroing A "
+              f"{zero_ms:.3f} ms [{where}]")
+        del z, ids, g, g2, a
+        args = fused_inputs(BATCH, N_FIELDS, cp, N_FACTORS, gen, device, "iota", N_FIELDS)
+        sfruns, sf_ms, sf_plain_ms = interleaved_ms(
+            lambda: ffm_fused_logits_grads(*args, cp, N_FACTORS, aug_lane=N_FIELDS,
+                                           combined_out=False),
+            lambda: ffm_fused_logits_grads_plain(*args, cp, N_FACTORS, aug_lane=N_FIELDS,
+                                                 combined_out=False),
+            10, 3)
+        print(f"timing: ffm_fused split B={BATCH} F={N_FIELDS} E={e}: kernel {sfruns['kernel']} "
+              f"ms, plain {sfruns['plain']} ms [{where}]")
+        del args
+        bplaced = [btrainer._place_batch(a) for a in StreamReader(
+            big_p, "libffm", BATCH, N_FIELDS, N_FEATS, N_FIELDS,
+            n_parse_threads=4, log_every=0).batches()]
+        bcycle = itertools.cycle(bplaced)
+        step = {"inplace": [], "dense": []}
+        for kind_ in ("inplace", "dense", "dense", "inplace"):
+            mdl = bmodel if kind_ == "inplace" else dmodel
+            step[kind_].append(cuda_ms(lambda: mdl.train_step(btrainer.state, next(bcycle)),
+                                       2 * len(bplaced)))
+        del bplaced, bcycle
+        t0 = time.perf_counter()
+        for _ in StreamReader(big_p, "libffm", BATCH, N_FIELDS, N_FEATS, N_FIELDS,
+                              n_parse_threads=4, log_every=0).batches():
+            pass
+        bparse_ms = (time.perf_counter() - t0) * 1e3 / n_batches
+        epochs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            btrainer.train_epoch()
+            torch.cuda.synchronize()
+            epochs.append(time.perf_counter() - t0)
+        beps = [N_ROWS / t for t in epochs]
+        print(f"timing: train_step on the device at 1M: inplace {step['inplace']} ms/batch, "
+              f"dense {step['dense']} ms/batch; host parse {bparse_ms:.3f} ms/batch; "
+              f"train_epoch() {beps} examples/s (n_feats={N_FEATS}, B={BATCH}, {N_ROWS} "
+              f"rows, inplace) [{where}]")
+
     records = [
         {
             "name": "ffm_logits",
@@ -622,8 +957,9 @@ def main() -> int:
             "route": "cuda",
             "source": "ftrl_ffm_tpu_torch/csrc/ffm_fused.cu",
             "replaces": "ftrl_ffm_tpu/ops/ffm_pallas.py:38",
-            "launches": fused_launches,
-            "max_abs_err": fused_err,
+            # both training paths: combined (4b) and split (4c) output
+            "launches": fused_launches + big["ffm_fused_logits_grads"],
+            "max_abs_err": max(fused_err, split_err),
             "ms": f_ms,
             "plain_ms": fp_ms,
         },
@@ -638,6 +974,28 @@ def main() -> int:
             "max_abs_err": update_err,
             "ms": u_ms,
             "plain_ms": up_ms,
+        },
+        {
+            "name": "ftrl_pass",
+            "route": "cuda",
+            "source": "ftrl_ffm_tpu_torch/csrc/ftrl_pass.cu",
+            "replaces": "ftrl_ffm_tpu/ops/ftrl_pallas.py:32",
+            "launches": big["closed_form_pass"],
+            "max_abs_err": pass_err,
+            "ms": pass_ms,
+            "plain_ms": pass_plain_ms,
+        },
+        {
+            # no Pallas kernel: XLA's two scatter-adds of
+            # ftrl_ffm_tpu/ftrl.py::dense_ftrl_update_inplace
+            "name": "za_scatter",
+            "route": "cuda",
+            "source": "ftrl_ffm_tpu_torch/csrc/ftrl_update.cu",
+            "replaces": "ftrl_ffm_tpu/ftrl.py:375",
+            "launches": big["za_scatter"],
+            "max_abs_err": scatter_err,
+            "ms": sc_ms,
+            "plain_ms": sc_plain_ms,
         },
     ]
     print(json.dumps({"kernels": records}))

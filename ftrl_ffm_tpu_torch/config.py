@@ -11,8 +11,6 @@ from __future__ import annotations
 
 import dataclasses
 
-from ftrl_ffm_tpu_torch.ftrl import select_update_kind
-
 
 @dataclasses.dataclass
 class Config:
@@ -338,11 +336,9 @@ def check_ported(cfg: Config) -> None:
 
     Settings that change only how the JAX package moves bytes
     (compact_transfer, feed_workers, async_checkpoint) do not change what
-    the port computes, so they pass.  The update settings are checked when
-    the run trains (train_data or cmd); the table-update kind is resolved
-    as the JAX package resolves it per step, from n_feats, the row width and
-    the batch's nnz (batch_size * max_nnz), so check after max_nnz is
-    known."""
+    the port computes, so they pass.  Every table-update kind
+    (update_mode) trains on one device; the payload dtype is checked when
+    the run trains (train_data or cmd)."""
     if cfg.model_type != "FFM":
         raise not_ported(f"model_type={cfg.model_type}", 4)
     if cfg.table_dtype != "float32":
@@ -363,14 +359,5 @@ def check_ported(cfg: Config) -> None:
             "use_pallas=off has no counterpart in the PyTorch port: a CUDA "
             "device runs the CUDA kernel, --device cpu its plain version"
         )
-    if cfg.train_data or cfg.cmd:
-        if cfg.acc_dtype != "float32":
-            raise not_ported(f"acc_dtype={cfg.acc_dtype}", 4)
-        kind = select_update_kind(
-            cfg.n_feats, cfg.row_width, cfg.batch_size * max(1, cfg.max_nnz),
-            cfg.update_mode,
-        )
-        if kind != "dense2":
-            raise not_ported(
-                f"update_mode={cfg.update_mode} (the {kind!r} table update)", 7
-            )
+    if (cfg.train_data or cfg.cmd) and cfg.acc_dtype != "float32":
+        raise not_ported(f"acc_dtype={cfg.acc_dtype}", 4)

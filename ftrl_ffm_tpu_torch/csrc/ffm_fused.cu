@@ -1,6 +1,6 @@
 // FFM logits and the FTRL payload of one train step: the CUDA counterpart of
 // ftrl_ffm_tpu/ops/ffm_pallas.py::_ffm_fused_kernel (entry point
-// ffm_fused_logits_grads, combined f32 output).
+// ffm_fused_logits_grads, f32 output, combined or split).
 //
 // What it computes, for each sample b with occurrences m = 0..F-1 (field
 // f_m, value x_m, gathered factor row v_m of E = C'*K floats, slot (k, c) at
@@ -9,7 +9,9 @@
 //   logit_b  = the logit of ffm_logits.cu
 //   gs       = (sigmoid(logit_b) - y_b) * sample_w_b
 //   g_m[k,c] = gs * x_m * sum over n != m with f_n = c of x_n * v_n[k*C' + f_m]
-//   gg2[m]   = (g_m || g_m^2), [2E] floats per occurrence
+//   gg2[m]   = (g_m || g_m^2), [2E] floats per occurrence (combined), or
+//   g[m], g2[m] = g_m, g_m^2 in two [B*F, E] tensors (split, for the
+//   huge-table in-place update); only the store differs
 //
 // The sum is ops/interactions.py's T - oh_e * xv (the field-bucketed form of
 // the Pallas kernel) without its one-hot contractions: a counting sort of the
@@ -62,8 +64,9 @@ __global__ void __launch_bounds__(kThreads)
 ffm_fused_kernel(const float* __restrict__ v, const int* __restrict__ fields,
                  const float* __restrict__ vals, const float* __restrict__ lin,
                  const float* __restrict__ y, const float* __restrict__ sw,
-                 float* __restrict__ logits, float* __restrict__ gg2, int F, int C,
-                 int K, int aug_lane, int vec4) {
+                 float* __restrict__ logits, float* __restrict__ g_out,
+                 float* __restrict__ g2_out, int out_stride, int F, int C, int K,
+                 int aug_lane, int vec4) {
   extern __shared__ float smem[];
   const int E = C * K;
   const int b = blockIdx.x;
@@ -169,7 +172,9 @@ ffm_fused_kernel(const float* __restrict__ v, const int* __restrict__ fields,
   __syncthreads();
   const float gs = gs_s[0];
 
-  float* out = gg2 + occ0 * (2 * static_cast<size_t>(E));
+  // g_m and g_m^2 of occurrence m start at m*out_stride of their bases
+  float* out_g = g_out + occ0 * out_stride;
+  float* out_g2 = g2_out + occ0 * out_stride;
   const int total = F * E;
   for (int i = threadIdx.x; i < total; i += kThreads) {
     const int m = i / E;
@@ -192,9 +197,9 @@ ffm_fused_kernel(const float* __restrict__ v, const int* __restrict__ fields,
       }
       g = gx * s;
     }
-    float* o = out + static_cast<size_t>(m) * (2 * E) + j;
-    o[0] = g;
-    o[E] = g * g;
+    const size_t at = static_cast<size_t>(m) * out_stride + j;
+    out_g[at] = g;
+    out_g2[at] = g * g;
   }
 }
 
@@ -224,12 +229,13 @@ int ffm_fused_stages(int F, int C, int K) {
 }
 
 // Launch on `stream`: v [B*F, C*K], fields/vals [B, F], lin/y/sw/logits
-// [B], gg2 [B*F, 2*C*K], all contiguous on the current device; aug_lane in
-// [-1, C*K).  Returns the CUDA error of the launch (0 on success); the
-// caller raises on anything else.
+// [B], all contiguous on the current device; aug_lane in [-1, C*K).  The
+// payload goes to g [B*F, 2*C*K] (combined, g2 null) or to g and g2, each
+// [B*F, C*K] (split).  Returns the CUDA error of the launch (0 on
+// success); the caller raises on anything else.
 int ffm_fused_launch(const float* v, const int* fields, const float* vals,
                      const float* lin, const float* y, const float* sw, float* logits,
-                     float* gg2, int B, int F, int C, int K, int aug_lane,
+                     float* g, float* g2, int B, int F, int C, int K, int aug_lane,
                      void* stream) {
   if (B == 0) return 0;
   const int E = C * K;
@@ -247,8 +253,10 @@ int ffm_fused_launch(const float* v, const int* fields, const float* vals,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, kThreads, bytes, s>>>(v, fields, vals, lin, y, sw, logits, gg2, F, C, K,
-                                    aug_lane, vec4);
+  const int stride = g2 == nullptr ? 2 * E : E;
+  kernel<<<B, kThreads, bytes, s>>>(v, fields, vals, lin, y, sw, logits, g,
+                                    g2 == nullptr ? g + E : g2, stride, F, C, K, aug_lane,
+                                    vec4);
   return static_cast<int>(cudaGetLastError());
 }
 

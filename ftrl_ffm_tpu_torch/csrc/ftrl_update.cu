@@ -1,4 +1,5 @@
-// The FTRL table update of one train step, deterministic, touched rows only.
+// The FTRL table update of one train step, deterministic, touched rows only,
+// and the z/A scatter of the huge-table in-place update.
 // No Pallas kernel did this on the TPU: there XLA lowered
 // ftrl_ffm_tpu/ftrl.py::dense_ftrl_update2_aug (a scatter-add of the
 // combined (g || g^2) payload into a zeroed [R, 2E] accumulator, then the
@@ -29,6 +30,24 @@
 // columns, so a warp reads 128 contiguous bytes per payload row and column
 // block.  A very frequent id is one warp's serial work: heavy-tailed data
 // would want the segment split across warps.
+//
+// With E = 0 (no factor tables given) only the linear tables are updated,
+// from gg2_lin: the huge-table path's separate linear step when no dead
+// lane mirrors them.
+//
+// za_scatter_kernel is the z/A scatter of the huge-table in-place update:
+// XLA lowered its two scatter-adds (ftrl_ffm_tpu/ftrl.py::
+// dense_ftrl_update_inplace, z.at[ids].add(g) and zeros.at[ids].add(g2)) on
+// the TPU.  The same sorted segments, one warp each, sum the split payload
+// g, g2 [N, E] in ascending payload order and write z[id] += sum g (the
+// row's sum added once; JAX adds each g into z in turn) and A[id] = sum g^2.
+// A must be zero on every row no id touches (the caller zeroes it each
+// step); csrc/ftrl_pass.cu's closed-form pass follows.  It reads the 3.27 GB
+// payload and reads and writes z and writes A on the touched rows (about
+// 470k of a 1M-row table with the synthetic ids).  It keeps its own copy of
+// the segment loop: sharing it with ftrl_update_kernel through inline device
+// functions slowed that kernel from 2.67 to 4.54 ms at the bench shape
+// (H100 80GB HBM3 at 700 W, both versions timed in one run).
 
 #include <cuda_runtime.h>
 
@@ -116,24 +135,79 @@ ftrl_update_kernel(const int* __restrict__ sids, const long long* __restrict__ p
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+za_scatter_kernel(const int* __restrict__ sids, const long long* __restrict__ perm, int N,
+                  const float* __restrict__ g, const float* __restrict__ g2,
+                  float* __restrict__ z, float* __restrict__ a, int R, int E) {
+  const int ln = threadIdx.x & 31;
+  const int warps = gridDim.x * kWarpsPerBlock;
+  for (int j = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); j < N; j += warps) {
+    const int id = sids[j];
+    if ((j > 0 && sids[j - 1] == id) || id < 0 || id >= R) continue;
+    int end = j + 1;
+    while (end < N && sids[end] == id) ++end;
+    const size_t row = static_cast<size_t>(id) * E;
+    for (int c0 = 0; c0 < E; c0 += 32 * kCols) {
+      float sg[kCols], sg2[kCols];
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) sg[u] = sg2[u] = 0.f;
+      for (int q = j; q < end; ++q) {
+        const size_t at = static_cast<size_t>(perm[q]) * E;
+#pragma unroll
+        for (int u = 0; u < kCols; ++u) {
+          const int c = c0 + ln + 32 * u;
+          if (c < E) {
+            sg[u] += g[at + c];
+            sg2[u] += g2[at + c];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        const int c = c0 + ln + 32 * u;
+        if (c < E) {
+          z[row + c] = __fadd_rn(z[row + c], sg[u]);
+          a[row + c] = sg2[u];
+        }
+      }
+    }
+  }
+}
+
+int segment_blocks(int N) {
+  const int blocks = (N + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  return blocks > 4096 ? 4096 : blocks;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch on `stream`: sids [N] int32 sorted stably, perm [N] int64, gg2
-// [N, 2E], gg2_lin [N, 2] (read only when lane < 0), vec tables [R, E] and
-// lin tables [R] updated in place, all contiguous on the current device.
-// Returns the CUDA error of the launch (0 on success).
+// [N, 2E], gg2_lin [N, 2] (read only when lane < 0), vec tables [R, E]
+// (unused when E = 0) and lin tables [R] updated in place, all contiguous
+// on the current device.  Returns the CUDA error of the launch (0 on
+// success).
 int ftrl_update_launch(const int* sids, const long long* perm, int N, const float* gg2,
                        const float* gg2_lin, float* vec_n, float* vec_z, float* vec_w,
                        float* lin_n, float* lin_z, float* lin_w, int R, int E, int lane,
                        float alpha, float beta, float l1, float l2, void* stream) {
   if (N == 0) return 0;
-  int blocks = (N + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 4096) blocks = 4096;
-  ftrl_update_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  ftrl_update_kernel<<<segment_blocks(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       sids, perm, N, gg2, gg2_lin, vec_n, vec_z, vec_w, lin_n, lin_z, lin_w, R, E, lane,
       Ftrl{alpha, beta, l1, l2});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch on `stream`: sids [N] int32 sorted stably, perm [N] int64, g and
+// g2 [N, E], z and a [R, E] (a zero on the rows no id touches), all
+// contiguous on the current device: z[id] += sum g, a[id] = sum g^2.
+// Returns the CUDA error of the launch (0 on success).
+int za_scatter_launch(const int* sids, const long long* perm, int N, const float* g,
+                      const float* g2, float* z, float* a, int R, int E, void* stream) {
+  if (N == 0 || E == 0) return 0;
+  za_scatter_kernel<<<segment_blocks(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      sids, perm, N, g, g2, z, a, R, E);
   return static_cast<int>(cudaGetLastError());
 }
 

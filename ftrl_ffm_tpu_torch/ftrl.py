@@ -14,11 +14,14 @@ src/model/ftrl_model.cpp:66-77):
     n    += sum_g2
 
 The table updates here are the plain PyTorch versions of the JAX package's
-dense forms: the combined (g || g^2) payload is summed per row into a zeroed
-accumulator and the closed form runs over the whole table.  They are the
-ground truth the CUDA update kernel (ops/ftrl_cuda.py) is held against, and
-what the wrapper runs for CPU tensors.  Like the JAX functions they return
-new tensors and leave their inputs as they were.
+three forms: the dense one (the combined (g || g^2) payload summed per row
+into a zeroed accumulator, the closed form over the whole table), the
+in-place huge-table one (g summed straight into z, g^2 into one
+accumulator A, then the closed-form pass) and the sparse one (the closed
+form on the touched rows only).  They are the ground truth the CUDA kernels
+(ops/ftrl_cuda.py) are held against, and what the wrappers run for CPU
+tensors.  Like the JAX functions they return new tensors and leave their
+inputs as they were.
 """
 
 from __future__ import annotations
@@ -43,12 +46,21 @@ class FtrlParams(NamedTuple):
 UNTOUCHED_N = 1e-16
 
 
+def _div(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x / s, correctly rounded on every device.  On a CUDA tensor torch
+    divides by a Python number by multiplying with its reciprocal (up to an
+    ulp off), and 1 / alpha magnifies that ulp in sigma * w; a 0-dim divisor
+    on x's device makes it a true division, as on the CPU, in JAX and in
+    the CUDA kernels."""
+    return x / x.new_full((), s)
+
+
 def ftrl_weights(n: torch.Tensor, z: torch.Tensor, p: FtrlParams) -> torch.Tensor:
     """Closed-form FTRL-Proximal weight from accumulators, elementwise
     (ftrl_ffm_tpu/ftrl.py::ftrl_weights).  sgn(z) is only read where
     |z| > l1 >= 0, so its value at 0 never matters."""
     sgn_z = torch.where(z > 0, 1.0, -1.0).to(z.dtype)
-    w = -(z - sgn_z * p.l1) / (p.l2 + (p.beta + torch.sqrt(n)) / p.alpha)
+    w = -(z - sgn_z * p.l1) / (p.l2 + _div(p.beta + torch.sqrt(n), p.alpha))
     return torch.where(torch.abs(z) <= p.l1, torch.zeros_like(w), w)
 
 
@@ -56,7 +68,7 @@ def ftrl_accumulate(n, z, w, sum_g, sum_g2, p: FtrlParams):
     """One accumulator step given batch-aggregated g and g^2
     (ftrl_ffm_tpu/ftrl.py::ftrl_accumulate).  `w` is the weight the
     gradients were computed against: the pre-update stored weight."""
-    sigma = (torch.sqrt(n + sum_g2) - torch.sqrt(n)) / p.alpha
+    sigma = _div(torch.sqrt(n + sum_g2) - torch.sqrt(n), p.alpha)
     return n + sum_g2, z + sum_g - sigma * w
 
 
@@ -122,12 +134,68 @@ def dense_ftrl_update2_aug(
     return vec, lin
 
 
+def closed_form_pass_plain(n, z_prime, w, a, p: FtrlParams):
+    """The closed-form pass of the in-place update over whole tables
+    (the body of ftrl_ffm_tpu/ops/ftrl_pallas.py::_pass_kernel, and of
+    ftrl_ffm_tpu/ftrl.py::dense_ftrl_update_inplace's blk()):
+
+        sigma = (sqrt(n + A) - sqrt(n)) / alpha
+        z     = z' - sigma * w          (z' already holds z + sum_g)
+        n     = n + A
+        w     = closed form (n, z)  where n > UNTOUCHED_N, else w
+
+    Returns the new (n, z, w)."""
+    sigma = _div(torch.sqrt(n + a) - torch.sqrt(n), p.alpha)
+    new_z = z_prime - sigma * w
+    new_n = n + a
+    new_w = torch.where(new_n > UNTOUCHED_N, ftrl_weights(new_n, new_z, p), w)
+    return new_n, new_z, new_w
+
+
+def dense_ftrl_update_inplace(n_tab, z_tab, w_tab, ids, g, g2, p: FtrlParams):
+    """The huge-table update (ftrl_ffm_tpu/ftrl.py::dense_ftrl_update_inplace)
+    from a split payload g, g2 [N, D]: z' = z + per-row sum of g, A = per-row
+    sum of g^2 (ids outside [0, R) dropped), then the closed-form pass.  The
+    JAX form adds each g into z in turn; this one adds the row's sum, as
+    the CUDA scatter does.  Returns the new (n, z, w)."""
+    r = n_tab.shape[0]
+    z_prime = z_tab + _row_sums(r, ids, g)
+    return closed_form_pass_plain(n_tab, z_prime, w_tab, _row_sums(r, ids, g2), p)
+
+
+def sparse_ftrl_update2(n_tab, z_tab, w_tab, ids, gg2, p: FtrlParams):
+    """One batched FTRL step on the touched rows only
+    (ftrl_ffm_tpu/ftrl.py::sparse_ftrl_update2): the combined payload summed
+    per distinct id, the accumulator step and closed form on those rows,
+    every other row left as it was.  Tables [R] or [R, D]; gg2 [N, 2D]
+    ([N, 2] for a 1-D table).  Returns the new (n, z, w)."""
+    r = n_tab.shape[0]
+    ids = ids.reshape(-1).to(torch.int64)
+    keep = (ids >= 0) & (ids < r)
+    rows, slot = torch.unique(ids[keep], return_inverse=True)
+    sums = torch.zeros((rows.shape[0], gg2.shape[-1]), dtype=gg2.dtype, device=gg2.device)
+    sums.index_add_(0, slot, gg2[keep])
+    d = gg2.shape[-1] // 2
+    if n_tab.dim() == 1:
+        sum_g, sum_g2 = sums[:, 0], sums[:, 1]
+    else:
+        sum_g, sum_g2 = sums[:, :d], sums[:, d:]
+    new = _closed_step(n_tab[rows], z_tab[rows], w_tab[rows], sum_g, sum_g2, p)
+    out = []
+    for tab, rows_new in zip((n_tab, z_tab, w_tab), new):
+        tab = tab.clone()
+        tab[rows] = rows_new
+        out.append(tab)
+    return tuple(out)
+
+
 def select_update_kind(n_rows: int, row_width: int, nnz: int, mode: str = "auto") -> str:
     """The table-update strategy (ftrl_ffm_tpu/ftrl.py::select_update_kind,
     the same thresholds): "dense2" (combined-payload update), "inplace"
     (huge tables) or "sparse2" (tables whose one accumulator would not fit).
     The thresholds were sized for a TPU's 16 GB of HBM; the port keeps them
-    until the huge-table path arrives (ROADMAP.md Queue 1 item 7)."""
+    so that each kind is held against the JAX package's (ROADMAP.md lists
+    revisiting them with the card's measurements)."""
     if mode == "dense":
         return "dense2"
     if mode == "sparse":

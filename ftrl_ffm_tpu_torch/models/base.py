@@ -4,8 +4,9 @@ linear and bias path (the counterpart of ftrl_ffm_tpu/models/base.py).
 A `ModelState` holds the (n, z, w) tables as tensors on the run's device;
 the forward pass gathers one stored w row per occurrence, as in the JAX
 package, and each train step refreshes w for the rows it touches.  The
-train step takes the dense combined-payload update ("dense2") only; the
-huge-table forms arrive with ROADMAP.md Queue 1 item 7.
+train step takes the JAX package's three table-update kinds
+(ftrl.py::select_update_kind): the combined-payload "dense2" and
+"sparse2" forms, and the huge-table "inplace" form from a split payload.
 """
 
 from __future__ import annotations
@@ -22,7 +23,11 @@ from ftrl_ffm_tpu_torch.ftrl import (
     ftrl_weights,
     select_update_kind,
 )
-from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update
+from ftrl_ffm_tpu_torch.ops.ftrl_cuda import (
+    ftrl_update,
+    ftrl_update_inplace,
+    ftrl_update_linear,
+)
 
 
 class Batch(NamedTuple):
@@ -167,11 +172,25 @@ class Model:
         """Returns (logits [B], factor gradients or None)."""
         raise NotImplementedError
 
-    def _train_grads(self, state: ModelState, batch: Batch):
-        """(logits [B], gg2 [B*F, 2E], lane) of one train step: the combined
-        payload already scaled by gs, and the lane that carries the linear
+    def _train_grads(self, state: ModelState, batch: Batch, split: bool = False):
+        """(logits [B], payload, lane) of one train step: the payload
+        already scaled by gs, combined ((gg2 [B*F, 2E],)) or, with split,
+        (g [B*F, E], g2 [B*F, E]); and the lane that carries the linear
         gradient (-1 when the row has no dead lane)."""
         raise NotImplementedError
+
+    def _lin_mirror_maintained(self) -> bool:
+        """True when the factor tables' dead lane is a complete,
+        forward-read replica of the linear tables
+        (ftrl_ffm_tpu/models/base.py::_lin_mirror_maintained): the in-place
+        update then skips the linear tables, which ride stale until
+        sync_lin_from_mirror."""
+        return False
+
+    def sync_lin_from_mirror(self, state: ModelState) -> ModelState:
+        """The state with its linear tables taken from the mirror lane
+        (a no-op unless the model keeps one, see FFM)."""
+        return state
 
     # ---- public API ----
     def predict_logits(self, state: ModelState, batch: Batch) -> torch.Tensor:
@@ -193,25 +212,35 @@ class Model:
         kind = select_update_kind(
             state.vec_n.shape[0], state.vec_n.shape[-1], nnz, self.cfg.update_mode
         )
-        if kind != "dense2":
-            raise not_ported(f"the {kind!r} table update", 7)
         if self.cfg.acc_dtype != "float32":
             raise not_ported(f"acc_dtype={self.cfg.acc_dtype}", 4)
-        logits, gg2, lane = self._train_grads(state, batch)
+        split = kind == "inplace"
+        logits, payload, lane = self._train_grads(state, batch, split)
         # dL/dlogit = sigmoid(logit) - y  (reference: src/model/ffm.cpp:44)
         gs = (torch.sigmoid(logits) - batch.y) * batch.sample_w
         bias_n, bias_z = bias_update(state.bias_n, state.bias_z, gs, p)
+        ids = batch.feats.reshape(-1)
+        # the linear tables take their own [nnz, 2] payload when no dead
+        # lane carries their gradient through the factor update; the
+        # in-place form with a maintained mirror skips them (they ride
+        # stale, as in ftrl_ffm_tpu/models/base.py::train_step)
+        lin_own = lane < 0 or (split and not self._lin_mirror_maintained())
         gg2_lin = None
-        if lane < 0:
+        if lin_own:
             # linear table: g = gs * x (reference: src/model/ftrl_model.cpp:
-            # 66-77), its own [nnz, 2] payload
+            # 66-77)
             g_lin = (gs[:, None] * batch.vals).reshape(-1)
             gg2_lin = torch.stack([g_lin, g_lin * g_lin], dim=-1)
-        ftrl_update(
-            state.vec_n, state.vec_z, state.vec_w,
-            state.lin_n, state.lin_z, state.lin_w,
-            batch.feats.reshape(-1), gg2, lane, p, gg2_lin,
-        )
+        if split:
+            ftrl_update_inplace(state.vec_n, state.vec_z, state.vec_w, ids, *payload, p)
+            if lin_own:
+                ftrl_update_linear(state.lin_n, state.lin_z, state.lin_w, ids, gg2_lin, p)
+        else:
+            ftrl_update(
+                state.vec_n, state.vec_z, state.vec_w,
+                state.lin_n, state.lin_z, state.lin_w,
+                ids, payload[0], lane, p, gg2_lin, sparse=kind == "sparse2",
+            )
         state.bias_n.copy_(bias_n)
         state.bias_z.copy_(bias_z)
         count = torch.sum(batch.sample_w)
@@ -239,6 +268,9 @@ class Model:
         n_fields) mirrors the linear table) do not count as factors."""
         if table not in ("linear", "factor", "any"):
             raise ValueError(f"unknown table {table!r}")
+        # the in-place form leaves the linear tables stale (the mirror lane
+        # holds them): reconcile first, a no-op elsewhere
+        state = self.sync_lin_from_mirror(state)
 
         def zeros_among_touched(n_tab, w_tab) -> bool:
             return bool(torch.any((n_tab > UNTOUCHED_N) & (w_tab == 0.0)))

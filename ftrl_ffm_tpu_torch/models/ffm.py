@@ -46,20 +46,43 @@ class FFM(Model):
             return v[:, lane].reshape(batch.feats.shape)
         return self._gather_linear(state, batch.feats)
 
-    def _train_grads(self, state: ModelState, batch: Batch):
-        """Logits and the combined payload from the fused kernel
+    def _train_grads(self, state: ModelState, batch: Batch, split: bool = False):
+        """Logits and the payload from the fused kernel
         (ftrl_ffm_tpu/models/ffm.py::FFM._train_grads, its Pallas path): a
         flat [B*F, E] gather, w_lin from the mirror lane of those rows, and
-        the linear gradient in the dead lane when the row has one."""
+        the linear gradient in the dead lane when the row has one, in the
+        combined layout or, with split, in g and g^2 apart."""
         v = self._gather_vec(state, batch.feats.reshape(-1))
         w = self._w_lin_from_rows(state, v, batch, self._lin_read_lane())
         lin = linear_logits(w, batch.vals, self.bias_weight(state))
         lane = self._lin_lane()
-        logits, gg2 = ffm_fused_logits_grads(
+        logits, *payload = ffm_fused_logits_grads(
             v, batch.fields, batch.vals, lin, batch.y, batch.sample_w,
-            self.field_pad, self.n_factors, aug_lane=lane,
+            self.field_pad, self.n_factors, aug_lane=lane, combined_out=not split,
         )
-        return logits, gg2, lane
+        return logits, tuple(payload), lane
+
+    def _lin_mirror_maintained(self) -> bool:
+        # every payload folds g_lin into the dead lane and the forward pass
+        # reads w_lin from it whenever _lin_read_lane() >= 0, so with f32
+        # tables the mirror is a complete linear-table replica
+        return self._lin_read_lane() >= 0
+
+    def sync_lin_from_mirror(self, state: ModelState) -> ModelState:
+        """lin_(n, z, w) := the factor tables' mirror lane, as new tensors
+        (ftrl_ffm_tpu/models/ffm.py::sync_lin_from_mirror).  Exact: the lane
+        starts at the linear init (0) and takes the same (g_lin, g_lin^2)
+        stream through every update kind.  One strided column read per
+        table, at boundaries only."""
+        lane = self._lin_read_lane()
+        if lane < 0 or state.vec_n is None:
+            return state
+        n = state.lin_n.shape[0]
+        return state._replace(
+            lin_n=state.vec_n[:n, lane].contiguous(),
+            lin_z=state.vec_z[:n, lane].contiguous(),
+            lin_w=state.vec_w[:n, lane].to(state.lin_w.dtype).contiguous(),
+        )
 
     def _logits_and_grads(self, state: ModelState, batch: Batch, train: bool):
         if not train:

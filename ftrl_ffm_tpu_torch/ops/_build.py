@@ -65,12 +65,12 @@ def _so_path(sources: list[str]) -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
     lib.ffm_logits_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.ffm_logits_launch.restype = i
     lib.ffm_logits_stages.argtypes = [i, i]
     lib.ffm_logits_stages.restype = i
-    lib.ffm_fused_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.ffm_fused_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.ffm_fused_launch.restype = i
     lib.ffm_fused_stages.argtypes = [i, i, i]
     lib.ffm_fused_stages.restype = i
@@ -78,6 +78,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, i, p, p, p, p, p, p, p, p, i, i, i, f, f, f, f, p,
     ]
     lib.ftrl_update_launch.restype = i
+    lib.za_scatter_launch.argtypes = [p, p, i, p, p, p, p, i, i, p]
+    lib.za_scatter_launch.restype = i
+    lib.ftrl_pass_launch.argtypes = [p, p, p, p, n, f, f, f, f, p]
+    lib.ftrl_pass_launch.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
 

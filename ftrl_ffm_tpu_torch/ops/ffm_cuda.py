@@ -97,10 +97,12 @@ def ffm_fused_logits_grads_plain(
     n_fields: int,
     n_factors: int,
     aug_lane: int = -1,
+    combined_out: bool = True,
 ):
     """Plain PyTorch version of the training kernel:
     ops/interactions.py::ffm_logits_and_grads on the [B, F, E] view, scaled
-    by gs = (sigmoid(logit) - y) * sample_w, g and g^2 side by side."""
+    by gs = (sigmoid(logit) - y) * sample_w; g and g^2 side by side, or
+    apart with combined_out=False."""
     b, f = fields.shape
     logits, dv = ffm_logits_and_grads(
         v.reshape(b, f, -1), fields, vals, lin, n_fields, n_factors,
@@ -108,6 +110,8 @@ def ffm_fused_logits_grads_plain(
     )
     gs = (torch.sigmoid(logits) - y) * sample_w
     g = (gs[:, None, None] * dv).reshape(b * f, -1)
+    if not combined_out:
+        return logits, g, g * g
     return logits, torch.cat([g, g * g], dim=-1)
 
 
@@ -121,17 +125,20 @@ def ffm_fused_logits_grads(
     n_fields: int,           # the rows' field stride C' (Config.field_pad)
     n_factors: int,
     aug_lane: int = -1,
+    combined_out: bool = True,
 ):
-    """FFM logits and the combined FTRL payload of one train step:
-    (logits [B], gg2 [B*F, 2E]) with the factor gradient, already scaled by
-    gs = (sigmoid(logit) - y) * sample_w, in lanes [:E] and its square in
-    [E:].  aug_lane >= 0 (a dead lane of the padded row) carries the linear
-    gradient gs * x instead, for ftrl.py::dense_ftrl_update2_aug.  The
-    combined f32 layout of ffm_pallas.py::ffm_fused_logits_grads; its split
-    and bfloat16 outputs arrive with ROADMAP.md Queue 1 items 7 and 4."""
+    """FFM logits and the FTRL payload of one train step, the f32 outputs
+    of ffm_pallas.py::ffm_fused_logits_grads (its bfloat16 output arrives
+    with ROADMAP.md Queue 1 item 4).  combined_out=True gives (logits [B],
+    gg2 [B*F, 2E]) with the factor gradient, already scaled by gs =
+    (sigmoid(logit) - y) * sample_w, in lanes [:E] and its square in [E:];
+    combined_out=False gives (logits, g [B*F, E], g2 [B*F, E]) for the
+    huge-table in-place update.  aug_lane >= 0 (a dead lane of the padded
+    row) carries the linear gradient gs * x instead, in either layout."""
     if _device_kind("ffm_fused_logits_grads", v) == "cpu":
         return ffm_fused_logits_grads_plain(
-            v, fields, vals, lin, y, sample_w, n_fields, n_factors, aug_lane
+            v, fields, vals, lin, y, sample_w, n_fields, n_factors, aug_lane,
+            combined_out,
         )
     b, f = fields.shape
     e = n_fields * n_factors
@@ -149,19 +156,25 @@ def ffm_fused_logits_grads(
 
     lib = _build.lib()
     logits = torch.empty((b,), dtype=torch.float32, device=v.device)
-    gg2 = torch.empty((b * f, 2 * e), dtype=torch.float32, device=v.device)
+    if combined_out:
+        payload = (torch.empty((b * f, 2 * e), dtype=torch.float32, device=v.device),)
+    else:
+        payload = tuple(
+            torch.empty((b * f, e), dtype=torch.float32, device=v.device) for _ in range(2)
+        )
     if b == 0:
-        return logits, gg2
+        return logits, *payload
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         code = lib.ffm_fused_launch(
             v.data_ptr(), fields.data_ptr(), vals.data_ptr(), lin.data_ptr(),
-            y.data_ptr(), sample_w.data_ptr(), logits.data_ptr(), gg2.data_ptr(),
+            y.data_ptr(), sample_w.data_ptr(), logits.data_ptr(), payload[0].data_ptr(),
+            None if combined_out else payload[1].data_ptr(),
             b, f, n_fields, n_factors, aug_lane, stream,
         )
     _build.check(code, "ffm_fused_launch")
     ffm_fused_logits_grads.launches += 1
-    return logits, gg2
+    return logits, *payload
 
 
 # Kernel launches since the count was last set to 0 (chip_smoke.py reads

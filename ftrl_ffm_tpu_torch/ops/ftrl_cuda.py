@@ -1,14 +1,25 @@
-"""The FTRL table update of a train step on the card: csrc/ftrl_update.cu.
+"""The FTRL table updates of a train step on the card: csrc/ftrl_update.cu
+and csrc/ftrl_pass.cu.
 
-`ftrl_update` applies one step's combined (g || g^2) payload to the factor
-and linear tables IN PLACE.  For CUDA tensors it sorts the ids stably and
-launches the deterministic touched-rows kernel, or raises; for CPU tensors
-it runs `ftrl_update_plain` (ftrl.py's dense forms) and copies the result
-into the tables.  Both take the arguments of
-ftrl_ffm_tpu/ftrl.py::dense_ftrl_update2_aug.  With no dead lane (`lane` =
--1, a row of exactly n_fields * n_factors slots) the linear stats come from
-their own [N, 2] payload `gg2_lin`, as in ftrl_ffm_tpu/models/base.py's
-separate linear update.
+Every entry point updates the given tables IN PLACE.  For CUDA tensors it
+launches its hand-written kernel or raises; for CPU tensors it runs the
+plain PyTorch version (ftrl.py) and copies the result into the tables.
+Each kernel's wrapper counts its launches in its `launches` attribute.
+
+- `ftrl_update`: one step's combined (g || g^2) payload applied to the
+  factor and linear tables, the arguments of
+  ftrl_ffm_tpu/ftrl.py::dense_ftrl_update2_aug.  With no dead lane (`lane`
+  = -1, a row of exactly n_fields * n_factors slots) the linear stats come
+  from their own [N, 2] payload `gg2_lin`, as in
+  ftrl_ffm_tpu/models/base.py's separate linear update.  On the card it is
+  the deterministic touched-rows kernel for every update kind ("dense2" and
+  "sparse2" differ only in their plain versions).  `ftrl_update_linear` is
+  the same kernel on the linear tables alone.
+- `ftrl_update_inplace`: the huge-table form
+  (ftrl_ffm_tpu/ftrl.py::dense_ftrl_update_inplace) from a split payload:
+  `za_scatter` (z += sum g, A = sum g^2 per touched row) into a zeroed
+  accumulator, then `closed_form_pass` (the port of
+  ftrl_ffm_tpu/ops/ftrl_pallas.py::_pass_kernel) over the whole table.
 """
 
 from __future__ import annotations
@@ -17,8 +28,12 @@ import torch
 
 from ftrl_ffm_tpu_torch.ftrl import (
     FtrlParams,
+    _row_sums,
+    closed_form_pass_plain,
     dense_ftrl_update2,
     dense_ftrl_update2_aug,
+    dense_ftrl_update_inplace,
+    sparse_ftrl_update2,
 )
 from ftrl_ffm_tpu_torch.ops.ffm_cuda import _check_inputs, _device_kind
 
@@ -33,13 +48,33 @@ def _check_lane(lane: int, width: int, gg2_lin) -> None:
         )
 
 
+def _copy_into(tables, results) -> None:
+    for dst, src in zip(tables, results):
+        dst.copy_(src)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def ftrl_update_plain(
     vec_n, vec_z, vec_w, lin_n, lin_z, lin_w, ids, gg2, lane: int, p: FtrlParams,
-    gg2_lin=None,
+    gg2_lin=None, sparse: bool = False,
 ):
     """Plain PyTorch version: ((vec_n, vec_z, vec_w), (lin_n, lin_z, lin_w))
-    after the step, as new tensors (the inputs are left as they were)."""
+    after the step, as new tensors (the inputs are left as they were).
+    sparse=True is the "sparse2" kind as ftrl_ffm_tpu/models/base.py runs
+    it: sparse_ftrl_update2 on the factor tables, the dense update on the
+    linear ones (from the payload's lane, or gg2_lin)."""
     _check_lane(lane, vec_n.shape[-1], gg2_lin)
+    if sparse:
+        d = vec_n.shape[-1]
+        if lane >= 0:
+            gg2_lin = torch.stack([gg2[:, lane], gg2[:, d + lane]], dim=-1)
+        return (
+            sparse_ftrl_update2(vec_n, vec_z, vec_w, ids, gg2, p),
+            dense_ftrl_update2(lin_n, lin_z, lin_w, ids, gg2_lin, p),
+        )
     if lane >= 0:
         return dense_ftrl_update2_aug(
             vec_n, vec_z, vec_w, lin_n, lin_z, lin_w, ids, gg2, lane, p
@@ -48,6 +83,29 @@ def ftrl_update_plain(
         dense_ftrl_update2(vec_n, vec_z, vec_w, ids, gg2, p),
         dense_ftrl_update2(lin_n, lin_z, lin_w, ids, gg2_lin, p),
     )
+
+
+def _launch_update(what, ids, gg2, gg2_lin, tables, r: int, e: int, lane: int, p) -> None:
+    """Sort the ids and launch csrc/ftrl_update.cu's kernel on the six
+    tables (the factor ones None when e = 0)."""
+    from ftrl_ffm_tpu_torch.ops import _build
+
+    lib = _build.lib()
+    n = ids.shape[0]
+    if n == 0:
+        return
+    # stable: a row's payload rows stay in ascending order, which fixes the
+    # order of its float sums
+    sids, perm = torch.sort(ids, stable=True)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(ids.device):
+        code = lib.ftrl_update_launch(
+            sids.data_ptr(), perm.data_ptr(), n, ptr(gg2), ptr(gg2_lin),
+            *(ptr(t) for t in tables), r, e, lane,
+            p.alpha, p.beta, p.l1, p.l2, _stream(ids),
+        )
+    _build.check(code, what)
+    ftrl_update.launches += 1
 
 
 def ftrl_update(
@@ -62,14 +120,14 @@ def ftrl_update(
     lane: int,            # the payload's linear lane, or -1
     p: FtrlParams,
     gg2_lin: torch.Tensor | None = None,  # [N, 2] f32 when lane == -1
+    sparse: bool = False,  # the "sparse2" kind's plain version on the CPU
 ) -> None:
     """One FTRL step on the factor and linear tables, in place.  The same
     input gives the same bits on every run."""
     tables = (vec_n, vec_z, vec_w, lin_n, lin_z, lin_w)
     if _device_kind("ftrl_update", vec_n) == "cpu":
-        vec, lin = ftrl_update_plain(*tables, ids, gg2, lane, p, gg2_lin)
-        for dst, src in zip(tables, (*vec, *lin)):
-            dst.copy_(src)
+        vec, lin = ftrl_update_plain(*tables, ids, gg2, lane, p, gg2_lin, sparse)
+        _copy_into(tables, (*vec, *lin))
         return
     r, e = vec_n.shape
     n = ids.shape[0]
@@ -85,26 +143,138 @@ def ftrl_update(
     if gg2_lin is not None:
         specs.append(("gg2_lin", gg2_lin, (n, 2), torch.float32))
     _check_inputs("ftrl_update", vec_n, specs)
+    _launch_update("ftrl_update_launch", ids, gg2, gg2_lin, tables, r, e, lane, p)
+
+
+def ftrl_update_linear(
+    lin_n: torch.Tensor,    # [R] f32, updated in place
+    lin_z: torch.Tensor,
+    lin_w: torch.Tensor,
+    ids: torch.Tensor,      # [N] int32; ids outside [0, R) drop
+    gg2_lin: torch.Tensor,  # [N, 2] f32: (g, g^2) of the linear gradient
+    p: FtrlParams,
+) -> None:
+    """The dense2 step of the linear tables alone (the separate linear
+    update of ftrl_ffm_tpu/models/base.py's huge-table path when no dead
+    lane mirrors them), in place: ftrl_update's kernel with no factor
+    tables.  Its launches count in ftrl_update.launches."""
+    tables = (lin_n, lin_z, lin_w)
+    if _device_kind("ftrl_update_linear", lin_n) == "cpu":
+        _copy_into(tables, dense_ftrl_update2(*tables, ids, gg2_lin, p))
+        return
+    r, n = lin_n.shape[0], ids.shape[0]
+    _check_inputs("ftrl_update_linear", lin_n, [
+        *((name, t, (r,), torch.float32)
+          for name, t in zip(("lin_n", "lin_z", "lin_w"), tables)),
+        ("ids", ids, (n,), torch.int32),
+        ("gg2_lin", gg2_lin, (n, 2), torch.float32),
+    ])
+    _launch_update(
+        "ftrl_update_launch (linear)", ids, None, gg2_lin, (None, None, None, *tables),
+        r, 0, -1, p,
+    )
+
+
+def za_scatter_plain(z, ids, g, g2):
+    """Plain PyTorch version of the scatter: (z + per-row sum of g, per-row
+    sum of g^2) as new tensors, ids outside [0, R) dropped."""
+    r = z.shape[0]
+    return z + _row_sums(r, ids, g), _row_sums(r, ids, g2)
+
+
+def za_scatter(
+    z: torch.Tensor,    # [R, E] f32: z += per-row sum of g, in place
+    a: torch.Tensor,    # [R, E] f32, zero on every row no id touches
+    ids: torch.Tensor,  # [N] int32; ids outside [0, R) drop
+    g: torch.Tensor,    # [N, E] f32
+    g2: torch.Tensor,   # [N, E] f32
+) -> None:
+    """The z/A scatter of the in-place update (XLA's two scatter-adds at
+    ftrl_ffm_tpu/ftrl.py::dense_ftrl_update_inplace), deterministic: the
+    ids sorted stably, then csrc/ftrl_update.cu's za_scatter kernel adds
+    each touched row's sum of g to z and writes its sum of g^2 to a."""
+    if _device_kind("za_scatter", z) == "cpu":
+        _copy_into((z, a), za_scatter_plain(z, ids, g, g2))
+        return
+    r, e = z.shape
+    n = ids.shape[0]
+    _check_inputs("za_scatter", z, (
+        ("z", z, (r, e), torch.float32),
+        ("a", a, (r, e), torch.float32),
+        ("ids", ids, (n,), torch.int32),
+        ("g", g, (n, e), torch.float32),
+        ("g2", g2, (n, e), torch.float32),
+    ))
     from ftrl_ffm_tpu_torch.ops import _build
 
     lib = _build.lib()
     if n == 0:
         return
-    # stable: a row's payload rows stay in ascending order, which fixes the
-    # order of its float sums
-    sids, perm = torch.sort(ids, stable=True)
-    with torch.cuda.device(vec_n.device):
-        stream = torch.cuda.current_stream(vec_n.device).cuda_stream
-        code = lib.ftrl_update_launch(
-            sids.data_ptr(), perm.data_ptr(), n, gg2.data_ptr(),
-            None if gg2_lin is None else gg2_lin.data_ptr(),
-            *(t.data_ptr() for t in tables), r, e, lane,
-            p.alpha, p.beta, p.l1, p.l2, stream,
+    sids, perm = torch.sort(ids, stable=True)  # as in _launch_update
+    with torch.cuda.device(z.device):
+        code = lib.za_scatter_launch(
+            sids.data_ptr(), perm.data_ptr(), n, g.data_ptr(), g2.data_ptr(),
+            z.data_ptr(), a.data_ptr(), r, e, _stream(z),
         )
-    _build.check(code, "ftrl_update_launch")
-    ftrl_update.launches += 1
+    _build.check(code, "za_scatter_launch")
+    za_scatter.launches += 1
 
 
-# Kernel launches since the count was last set to 0 (chip_smoke.py reads it
-# to show that the training path went through the kernel).
+def closed_form_pass(
+    n: torch.Tensor,  # [R, E] f32 (any shape, all four alike), in place
+    z: torch.Tensor,  # z' = z + sum g on entry, the new z on return
+    w: torch.Tensor,
+    a: torch.Tensor,  # sum g^2, read only
+    p: FtrlParams,
+) -> None:
+    """The closed-form pass over whole tables, in place: the port of
+    ftrl_ffm_tpu/ops/ftrl_pallas.py::_pass_kernel (csrc/ftrl_pass.cu),
+    for any table shape."""
+    if _device_kind("closed_form_pass", n) == "cpu":
+        _copy_into((n, z, w), closed_form_pass_plain(n, z, w, a, p))
+        return
+    shape = tuple(n.shape)
+    _check_inputs("closed_form_pass", n, [
+        (name, t, shape, torch.float32) for name, t in (("n", n), ("z", z), ("w", w), ("a", a))
+    ])
+    from ftrl_ffm_tpu_torch.ops import _build
+
+    lib = _build.lib()
+    if n.numel() == 0:
+        return
+    with torch.cuda.device(n.device):
+        code = lib.ftrl_pass_launch(
+            n.data_ptr(), z.data_ptr(), w.data_ptr(), a.data_ptr(), n.numel(),
+            p.alpha, p.beta, p.l1, p.l2, _stream(n),
+        )
+    _build.check(code, "ftrl_pass_launch")
+    closed_form_pass.launches += 1
+
+
+def ftrl_update_inplace(
+    vec_n: torch.Tensor,  # [R, E] f32, updated in place
+    vec_z: torch.Tensor,
+    vec_w: torch.Tensor,
+    ids: torch.Tensor,    # [N] int32; ids outside [0, R) drop
+    g: torch.Tensor,      # [N, E] f32 split payload
+    g2: torch.Tensor,     # [N, E] f32
+    p: FtrlParams,
+) -> None:
+    """The huge-table FTRL step on the factor tables, in place
+    (ftrl_ffm_tpu/ftrl.py::dense_ftrl_update_inplace).  On the card: a
+    zeroed [R, E] accumulator A each step, za_scatter, closed_form_pass."""
+    if _device_kind("ftrl_update_inplace", vec_n) == "cpu":
+        _copy_into(
+            (vec_n, vec_z, vec_w), dense_ftrl_update_inplace(vec_n, vec_z, vec_w, ids, g, g2, p)
+        )
+        return
+    a = torch.zeros_like(vec_n)
+    za_scatter(vec_z, a, ids, g, g2)
+    closed_form_pass(vec_n, vec_z, vec_w, a, p)
+
+
+# Kernel launches since the count was last set to 0 (chip_smoke.py reads
+# them to show that the training path went through the kernels).
 ftrl_update.launches = 0
+za_scatter.launches = 0
+closed_form_pass.launches = 0

@@ -33,6 +33,7 @@ from ftrl_ffm_tpu_torch.config import (
 from ftrl_ffm_tpu_torch.data.loader import batch_iterator, load_file
 from ftrl_ffm_tpu_torch.data.parser import sniff_max_nnz
 from ftrl_ffm_tpu_torch.data.stream import StreamReader
+from ftrl_ffm_tpu_torch.ftrl import select_update_kind
 from ftrl_ffm_tpu_torch.io.checkpoint import IncompatibleStateError
 from ftrl_ffm_tpu_torch.metrics import (
     AUC_BINS,
@@ -108,6 +109,34 @@ def _validate_state_shapes(cfg: Config, state: ModelState) -> None:
         )
 
 
+def estimate_hbm_bytes(cfg: Config) -> dict:
+    """Device-memory estimate for the train step on one device: resident
+    state and update working set (ftrl_ffm_tpu/train.py::estimate_hbm_bytes,
+    its single-device terms; "route" stays 0 until meshes arrive, ROADMAP.md
+    Queue 1 item 8).  The port's own allocations: the in-place kind's one
+    [R, D] accumulator, and no table-shaped accumulator for "dense2" and
+    "sparse2", whose kernel updates the touched rows in place.  Approximate
+    by design: the big allocations only."""
+    w = max(1, cfg.row_width)
+    r = cfg.n_feats
+    nnz = cfg.batch_size * max(1, cfg.max_nnz)
+    w_bytes = 2 if cfg.table_dtype == "bfloat16" else 4
+    # resident: factor n/z (f32) + w (table_dtype) + three linear tables
+    state_b = r * w * (4 + 4 + w_bytes) + 3 * r * 4
+    kind = select_update_kind(r, w, nnz, cfg.update_mode)
+    work_b = r * w * 4 if kind == "inplace" else 0
+    # gathered rows + the (g, g^2) payload of the batch
+    work_b += 3 * nnz * w * 4
+    return {"state": state_b, "work": work_b, "route": 0, "total": state_b + work_b}
+
+
+def device_memory_bytes(device: torch.device) -> Optional[int]:
+    """The card's total memory, or None for the CPU."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[1]
+
+
 class Trainer:
     def __init__(self, cfg: Config, state: Optional[ModelState] = None):
         """A trainer on cfg.device: a fresh seeded init, or `state` moved to
@@ -137,6 +166,7 @@ class Trainer:
         self.device = resolve_device(cfg.device)
         self.cfg = cfg
         self.model = make_model(cfg)
+        self._warn_if_oversized()
         if state is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(cfg.seed)
@@ -147,6 +177,56 @@ class Trainer:
                 *(None if t is None else t.to(self.device) for t in state)
             )
         self._steps_done = 0
+
+    def _warn_if_oversized(self) -> None:
+        """Warn before the first step when the estimated state and update
+        working set (estimate_hbm_bytes) come near the card's memory
+        (ftrl_ffm_tpu/train.py::_warn_if_oversized, which reads the TPU's
+        limit).  A warning only: the estimate is approximate."""
+        limit = device_memory_bytes(self.device)
+        if limit is None:
+            return
+        est = estimate_hbm_bytes(self.cfg)
+        if est["total"] > 0.9 * limit:
+            import warnings
+
+            warnings.warn(
+                f"estimated device memory need ~{est['total'] / 1e9:.1f} GB "
+                f"(state {est['state'] / 1e9:.1f} + update working set "
+                f"{est['work'] / 1e9:.1f}) vs ~{limit / 1e9:.0f} GB on "
+                f"{self.device}: running out of device memory is likely (the "
+                f"estimate ignores temporaries).  Reduce --batch_size or "
+                f"--n_feats."
+            )
+
+    # ---- the linear tables of the in-place form ----
+    @property
+    def logical_state(self) -> ModelState:
+        """The state with the linear tables reconciled from the mirror lane
+        where the in-place form lets them ride stale
+        (ftrl_ffm_tpu/train.py::Trainer.logical_state): every read of the
+        state outside training goes through this."""
+        self._maybe_sync_lin()
+        return self.state
+
+    def _lin_rides_stale(self) -> bool:
+        """True when train steps skip the linear tables and leave them
+        stale: the in-place kind with the dead-lane mirror
+        (Model._lin_mirror_maintained)."""
+        st = self.state
+        if st.vec_n is None:
+            return False
+        nnz = self.cfg.batch_size * max(1, self.cfg.max_nnz)
+        kind = select_update_kind(
+            st.vec_n.shape[0], st.vec_n.shape[-1], nnz, self.cfg.update_mode
+        )
+        return kind == "inplace" and self.model._lin_mirror_maintained()
+
+    def _maybe_sync_lin(self) -> None:
+        """Reconcile stale linear tables from the mirror lane; idempotent,
+        at boundaries only."""
+        if self._lin_rides_stale():
+            self.state = self.model.sync_lin_from_mirror(self.state)
 
     # ---- batch plumbing ----
     def _place_batch(self, arrays) -> Batch:

@@ -32,6 +32,7 @@ def test_every_kernel_source_is_built():
     names = [os.path.basename(s) for s in _build._sources()]
     assert "ffm_logits.cu" in names
     assert "ffm_fused.cu" in names and "ftrl_update.cu" in names
+    assert "ftrl_pass.cu" in names
 
 
 def test_every_kernel_is_declared():
@@ -50,7 +51,11 @@ def test_every_kernel_is_declared():
 
     lib = Lib()
     _build._declare(lib)
-    for name in ("ffm_logits_launch", "ffm_fused_launch", "ftrl_update_launch"):
+    for name in ("ffm_logits_launch", "ffm_fused_launch", "ftrl_update_launch",
+                 "za_scatter_launch", "ftrl_pass_launch"):
         fn = getattr(lib, name)
         assert fn.restype is ctypes.c_int and ctypes.c_void_p in fn.argtypes
     assert lib.ftrl_update_launch.argtypes.count(ctypes.c_float) == 4
+    assert lib.ftrl_pass_launch.argtypes.count(ctypes.c_float) == 4
+    # the pass counts R * E floats in a size_t: a 1M x 640 table is 640M
+    assert ctypes.c_size_t in lib.ftrl_pass_launch.argtypes

@@ -8,20 +8,38 @@ machine without it:
 (--noconftest: tests/conftest.py configures JAX for the rest of the suite).
 f32 sums in another order: logits rtol=1e-4, atol=1e-5; training payload
 rtol=1e-4, atol=1e-6; updated table rows rtol=1e-5, atol=1e-6, rows no id
-touches bit-identical, and the update kernel bit-identical run to run."""
+touches bit-identical, and the update kernel bit-identical run to run.  The
+updates are held against their plain versions on CPU copies of the inputs:
+the CPU's index_add_ sums duplicate ids in payload order, the kernels'
+order, where the card's sums them in no fixed order.  The
+closed-form pass runs the plain version's operations one by one: rtol=1e-6,
+atol=1e-7 (the JAX suite's Pallas-vs-XLA bound for it), coordinates with
+A = 0 keep their n and z bits."""
 
 import numpy as np
 import pytest
 import torch
 
-from ftrl_ffm_tpu_torch.ftrl import UNTOUCHED_N, FtrlParams, ftrl_weights
+from ftrl_ffm_tpu_torch.ftrl import (
+    UNTOUCHED_N,
+    FtrlParams,
+    closed_form_pass_plain,
+    ftrl_weights,
+)
 from ftrl_ffm_tpu_torch.ops.ffm_cuda import (
     ffm_fused_logits,
     ffm_fused_logits_grads,
     ffm_fused_logits_grads_plain,
     ffm_fused_logits_plain,
 )
-from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update, ftrl_update_plain
+from ftrl_ffm_tpu_torch.ops.ftrl_cuda import (
+    closed_form_pass,
+    ftrl_update,
+    ftrl_update_inplace,
+    ftrl_update_plain,
+    za_scatter,
+    za_scatter_plain,
+)
 
 
 def _card():
@@ -126,6 +144,42 @@ def test_ffm_fused_kernel_matches_plain(b, f, c, k, real, aug):
     np.testing.assert_allclose(gg2.cpu().numpy(), ref_gg2.cpu().numpy(), rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,c,k,real,aug", FUSED)
+def test_ffm_fused_kernel_split_matches_plain(b, f, c, k, real, aug):
+    """The split output (g, g^2 in two [B*F, E] tensors): against the plain
+    version, and bit for bit the two halves of the combined output."""
+    dev = _card()
+    rng = np.random.default_rng(b * f + c + 2)
+    v = (rng.normal(size=(b * f, c * k)) * 0.1).astype(np.float32)
+    fields = rng.integers(0, real, (b, f)).astype(np.int32)
+    fields[:, 0] = c + 3
+    vals = rng.random((b, f)).astype(np.float32)
+    vals[:, -1] = 0.0
+    lin = (rng.normal(size=(b,)) * 0.1).astype(np.float32)
+    y = (rng.random(b) > 0.5).astype(np.float32)
+    sw = np.ones(b, np.float32)
+    sw[-1] = 0.0
+    args = [torch.from_numpy(a).to(dev) for a in (v, fields, vals, lin, y, sw)]
+    before = ffm_fused_logits_grads.launches
+    logits, g, g2 = ffm_fused_logits_grads(*args, c, k, aug_lane=aug, combined_out=False)
+    torch.cuda.synchronize()
+    assert ffm_fused_logits_grads.launches == before + 1
+    e = c * k
+    assert g.shape == g2.shape == (b * f, e)
+    ref_logits, ref_g, ref_g2 = ffm_fused_logits_grads_plain(
+        *args, c, k, aug_lane=aug, combined_out=False
+    )
+    np.testing.assert_allclose(
+        logits.cpu().numpy(), ref_logits.cpu().numpy(), rtol=1e-4, atol=1e-5
+    )
+    for got, ref in ((g, ref_g), (g2, ref_g2)):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-6)
+    c_logits, gg2 = ffm_fused_logits_grads(*args, c, k, aug_lane=aug)
+    assert torch.equal(logits, c_logits)
+    assert torch.equal(g, gg2[:, :e]) and torch.equal(g2, gg2[:, e:])
+
+
 def _update_inputs(dev, r, e, n, lane, seed):
     """Tables as training leaves them (w = closed form where n > 0, the
     init elsewhere), ids with duplicates and the sentinel r, rows r-3..r-1
@@ -166,13 +220,14 @@ def test_ftrl_update_kernel_matches_plain_and_repeats(r, e, n, lane):
         torch.cuda.synchronize()
         assert ftrl_update.launches == before + 1
         runs.append(got)
-    vec, lin = ftrl_update_plain(*tables, ids, gg2, lane, p, gg2_lin)
+    cpu = lambda t: None if t is None else t.cpu()  # noqa: E731
+    vec, lin = ftrl_update_plain(*map(cpu, tables), ids.cpu(), gg2.cpu(), lane, p, cpu(gg2_lin))
     touched = torch.zeros(r, dtype=torch.bool, device=dev)
     touched[ids[ids < r].long()] = True
     assert not touched[r - 3:].any()
     for got, want, before, again in zip(runs[0], (*vec, *lin), tables, runs[1]):
         np.testing.assert_allclose(
-            got[touched].cpu().numpy(), want[touched].cpu().numpy(), rtol=1e-5, atol=1e-6
+            got[touched].cpu().numpy(), want[touched.cpu()].numpy(), rtol=1e-5, atol=1e-6
         )
         assert torch.equal(got[~touched], before[~touched])
         assert torch.equal(got, again)  # the same bits on every run
@@ -195,4 +250,148 @@ def test_training_kernels_check_their_inputs():
         ftrl_update(*tables, ids, gg2[:, :-1].contiguous(), 3, p)
     with pytest.raises(ValueError, match="dtype|is torch"):
         ftrl_update(*tables, ids.long(), gg2, 3, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,e,n", [(64, 640, 4000), (20, 15, 300), (300, 80, 10), (7, 4, 1)])
+def test_za_scatter_kernel_matches_plain_and_repeats(r, e, n):
+    """z += per-row sum of g, A = per-row sum of g^2 on the touched rows;
+    untouched z bit-identical, untouched A exactly 0, repeats bit-identical."""
+    dev = _card()
+    tables, ids, gg2, _, _ = _update_inputs(dev, r, e, n, 0, r * e + n)
+    z = tables[1]
+    g, g2 = gg2[:, :e].contiguous(), gg2[:, e:].contiguous()
+    runs = []
+    for _ in range(2):
+        got_z, got_a = z.clone(), torch.zeros_like(z)
+        before = za_scatter.launches
+        za_scatter(got_z, got_a, ids, g, g2)
+        torch.cuda.synchronize()
+        assert za_scatter.launches == before + 1
+        runs.append((got_z, got_a))
+    want_z, want_a = za_scatter_plain(z.cpu(), ids.cpu(), g.cpu(), g2.cpu())
+    touched = torch.zeros(r, dtype=torch.bool, device=dev)
+    touched[ids[ids < r].long()] = True
+    for got, want in zip(runs[0], (want_z, want_a)):
+        np.testing.assert_allclose(
+            got[touched].cpu().numpy(), want[touched.cpu()].numpy(), rtol=1e-5, atol=1e-6
+        )
+    assert torch.equal(runs[0][0][~touched], z[~touched])
+    assert (runs[0][1][~touched] == 0).all()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# (R, E): odd sizes, a row width not a multiple of 4, and one float4 tail
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,e,offset", [(41, 6, 0), (333, 15, 0), (64, 640, 0), (97, 128, 1)])
+def test_closed_form_pass_kernel_matches_plain(r, e, offset):
+    """The pass against its plain version at odd R and E (offset 1: tables
+    not 16-byte aligned, the scalar loop); coordinates with A = 0 keep their
+    n and z bits and get the closed form of them."""
+    dev = _card()
+    rng = np.random.default_rng(r + e)
+    p = FtrlParams(alpha=0.05, l1=0.15, l2=1.0)
+    n_tab, z_tab, w_tab = (
+        t.to(dev) for t in _update_inputs(torch.device("cpu"), r, e, 1, 0, r)[0][:3]
+    )
+    a = torch.from_numpy((rng.random((r, e)) * 0.5).astype(np.float32)).to(dev)
+    a[torch.from_numpy(rng.random((r, e)) < 0.4).to(dev)] = 0.0
+
+    def padded(t):  # the same values `offset` floats into a fresh buffer
+        buf = torch.empty(t.numel() + offset, device=dev)
+        buf[offset:] = t.reshape(-1)
+        return buf[offset:].view(r, e)
+
+    runs = []
+    for _ in range(2):
+        got = [padded(t) for t in (n_tab, z_tab, w_tab)]
+        before = closed_form_pass.launches
+        closed_form_pass(*got, padded(a), p)
+        torch.cuda.synchronize()
+        assert closed_form_pass.launches == before + 1
+        runs.append(got)
+    want = closed_form_pass_plain(n_tab, z_tab, w_tab, a, p)
+    for got, ref in zip(runs[0], want):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-6, atol=1e-7)
+    zero = a == 0
+    assert torch.equal(runs[0][0][zero], n_tab[zero])
+    assert torch.equal(runs[0][1][zero], z_tab[zero])
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_inplace_train_step_is_bit_deterministic():
+    """update_mode=inplace on the card: the split kernel #2, the scatter and
+    the pass each launch once a step; two runs from one state give the same
+    bits, and they stay within the chained bound of the CPU's plain run."""
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.models import make_model
+    from ftrl_ffm_tpu_torch.models.base import Batch
+
+    dev = _card()
+    kw = dict(model_type="FFM", n_fields=7, n_factors=16, n_feats=60, batch_size=16,
+              max_nnz=6, w_alpha=0.05, w_l1=0.15, w_l2=1.0, update_mode="inplace")
+    model = make_model(Config(device="cuda", **kw))
+    cpu_model = make_model(Config(device="cpu", **kw))
+    init = cpu_model.init()
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(3):
+        feats = rng.integers(0, 60, (16, 6)).astype(np.int32)
+        feats[:, -1] = 60
+        vals = (rng.random((16, 6)) + 0.05).astype(np.float32)
+        vals[:, -1] = 0.0
+        batches.append(Batch(
+            torch.from_numpy(rng.integers(0, 7, (16, 6)).astype(np.int32)),
+            torch.from_numpy(feats), torch.from_numpy(vals),
+            torch.from_numpy((rng.random(16) > 0.5).astype(np.float32)),
+            torch.ones(16),
+        ))
+    states = []
+    for _ in range(2):
+        st = type(init)(*(t.to(dev) for t in init))
+        counts = [f.launches for f in (ffm_fused_logits_grads, za_scatter, closed_form_pass)]
+        for b in batches:
+            model.train_step(st, Batch(*(t.to(dev) for t in b)))
+        torch.cuda.synchronize()
+        after = [f.launches for f in (ffm_fused_logits_grads, za_scatter, closed_form_pass)]
+        assert [y - x for x, y in zip(counts, after)] == [3, 3, 3]
+        states.append(st)
+    for a, b in zip(*states):
+        assert torch.equal(a, b)
+    plain = type(init)(*(t.clone() for t in init))
+    for b in batches:
+        cpu_model.train_step(plain, b)
+    for name in ("vec_n", "vec_z", "vec_w", "bias_z"):
+        np.testing.assert_allclose(
+            getattr(states[0], name).cpu().numpy(), getattr(plain, name).numpy(),
+            rtol=2e-3, atol=5e-5, err_msg=name,
+        )
+    assert (states[0].lin_z == 0).all()  # rides stale: the mirror lane holds it
+
+
+@pytest.mark.cuda
+def test_inplace_wrappers_check_their_inputs():
+    dev = _card()
+    r, e, n = 10, 8, 12
+    p = FtrlParams()
+    tabs = [torch.zeros((r, e), device=dev) for _ in range(4)]
+    ids = torch.zeros((n,), dtype=torch.int32, device=dev)
+    g = torch.zeros((n, e), device=dev)
+    with pytest.raises(ValueError, match="dtype|is torch"):
+        za_scatter(tabs[1], tabs[3], ids.long(), g, g)
+    with pytest.raises(ValueError, match="shape"):
+        za_scatter(tabs[1], tabs[3], ids, g[:, :-1].contiguous(), g)
+    with pytest.raises(ValueError, match="on cpu|on cuda"):
+        za_scatter(tabs[1], tabs[3], ids.cpu(), g, g)
+    with pytest.raises(ValueError, match="dtype|is torch"):
+        closed_form_pass(tabs[0], tabs[1], tabs[2], tabs[3].double(), p)
+    with pytest.raises(ValueError, match="shape"):
+        closed_form_pass(tabs[0], tabs[1], tabs[2], tabs[3][:-1], p)
+    with pytest.raises(ValueError, match="on cpu|on cuda"):
+        closed_form_pass(tabs[0], tabs[1].cpu(), tabs[2], tabs[3], p)
+    with pytest.raises(ValueError, match="contiguous"):
+        closed_form_pass(*(t.t().contiguous().t() for t in tabs), p)
+    with pytest.raises(ValueError, match="shape"):
+        ftrl_update_inplace(*tabs[:3], ids, g, g[:-1], p)
 

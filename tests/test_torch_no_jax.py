@@ -104,6 +104,32 @@ def test_training_wrappers_refuse_other_devices():
         )
 
 
+def test_inplace_wrappers_refuse_other_devices():
+    """The huge-table update's wrappers take their plain versions only for
+    CPU tensors too."""
+    from ftrl_ffm_tpu_torch.ftrl import FtrlParams
+    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import (
+        closed_form_pass,
+        ftrl_update_inplace,
+        ftrl_update_linear,
+        za_scatter,
+    )
+
+    r, e, n = 5, 8, 6
+    meta = torch.device("meta")
+    t = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=meta)  # noqa: E731
+    ids = t(n, dtype=torch.int32)
+    calls = (
+        lambda: ftrl_update_inplace(t(r, e), t(r, e), t(r, e), ids, t(n, e), t(n, e), FtrlParams()),
+        lambda: za_scatter(t(r, e), t(r, e), ids, t(n, e), t(n, e)),
+        lambda: closed_form_pass(t(r, e), t(r, e), t(r, e), t(r, e), FtrlParams()),
+        lambda: ftrl_update_linear(t(r), t(r), t(r), ids, t(n, 2), FtrlParams()),
+    )
+    for call in calls:
+        with pytest.raises(ValueError, match="no kernel for device"):
+            call()
+
+
 def test_cuda_device_without_card_raises():
     from ftrl_ffm_tpu_torch.train import resolve_device
 

@@ -181,11 +181,7 @@ def test_cli_requires_a_model_to_serve(capsys):
         ({"device_cache": "on"}, "Queue 1 item 6"),
         ({"steps_per_call": 4}, "Queue 1 item 5"),
         ({"use_pallas": "off"}, "no counterpart"),
-        # training settings, checked for a Trainer that trains
-        ({"train_data": "t.ffm", "update_mode": "inplace"}, "Queue 1 item 7"),
-        ({"train_data": "t.ffm", "update_mode": "sparse"}, "Queue 1 item 7"),
-        # n_feats=100k at B=16: auto resolves to the in-place update
-        ({"train_data": "t.ffm", "n_feats": 100_000}, "Queue 1 item 7"),
+        # a training setting, checked for a Trainer that trains
         ({"train_data": "t.ffm", "acc_dtype": "bfloat16"}, "Queue 1 item 4"),
     ],
 )
@@ -198,6 +194,28 @@ def test_unported_config_raises(served, kw, match):
                     **{**SHAPE, **kw}),
             state=state_from_jax_arrays(tstate, "cpu"),
         )
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        {"update_mode": "inplace"},
+        {"update_mode": "sparse"},
+        # n_feats=100k at B=16: auto resolves to the in-place update
+        {"n_feats": 100_000},
+    ],
+)
+def test_update_kinds_train_and_match_jax(served, kw):
+    """The training settings the port once refused train one epoch with
+    eval, from the JAX Trainer's init, to the JAX Trainer's losses."""
+    d, _, evald, _ = served
+    cfg = dict(train_data=str(d / "train.ffm"), eval_data=evald, n_epochs=1,
+               file_type="libffm", max_nnz=7, **{**SHAPE, **kw})
+    jtr = JTrainer(JConfig(**cfg))
+    tr = Trainer(TConfig(device="cpu", **cfg), state=state_from_jax_arrays(jtr.state, "cpu"))
+    hist, j_hist = tr.train(), jtr.train()
+    for key in ("train_loss", "eval_loss", "eval_auc"):
+        np.testing.assert_allclose(hist[key], j_hist[key], rtol=1e-5, err_msg=key)
 
 
 def test_trainer_needs_a_state(served):

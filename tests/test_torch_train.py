@@ -186,19 +186,38 @@ def test_has_zero_weights_matches_jax(table, tmp_path):
         tm.has_zero_weights(state_from_jax_arrays(jtr.state, "cpu"), "bias")
 
 
-@pytest.mark.parametrize(
-    "kw,item",
-    [({"update_mode": "inplace"}, 7), ({"update_mode": "sparse"}, 7),
-     ({"n_feats": 100_000}, 7), ({"acc_dtype": "bfloat16"}, 4)],
-)
+@pytest.mark.parametrize("kw,item", [({"acc_dtype": "bfloat16"}, 4)])
 def test_train_step_refuses_unported_updates(kw, item):
-    """A train step the port does not take yet raises, naming its item;
-    n_feats=100k at B=16 resolves auto to the in-place form."""
+    """A train step the port does not take yet raises, naming its item."""
     model = t_make_model(TConfig(device="cpu", **{**SEVEN, **kw}))
     state = model.init()
     arrays = _batch(np.random.default_rng(0), 16, 6, 7, 60)
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         model.train_step(state, TBatch(*(torch.from_numpy(a) for a in arrays)))
+
+
+@pytest.mark.parametrize(
+    "kw,kind",
+    [({"update_mode": "inplace"}, "inplace"), ({"update_mode": "sparse"}, "sparse2"),
+     ({"n_feats": 100_000}, "inplace")],
+)
+def test_train_step_takes_every_update_kind(kw, kind):
+    """The updates the port once refused train and match the JAX step from
+    one JAX-made init; n_feats=100k at B=16 resolves auto to the in-place
+    form."""
+    from ftrl_ffm_tpu_torch.ftrl import select_update_kind
+
+    cfg = {**SEVEN, **kw}
+    assert select_update_kind(cfg["n_feats"], 128, 16 * 6, cfg.get("update_mode", "auto")) == kind
+    jm = j_make_model(JConfig(use_pallas="off", max_nnz=6, **cfg))
+    model = t_make_model(TConfig(device="cpu", max_nnz=6, **cfg))
+    j_state = jm.init()
+    state = state_from_jax_arrays(j_state, "cpu")
+    arrays = _batch(np.random.default_rng(0), 16, 6, 7, 60)
+    out = model.train_step(state, TBatch(*(torch.from_numpy(a) for a in arrays)))
+    j_out = jm.train_step(j_state, JBatch(*(jnp.asarray(a) for a in arrays)))
+    np.testing.assert_allclose(float(out.loss_sum), float(j_out.loss_sum), rtol=1e-5)
+    _assert_states_close(state, j_out.state, rtol=1e-5, atol=1e-6)
 
 
 def _write_4field(path, n=96, seed=0):
