@@ -9,7 +9,9 @@ factor-major rows and batches of 16,384 — serving a seeded random state of a
 1,000,000-row table, training a fresh 100,000-row one (bench.py's model,
 the "dense2" update) and a fresh 1,000,000-row one (the README quick
 start's table, the huge-table "inplace" update) — on Criteo-shaped libffm
-files.  Phases, each printing its own lines:
+files; then the probes of ftrl_ffm_tpu_torch/tools (the ports of the TPU
+probes in tools/micro_*.py) at the TPU probes' default sizes.  Phases,
+each printing its own lines:
 
   1. no card      -> exit 1 at once, no result printed
   2. build        -> nvcc builds every kernel from csrc/ (build seconds)
@@ -50,6 +52,24 @@ files.  Phases, each printing its own lines:
   5c. 1M time     -> the pass, the scatter and the split kernel against their
                      plain versions, the device train step under inplace and
                      dense, host parse, train_epoch() examples/s
+  3f. probes      -> after 4c's state is freed: the probe kernels against
+                     their plain versions at the probes' default shapes and
+                     edge shapes — the no-w pass (rtol=1e-6, atol=1e-7,
+                     repeats bit-identical), the canonical-fields FFM kernel
+                     (against its plain version and kernel #2: logits
+                     rtol=1e-4, atol=1e-5, payload rtol=1e-4, atol=1e-6), the
+                     read-modify-write variants and dtypes (bit-identical to
+                     the plain version on CPU copies), the gathered sum
+                     (1e-5 of the largest |sum|)
+  5d. probes' main -> each probe's main(device="cuda") at its defaults, the
+                     launch counts set to 0 just before and read just after;
+                     then each probe kernel against its plain version and
+                     its one-call PyTorch equivalent, beside its bound
+
+Every kernel's record carries its bound: the larger of the bytes it must
+move (each input read once, each output written once) over the H100's
+3.35 TB/s and its operations over the 67 TFLOP/s of f32 outside the tensor
+cores (NVIDIA's data sheet, SXM part, at 700 W).
 
 Any failure raises and ends the run with a non-zero code.  The next-to-last
 line is the kernels' JSON record, the last line the device record.  It
@@ -87,7 +107,38 @@ PASS_RTOL, PASS_ATOL = 1e-6, 1e-7
 # chained train steps, kernels against plain versions: ulp noise compounds
 # through the closed form's |z| <= l1 threshold (the JAX suite's bound)
 CHAIN_RTOL, CHAIN_ATOL = 2e-3, 5e-5
+# the probes' gathered sum: f32 sums in another order, relative to its scale
+GATHER_RTOL = 1e-5
 SEED = 0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate
+F32_OPS_PER_S = 67e12      # H100 SXM peak f32 rate outside the tensor cores
+# the environment the probes read (ftrl_ffm_tpu_torch/tools): 5d runs them
+# at their defaults
+PROBE_ENV = ("BATCH", "N_FEATS", "C", "E", "B", "PER", "BLK", "DTYPE", "NNZ", "E2", "NOTR")
+
+
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card could take to move
+    `bytes_moved` and do `ops` f32 operations."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def touched_rows(ids, r: int) -> int:
+    return int(torch.unique(ids[(ids >= 0) & (ids < r)]).numel())
+
+
+def offset_copy(t, off: int):
+    """t's values `off` floats into a fresh buffer (off = 1: 4 bytes off
+    16-byte alignment)."""
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    buf[off:] = t.reshape(-1)
+    return buf[off:].view(t.shape)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -281,15 +332,10 @@ def interleaved_ms(kern, plain, kern_iters: int, plain_iters: int):
 
 
 def cuda_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """ms per call of fn on the card (CUDA events, after a warm-up call)."""
+    from ftrl_ffm_tpu_torch.tools import time_ms
+
+    return time_ms(fn, torch.device("cuda"), iters)
 
 
 def main() -> int:
@@ -322,9 +368,9 @@ def main() -> int:
     from ftrl_ffm_tpu_torch.train import Trainer
 
     device = torch.device("cuda", torch.cuda.current_device())
-    name = torch.cuda.get_device_name(device)
+    device_name = torch.cuda.get_device_name(device)
     where = card()
-    print(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    print(f"device: {device_name} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     print(f"nvidia-smi: {where}")
 
     # ---- 2. build ----
@@ -513,15 +559,9 @@ def main() -> int:
     pass_err = None
     for label, r, e, off in pass_cases:
         tabs = pass_inputs(r, e, gen, device, p)
-
-        def shifted(t):  # t's values `off` floats into a fresh buffer
-            buf = torch.empty(t.numel() + off, device=device)
-            buf[off:] = t.reshape(-1)
-            return buf[off:].view(r, e)
-
         runs = []
         for _ in range(2):
-            got = [shifted(t) for t in tabs]
+            got = [offset_copy(t, off) for t in tabs]
             closed_form_pass(*got, p)
             torch.cuda.synchronize()
             runs.append(got[:3])
@@ -704,9 +744,12 @@ def main() -> int:
             lambda: ffm_fused_logits(v, fld, vals, lin, cp, N_FACTORS),
             lambda: ffm_fused_logits_plain(v, fld, vals, lin, cp, N_FACTORS), 20, 5)
         gbps = v.numel() * 4 / (k_ms * 1e-3) / 1e9
+        # reads v, fields, values, lin; writes the logits.  Ops: the pair sum
+        logits_bound = bound(nbytes(v, fld, vals, lin) + BATCH * 4,
+                             4 * BATCH * N_FIELDS * (N_FIELDS - 1) * N_FACTORS)
         print(f"timing: ffm_logits B={BATCH} F={N_FIELDS} E={cp * N_FACTORS}: kernel "
               f"{runs['kernel']} ms, plain {runs['plain']} ms; kernel reads v at "
-              f"{gbps:.0f} GB/s [{where}]")
+              f"{gbps:.0f} GB/s; bound {logits_bound[0]:.4f} ms ({logits_bound[1]}) [{where}]")
 
         # where the time of one eval pass goes: device compute per batch on
         # pre-placed batches, host parse per batch, and the whole pass
@@ -738,17 +781,28 @@ def main() -> int:
             10, 3)
         e = cp * N_FACTORS
         gbps = BATCH * N_FIELDS * e * 4 * 3 / (f_ms * 1e-3) / 1e9
+        # reads the rows and per-sample inputs, writes logits and payload;
+        # ops: the pair sum and about 4 per payload slot
+        fused_bound = bound(nbytes(*args) + BATCH * 4 + BATCH * N_FIELDS * 2 * e * 4,
+                            4 * BATCH * N_FIELDS * (N_FIELDS - 1) * N_FACTORS
+                            + 4 * BATCH * N_FIELDS * e)
         print(f"timing: ffm_fused B={BATCH} F={N_FIELDS} E={e}: kernel {fruns['kernel']} "
-              f"ms, plain {fruns['plain']} ms; kernel moves v + payload at {gbps:.0f} GB/s "
-              f"[{where}]")
+              f"ms, plain {fruns['plain']} ms; kernel moves v + payload at {gbps:.0f} GB/s; "
+              f"bound {fused_bound[0]:.4f} ms ({fused_bound[1]}) [{where}]")
         del args
         tables, ids, gg2, _ = update_inputs(TRAIN_FEATS, e, BATCH * N_FIELDS, TRAIN_FEATS,
                                             gen, device, p, N_FIELDS)
         uruns, u_ms, up_ms = interleaved_ms(
             lambda: ftrl_update(*tables, ids, gg2, N_FIELDS, p),
             lambda: ftrl_update_plain(*tables, ids, gg2, N_FIELDS, p), 10, 3)
+        # reads the payload and ids, reads and writes n, z, w of the touched
+        # factor and linear rows; ops: a payload sum, ~20 per touched slot
+        touched = touched_rows(ids, TRAIN_FEATS)
+        update_bound = bound(nbytes(ids, gg2) + touched * (e + 1) * 4 * 6,
+                             gg2.numel() + touched * (e + 1) * 20)
         print(f"timing: ftrl_update R={TRAIN_FEATS} E={e} N={BATCH * N_FIELDS}: kernel "
-              f"{uruns['kernel']} ms, plain {uruns['plain']} ms [{where}]")
+              f"{uruns['kernel']} ms, plain {uruns['plain']} ms; {touched} touched rows, bound "
+              f"{update_bound[0]:.4f} ms ({update_bound[1]}) [{where}]")
         del tables, ids, gg2
         tplaced = [ttrainer._place_batch(a) for a in StreamReader(
             train_p, "libffm", BATCH, N_FIELDS, TRAIN_FEATS, N_FIELDS,
@@ -892,17 +946,30 @@ def main() -> int:
         pruns, pass_ms, pass_plain_ms = interleaved_ms(
             lambda: closed_form_pass(*tabs, p), lambda: closed_form_pass_plain(*tabs, p), 10, 3)
         gbps = 7 * N_FEATS * e * 4 / (pass_ms * 1e-3) / 1e9
+        pass_bound = bound(7 * N_FEATS * e * 4, 20 * N_FEATS * e)  # ~20 ops a slot
         print(f"timing: ftrl_pass R={N_FEATS} E={e}: kernel {pruns['kernel']} ms, plain "
-              f"{pruns['plain']} ms; kernel streams its 7 tables at {gbps:.0f} GB/s [{where}]")
+              f"{pruns['plain']} ms; kernel streams its 7 tables at {gbps:.0f} GB/s; bound "
+              f"{pass_bound[0]:.4f} ms ({pass_bound[1]}) [{where}]")
         zero_ms = cuda_ms(lambda: torch.zeros_like(tabs[0]), 10)
         del tabs
         z, ids, g, g2 = scatter_inputs(N_FEATS, e, BATCH * N_FIELDS, N_FEATS, gen, device)
         a = torch.zeros_like(z)
         sruns, sc_ms, sc_plain_ms = interleaved_ms(
             lambda: za_scatter(z, a, ids, g, g2), lambda: za_scatter_plain(z, ids, g, g2), 10, 3)
+        # reads g, g^2 and the ids, reads and writes z and writes A on the
+        # touched rows; ops: two adds a payload slot
+        touched = touched_rows(ids, N_FEATS)
+        scatter_bound = bound(nbytes(ids, g, g2) + touched * e * 4 * 3, 2 * g.numel())
+        # the same function in PyTorch: one index_add_ per output, into
+        # tables with a row for the sentinel id
+        z_ext = torch.zeros((N_FEATS + 1, e), device=device)
+        a_ext = torch.zeros_like(z_ext)
+        sc_lib_ms = cuda_ms(lambda: (z_ext.index_add_(0, ids, g), a_ext.index_add_(0, ids, g2)), 10)
+        del z_ext, a_ext
         print(f"timing: za_scatter R={N_FEATS} E={e} N={BATCH * N_FIELDS} (stable sort "
-              f"included): kernel {sruns['kernel']} ms, plain {sruns['plain']} ms; zeroing A "
-              f"{zero_ms:.3f} ms [{where}]")
+              f"included): kernel {sruns['kernel']} ms, plain {sruns['plain']} ms, two "
+              f"index_add_ {sc_lib_ms:.3f} ms; zeroing A {zero_ms:.3f} ms; {touched} touched "
+              f"rows, bound {scatter_bound[0]:.4f} ms ({scatter_bound[1]}) [{where}]")
         del z, ids, g, g2, a
         args = fused_inputs(BATCH, N_FIELDS, cp, N_FACTORS, gen, device, "iota", N_FIELDS)
         sfruns, sf_ms, sf_plain_ms = interleaved_ms(
@@ -941,6 +1008,267 @@ def main() -> int:
               f"train_epoch() {beps} examples/s (n_feats={N_FEATS}, B={BATCH}, {N_ROWS} "
               f"rows, inplace) [{where}]")
 
+    # ---- 3f. the probe kernels against their plain versions ----
+    # 4c's state goes first: the probes at their default sizes need ~25 GB
+    del btrainer, bmodel, dmodel, bbatches, batches
+    torch.cuda.empty_cache()
+    from ftrl_ffm_tpu_torch.tools import micro_canon_kernel as mcanon
+    from ftrl_ffm_tpu_torch.tools import micro_dma_gather as mgather
+    from ftrl_ffm_tpu_torch.tools import micro_lazy as mlazy
+    from ftrl_ffm_tpu_torch.tools import micro_vmem_rmw as mrmw
+    from ftrl_ffm_tpu_torch.tools import micro_vmem_rmw2 as mrmw2
+
+    probe_err = {}
+    # the no-w pass on 3e's shapes: micro_lazy's default R=1M, E=640 first
+    for label, r, e, off in pass_cases:
+        n_t, z_t, _, a = pass_inputs(r, e, gen, device, mlazy.P)
+        runs = []
+        for _ in range(2):
+            got = [offset_copy(n_t, off), offset_copy(z_t, off)]
+            mlazy.pass3(*got, offset_copy(a, off), mlazy.P)
+            torch.cuda.synchronize()
+            runs.append(got)
+            del got
+        want = mlazy.pass3_plain(n_t, z_t, a, mlazy.P)
+        torch.cuda.synchronize()
+        err = max((x - y).abs().max().item() for x, y in zip(runs[0], want))
+        ok = all(torch.allclose(x, y, rtol=PASS_RTOL, atol=PASS_ATOL)
+                 for x, y in zip(runs[0], want))
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        print(f"kernel micro_pass3 {label}: R={r} E={e} offset={off} max_abs_err={err:.3e} "
+              f"{'ok' if ok else 'MISMATCH'}; repeat bit-identical={same}")
+        require(ok, f"micro_pass3 {label} disagrees")
+        require(same, f"micro_pass3 {label} is not deterministic")
+        if label == "main_1m":
+            probe_err["micro_pass3"] = err
+        del n_t, z_t, a, runs, want
+
+    def canon_inputs(b, vals_kind):
+        """micro_canon_kernel's inputs: rows N(0, 0.1), values 1 with the
+        pad column 0 (the probe's) or uniform, the last sample padding."""
+        v = torch.randn((b * mcanon.CP, mcanon.E), generator=gen, device=device) * 0.1
+        if vals_kind == "pad":
+            vals = torch.ones((b, mcanon.CP), device=device)
+            vals[:, mcanon.C:] = 0.0
+        else:
+            vals = torch.rand((b, mcanon.CP), generator=gen, device=device)
+        lin = torch.randn((b,), generator=gen, device=device) * 0.1
+        y = torch.randint(0, 2, (b,), generator=gen, device=device).to(torch.float32)
+        sw = torch.ones((b,), device=device)
+        if b > 1:
+            sw[-1] = 0.0
+        return v, vals, lin, y, sw
+
+    def iota_fields(b):
+        return torch.arange(mcanon.CP, dtype=torch.int32, device=device).repeat(b, 1)
+
+    # (label, B, NOTR, values): the probe's default batch, the main path's,
+    # odd and single batches, uniform values in every column, the NOTR variant
+    canon_cases = [
+        ("probe_default", 8192, False, "pad"),
+        ("main_batch", BATCH, False, "pad"),
+        ("odd_b", 333, False, "uniform"),
+        ("b1", 1, False, "pad"),
+        ("notr", 333, True, "pad"),
+    ]
+    for label, b, notr, vals_kind in canon_cases:
+        args = canon_inputs(b, vals_kind)
+        logits, gg2 = mcanon.canon(*args, notr=notr)
+        torch.cuda.synchronize()
+        refs = {"plain": mcanon.canon_plain(*args, notr=notr)}
+        if not notr:
+            refs["kernel #2"] = ffm_fused_logits_grads(
+                args[0], iota_fields(b), *args[1:], mcanon.CP, mcanon.K, aug_lane=mcanon.AUG_LANE)
+        torch.cuda.synchronize()
+        for ref_name, (ref_logits, ref_gg2) in refs.items():
+            err = max((logits - ref_logits).abs().max().item(), (gg2 - ref_gg2).abs().max().item())
+            ok = (torch.allclose(logits, ref_logits, rtol=RTOL, atol=ATOL)
+                  and torch.allclose(gg2, ref_gg2, rtol=RTOL, atol=GRAD_ATOL)
+                  and bool(torch.isfinite(gg2).all()))
+            print(f"kernel micro_canon {label}: B={b} NOTR={notr} values={vals_kind} against "
+                  f"{ref_name}: max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}")
+            require(ok, f"micro_canon {label} disagrees with {ref_name}")
+            if label == "main_batch":
+                probe_err["micro_canon"] = max(probe_err.get("micro_canon", 0.0), err)
+        del args, logits, gg2, refs
+
+    # (label, N, PER, E): the probes' field shape, every id one row (PER=1)
+    # at E=1, odd sizes; pairs of equal ids forced for dual
+    rmw_cases = [("probe_default", 8192, 2564, 640), ("dups_e1", 1000, 1, 1), ("odd", 130, 333, 37)]
+    for label, n, per, e in rmw_cases:
+        idx = torch.randint(0, per, (n,), generator=gen, device=device, dtype=torch.int32)
+        idx[1::2][::3] = idx[0::2][::3]
+        pay = torch.randn((n, e), generator=gen, device=device)
+        rows = mrmw2.per_pad(per)
+        for variant in mrmw2.VARIANTS:
+            got = [mrmw2.run_kernel(idx, pay, variant, rows) for _ in range(2)]
+            torch.cuda.synchronize()
+            want = mrmw2.rmw_plain(idx.cpu(), pay.cpu(), variant, rows)
+            ok, same = torch.equal(got[0].cpu(), want), torch.equal(got[0], got[1])
+            print(f"kernel micro_rmw2 {label} {variant}: N={n} PER={per} E={e} bit-identical to "
+                  f"plain={ok}; repeat bit-identical={same}")
+            require(ok and same, f"micro_rmw2 {label} {variant} disagrees")
+        rows = -(-per // 8) * 8
+        for dtype in mrmw2.PAY_DTYPES:
+            p_t = pay.to(dtype)
+            got = mrmw.rmw(idx, p_t, rows)
+            torch.cuda.synchronize()
+            ok = torch.equal(got.cpu(), mrmw2.rmw_plain(idx.cpu(), p_t.cpu(), "base", rows))
+            print(f"kernel micro_rmw {label} {dtype}: N={n} PER={per} E={e} bit-identical to "
+                  f"plain={ok}")
+            require(ok, f"micro_rmw {label} {dtype} disagrees")
+        del idx, pay, got, want
+    probe_err["micro_rmw"] = probe_err["micro_rmw2"] = 0.0  # bit-identical above
+
+    # (label, NNZ, E2, dtype, BLK): the probe's default, the main path's
+    # nnz, bf16, a ragged tail at E2=1, odd sizes
+    gather_cases = [
+        ("probe_default", 319488, 1280, torch.float32, 512),
+        ("main_nnz", BATCH * N_FIELDS, 1280, torch.float32, 512),
+        ("probe_bf16", 319488, 1280, torch.bfloat16, 512),
+        ("tail_e1", 1000, 1, torch.float32, 512),
+        ("odd_bf16", 777, 37, torch.bfloat16, 16),
+    ]
+    for label, nnz, e2, dtype, blk in gather_cases:
+        perm = torch.randperm(nnz, generator=gen, device=device).to(torch.int32)[: nnz // blk * blk]
+        pay = torch.randn((nnz, e2), generator=gen, device=device).to(dtype)
+        got = [mgather.dma_gather_sum(perm, pay) for _ in range(2)]
+        want = mgather.dma_gather_sum_plain(perm, pay)
+        torch.cuda.synchronize()
+        err = (got[0] - want).abs().max().item()
+        scale = want[0].abs().max().item()
+        ok = err <= GATHER_RTOL * scale and bool((got[0][1:] == 0).all())
+        same = torch.equal(got[0], got[1])
+        print(f"kernel micro_gather {label}: NNZ={nnz} used={perm.numel()} E2={e2} {dtype} "
+              f"max_abs_err={err:.3e} (max |sum| {scale:.3e}) {'ok' if ok else 'MISMATCH'}; "
+              f"repeat bit-identical={same}")
+        require(ok and same, f"micro_gather {label} disagrees")
+        if label == "probe_default":
+            probe_err["micro_gather"] = err
+        del perm, pay, got, want
+
+    # ---- 5d. the probes' entry points, then their kernels timed ----
+    for key in PROBE_ENV:  # each probe at its defaults
+        os.environ.pop(key, None)
+    probe_fns = (mlazy.pass3, mcanon.canon, mrmw.rmw, mrmw2.run_kernel, mgather.dma_gather_sum)
+    for fn in probe_fns:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    probe_ms = {}  # each probe's own times, reused below where 5d needs them
+    for mod in (mlazy, mcanon, mrmw, mrmw2, mgather):
+        name = mod.__name__.rsplit('.', 1)[1]
+        print(f"probe {name}:")
+        probe_ms[name] = mod.main(device="cuda")
+    probe_launches = {fn.__name__: fn.launches for fn in probe_fns}
+    print(f"probes: the five entry points in {time.perf_counter() - t0:.1f} s; launches "
+          f"{probe_launches} [{where}]")
+    for fn_name, count in probe_launches.items():
+        require(count > 0, f"{fn_name} was not launched by its probe")
+    torch.cuda.empty_cache()
+
+    probe_time = {}
+
+    def probe_timing(name, label, kern, plain, kern_iters, plain_iters, bytes_moved, ops,
+                     library=None):
+        runs, k_ms, p_ms = interleaved_ms(kern, plain, kern_iters, plain_iters)
+        lib_ms = cuda_ms(library, kern_iters) if library is not None else None
+        b_ms, b_by = bound(bytes_moved, ops)
+        lib_txt = f", one PyTorch call {lib_ms:.4f} ms" if lib_ms is not None else ""
+        print(f"timing: {name} {label}: kernel {runs['kernel']} ms, plain {runs['plain']} ms"
+              f"{lib_txt}; bound {b_ms:.4f} ms ({b_by}) [{where}]")
+        probe_time[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=lib_ms)
+        return k_ms
+
+    # the no-w pass at micro_lazy's default: read n, z, A, write n, z
+    e = cp * N_FACTORS
+    n_t, z_t, _, a = pass_inputs(N_FEATS, e, gen, device, mlazy.P)
+    probe_timing("micro_pass3", f"R={N_FEATS} E={e}", lambda: mlazy.pass3(n_t, z_t, a),
+                 lambda: mlazy.pass3_plain(n_t, z_t, a), 10, 3, 5 * N_FEATS * e * 4,
+                 18 * N_FEATS * e)
+    del n_t, z_t, a
+
+    # the canonical kernel at the probe's batch and the main path's (the
+    # record's), beside kernel #2 on the same canonical inputs (the probe
+    # timed kernel #2 at its own batch)
+    for b in (8192, BATCH):
+        args = canon_inputs(b, "pad")
+        fields = iota_fields(b)
+        gen_ms = probe_ms["micro_canon_kernel"]["general"] if b == 8192 else cuda_ms(
+            lambda: ffm_fused_logits_grads(args[0], fields, *args[1:], mcanon.CP, mcanon.K,
+                                           aug_lane=mcanon.AUG_LANE), 10)
+        notr_ms = cuda_ms(lambda: mcanon.canon(*args, notr=True), 10)
+        print(f"timing: micro_canon B={b}: kernel #2 on the same inputs {gen_ms:.4f} ms, "
+              f"NOTR variant {notr_ms:.4f} ms [{where}]")
+        probe_timing("micro_canon", f"B={b}", lambda: mcanon.canon(*args),
+                     lambda: mcanon.canon_plain(*args), 10, 3,
+                     nbytes(*args) + b * 4 + b * mcanon.CP * 2 * mcanon.E * 4,
+                     6 * b * mcanon.CP * mcanon.E)
+        del args, fields
+
+    # read-modify-write at the probes' default field shape: reads the payload
+    # and ids, writes acc (rd reads no payload)
+    n, per, e = 8192, 2564, 640
+    idx = torch.randint(0, per, (n,), generator=gen, device=device, dtype=torch.int32)
+    pay = torch.randn((n, e), generator=gen, device=device)
+    rows = -(-per // 8) * 8
+    acc0 = torch.zeros((rows, e), device=device)
+    probe_timing("micro_rmw", f"N={n} PER={per} E={e} f32", lambda: mrmw.rmw(idx, pay, rows),
+                 lambda: mrmw2.rmw_plain(idx, pay, "base", rows), 50, 10,
+                 nbytes(idx, pay) + rows * e * 4, n * e,
+                 library=lambda: acc0.index_add(0, idx, pay))
+    pay_bf = pay.to(torch.bfloat16)
+    bf_ms = cuda_ms(lambda: mrmw.rmw(idx, pay_bf, rows), 50)
+    bf_bound = bound(nbytes(idx, pay_bf) + rows * e * 4, n * e)
+    print(f"timing: micro_rmw bf16 payload: kernel {bf_ms:.4f} ms; bound {bf_bound[0]:.4f} ms "
+          f"[{where}]")
+    rows2 = mrmw2.per_pad(per)
+    acc0 = torch.zeros((rows2, e), device=device)
+    # base, unroll8 and dual sum the same rows (dual up to rounding): one
+    # index_add computes their function; wo (last row wins) and rd (zeros
+    # after reads) have no one-call counterpart
+    add_ms = cuda_ms(lambda: acc0.index_add(0, idx, pay), 50)
+    rmw2_variants = {}
+    for variant in mrmw2.VARIANTS:
+        reads = nbytes(idx) + (0 if variant == "rd" else nbytes(pay))
+        probe_timing("micro_rmw2", f"{variant} N={n} PER={per} E={e}",
+                     lambda: mrmw2.run_kernel(idx, pay, variant, rows2),
+                     lambda: mrmw2.rmw_plain(idx, pay, variant, rows2), 50, 10,
+                     reads + rows2 * e * 4, n * e)
+        rmw2_variants[variant] = probe_time.pop("micro_rmw2")
+        if variant in ("base", "unroll8", "dual"):
+            rmw2_variants[variant]["library_ms"] = add_ms
+    # rd's output is zeros whether or not it reads: its time beside a launch
+    # with no ids shows the reads happen
+    rd_empty_ms = cuda_ms(lambda: mrmw2.run_kernel(idx[:0], pay[:0], "rd", rows2), 50)
+    print(f"timing: micro_rmw2 rd: {rmw2_variants['rd']['ms']:.4f} ms with {n} ids, "
+          f"{rd_empty_ms:.4f} ms with none; index_add (base, unroll8, dual) {add_ms:.4f} ms "
+          f"[{where}]")
+    probe_time["micro_rmw2"] = dict(rmw2_variants["base"], variants=rmw2_variants)
+    del idx, pay, pay_bf, acc0
+
+    # the gathered sum at the probe's default: reads the ids and the rows;
+    # one embedding_bag (a single bag, summed) computes the same sum
+    nnz, e2 = 319488, 1280
+    perm = torch.randperm(nnz, generator=gen, device=device).to(torch.int32)
+    pay = torch.randn((nnz, e2), generator=gen, device=device)
+    bag = torch.zeros((1,), dtype=torch.int32, device=device)
+    probe_timing("micro_gather", f"NNZ={nnz} E2={e2} f32",
+                 lambda: mgather.dma_gather_sum(perm, pay),
+                 lambda: mgather.dma_gather_sum_plain(perm, pay), 20, 5,
+                 nbytes(perm, pay) + 8 * e2 * 4, nnz * e2,
+                 library=lambda: torch.nn.functional.embedding_bag(perm, pay, bag, mode="sum"))
+    bag_err = (torch.nn.functional.embedding_bag(perm, pay, bag, mode="sum")[0]
+               - mgather.dma_gather_sum(perm, pay)[0]).abs().max().item()
+    pay_bf = pay.to(torch.bfloat16)
+    gbf_ms = cuda_ms(lambda: mgather.dma_gather_sum(perm, pay_bf), 20)
+    print(f"timing: micro_gather: index_select alone (the gather without the sum, the TPU "
+          f"probe's baseline, from the probe) {probe_ms['micro_dma_gather']['index_select']:.4f}"
+          f" ms; embedding_bag's sum within {bag_err:.3e} of the kernel's; bf16 payload "
+          f"{gbf_ms:.4f} ms; {probe_time['micro_gather']['ms'] * 1e6 / nnz:.2f} ns/row f32 "
+          f"[{where}]")
+    del perm, pay, pay_bf, bag
+
     records = [
         {
             "name": "ffm_logits",
@@ -951,6 +1279,9 @@ def main() -> int:
             "max_abs_err": criteo_err,
             "ms": k_ms,
             "plain_ms": p_ms,
+            "bound_ms": logits_bound[0],
+            "bound_by": logits_bound[1],
+            "library_ms": None,
         },
         {
             "name": "ffm_fused",
@@ -962,6 +1293,9 @@ def main() -> int:
             "max_abs_err": max(fused_err, split_err),
             "ms": f_ms,
             "plain_ms": fp_ms,
+            "bound_ms": fused_bound[0],
+            "bound_by": fused_bound[1],
+            "library_ms": None,
         },
         {
             # no Pallas kernel: XLA's scatter-add and closed-form pass of
@@ -974,6 +1308,9 @@ def main() -> int:
             "max_abs_err": update_err,
             "ms": u_ms,
             "plain_ms": up_ms,
+            "bound_ms": update_bound[0],
+            "bound_by": update_bound[1],
+            "library_ms": None,
         },
         {
             "name": "ftrl_pass",
@@ -984,6 +1321,9 @@ def main() -> int:
             "max_abs_err": pass_err,
             "ms": pass_ms,
             "plain_ms": pass_plain_ms,
+            "bound_ms": pass_bound[0],
+            "bound_by": pass_bound[1],
+            "library_ms": None,
         },
         {
             # no Pallas kernel: XLA's two scatter-adds of
@@ -996,11 +1336,33 @@ def main() -> int:
             "max_abs_err": scatter_err,
             "ms": sc_ms,
             "plain_ms": sc_plain_ms,
+            "bound_ms": scatter_bound[0],
+            "bound_by": scatter_bound[1],
+            # one index_add_ per output table
+            "library_ms": sc_lib_ms,
         },
     ]
+    # the probe kernels: the TPU kernels of tools/micro_*.py, ported to
+    # ftrl_ffm_tpu_torch/tools; launches from 5d's entry points
+    for kname, source, replaces, counted in (
+        ("micro_pass3", "micro_pass3.cu", "tools/micro_lazy.py:66", "pass3"),
+        ("micro_canon", "micro_canon.cu", "tools/micro_canon_kernel.py:41", "canon"),
+        ("micro_rmw", "micro_rmw.cu", "tools/micro_vmem_rmw.py:40", "rmw"),
+        ("micro_rmw2", "micro_rmw.cu", "tools/micro_vmem_rmw2.py:40", "run_kernel"),
+        ("micro_gather", "micro_gather.cu", "tools/micro_dma_gather.py:38", "dma_gather_sum"),
+    ):
+        records.append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"ftrl_ffm_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": probe_launches[counted],
+            "max_abs_err": probe_err[kname],
+            **probe_time[kname],
+        })
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -10,7 +10,8 @@ The port grows in slices (ROADMAP.md Queue 1).  It trains and serves FFM on
 one device today: FTRL-Proximal epochs with the fused logits-and-gradient
 kernel and the deterministic table-update kernel (ops/ffm_cuda.py,
 ops/ftrl_cuda.py), eval and scoring with the logits kernel, from a fresh
-init or a checkpoint of the JAX package.
+init or a checkpoint of the JAX package.  tools/ holds the TPU probes of
+the repo's tools/micro_*.py, ported to the card with their own kernels.
 """
 
 from ftrl_ffm_tpu_torch.config import Config

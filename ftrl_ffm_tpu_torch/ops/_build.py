@@ -3,9 +3,14 @@
 `nvcc` compiles every `csrc/*.cu` (one process per source, all started
 together) and links them into one shared library with a plain C
 interface for sm_90a (Hopper), at first use, into `build/` inside the
-package (listed in .gitignore).  The library's name carries a hash of the
-sources and flags, so an edited kernel is never shadowed by a stale build.
-It is loaded with ctypes: no PyTorch headers in the build, which keeps it to
+package (listed in .gitignore).  The sources: the training and serving
+path's `ffm_logits.cu`, `ffm_fused.cu`, `ftrl_update.cu` and
+`ftrl_pass.cu`, and the probe kernels of `ftrl_ffm_tpu_torch/tools/`
+(the counterparts of the TPU probes in `tools/micro_*.py`):
+`micro_pass3.cu`, `micro_canon.cu`, `micro_rmw.cu` and
+`micro_gather.cu`.  The library's name carries a hash of the sources and
+flags, so an edited kernel is never shadowed by a stale build.  It is
+loaded with ctypes: no PyTorch headers in the build, which keeps it to
 seconds.  A failed build raises — there is no fallback.
 """
 
@@ -82,6 +87,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.za_scatter_launch.restype = i
     lib.ftrl_pass_launch.argtypes = [p, p, p, p, n, f, f, f, f, p]
     lib.ftrl_pass_launch.restype = i
+    lib.micro_pass3_launch.argtypes = [p, p, p, n, f, f, f, f, p]
+    lib.micro_pass3_launch.restype = i
+    lib.micro_canon_launch.argtypes = [p, p, p, p, p, p, p, i, i, p]
+    lib.micro_canon_launch.restype = i
+    lib.micro_rmw_launch.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.micro_rmw_launch.restype = i
+    lib.micro_gather_chunks.argtypes = [i, i]
+    lib.micro_gather_chunks.restype = i
+    lib.micro_gather_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.micro_gather_launch.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
 

@@ -14,7 +14,10 @@ the CPU's index_add_ sums duplicate ids in payload order, the kernels'
 order, where the card's sums them in no fixed order.  The
 closed-form pass runs the plain version's operations one by one: rtol=1e-6,
 atol=1e-7 (the JAX suite's Pallas-vs-XLA bound for it), coordinates with
-A = 0 keep their n and z bits."""
+A = 0 keep their n and z bits.  The probe kernels (ftrl_ffm_tpu_torch/tools):
+the no-w pass the same way, the canonical-fields kernel as the training
+kernel, the read-modify-write variants bit for bit the plain version on CPU
+copies, the gathered sum within 1e-5 of its largest |sum|."""
 
 import numpy as np
 import pytest
@@ -395,3 +398,202 @@ def test_inplace_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="shape"):
         ftrl_update_inplace(*tabs[:3], ids, g, g[:-1], p)
 
+
+
+# ---- the probe kernels of ftrl_ffm_tpu_torch/tools (csrc/micro_*.cu) ----
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,e,offset", [(41, 15, 0), (333, 640, 0), (1001, 1, 0), (97, 128, 1)])
+def test_micro_pass3_kernel_matches_plain(r, e, offset):
+    """The no-w pass against its plain version at odd R and E (offset 1:
+    tables not 16-byte aligned, the scalar loop): rtol=1e-6, atol=1e-7, and
+    the same call twice gives the same bits."""
+    from ftrl_ffm_tpu_torch.tools.micro_lazy import pass3, pass3_plain
+
+    dev = _card()
+    rng = np.random.default_rng(r * e + offset)
+    n_tab = torch.from_numpy((rng.random((r, e)) * 3).astype(np.float32))
+    n_tab[torch.from_numpy(rng.random((r, e)) < 0.3)] = 0.0
+    z_tab = torch.from_numpy(rng.normal(size=(r, e)).astype(np.float32))
+    a = torch.from_numpy((rng.random((r, e)) * 0.5).astype(np.float32))
+    a[torch.from_numpy(rng.random((r, e)) < 0.4)] = 0.0
+
+    def padded(t):  # the same values `offset` floats into a fresh buffer
+        buf = torch.empty(t.numel() + offset, device=dev)
+        buf[offset:] = t.reshape(-1).to(dev)
+        return buf[offset:].view(r, e)
+
+    runs = []
+    for _ in range(2):
+        got = [padded(n_tab), padded(z_tab)]
+        before = pass3.launches
+        pass3(*got, padded(a))
+        torch.cuda.synchronize()
+        assert pass3.launches == before + 1
+        runs.append(got)
+    want = pass3_plain(n_tab.to(dev), z_tab.to(dev), a.to(dev))
+    for got, ref in zip(runs[0], want):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-6, atol=1e-7)
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,notr,pad", [(1, False, True), (33, False, True), (256, False, False),
+                                        (33, True, True)])
+def test_micro_canon_kernel_matches_plain_and_kernel2(b, notr, pad):
+    """The canonical-fields kernel against its plain version and (with the
+    field crossing) against kernel #2 on iota fields: logits rtol=1e-4,
+    atol=1e-5, payload rtol=1e-4, atol=1e-6."""
+    from ftrl_ffm_tpu_torch.tools.micro_canon_kernel import AUG_LANE, CP, K, canon, canon_plain
+
+    dev = _card()
+    rng = np.random.default_rng(b)
+    v = torch.from_numpy((rng.normal(size=(b * CP, CP * K)) * 0.1).astype(np.float32)).to(dev)
+    vals = torch.from_numpy(rng.random((b, CP)).astype(np.float32)).to(dev)
+    if pad:
+        vals[:, AUG_LANE:] = 0.0
+    lin = torch.from_numpy((rng.normal(size=b) * 0.1).astype(np.float32)).to(dev)
+    y = torch.from_numpy((rng.random(b) > 0.5).astype(np.float32)).to(dev)
+    sw = torch.ones(b, device=dev)
+    sw[-1] = 0.0 if b > 1 else 1.0
+    before = canon.launches
+    logits, gg2 = canon(v, vals, lin, y, sw, notr=notr)
+    torch.cuda.synchronize()
+    assert canon.launches == before + 1
+    refs = [canon_plain(v, vals, lin, y, sw, notr=notr)]
+    if not notr:
+        fields = torch.arange(CP, dtype=torch.int32, device=dev).repeat(b, 1)
+        refs.append(ffm_fused_logits_grads(v, fields, vals, lin, y, sw, CP, K, aug_lane=AUG_LANE))
+    for ref_logits, ref_gg2 in refs:
+        np.testing.assert_allclose(logits.cpu().numpy(), ref_logits.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(gg2.cpu().numpy(), ref_gg2.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-6)
+
+
+# (N, PER, E): the probe's field shape cut down, every id one row (PER=1)
+# at E=1, and odd sizes
+RMW_SHAPES = [(512, 20, 640), (1000, 1, 1), (130, 333, 37)]
+
+
+def _rmw_inputs(n, per, e, dtype, seed):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, per, n).astype(np.int32)
+    idx[1::2][::3] = idx[0::2][::3]  # duplicate pairs for dual
+    pay = torch.from_numpy(rng.normal(size=(n, e)).astype(np.float32)).to(dtype)
+    return torch.from_numpy(idx), pay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,per,e", RMW_SHAPES)
+@pytest.mark.parametrize("variant", ["base", "unroll8", "dual", "wo", "rd"])
+def test_micro_rmw_kernel_matches_plain(variant, n, per, e):
+    """Every variant, f32 payload: bit for bit the plain version on CPU
+    copies (which adds in payload order, as the kernel does), and the same
+    call twice gives the same bits."""
+    from ftrl_ffm_tpu_torch.tools.micro_vmem_rmw2 import per_pad, rmw_plain, run_kernel
+
+    dev = _card()
+    idx, pay = _rmw_inputs(n, per, e, torch.float32, n + per + e)
+    rows = per_pad(per)
+    before = run_kernel.launches
+    got = [run_kernel(idx.to(dev), pay.to(dev), variant, rows) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert run_kernel.launches == before + 2
+    want = rmw_plain(idx, pay, variant, rows)
+    assert torch.equal(got[0].cpu(), want)
+    assert torch.equal(got[0], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,per,e", RMW_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_micro_rmw_entry_matches_plain(dtype, n, per, e):
+    """micro_vmem_rmw.py's entry (the base variant, no dump row), f32 and
+    bf16 payloads: bit for bit the plain version on CPU copies."""
+    from ftrl_ffm_tpu_torch.tools.micro_vmem_rmw import rmw
+    from ftrl_ffm_tpu_torch.tools.micro_vmem_rmw2 import rmw_plain
+
+    dev = _card()
+    idx, pay = _rmw_inputs(n, per, e, dtype, n * per + e)
+    rows = -(-per // 8) * 8
+    before = rmw.launches
+    got = rmw(idx.to(dev), pay.to(dev), rows)
+    torch.cuda.synchronize()
+    assert rmw.launches == before + 1
+    assert torch.equal(got.cpu(), rmw_plain(idx, pay, "base", rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,e2,dtype", [(4096, 5000, 1280, torch.float32),
+                                          (512, 777, 1, torch.float32),
+                                          (777, 1000, 37, torch.bfloat16),
+                                          (0, 10, 8, torch.float32)])
+def test_micro_gather_kernel_matches_plain(n, m, e2, dtype):
+    """The gathered sum against its plain version: max |diff| within 1e-5
+    of the largest |sum| (f32 sums in another order), rows 1-7 zero, the
+    same call twice the same bits."""
+    from ftrl_ffm_tpu_torch.tools.micro_dma_gather import dma_gather_sum, dma_gather_sum_plain
+
+    dev = _card()
+    rng = np.random.default_rng(n + e2)
+    perm = torch.from_numpy(rng.integers(0, m, n).astype(np.int32)).to(dev)
+    pay = torch.from_numpy(rng.normal(size=(m, e2)).astype(np.float32)).to(dtype).to(dev)
+    before = dma_gather_sum.launches
+    got = [dma_gather_sum(perm, pay) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert dma_gather_sum.launches == before + 2
+    want = dma_gather_sum_plain(perm, pay)
+    scale = max(float(want[0].abs().max()) if n else 0.0, 1e-30)
+    assert float((got[0] - want).abs().max()) <= 1e-5 * scale
+    assert (got[0][1:] == 0).all()
+    assert torch.equal(got[0], got[1])
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_check_their_inputs(monkeypatch):
+    """A CUDA tensor with a wrong shape or dtype raises, and the plain
+    version never runs in its place."""
+    from ftrl_ffm_tpu_torch.tools import micro_canon_kernel as mc
+    from ftrl_ffm_tpu_torch.tools import micro_dma_gather as mg
+    from ftrl_ffm_tpu_torch.tools import micro_lazy as ml
+    from ftrl_ffm_tpu_torch.tools import micro_vmem_rmw as mr
+    from ftrl_ffm_tpu_torch.tools import micro_vmem_rmw2 as mr2
+
+    def never(*args, **kw):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    for mod, name in ((ml, "pass3_plain"), (mc, "canon_plain"), (mr, "rmw_plain"),
+                      (mr2, "rmw_plain"), (mg, "dma_gather_sum_plain")):
+        monkeypatch.setattr(mod, name, never)
+    dev = _card()
+    t = lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype, device=dev)  # noqa: E731
+    with pytest.raises(ValueError, match="shape"):
+        ml.pass3(t(4, 8), t(4, 8), t(4, 7))
+    with pytest.raises(ValueError, match="dtype|is torch"):
+        ml.pass3(t(4, 8), t(4, 8, dtype=torch.float64), t(4, 8))
+    cp, e = mc.CP, mc.E
+    with pytest.raises(ValueError, match="shape"):
+        mc.canon(t(3 * cp, e), t(2, cp), t(2), t(2), t(2))
+    with pytest.raises(ValueError, match="dtype|is torch"):
+        mc.canon(t(2 * cp, e), t(2, cp, dtype=torch.float64), t(2), t(2), t(2))
+    with pytest.raises(ValueError, match="shape"):
+        mc.canon(t(2 * cp, e - 1), t(2, cp), t(2), t(2), t(2))
+    with pytest.raises(ValueError, match="shape"):
+        mc.canon(t(2 * 4, 8), t(2, 4), t(2), t(2), t(2))
+    idx = t(6, dtype=torch.int32)
+    with pytest.raises(ValueError, match="shape"):
+        mr2.run_kernel(idx, t(5, 8), "base", 8)
+    with pytest.raises(ValueError, match="dtype|is torch"):
+        mr2.run_kernel(idx.long(), t(6, 8), "base", 8)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        mr.rmw(idx, t(6, 8, dtype=torch.float16), 8)
+    with pytest.raises(ValueError, match="dual"):
+        mr2.run_kernel(idx[:5], t(5, 8), "dual", 16)
+    with pytest.raises(ValueError, match="variant"):
+        mr2.run_kernel(idx, t(6, 8), "triple", 8)
+    with pytest.raises(ValueError, match="dtype|is torch"):
+        mg.dma_gather_sum(idx.long(), t(6, 8))
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        mg.dma_gather_sum(idx, t(6, 8, dtype=torch.float64))

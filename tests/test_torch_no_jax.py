@@ -31,6 +31,12 @@ _MODULES = (
     "ftrl_ffm_tpu_torch.io",
     "ftrl_ffm_tpu_torch.metrics",
     "ftrl_ffm_tpu_torch.data",
+    "ftrl_ffm_tpu_torch.tools",
+    "ftrl_ffm_tpu_torch.tools.micro_lazy",
+    "ftrl_ffm_tpu_torch.tools.micro_canon_kernel",
+    "ftrl_ffm_tpu_torch.tools.micro_vmem_rmw",
+    "ftrl_ffm_tpu_torch.tools.micro_vmem_rmw2",
+    "ftrl_ffm_tpu_torch.tools.micro_dma_gather",
 )
 
 
@@ -124,6 +130,30 @@ def test_inplace_wrappers_refuse_other_devices():
         lambda: za_scatter(t(r, e), t(r, e), ids, t(n, e), t(n, e)),
         lambda: closed_form_pass(t(r, e), t(r, e), t(r, e), t(r, e), FtrlParams()),
         lambda: ftrl_update_linear(t(r), t(r), t(r), ids, t(n, 2), FtrlParams()),
+    )
+    for call in calls:
+        with pytest.raises(ValueError, match="no kernel for device"):
+            call()
+
+
+def test_probe_wrappers_refuse_other_devices():
+    """The probe kernels' wrappers take their plain versions only for CPU
+    tensors too."""
+    from ftrl_ffm_tpu_torch.tools.micro_canon_kernel import canon
+    from ftrl_ffm_tpu_torch.tools.micro_dma_gather import dma_gather_sum
+    from ftrl_ffm_tpu_torch.tools.micro_lazy import pass3
+    from ftrl_ffm_tpu_torch.tools.micro_vmem_rmw import rmw
+    from ftrl_ffm_tpu_torch.tools.micro_vmem_rmw2 import run_kernel
+
+    meta = torch.device("meta")
+    t = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=meta)  # noqa: E731
+    idx = t(6, dtype=torch.int32)
+    calls = (
+        lambda: pass3(t(4, 8), t(4, 8), t(4, 8)),
+        lambda: canon(t(2 * 4, 8), t(2, 4), t(2), t(2), t(2)),
+        lambda: rmw(idx, t(6, 8), 8),
+        lambda: run_kernel(idx, t(6, 8), "dual", 16),
+        lambda: dma_gather_sum(idx, t(6, 8)),
     )
     for call in calls:
         with pytest.raises(ValueError, match="no kernel for device"):
