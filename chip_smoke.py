@@ -21,7 +21,10 @@ each printing its own lines:
                      rtol=1e-4, atol=1e-5)
   3b. fused       -> the training kernel (logits + payload) against its plain
                      version, the same way (logits rtol=1e-4, atol=1e-5;
-                     payload rtol=1e-4, atol=1e-6), combined and split output
+                     payload rtol=1e-4, atol=1e-6), combined and split
+                     output, with the kernel instance each shape runs; the
+                     bench shape runs the C'=40, K=16 instance and a second
+                     launch gives the same bits
   3c. update      -> the FTRL update kernel against its plain version on
                      random tables with duplicate and sentinel ids: touched
                      rows rtol=1e-5, atol=1e-6, untouched rows bit-identical,
@@ -36,13 +39,16 @@ each printing its own lines:
                      launch counts set to 0 just before and read just after;
                      outputs held against the plain version and a CPU run
   4b. training    -> Trainer(cfg).train() for 2 epochs with eval, the launch
-                     counts set to 0 just before and read just after; chained
+                     counts (kernel #2's also by instance: every step runs
+                     the C'=40, K=16 one) set to 0 just before and read just
+                     after; chained
                      train_steps against the same steps on the plain versions,
                      two runs bit-identical, a small run on the CPU and the card
   5. timings      -> kernel and plain milliseconds per batch, eval
                      examples/s, the card's name and power limit beside them
-  5b. train time  -> the training kernels and their plain versions, the
-                     device train step, host parse, train_epoch() examples/s
+  5b. train time  -> the training kernels and their plain versions (kernel
+                     #2's launches by instance), the device train step, host
+                     parse, train_epoch() examples/s
   4c. 1M training -> the same for the 1M-row table, whose update auto
                      resolves to "inplace": launch counts, the stale linear
                      tables and their reconcile, chained steps against the
@@ -64,7 +70,16 @@ each printing its own lines:
   5d. probes' main -> each probe's main(device="cuda") at its defaults, the
                      launch counts set to 0 just before and read just after;
                      then each probe kernel against its plain version and
-                     its one-call PyTorch equivalent, beside its bound
+                     its one-call PyTorch equivalent, beside its bound; the
+                     RMW kernels and index_add also in device time (calls
+                     replayed from a CUDA graph, the host's dispatch left
+                     out: "device_ms" in their records)
+  6. profiles     -> after every timed phase (a profiler run may slow the
+                     host's side for the rest of the process): the
+                     torch.profiler breakdown by kernel of the train steps
+                     of 5b and 5c, and one traced train_epoch() at 100k and
+                     at 1M: the device's busy time (kernels, copies, fills)
+                     over the traced epoch's wall time
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
@@ -331,6 +346,12 @@ def interleaved_ms(kern, plain, kern_iters: int, plain_iters: int):
     return runs, float(np.median(runs["kernel"])), float(np.median(runs["plain"]))
 
 
+def print_breakdown(label: str, rows, where: str) -> None:
+    total = sum(ms for _, ms in rows)
+    parts = ", ".join(f"{name[:60]} {ms:.3f}" for name, ms in rows[:8])
+    print(f"profile: {label}: device {total:.3f} ms per step: {parts} [{where}]")
+
+
 def cuda_ms(fn, iters: int) -> float:
     """ms per call of fn on the card (CUDA events, after a warm-up call)."""
     from ftrl_ffm_tpu_torch.tools import time_ms
@@ -369,6 +390,12 @@ def main() -> int:
 
     device = torch.device("cuda", torch.cuda.current_device())
     device_name = torch.cuda.get_device_name(device)
+    by_instance = ffm_fused_logits_grads.launches_by_instance
+
+    def zero_instances():
+        for name in by_instance:
+            by_instance[name] = 0
+
     where = card()
     print(f"device: {device_name} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     print(f"nvidia-smi: {where}")
@@ -434,20 +461,28 @@ def main() -> int:
     fused_err = split_err = None
     for label, b, f, c, k, kind, real, aug in fused_cases:
         args = fused_inputs(b, f, c, k, gen, device, kind, real)
+        before = dict(by_instance)
         logits, gg2 = ffm_fused_logits_grads(*args, c, k, aug_lane=aug)
         torch.cuda.synchronize()
+        instance = next(n for n, count in by_instance.items() if count > before[n])
         ref_logits, ref_gg2 = ffm_fused_logits_grads_plain(*args, c, k, aug_lane=aug)
         torch.cuda.synchronize()
         err = max((logits - ref_logits).abs().max().item(), (gg2 - ref_gg2).abs().max().item())
         ok = (torch.allclose(logits, ref_logits, rtol=RTOL, atol=ATOL)
               and torch.allclose(gg2, ref_gg2, rtol=RTOL, atol=GRAD_ATOL)
               and bool(torch.isfinite(gg2).all()))
-        path = "staged" if lib.ffm_fused_stages(f, c, k) == 1 else "device-memory"
-        print(f"kernel ffm_fused {label}: B={b} F={f} C'={c} K={k} aug={aug} {path} "
-              f"max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}")
+        print(f"kernel ffm_fused {label}: B={b} F={f} C'={c} K={k} aug={aug} instance "
+              f"{instance} max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}")
         require(ok, f"ffm_fused {label} disagrees")
         if label == "criteo":
             fused_err = err
+            again = ffm_fused_logits_grads(*args, c, k, aug_lane=aug)
+            same = torch.equal(again[0], logits) and torch.equal(again[1], gg2)
+            print(f"kernel ffm_fused {label}: a second launch bit-identical={same}")
+            require(instance == "c40_k16" and same,
+                    "the bench shape did not run the C'=40, K=16 instance, or it is not "
+                    "deterministic")
+            del again
         del ref_logits, ref_gg2
         if label in split_cases:
             e = c * k
@@ -677,18 +712,23 @@ def main() -> int:
         tmodel = ttrainer.model
         ffm_fused_logits_grads.launches = ftrl_update.launches = 0
         ffm_fused_logits.launches = 0
+        zero_instances()
         t0 = time.perf_counter()
         hist = ttrainer.train()
         t_train = time.perf_counter() - t0
         fused_launches, update_launches = ffm_fused_logits_grads.launches, ftrl_update.launches
+        fused_instances = dict(by_instance)
         eval_launches = ffm_fused_logits.launches
         steps = ttrainer._steps_done
         print(f"train: Trainer.train() 2 epochs in {t_train:.2f} s (first, with build "
               f"and warm-up): {steps} steps; ffm_fused launches={fused_launches}, "
               f"ftrl_update launches={update_launches}, ffm_logits launches (eval) "
-              f"={eval_launches}; history {hist}")
+              f"={eval_launches}; ffm_fused launches by instance {fused_instances}; "
+              f"history {hist}")
         require(steps == 2 * n_batches, f"{steps} train steps, expect {2 * n_batches}")
         require(fused_launches == steps, f"ffm_fused launched {fused_launches} times in {steps} steps")
+        require(fused_instances["c40_k16"] == steps,
+                f"the training path ran kernel #2's instances {fused_instances}")
         require(update_launches == steps, f"ftrl_update launched {update_launches} times in {steps} steps")
         require(all(math.isfinite(x) for k in ("train_loss", "eval_loss", "eval_auc")
                     for x in hist[k]), "non-finite training history")
@@ -775,6 +815,7 @@ def main() -> int:
 
         # ---- 5b. training timings ----
         args = fused_inputs(BATCH, N_FIELDS, cp, N_FACTORS, gen, device, "iota", N_FIELDS)
+        zero_instances()
         fruns, f_ms, fp_ms = interleaved_ms(
             lambda: ffm_fused_logits_grads(*args, cp, N_FACTORS, aug_lane=N_FIELDS),
             lambda: ffm_fused_logits_grads_plain(*args, cp, N_FACTORS, aug_lane=N_FIELDS),
@@ -788,7 +829,8 @@ def main() -> int:
                             + 4 * BATCH * N_FIELDS * e)
         print(f"timing: ffm_fused B={BATCH} F={N_FIELDS} E={e}: kernel {fruns['kernel']} "
               f"ms, plain {fruns['plain']} ms; kernel moves v + payload at {gbps:.0f} GB/s; "
-              f"bound {fused_bound[0]:.4f} ms ({fused_bound[1]}) [{where}]")
+              f"bound {fused_bound[0]:.4f} ms ({fused_bound[1]}); launches by instance "
+              f"{dict(by_instance)} [{where}]")
         del args
         tables, ids, gg2, _ = update_inputs(TRAIN_FEATS, e, BATCH * N_FIELDS, TRAIN_FEATS,
                                             gen, device, p, N_FIELDS)
@@ -827,9 +869,10 @@ def main() -> int:
               f"(n_feats={TRAIN_FEATS}, B={BATCH}, {N_ROWS} rows) [{where}]")
 
         # ---- 4c. training the 1M-row table through the entry points ----
-        # the serving and 100k states go first: the 1M state is 7.7 GB, its
+        # the serving state goes first: the 1M state is 7.7 GB, its
         # accumulator A 2.56 GB, rows and payload 4.9 GB, each clone 7.7 GB
-        del trainer, state, model, placed, cycle, ttrainer, tmodel, tplaced, tcycle
+        # (the 100k state, 0.8 GB, stays for phase 6)
+        del trainer, state, model, placed, cycle
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
         big_p, big_e = os.path.join(tmp, "train1m.ffm"), os.path.join(tmp, "eval1m.ffm")
@@ -851,17 +894,22 @@ def main() -> int:
                    ffm_fused_logits)
         for fn in counted:
             fn.launches = 0
+        zero_instances()
         t0 = time.perf_counter()
         bhist = btrainer.train()
         t_big = time.perf_counter() - t0
         big = {fn.__name__: fn.launches for fn in counted}
+        big_instances = dict(by_instance)
         bsteps = btrainer._steps_done
         print(f"train 1M: Trainer.train() 2 epochs in {t_big:.2f} s (first): {bsteps} steps, "
-              f"update kind {kind!r}; launches {big}; history {bhist}; device memory peak "
+              f"update kind {kind!r}; launches {big}; ffm_fused launches by instance "
+              f"{big_instances}; history {bhist}; device memory peak "
               f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
         require(bsteps == 2 * n_batches, f"{bsteps} train steps, expect {2 * n_batches}")
         for fn in ("ffm_fused_logits_grads", "za_scatter", "closed_form_pass"):
             require(big[fn] == bsteps, f"{fn} launched {big[fn]} times in {bsteps} steps")
+        require(big_instances["c40_k16"] == bsteps,
+                f"the in-place path ran kernel #2's instances {big_instances}")
         require(big["ftrl_update"] == 0, "the in-place path launched the linear update")
         require(big["ffm_fused_logits"] == 2, "eval did not run through ffm_logits")
         require(all(math.isfinite(x) for k in ("train_loss", "eval_loss", "eval_auc")
@@ -972,6 +1020,7 @@ def main() -> int:
               f"rows, bound {scatter_bound[0]:.4f} ms ({scatter_bound[1]}) [{where}]")
         del z, ids, g, g2, a
         args = fused_inputs(BATCH, N_FIELDS, cp, N_FACTORS, gen, device, "iota", N_FIELDS)
+        zero_instances()
         sfruns, sf_ms, sf_plain_ms = interleaved_ms(
             lambda: ffm_fused_logits_grads(*args, cp, N_FACTORS, aug_lane=N_FIELDS,
                                            combined_out=False),
@@ -979,7 +1028,8 @@ def main() -> int:
                                                  combined_out=False),
             10, 3)
         print(f"timing: ffm_fused split B={BATCH} F={N_FIELDS} E={e}: kernel {sfruns['kernel']} "
-              f"ms, plain {sfruns['plain']} ms [{where}]")
+              f"ms, plain {sfruns['plain']} ms; launches by instance {dict(by_instance)} "
+              f"[{where}]")
         del args
         bplaced = [btrainer._place_batch(a) for a in StreamReader(
             big_p, "libffm", BATCH, N_FIELDS, N_FEATS, N_FIELDS,
@@ -990,7 +1040,6 @@ def main() -> int:
             mdl = bmodel if kind_ == "inplace" else dmodel
             step[kind_].append(cuda_ms(lambda: mdl.train_step(btrainer.state, next(bcycle)),
                                        2 * len(bplaced)))
-        del bplaced, bcycle
         t0 = time.perf_counter()
         for _ in StreamReader(big_p, "libffm", BATCH, N_FIELDS, N_FEATS, N_FIELDS,
                               n_parse_threads=4, log_every=0).batches():
@@ -1008,266 +1057,315 @@ def main() -> int:
               f"train_epoch() {beps} examples/s (n_feats={N_FEATS}, B={BATCH}, {N_ROWS} "
               f"rows, inplace) [{where}]")
 
-    # ---- 3f. the probe kernels against their plain versions ----
-    # 4c's state goes first: the probes at their default sizes need ~25 GB
-    del btrainer, bmodel, dmodel, bbatches, batches
-    torch.cuda.empty_cache()
-    from ftrl_ffm_tpu_torch.tools import micro_canon_kernel as mcanon
-    from ftrl_ffm_tpu_torch.tools import micro_dma_gather as mgather
-    from ftrl_ffm_tpu_torch.tools import micro_lazy as mlazy
-    from ftrl_ffm_tpu_torch.tools import micro_vmem_rmw as mrmw
-    from ftrl_ffm_tpu_torch.tools import micro_vmem_rmw2 as mrmw2
+        # ---- 3f. the probe kernels against their plain versions ----
+        # the probes at their default sizes need ~25 GB beside 4c's state
+        # (7.7 GB, kept for phase 6)
+        del bbatches, batches
+        torch.cuda.empty_cache()
+        from ftrl_ffm_tpu_torch.tools import micro_canon_kernel as mcanon
+        from ftrl_ffm_tpu_torch.tools import micro_dma_gather as mgather
+        from ftrl_ffm_tpu_torch.tools import micro_lazy as mlazy
+        from ftrl_ffm_tpu_torch.tools import micro_vmem_rmw as mrmw
+        from ftrl_ffm_tpu_torch.tools import micro_vmem_rmw2 as mrmw2
 
-    probe_err = {}
-    # the no-w pass on 3e's shapes: micro_lazy's default R=1M, E=640 first
-    for label, r, e, off in pass_cases:
-        n_t, z_t, _, a = pass_inputs(r, e, gen, device, mlazy.P)
-        runs = []
-        for _ in range(2):
-            got = [offset_copy(n_t, off), offset_copy(z_t, off)]
-            mlazy.pass3(*got, offset_copy(a, off), mlazy.P)
+        probe_err = {}
+        # the no-w pass on 3e's shapes: micro_lazy's default R=1M, E=640 first
+        for label, r, e, off in pass_cases:
+            n_t, z_t, _, a = pass_inputs(r, e, gen, device, mlazy.P)
+            runs = []
+            for _ in range(2):
+                got = [offset_copy(n_t, off), offset_copy(z_t, off)]
+                mlazy.pass3(*got, offset_copy(a, off), mlazy.P)
+                torch.cuda.synchronize()
+                runs.append(got)
+                del got
+            want = mlazy.pass3_plain(n_t, z_t, a, mlazy.P)
             torch.cuda.synchronize()
-            runs.append(got)
-            del got
-        want = mlazy.pass3_plain(n_t, z_t, a, mlazy.P)
-        torch.cuda.synchronize()
-        err = max((x - y).abs().max().item() for x, y in zip(runs[0], want))
-        ok = all(torch.allclose(x, y, rtol=PASS_RTOL, atol=PASS_ATOL)
-                 for x, y in zip(runs[0], want))
-        same = all(torch.equal(x, y) for x, y in zip(*runs))
-        print(f"kernel micro_pass3 {label}: R={r} E={e} offset={off} max_abs_err={err:.3e} "
-              f"{'ok' if ok else 'MISMATCH'}; repeat bit-identical={same}")
-        require(ok, f"micro_pass3 {label} disagrees")
-        require(same, f"micro_pass3 {label} is not deterministic")
-        if label == "main_1m":
-            probe_err["micro_pass3"] = err
-        del n_t, z_t, a, runs, want
+            err = max((x - y).abs().max().item() for x, y in zip(runs[0], want))
+            ok = all(torch.allclose(x, y, rtol=PASS_RTOL, atol=PASS_ATOL)
+                     for x, y in zip(runs[0], want))
+            same = all(torch.equal(x, y) for x, y in zip(*runs))
+            print(f"kernel micro_pass3 {label}: R={r} E={e} offset={off} max_abs_err={err:.3e} "
+                  f"{'ok' if ok else 'MISMATCH'}; repeat bit-identical={same}")
+            require(ok, f"micro_pass3 {label} disagrees")
+            require(same, f"micro_pass3 {label} is not deterministic")
+            if label == "main_1m":
+                probe_err["micro_pass3"] = err
+            del n_t, z_t, a, runs, want
 
-    def canon_inputs(b, vals_kind):
-        """micro_canon_kernel's inputs: rows N(0, 0.1), values 1 with the
-        pad column 0 (the probe's) or uniform, the last sample padding."""
-        v = torch.randn((b * mcanon.CP, mcanon.E), generator=gen, device=device) * 0.1
-        if vals_kind == "pad":
-            vals = torch.ones((b, mcanon.CP), device=device)
-            vals[:, mcanon.C:] = 0.0
-        else:
-            vals = torch.rand((b, mcanon.CP), generator=gen, device=device)
-        lin = torch.randn((b,), generator=gen, device=device) * 0.1
-        y = torch.randint(0, 2, (b,), generator=gen, device=device).to(torch.float32)
-        sw = torch.ones((b,), device=device)
-        if b > 1:
-            sw[-1] = 0.0
-        return v, vals, lin, y, sw
+        def canon_inputs(b, vals_kind):
+            """micro_canon_kernel's inputs: rows N(0, 0.1), values 1 with the
+            pad column 0 (the probe's) or uniform, the last sample padding."""
+            v = torch.randn((b * mcanon.CP, mcanon.E), generator=gen, device=device) * 0.1
+            if vals_kind == "pad":
+                vals = torch.ones((b, mcanon.CP), device=device)
+                vals[:, mcanon.C:] = 0.0
+            else:
+                vals = torch.rand((b, mcanon.CP), generator=gen, device=device)
+            lin = torch.randn((b,), generator=gen, device=device) * 0.1
+            y = torch.randint(0, 2, (b,), generator=gen, device=device).to(torch.float32)
+            sw = torch.ones((b,), device=device)
+            if b > 1:
+                sw[-1] = 0.0
+            return v, vals, lin, y, sw
 
-    def iota_fields(b):
-        return torch.arange(mcanon.CP, dtype=torch.int32, device=device).repeat(b, 1)
+        def iota_fields(b):
+            return torch.arange(mcanon.CP, dtype=torch.int32, device=device).repeat(b, 1)
 
-    # (label, B, NOTR, values): the probe's default batch, the main path's,
-    # odd and single batches, uniform values in every column, the NOTR variant
-    canon_cases = [
-        ("probe_default", 8192, False, "pad"),
-        ("main_batch", BATCH, False, "pad"),
-        ("odd_b", 333, False, "uniform"),
-        ("b1", 1, False, "pad"),
-        ("notr", 333, True, "pad"),
-    ]
-    for label, b, notr, vals_kind in canon_cases:
-        args = canon_inputs(b, vals_kind)
-        logits, gg2 = mcanon.canon(*args, notr=notr)
-        torch.cuda.synchronize()
-        refs = {"plain": mcanon.canon_plain(*args, notr=notr)}
-        if not notr:
-            refs["kernel #2"] = ffm_fused_logits_grads(
-                args[0], iota_fields(b), *args[1:], mcanon.CP, mcanon.K, aug_lane=mcanon.AUG_LANE)
-        torch.cuda.synchronize()
-        for ref_name, (ref_logits, ref_gg2) in refs.items():
-            err = max((logits - ref_logits).abs().max().item(), (gg2 - ref_gg2).abs().max().item())
-            ok = (torch.allclose(logits, ref_logits, rtol=RTOL, atol=ATOL)
-                  and torch.allclose(gg2, ref_gg2, rtol=RTOL, atol=GRAD_ATOL)
-                  and bool(torch.isfinite(gg2).all()))
-            print(f"kernel micro_canon {label}: B={b} NOTR={notr} values={vals_kind} against "
-                  f"{ref_name}: max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}")
-            require(ok, f"micro_canon {label} disagrees with {ref_name}")
-            if label == "main_batch":
-                probe_err["micro_canon"] = max(probe_err.get("micro_canon", 0.0), err)
-        del args, logits, gg2, refs
+        # (label, B, NOTR, values): the probe's default batch, the main path's,
+        # odd and single batches, uniform values in every column, the NOTR variant
+        canon_cases = [
+            ("probe_default", 8192, False, "pad"),
+            ("main_batch", BATCH, False, "pad"),
+            ("odd_b", 333, False, "uniform"),
+            ("b1", 1, False, "pad"),
+            ("notr", 333, True, "pad"),
+        ]
+        for label, b, notr, vals_kind in canon_cases:
+            args = canon_inputs(b, vals_kind)
+            logits, gg2 = mcanon.canon(*args, notr=notr)
+            torch.cuda.synchronize()
+            refs = {"plain": mcanon.canon_plain(*args, notr=notr)}
+            if not notr:
+                refs["kernel #2"] = ffm_fused_logits_grads(
+                    args[0], iota_fields(b), *args[1:], mcanon.CP, mcanon.K, aug_lane=mcanon.AUG_LANE)
+            torch.cuda.synchronize()
+            for ref_name, (ref_logits, ref_gg2) in refs.items():
+                err = max((logits - ref_logits).abs().max().item(), (gg2 - ref_gg2).abs().max().item())
+                ok = (torch.allclose(logits, ref_logits, rtol=RTOL, atol=ATOL)
+                      and torch.allclose(gg2, ref_gg2, rtol=RTOL, atol=GRAD_ATOL)
+                      and bool(torch.isfinite(gg2).all()))
+                print(f"kernel micro_canon {label}: B={b} NOTR={notr} values={vals_kind} against "
+                      f"{ref_name}: max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}")
+                require(ok, f"micro_canon {label} disagrees with {ref_name}")
+                if label == "main_batch":
+                    probe_err["micro_canon"] = max(probe_err.get("micro_canon", 0.0), err)
+            del args, logits, gg2, refs
 
-    # (label, N, PER, E): the probes' field shape, every id one row (PER=1)
-    # at E=1, odd sizes; pairs of equal ids forced for dual
-    rmw_cases = [("probe_default", 8192, 2564, 640), ("dups_e1", 1000, 1, 1), ("odd", 130, 333, 37)]
-    for label, n, per, e in rmw_cases:
+        # (label, N, PER, E): the probes' field shape, every id one row (PER=1)
+        # at E=1, odd sizes; pairs of equal ids forced for dual
+        rmw_cases = [("probe_default", 8192, 2564, 640), ("dups_e1", 1000, 1, 1), ("odd", 130, 333, 37)]
+        for label, n, per, e in rmw_cases:
+            idx = torch.randint(0, per, (n,), generator=gen, device=device, dtype=torch.int32)
+            idx[1::2][::3] = idx[0::2][::3]
+            pay = torch.randn((n, e), generator=gen, device=device)
+            rows = mrmw2.per_pad(per)
+            for variant in mrmw2.VARIANTS:
+                got = [mrmw2.run_kernel(idx, pay, variant, rows) for _ in range(2)]
+                torch.cuda.synchronize()
+                want = mrmw2.rmw_plain(idx.cpu(), pay.cpu(), variant, rows)
+                ok, same = torch.equal(got[0].cpu(), want), torch.equal(got[0], got[1])
+                print(f"kernel micro_rmw2 {label} {variant}: N={n} PER={per} E={e} bit-identical to "
+                      f"plain={ok}; repeat bit-identical={same}")
+                require(ok and same, f"micro_rmw2 {label} {variant} disagrees")
+            rows = -(-per // 8) * 8
+            for dtype in mrmw2.PAY_DTYPES:
+                p_t = pay.to(dtype)
+                got = mrmw.rmw(idx, p_t, rows)
+                torch.cuda.synchronize()
+                ok = torch.equal(got.cpu(), mrmw2.rmw_plain(idx.cpu(), p_t.cpu(), "base", rows))
+                print(f"kernel micro_rmw {label} {dtype}: N={n} PER={per} E={e} bit-identical to "
+                      f"plain={ok}")
+                require(ok, f"micro_rmw {label} {dtype} disagrees")
+            del idx, pay, got, want
+        probe_err["micro_rmw"] = probe_err["micro_rmw2"] = 0.0  # bit-identical above
+
+        # (label, NNZ, E2, dtype, BLK): the probe's default, the main path's
+        # nnz, bf16, a ragged tail at E2=1, odd sizes
+        gather_cases = [
+            ("probe_default", 319488, 1280, torch.float32, 512),
+            ("main_nnz", BATCH * N_FIELDS, 1280, torch.float32, 512),
+            ("probe_bf16", 319488, 1280, torch.bfloat16, 512),
+            ("tail_e1", 1000, 1, torch.float32, 512),
+            ("odd_bf16", 777, 37, torch.bfloat16, 16),
+        ]
+        for label, nnz, e2, dtype, blk in gather_cases:
+            perm = torch.randperm(nnz, generator=gen, device=device).to(torch.int32)[: nnz // blk * blk]
+            pay = torch.randn((nnz, e2), generator=gen, device=device).to(dtype)
+            got = [mgather.dma_gather_sum(perm, pay) for _ in range(2)]
+            want = mgather.dma_gather_sum_plain(perm, pay)
+            torch.cuda.synchronize()
+            err = (got[0] - want).abs().max().item()
+            scale = want[0].abs().max().item()
+            ok = err <= GATHER_RTOL * scale and bool((got[0][1:] == 0).all())
+            same = torch.equal(got[0], got[1])
+            print(f"kernel micro_gather {label}: NNZ={nnz} used={perm.numel()} E2={e2} {dtype} "
+                  f"max_abs_err={err:.3e} (max |sum| {scale:.3e}) {'ok' if ok else 'MISMATCH'}; "
+                  f"repeat bit-identical={same}")
+            require(ok and same, f"micro_gather {label} disagrees")
+            if label == "probe_default":
+                probe_err["micro_gather"] = err
+            del perm, pay, got, want
+
+        # ---- 5d. the probes' entry points, then their kernels timed ----
+        for key in PROBE_ENV:  # each probe at its defaults
+            os.environ.pop(key, None)
+        probe_fns = (mlazy.pass3, mcanon.canon, mrmw.rmw, mrmw2.run_kernel, mgather.dma_gather_sum)
+        for fn in probe_fns:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        probe_ms = {}  # each probe's own times, reused below where 5d needs them
+        for mod in (mlazy, mcanon, mrmw, mrmw2, mgather):
+            name = mod.__name__.rsplit('.', 1)[1]
+            print(f"probe {name}:")
+            probe_ms[name] = mod.main(device="cuda")
+        probe_launches = {fn.__name__: fn.launches for fn in probe_fns}
+        print(f"probes: the five entry points in {time.perf_counter() - t0:.1f} s; launches "
+              f"{probe_launches} [{where}]")
+        for fn_name, count in probe_launches.items():
+            require(count > 0, f"{fn_name} was not launched by its probe")
+        torch.cuda.empty_cache()
+
+        probe_time = {}
+
+        from ftrl_ffm_tpu_torch.tools import graph_ms
+
+        def probe_timing(name, label, kern, plain, kern_iters, plain_iters, bytes_moved, ops,
+                         library=None):
+            runs, k_ms, p_ms = interleaved_ms(kern, plain, kern_iters, plain_iters)
+            lib_ms = cuda_ms(library, kern_iters) if library is not None else None
+            b_ms, b_by = bound(bytes_moved, ops)
+            lib_txt = f", one PyTorch call {lib_ms:.4f} ms" if lib_ms is not None else ""
+            print(f"timing: {name} {label}: kernel {runs['kernel']} ms, plain {runs['plain']} ms"
+                  f"{lib_txt}; bound {b_ms:.4f} ms ({b_by}) [{where}]")
+            probe_time[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                    library_ms=lib_ms)
+            return k_ms
+
+        # the no-w pass at micro_lazy's default: read n, z, A, write n, z
+        e = cp * N_FACTORS
+        n_t, z_t, _, a = pass_inputs(N_FEATS, e, gen, device, mlazy.P)
+        probe_timing("micro_pass3", f"R={N_FEATS} E={e}", lambda: mlazy.pass3(n_t, z_t, a),
+                     lambda: mlazy.pass3_plain(n_t, z_t, a), 10, 3, 5 * N_FEATS * e * 4,
+                     18 * N_FEATS * e)
+        del n_t, z_t, a
+
+        # the canonical kernel at the probe's batch and the main path's (the
+        # record's), beside kernel #2 on the same canonical inputs (the probe
+        # timed kernel #2 at its own batch)
+        for b in (8192, BATCH):
+            args = canon_inputs(b, "pad")
+            fields = iota_fields(b)
+            gen_ms = probe_ms["micro_canon_kernel"]["general"] if b == 8192 else cuda_ms(
+                lambda: ffm_fused_logits_grads(args[0], fields, *args[1:], mcanon.CP, mcanon.K,
+                                               aug_lane=mcanon.AUG_LANE), 10)
+            notr_ms = cuda_ms(lambda: mcanon.canon(*args, notr=True), 10)
+            print(f"timing: micro_canon B={b}: kernel #2 on the same inputs {gen_ms:.4f} ms, "
+                  f"NOTR variant {notr_ms:.4f} ms [{where}]")
+            probe_timing("micro_canon", f"B={b}", lambda: mcanon.canon(*args),
+                         lambda: mcanon.canon_plain(*args), 10, 3,
+                         nbytes(*args) + b * 4 + b * mcanon.CP * 2 * mcanon.E * 4,
+                         6 * b * mcanon.CP * mcanon.E)
+            del args, fields
+
+        # read-modify-write at the probes' default field shape: reads the payload
+        # and ids, writes acc (rd reads no payload)
+        n, per, e = 8192, 2564, 640
         idx = torch.randint(0, per, (n,), generator=gen, device=device, dtype=torch.int32)
-        idx[1::2][::3] = idx[0::2][::3]
         pay = torch.randn((n, e), generator=gen, device=device)
-        rows = mrmw2.per_pad(per)
-        for variant in mrmw2.VARIANTS:
-            got = [mrmw2.run_kernel(idx, pay, variant, rows) for _ in range(2)]
-            torch.cuda.synchronize()
-            want = mrmw2.rmw_plain(idx.cpu(), pay.cpu(), variant, rows)
-            ok, same = torch.equal(got[0].cpu(), want), torch.equal(got[0], got[1])
-            print(f"kernel micro_rmw2 {label} {variant}: N={n} PER={per} E={e} bit-identical to "
-                  f"plain={ok}; repeat bit-identical={same}")
-            require(ok and same, f"micro_rmw2 {label} {variant} disagrees")
         rows = -(-per // 8) * 8
-        for dtype in mrmw2.PAY_DTYPES:
-            p_t = pay.to(dtype)
-            got = mrmw.rmw(idx, p_t, rows)
-            torch.cuda.synchronize()
-            ok = torch.equal(got.cpu(), mrmw2.rmw_plain(idx.cpu(), p_t.cpu(), "base", rows))
-            print(f"kernel micro_rmw {label} {dtype}: N={n} PER={per} E={e} bit-identical to "
-                  f"plain={ok}")
-            require(ok, f"micro_rmw {label} {dtype} disagrees")
-        del idx, pay, got, want
-    probe_err["micro_rmw"] = probe_err["micro_rmw2"] = 0.0  # bit-identical above
+        acc0 = torch.zeros((rows, e), device=device)
+        # per call (events around 50 wrapper calls: the host's dispatch
+        # included) and device time (50 calls replayed from a CUDA graph)
+        rmw_call = lambda: mrmw.rmw(idx, pay, rows)  # noqa: E731
+        add_call = lambda: acc0.index_add(0, idx, pay)  # noqa: E731
+        probe_timing("micro_rmw", f"N={n} PER={per} E={e} f32", rmw_call,
+                     lambda: mrmw2.rmw_plain(idx, pay, "base", rows), 50, 10,
+                     nbytes(idx, pay) + rows * e * 4, n * e, library=add_call)
+        probe_time["micro_rmw"]["device_ms"] = graph_ms(rmw_call, 50)
+        probe_time["micro_rmw"]["library_device_ms"] = graph_ms(add_call, 50)
+        pay_bf = pay.to(torch.bfloat16)
+        bf_ms = cuda_ms(lambda: mrmw.rmw(idx, pay_bf, rows), 50)
+        bf_dev_ms = graph_ms(lambda: mrmw.rmw(idx, pay_bf, rows), 50)
+        bf_bound = bound(nbytes(idx, pay_bf) + rows * e * 4, n * e)
+        print(f"timing: micro_rmw f32: device {probe_time['micro_rmw']['device_ms']:.4f} ms, "
+              f"index_add device {probe_time['micro_rmw']['library_device_ms']:.4f} ms; bf16 "
+              f"payload: kernel {bf_ms:.4f} ms per call, device {bf_dev_ms:.4f} ms; bound "
+              f"{bf_bound[0]:.4f} ms [{where}]")
+        rows2 = mrmw2.per_pad(per)
+        acc0 = torch.zeros((rows2, e), device=device)
+        # base, unroll8 and dual sum the same rows (dual up to rounding): one
+        # index_add computes their function; wo (last row wins) and rd (zeros
+        # after reads) have no one-call counterpart
+        add_ms = cuda_ms(add_call, 50)
+        add_dev_ms = graph_ms(add_call, 50)
+        rmw2_variants = {}
+        for variant in mrmw2.VARIANTS:
+            reads = nbytes(idx) + (0 if variant == "rd" else nbytes(pay))
+            call = lambda: mrmw2.run_kernel(idx, pay, variant, rows2)  # noqa: E731
+            probe_timing("micro_rmw2", f"{variant} N={n} PER={per} E={e}", call,
+                         lambda: mrmw2.rmw_plain(idx, pay, variant, rows2), 50, 10,
+                         reads + rows2 * e * 4, n * e)
+            rmw2_variants[variant] = probe_time.pop("micro_rmw2")
+            rmw2_variants[variant]["device_ms"] = graph_ms(call, 50)
+            if variant in ("base", "unroll8", "dual"):
+                rmw2_variants[variant]["library_ms"] = add_ms
+                rmw2_variants[variant]["library_device_ms"] = add_dev_ms
+        # rd's output is zeros whether or not it reads: its time beside a launch
+        # with no ids shows the reads happen
+        empty = lambda: mrmw2.run_kernel(idx[:0], pay[:0], "rd", rows2)  # noqa: E731
+        rd_empty_ms, rd_empty_dev_ms = cuda_ms(empty, 50), graph_ms(empty, 50)
+        print("timing: micro_rmw2 device time (CUDA graph) beside per call: " + ", ".join(
+            f"{v} {t['device_ms']:.4f} / {t['ms']:.4f}" for v, t in rmw2_variants.items())
+            + f" ms; index_add {add_dev_ms:.4f} / {add_ms:.4f} ms; rd with no ids "
+            f"{rd_empty_dev_ms:.4f} / {rd_empty_ms:.4f} ms [{where}]")
+        probe_time["micro_rmw2"] = dict(rmw2_variants["base"], variants=rmw2_variants)
+        del idx, pay, pay_bf, acc0
 
-    # (label, NNZ, E2, dtype, BLK): the probe's default, the main path's
-    # nnz, bf16, a ragged tail at E2=1, odd sizes
-    gather_cases = [
-        ("probe_default", 319488, 1280, torch.float32, 512),
-        ("main_nnz", BATCH * N_FIELDS, 1280, torch.float32, 512),
-        ("probe_bf16", 319488, 1280, torch.bfloat16, 512),
-        ("tail_e1", 1000, 1, torch.float32, 512),
-        ("odd_bf16", 777, 37, torch.bfloat16, 16),
-    ]
-    for label, nnz, e2, dtype, blk in gather_cases:
-        perm = torch.randperm(nnz, generator=gen, device=device).to(torch.int32)[: nnz // blk * blk]
-        pay = torch.randn((nnz, e2), generator=gen, device=device).to(dtype)
-        got = [mgather.dma_gather_sum(perm, pay) for _ in range(2)]
-        want = mgather.dma_gather_sum_plain(perm, pay)
-        torch.cuda.synchronize()
-        err = (got[0] - want).abs().max().item()
-        scale = want[0].abs().max().item()
-        ok = err <= GATHER_RTOL * scale and bool((got[0][1:] == 0).all())
-        same = torch.equal(got[0], got[1])
-        print(f"kernel micro_gather {label}: NNZ={nnz} used={perm.numel()} E2={e2} {dtype} "
-              f"max_abs_err={err:.3e} (max |sum| {scale:.3e}) {'ok' if ok else 'MISMATCH'}; "
-              f"repeat bit-identical={same}")
-        require(ok and same, f"micro_gather {label} disagrees")
-        if label == "probe_default":
-            probe_err["micro_gather"] = err
-        del perm, pay, got, want
+        # the gathered sum at the probe's default: reads the ids and the rows;
+        # one embedding_bag (a single bag, summed) computes the same sum
+        nnz, e2 = 319488, 1280
+        perm = torch.randperm(nnz, generator=gen, device=device).to(torch.int32)
+        pay = torch.randn((nnz, e2), generator=gen, device=device)
+        bag = torch.zeros((1,), dtype=torch.int32, device=device)
+        probe_timing("micro_gather", f"NNZ={nnz} E2={e2} f32",
+                     lambda: mgather.dma_gather_sum(perm, pay),
+                     lambda: mgather.dma_gather_sum_plain(perm, pay), 20, 5,
+                     nbytes(perm, pay) + 8 * e2 * 4, nnz * e2,
+                     library=lambda: torch.nn.functional.embedding_bag(perm, pay, bag, mode="sum"))
+        bag_err = (torch.nn.functional.embedding_bag(perm, pay, bag, mode="sum")[0]
+                   - mgather.dma_gather_sum(perm, pay)[0]).abs().max().item()
+        pay_bf = pay.to(torch.bfloat16)
+        gbf_ms = cuda_ms(lambda: mgather.dma_gather_sum(perm, pay_bf), 20)
+        print(f"timing: micro_gather: index_select alone (the gather without the sum, the TPU "
+              f"probe's baseline, from the probe) {probe_ms['micro_dma_gather']['index_select']:.4f}"
+              f" ms; embedding_bag's sum within {bag_err:.3e} of the kernel's; bf16 payload "
+              f"{gbf_ms:.4f} ms; {probe_time['micro_gather']['ms'] * 1e6 / nnz:.2f} ns/row f32 "
+              f"[{where}]")
+        del perm, pay, pay_bf, bag
 
-    # ---- 5d. the probes' entry points, then their kernels timed ----
-    for key in PROBE_ENV:  # each probe at its defaults
-        os.environ.pop(key, None)
-    probe_fns = (mlazy.pass3, mcanon.canon, mrmw.rmw, mrmw2.run_kernel, mgather.dma_gather_sum)
-    for fn in probe_fns:
-        fn.launches = 0
-    t0 = time.perf_counter()
-    probe_ms = {}  # each probe's own times, reused below where 5d needs them
-    for mod in (mlazy, mcanon, mrmw, mrmw2, mgather):
-        name = mod.__name__.rsplit('.', 1)[1]
-        print(f"probe {name}:")
-        probe_ms[name] = mod.main(device="cuda")
-    probe_launches = {fn.__name__: fn.launches for fn in probe_fns}
-    print(f"probes: the five entry points in {time.perf_counter() - t0:.1f} s; launches "
-          f"{probe_launches} [{where}]")
-    for fn_name, count in probe_launches.items():
-        require(count > 0, f"{fn_name} was not launched by its probe")
-    torch.cuda.empty_cache()
+        # ---- 6. profiles: after every timed phase ----
+        # a profiler run may leave the host's launch path slower for the rest
+        # of the process, so the device breakdowns of the train steps and the
+        # traces of whole epochs come last
+        from ftrl_ffm_tpu_torch.tools import profile_ms
 
-    probe_time = {}
+        for label, mdl, trn, cyc, n in (
+            ("n_feats=100k dense2", tmodel, ttrainer, tcycle, len(tplaced)),
+            ("n_feats=1M inplace", bmodel, btrainer, bcycle, len(bplaced)),
+            ("n_feats=1M dense", dmodel, btrainer, bcycle, len(bplaced)),
+        ):
+            print_breakdown(f"train_step {label}", profile_ms(
+                lambda: mdl.train_step(trn.state, next(cyc)), n), where)
+        # the device's busy share of one train_epoch(): device time (kernels,
+        # copies, fills, on one stream) over the epoch's wall time, both from
+        # the traced epoch
+        for label, trn, eps_untraced in (("n_feats=100k", ttrainer, teps),
+                                         ("n_feats=1M", btrainer, beps)):
+            walls = []
 
-    def probe_timing(name, label, kern, plain, kern_iters, plain_iters, bytes_moved, ops,
-                     library=None):
-        runs, k_ms, p_ms = interleaved_ms(kern, plain, kern_iters, plain_iters)
-        lib_ms = cuda_ms(library, kern_iters) if library is not None else None
-        b_ms, b_by = bound(bytes_moved, ops)
-        lib_txt = f", one PyTorch call {lib_ms:.4f} ms" if lib_ms is not None else ""
-        print(f"timing: {name} {label}: kernel {runs['kernel']} ms, plain {runs['plain']} ms"
-              f"{lib_txt}; bound {b_ms:.4f} ms ({b_by}) [{where}]")
-        probe_time[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                                library_ms=lib_ms)
-        return k_ms
+            def epoch():
+                t0 = time.perf_counter()
+                trn.train_epoch()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
 
-    # the no-w pass at micro_lazy's default: read n, z, A, write n, z
-    e = cp * N_FACTORS
-    n_t, z_t, _, a = pass_inputs(N_FEATS, e, gen, device, mlazy.P)
-    probe_timing("micro_pass3", f"R={N_FEATS} E={e}", lambda: mlazy.pass3(n_t, z_t, a),
-                 lambda: mlazy.pass3_plain(n_t, z_t, a), 10, 3, 5 * N_FEATS * e * 4,
-                 18 * N_FEATS * e)
-    del n_t, z_t, a
-
-    # the canonical kernel at the probe's batch and the main path's (the
-    # record's), beside kernel #2 on the same canonical inputs (the probe
-    # timed kernel #2 at its own batch)
-    for b in (8192, BATCH):
-        args = canon_inputs(b, "pad")
-        fields = iota_fields(b)
-        gen_ms = probe_ms["micro_canon_kernel"]["general"] if b == 8192 else cuda_ms(
-            lambda: ffm_fused_logits_grads(args[0], fields, *args[1:], mcanon.CP, mcanon.K,
-                                           aug_lane=mcanon.AUG_LANE), 10)
-        notr_ms = cuda_ms(lambda: mcanon.canon(*args, notr=True), 10)
-        print(f"timing: micro_canon B={b}: kernel #2 on the same inputs {gen_ms:.4f} ms, "
-              f"NOTR variant {notr_ms:.4f} ms [{where}]")
-        probe_timing("micro_canon", f"B={b}", lambda: mcanon.canon(*args),
-                     lambda: mcanon.canon_plain(*args), 10, 3,
-                     nbytes(*args) + b * 4 + b * mcanon.CP * 2 * mcanon.E * 4,
-                     6 * b * mcanon.CP * mcanon.E)
-        del args, fields
-
-    # read-modify-write at the probes' default field shape: reads the payload
-    # and ids, writes acc (rd reads no payload)
-    n, per, e = 8192, 2564, 640
-    idx = torch.randint(0, per, (n,), generator=gen, device=device, dtype=torch.int32)
-    pay = torch.randn((n, e), generator=gen, device=device)
-    rows = -(-per // 8) * 8
-    acc0 = torch.zeros((rows, e), device=device)
-    probe_timing("micro_rmw", f"N={n} PER={per} E={e} f32", lambda: mrmw.rmw(idx, pay, rows),
-                 lambda: mrmw2.rmw_plain(idx, pay, "base", rows), 50, 10,
-                 nbytes(idx, pay) + rows * e * 4, n * e,
-                 library=lambda: acc0.index_add(0, idx, pay))
-    pay_bf = pay.to(torch.bfloat16)
-    bf_ms = cuda_ms(lambda: mrmw.rmw(idx, pay_bf, rows), 50)
-    bf_bound = bound(nbytes(idx, pay_bf) + rows * e * 4, n * e)
-    print(f"timing: micro_rmw bf16 payload: kernel {bf_ms:.4f} ms; bound {bf_bound[0]:.4f} ms "
-          f"[{where}]")
-    rows2 = mrmw2.per_pad(per)
-    acc0 = torch.zeros((rows2, e), device=device)
-    # base, unroll8 and dual sum the same rows (dual up to rounding): one
-    # index_add computes their function; wo (last row wins) and rd (zeros
-    # after reads) have no one-call counterpart
-    add_ms = cuda_ms(lambda: acc0.index_add(0, idx, pay), 50)
-    rmw2_variants = {}
-    for variant in mrmw2.VARIANTS:
-        reads = nbytes(idx) + (0 if variant == "rd" else nbytes(pay))
-        probe_timing("micro_rmw2", f"{variant} N={n} PER={per} E={e}",
-                     lambda: mrmw2.run_kernel(idx, pay, variant, rows2),
-                     lambda: mrmw2.rmw_plain(idx, pay, variant, rows2), 50, 10,
-                     reads + rows2 * e * 4, n * e)
-        rmw2_variants[variant] = probe_time.pop("micro_rmw2")
-        if variant in ("base", "unroll8", "dual"):
-            rmw2_variants[variant]["library_ms"] = add_ms
-    # rd's output is zeros whether or not it reads: its time beside a launch
-    # with no ids shows the reads happen
-    rd_empty_ms = cuda_ms(lambda: mrmw2.run_kernel(idx[:0], pay[:0], "rd", rows2), 50)
-    print(f"timing: micro_rmw2 rd: {rmw2_variants['rd']['ms']:.4f} ms with {n} ids, "
-          f"{rd_empty_ms:.4f} ms with none; index_add (base, unroll8, dual) {add_ms:.4f} ms "
-          f"[{where}]")
-    probe_time["micro_rmw2"] = dict(rmw2_variants["base"], variants=rmw2_variants)
-    del idx, pay, pay_bf, acc0
-
-    # the gathered sum at the probe's default: reads the ids and the rows;
-    # one embedding_bag (a single bag, summed) computes the same sum
-    nnz, e2 = 319488, 1280
-    perm = torch.randperm(nnz, generator=gen, device=device).to(torch.int32)
-    pay = torch.randn((nnz, e2), generator=gen, device=device)
-    bag = torch.zeros((1,), dtype=torch.int32, device=device)
-    probe_timing("micro_gather", f"NNZ={nnz} E2={e2} f32",
-                 lambda: mgather.dma_gather_sum(perm, pay),
-                 lambda: mgather.dma_gather_sum_plain(perm, pay), 20, 5,
-                 nbytes(perm, pay) + 8 * e2 * 4, nnz * e2,
-                 library=lambda: torch.nn.functional.embedding_bag(perm, pay, bag, mode="sum"))
-    bag_err = (torch.nn.functional.embedding_bag(perm, pay, bag, mode="sum")[0]
-               - mgather.dma_gather_sum(perm, pay)[0]).abs().max().item()
-    pay_bf = pay.to(torch.bfloat16)
-    gbf_ms = cuda_ms(lambda: mgather.dma_gather_sum(perm, pay_bf), 20)
-    print(f"timing: micro_gather: index_select alone (the gather without the sum, the TPU "
-          f"probe's baseline, from the probe) {probe_ms['micro_dma_gather']['index_select']:.4f}"
-          f" ms; embedding_bag's sum within {bag_err:.3e} of the kernel's; bf16 payload "
-          f"{gbf_ms:.4f} ms; {probe_time['micro_gather']['ms'] * 1e6 / nnz:.2f} ns/row f32 "
-          f"[{where}]")
-    del perm, pay, pay_bf, bag
+            rows = profile_ms(epoch, 1)
+            busy, wall = sum(ms for _, ms in rows), walls[-1]
+            print(f"profile: train_epoch() {label}: device busy {busy:.3f} ms of {wall:.3f} ms "
+                  f"traced wall time, idle {1 - busy / wall:.4f}; untraced epochs "
+                  f"{[N_ROWS / x * 1e3 for x in eps_untraced]} ms [{where}]")
+        del ttrainer, tmodel, tplaced, tcycle, btrainer, bmodel, dmodel, bplaced, bcycle
 
     records = [
         {

@@ -14,28 +14,50 @@
 //   huge-table in-place update); only the store differs
 //
 // The sum is ops/interactions.py's T - oh_e * xv (the field-bucketed form of
-// the Pallas kernel) without its one-hot contractions: a counting sort of the
-// sample's fields into C' buckets lists, for each field c, the occurrences
-// of c, so each output slot sums only its own bucket.  In canonical CTR data
-// (one feature per field) every bucket holds one occurrence and a slot costs
-// O(1).  Slot (0, aug_lane), when aug_lane >= 0, carries the linear gradient
-// gs * x_m for every occurrence instead (ffm_pallas.py's
+// the Pallas kernel) without its one-hot contractions: the sample's
+// occurrences are listed by field in C' buckets (stable: ascending m in each
+// bucket), so each output slot sums only its own bucket.  In canonical CTR
+// data (one feature per field) every bucket holds one occurrence and a slot
+// costs O(1).  Slot (0, aug_lane), when aug_lane >= 0, carries the linear
+// gradient gs * x_m for every occurrence instead (ffm_pallas.py's
 // where(lane == aug_lane, gx, g)).  An occurrence whose field lies outside
 // [0, C') has a zero factor gradient and reads no row; a padding occurrence
 // (x = 0) gives zeros.
 //
 // What bounds it on an H100: the store of the payload.  At B=16,384, F=39,
 // C'=40, K=16 it reads 1.64 GB of rows but writes 3.27 GB of payload per
-// batch (638,976 x 1280 x 4 B) for about 2 flops per stored float.  The
-// design writes every value once and coalesced: one block per sample stages
-// its rows in shared memory and takes the pair sum of the logit as
-// ffm_logits.cu does, threads take consecutive slots (k, c) of one
-// occurrence, and g^2 is squared in registers — no [B, F, E] temporaries.
-// (The staging and the pair sum are written out here rather than shared
-// with ffm_logits.cu through device functions: sharing them measured 10%
-// slower for the logits kernel on an H100.)  A sample whose rows do not fit
-// the per-block shared memory runs the same code on its rows in device
-// memory (STAGED = false).
+// batch (638,976 x 1280 x 4 B): 1.47 ms at 3.35 TB/s, for about 2 flops per
+// stored float.  One block per sample stages its rows in shared memory at
+// a stride of E+1 floats (threads of a warp on consecutive occurrences hit
+// distinct banks), takes the pair sum of the logit as ffm_logits.cu does,
+// and stores every payload value once, coalesced; g^2 is squared in
+// registers, no [B, F, E] temporaries.  Two instances:
+//
+// - ffm_fused_c40 (C' = 40, K = 16, F <= 40: the bench's shape, every train
+//   step of chip_smoke.py).  Every divisor is a compile-time constant (the
+//   run-time divisions by E, F and C' cost about 0.9 ms a batch in the
+//   canonical-fields probe, micro_canon.cu).  The rows are staged already
+//   scaled by x (xv = x * v, rounded once), so a bucket sum adds xv and the
+//   logit adds xv_m * xv_n: each product is rounded in another place than
+//   in the general instance, and the logit's work items are (m, k) with m
+//   running over 40 slots, not F: its partial sums run in another order
+//   (both within the tolerances of the plain version).  The bucket table is
+//   built in parallel: thread c counts field c, one warp prefix-sums the
+//   counts and each lane places its own occurrences (the same stable
+//   order), where the general instance sorts on one thread.  Each thread of
+//   the store takes four consecutive slots (k, c..c+3) of one occurrence,
+//   whose bucket sums read one column, and stores one float4 of g and one of
+//   g^2 with streaming stores (__stcs: 3.27 GB passes through a 50 MB L2).
+//   320 threads, so the 640 (m, k) work items of the logit are two rounds;
+//   103.6 KB of shared memory, two blocks per SM.
+// - ffm_fused_kernel (any other shape): the same work with run-time sizes,
+//   a serial counting sort on thread 0 and one float a thread.  A sample
+//   whose rows do not fit the per-block shared memory runs the same code on
+//   its rows in device memory (STAGED = false).  A shape neither takes
+//   raises.
+//
+// The launcher reads the device's shared-memory limit and raises each
+// kernel's allowance once per device (a static cache), not on every launch.
 // Offsets into v and the payload are size_t: B*F*2E passes 2^31 at
 // B = 65,536.
 
@@ -48,6 +70,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxDevices = 64;
 
 // Floats of dynamic shared memory for one sample: the warp partial sums,
 // gs (and a pad float), fields, values, bucket starts [C+1], the occurrences
@@ -203,60 +226,257 @@ ffm_fused_kernel(const float* __restrict__ v, const int* __restrict__ fields,
   }
 }
 
-// 1 when `floats` of dynamic shared memory fit one block on the current
-// device, 0 when not, a negative CUDA error code when the device cannot be
-// queried.
-int fits_shared(size_t floats) {
-  int dev = 0;
-  int optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+// ---- the instance for C' = 40, K = 16, F <= 40 ----
+constexpr int kC = 40;
+constexpr int kK = 16;
+constexpr int kE = kC * kK;
+constexpr int kFMax = 40;
+constexpr int kS = kE + 1;                 // staged row stride (floats)
+constexpr int kSpecThreads = 320;
+constexpr int kSpecWarps = kSpecThreads / 32;
+constexpr int kQuads = kE / 4;             // float4 groups of slots in a row
+static_assert(kC % 4 == 0 && kC <= 64 && kFMax <= 64, "bucket scan takes 2 per lane");
+
+// Ints of dynamic shared memory before the staged rows: warp partial sums,
+// gs and a pad, fields, values, field counts, bucket starts [C+1] and the
+// occurrences in bucket order [FMAX] (rounded up to 4 ints).
+constexpr int kSpecHead = (kSpecWarps + 2 + 3 * kFMax + kC + kC + 1 + 3) / 4 * 4;
+constexpr size_t kSpecBytes = (kSpecHead + static_cast<size_t>(kFMax) * kS) * sizeof(float);
+
+__global__ void __launch_bounds__(kSpecThreads, 2)
+ffm_fused_c40(const float* __restrict__ v, const int* __restrict__ fields,
+              const float* __restrict__ vals, const float* __restrict__ lin,
+              const float* __restrict__ y, const float* __restrict__ sw,
+              float* __restrict__ logits, float* __restrict__ g_out,
+              float* __restrict__ g2_out, int out_stride, int F, int aug_lane, int vec4) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x;
+  const size_t occ0 = static_cast<size_t>(b) * F;
+  float* red = smem;
+  float* gs_s = red + kSpecWarps;
+  int* sf = reinterpret_cast<int*>(gs_s + 2);
+  float* sx = reinterpret_cast<float*>(sf + kFMax);
+  int* cnt = reinterpret_cast<int*>(sx + kFMax);
+  int* bstart = cnt + kC;
+  int* border = bstart + kC + 1;
+  float* xv = smem + kSpecHead;  // xv[m*kS + j] = x_m * v_m[j]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  for (int i = threadIdx.x; i < F; i += kSpecThreads) {
+    sf[i] = fields[occ0 + i];
+    sx[i] = vals[occ0 + i];
   }
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  return floats * sizeof(float) <= static_cast<size_t>(optin) ? 1 : 0;
+  const float* src = v + occ0 * kE;
+  const float* xsrc = vals + occ0;
+  const int total = F * kE;
+  if (vec4) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < total / 4; i += kSpecThreads) {
+      const float4 q = __ldg(src4 + i);
+      const int m = i / kQuads;
+      const float x = __ldg(xsrc + m);
+      float* dst = xv + 4 * i + m;  // row m at m*kS = m*kE + m
+      dst[0] = __fmul_rn(q.x, x);
+      dst[1] = __fmul_rn(q.y, x);
+      dst[2] = __fmul_rn(q.z, x);
+      dst[3] = __fmul_rn(q.w, x);
+    }
+  } else {
+#pragma unroll 4
+    for (int j = threadIdx.x; j < total; j += kSpecThreads) {
+      const int m = j / kE;
+      xv[j + m] = __fmul_rn(__ldg(src + j), __ldg(xsrc + m));
+    }
+  }
+  __syncthreads();
+
+  // field counts for the bucket table (threads c < C), beside the logit
+  if (threadIdx.x < kC) {
+    int n = 0;
+    for (int m = 0; m < F; ++m) n += sf[m] == static_cast<int>(threadIdx.x);
+    cnt[threadIdx.x] = n;
+  }
+  // The logit: work items (m, k), m fastest over kFMax slots, each summing
+  // xv_m[k, f_n] * xv_n[k, f_m] over partners n != m with fields in range.
+  float acc = 0.f;
+  for (int w = threadIdx.x; w < kFMax * kK; w += kSpecThreads) {
+    const int m = w % kFMax;
+    const int k = w / kFMax;
+    if (m >= F) continue;
+    const int fm = sf[m];
+    if (fm < 0 || fm >= kC) continue;
+    const float* vm = xv + m * kS + k * kC;  // xv_m[k, .]
+    const float* vn = xv + k * kC + fm;      // + n*kS: xv_n[k, f_m]
+    float part = 0.f;
+#pragma unroll 4
+    for (int n = 0; n < F; ++n) {
+      const int fn = sf[n];
+      if (n == m || fn < 0 || fn >= kC) continue;
+      part = fmaf(vm[fn], vn[n * kS], part);
+    }
+    acc += part;
+  }
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+  if (lane == 0) red[warp] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    // bucket starts: lane l holds the counts of fields 2l and 2l+1
+    const int c0 = 2 * lane;
+    const int a = c0 < kC ? cnt[c0] : 0;
+    const int a1 = c0 + 1 < kC ? cnt[c0 + 1] : 0;
+    int incl = a + a1;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const int excl = incl - a - a1;
+    if (c0 < kC) bstart[c0] = excl;
+    if (c0 + 1 < kC) bstart[c0 + 1] = excl + a;
+    if (c0 + 2 == kC) bstart[kC] = incl;
+    __syncwarp();
+    // each occurrence m (lanes m and m - 32) takes its place in its bucket:
+    // bstart[f_m] + the number of n < m with f_n == f_m
+    for (int m = lane; m < F; m += 32) {
+      const int fm = sf[m];
+      if (fm < 0 || fm >= kC) continue;
+      int rank = 0;
+      for (int n = 0; n < m; ++n) rank += sf[n] == fm;
+      border[bstart[fm] + rank] = m;
+    }
+    acc = lane < kSpecWarps ? red[lane] : 0.f;
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+    if (lane == 0) {
+      const float logit = lin[b] + 0.5f * acc;
+      logits[b] = logit;
+      gs_s[0] = (1.f / (1.f + expf(-logit)) - y[b]) * sw[b];
+    }
+  }
+  __syncthreads();
+  const float gs = gs_s[0];
+
+  // four slots (k, c0..c0+3) of occurrence m a thread: the bucket sums of
+  // c0..c0+3 all read column k*C + f_m of their partners' rows
+  float* out_g = g_out + occ0 * out_stride;
+  float* out_g2 = g2_out + occ0 * out_stride;
+  for (int i = threadIdx.x; i < F * kQuads; i += kSpecThreads) {
+    const int m = i / kQuads;
+    const int r = i - m * kQuads;
+    const int k = r / (kC / 4);
+    const int c0 = 4 * r - k * kC;
+    const int fm = sf[m];
+    const float gx = gs * sx[m];
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    if (fm >= 0 && fm < kC) {
+      const float* col = xv + k * kC + fm;  // + n*kS: xv_n[k, f_m]
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int q1 = bstart[c0 + u + 1];
+        for (int q = bstart[c0 + u]; q < q1; ++q) {
+          const int n = border[q];
+          if (n != m) s[u] += col[n * kS];
+        }
+      }
+    }
+    float g[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) g[u] = 4 * r + u == aug_lane ? gx : gx * s[u];
+    const size_t at = static_cast<size_t>(m) * out_stride + 4 * r;
+    __stcs(reinterpret_cast<float4*>(out_g + at), make_float4(g[0], g[1], g[2], g[3]));
+    __stcs(reinterpret_cast<float4*>(out_g2 + at),
+           make_float4(g[0] * g[0], g[1] * g[1], g[2] * g[2], g[3] * g[3]));
+  }
+}
+
+// The current device and its per-block shared-memory limit (opt-in), read
+// from the runtime once per device.
+cudaError_t device_optin(int* dev, int* optin) {
+  static int cache[kMaxDevices] = {};
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if (*dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cache[*dev] == 0) {
+    int value = 0;
+    err = cudaDeviceGetAttribute(&value, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
+    if (err != cudaSuccess) return err;
+    cache[*dev] = value;
+  }
+  *optin = cache[*dev];
+  return cudaSuccess;
+}
+
+// Raise `kernel`'s dynamic shared-memory allowance to the device's limit,
+// once per device (`done` is that kernel's own flags).
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, int dev, int optin, bool* done) {
+  if (done[dev]) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess) done[dev] = true;
+  return err;
+}
+
+bool takes_c40(int F, int C, int K) { return C == kC && K == kK && F >= 1 && F <= kFMax; }
+
+// The instance that takes a sample of F occurrences at C' fields and K
+// factors under `optin` bytes of shared memory a block: 2 the C' = 40,
+// K = 16 instance, 1 the general one with its rows staged in shared
+// memory, 0 the general one on rows in device memory, -1 none.
+int pick_instance(int F, int C, int K, int optin) {
+  const size_t limit = static_cast<size_t>(optin);
+  if (takes_c40(F, C, K) && kSpecBytes <= limit) return 2;
+  if (fused_floats(F, C, K, true) * sizeof(float) <= limit) return 1;
+  if (fused_floats(F, C, K, false) * sizeof(float) <= limit) return 0;
+  return -1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1 when a sample of F occurrences at C' fields and K factors stages its
-// rows in shared memory on the current device, 0 when it runs from device
-// memory, a negative CUDA error code when the device cannot be queried.
-int ffm_fused_stages(int F, int C, int K) {
-  return fits_shared(fused_floats(F, C, K, true));
-}
-
 // Launch on `stream`: v [B*F, C*K], fields/vals [B, F], lin/y/sw/logits
 // [B], all contiguous on the current device; aug_lane in [-1, C*K).  The
 // payload goes to g [B*F, 2*C*K] (combined, g2 null) or to g and g2, each
-// [B*F, C*K] (split).  Returns the CUDA error of the launch (0 on
-// success); the caller raises on anything else.
+// [B*F, C*K] (split), 16-byte aligned.  Writes the instance it picked to
+// *instance (pick_instance's code; left as it was when the device cannot be
+// queried) and launches it.  Returns the CUDA error of the launch (0 on
+// success, cudaErrorInvalidValue when no instance takes the shape); the
+// caller raises on anything else.
 int ffm_fused_launch(const float* v, const int* fields, const float* vals,
                      const float* lin, const float* y, const float* sw, float* logits,
                      float* g, float* g2, int B, int F, int C, int K, int aug_lane,
-                     void* stream) {
+                     void* stream, int* instance_out) {
+  static bool done_c40[kMaxDevices] = {};
+  static bool done_staged[kMaxDevices] = {};
+  static bool done_device[kMaxDevices] = {};
+  int dev = 0;
+  int optin = 0;
+  cudaError_t err = device_optin(&dev, &optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int instance = pick_instance(F, C, K, optin);
+  *instance_out = instance;
+  if (instance < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   const int E = C * K;
-  int staged = ffm_fused_stages(F, C, K);
-  if (staged < 0) return -staged;
-  if (!staged) {
-    const int small = fits_shared(fused_floats(F, C, K, false));
-    if (small < 0) return -small;
-    if (!small) return static_cast<int>(cudaErrorInvalidValue);
-  }
   const int vec4 = E % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  const size_t bytes = fused_floats(F, C, K, staged) * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = staged ? &ffm_fused_kernel<true> : &ffm_fused_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int stride = g2 == nullptr ? 2 * E : E;
-  kernel<<<B, kThreads, bytes, s>>>(v, fields, vals, lin, y, sw, logits, g,
-                                    g2 == nullptr ? g + E : g2, stride, F, C, K, aug_lane,
-                                    vec4);
+  float* second = g2 == nullptr ? g + E : g2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (instance == 2) {
+    err = allow_shared(&ffm_fused_c40, dev, optin, done_c40);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ffm_fused_c40<<<B, kSpecThreads, kSpecBytes, s>>>(v, fields, vals, lin, y, sw, logits, g,
+                                                      second, stride, F, aug_lane, vec4);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const bool staged = instance == 1;
+  auto kernel = staged ? &ffm_fused_kernel<true> : &ffm_fused_kernel<false>;
+  err = allow_shared(kernel, dev, optin, staged ? done_staged : done_device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t bytes = fused_floats(F, C, K, staged) * sizeof(float);
+  kernel<<<B, kThreads, bytes, s>>>(v, fields, vals, lin, y, sw, logits, g, second, stride, F,
+                                    C, K, aug_lane, vec4);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,32 +19,42 @@
 // Ids outside [0, R) are dropped.  Every element of out is summed (or
 // written) in payload order, as the TPU's sequential grid does, so the
 // result is deterministic and bit for bit what the sequential plain PyTorch
-// version gives (CPU index_add_ adds in index order).  No atomics.
-//
-// Design: the TPU keeps acc [R, E] (6.6 MB at R = 2,568, E = 640) in VMEM;
-// an H100 block has 227 KB of shared memory.  So acc is cut across blocks by
-// columns (32 a block: one per lane, so a payload row's slice is one 128-byte
-// load) and by row classes (row r belongs to class r % RB, RB a power of
-// two), and the block's slice of acc lives in shared memory.  Inside a
-// block, warp w owns the rows of its class whose local index r / RB is w
-// modulo the warp count, so no two warps touch one element.  The block
-// stages the rows its ids name, kStage at a time, in shared memory with
-// coalesced loads; each warp scans them 32 at a time, lists the payload rows
-// that land in its rows (a ballot keeps their order), then applies them in
-// order, U at a time: the U payload loads are issued before the U
-// read-modify-writes, which is what the probe's variants price (base and wo
-// U = 1, dual U = 2, unroll8 U = 8).  At the end the block writes its slice
-// of acc; every element of out is written by exactly one block.  The staging
-// is there because every warp scanning the ids in device memory, with a
-// division by RB per id, measured 0.112 ms at the probe's shape on an H100
-// and its read-only variant 0.096 ms: the scan's latency, not the
-// read-modify-writes, set the time.
+// version gives (CPU index_add_ adds in index order).  No atomics on out.
 //
 // What bounds it on an H100: bytes.  At N = 8,192, R = 2,568 (+8), E = 640
 // it reads 21.0 MB of payload and writes 6.6 MB of acc: 8.2 us at the
-// 3.35 TB/s peak.  Launch overhead (a few us) and the serial chain of
-// dependent loads per warp (a payload load, then the shared-memory RMW) are
-// what this simple design meets first.
+// 3.35 TB/s peak.  The TPU keeps acc [R, E] in VMEM; an H100 block has
+// 227 KB of shared memory, so acc is cut across blocks by column tiles and
+// by row classes (row r belongs to class r % RB, RB a power of two, at local
+// row r / RB), and one warp owns a (tile, class) slice of acc in shared
+// memory.  Two kernels:
+//
+// - micro_rmw_bin: the events binned by class, once.  Block g sorts its
+//   chunk of 256 ids (one a thread) stably by class: a ballot per class bit
+//   ranks a lane among the warp's lanes of its class, the warps' counts
+//   become offsets, and each event goes to its class's segment of the
+//   chunk's list, in payload order.  An entry holds the payload row, the
+//   local row and what the event adds (dual's pair sums and dump-row zeros
+//   are decided here).  Every id is read once, by one block.  (A first form
+//   sorted all N ids in one block of 1,024 threads, on one SM: the probe
+//   took 0.025 ms of device time with it, 0.015 with chunks on an H100.)
+// - micro_rmw_apply: block = one warp = one (column tile, class) slice.  A
+//   lane owns 4 consecutive columns (a float4 of f32, 8 bytes of bf16;
+//   scalar when E % 4 != 0 or the payload is unaligned), so a warp covers
+//   128 columns and E = 640 takes 5 tiles.  The warp walks its class's
+//   segments chunk by chunk, which is payload order, kChunk events at a
+//   time (16 for dual, which loads two rows for some): it issues all their
+//   payload loads first, then applies them in order to its slice, which no
+//   other warp touches.  So every variant has kChunk loads in flight: base and
+//   unroll8 (whose only difference on the TPU was how many loads were in
+//   flight) run the same code.  Then it writes its slice of out; every
+//   element of out is written by exactly one warp.
+//
+// RB is chosen so that the grid runs in one wave of at most eight warps per
+// SM and a slice fits 48 KB; the launcher reads the SM count, the
+// shared-memory limit and each instance's occupancy once per device (a
+// static cache), not on every launch.  The event list is
+// scratch the caller allocates (micro_rmw_scratch_ints).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,158 +64,359 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kStage = 4096;     // event rows a block stages at a time (16 KB)
-constexpr int kChunk = 512;      // ids a warp lists before applying them
-constexpr int kMaxLocal = 1024;  // rows of acc a block keeps (128 KB)
+constexpr int kMaxDevices = 64;
+constexpr int kBinIds = 256;           // ids a bin block sorts, one a thread
+constexpr int kBinWarps = kBinIds / 32;
+constexpr int kMaxClasses = 256;       // row classes (bin's shared memory: 9 KB)
+constexpr int kChunk = 32;             // payload loads a warp has in flight (dual: 2x16)
+constexpr int kFastBytes = 48 * 1024;  // a slice of acc that needs no opt-in
+constexpr int kRowBits = 24;           // an entry's local row; its kind above
+constexpr unsigned kFull = 0xffffffffu;
 
 enum Variant { kBase = 0, kUnroll8 = 1, kDual = 2, kWriteOnly = 3, kReadOnly = 4 };
+// what an event adds: its payload row; dual's first row of an equal pair
+// (+ the second), of an unequal pair (+ 0), and the second of an equal pair
+// (0, into the dump row)
+enum Kind { kPay = 0, kPairSum = 1, kPayPlusZero = 2, kZero = 3 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// The row event b lands on (-1: dropped).
-template <int VARIANT>
-__device__ __forceinline__ int event_row(const int* __restrict__ idx, int b, int rows,
-                                         int dump) {
-  int r = __ldg(idx + b);
-  if (VARIANT == kDual && (b & 1) && r == __ldg(idx + b - 1)) r = dump;
-  return r >= 0 && r < rows ? r : -1;
+// {row (-1: dropped), kind} of event b whose id is raw (b < end); every
+// lane of the warp calls it (dual reads its neighbours' ids by shuffle: b
+// and the lane have the same parity, since a warp's ids start at a multiple
+// of 32)
+template <bool DUAL>
+__device__ __forceinline__ int2 event(int raw, int b, int end, int rows, int lane) {
+  int row = raw;
+  int kind = kPay;
+  if (DUAL) {
+    const int prev = __shfl_up_sync(kFull, raw, 1);
+    const int next = __shfl_down_sync(kFull, raw, 1);
+    if (lane & 1) {
+      if (raw == prev) {
+        row = rows - 8;
+        kind = kZero;
+      }
+    } else {
+      kind = raw == next ? kPairSum : kPayPlusZero;
+    }
+  }
+  if (b >= end || row < 0 || row >= rows) row = -1;
+  return make_int2(row, kind);
 }
 
-// What event b adds (or writes) at column col.
-template <typename T, int VARIANT>
-__device__ __forceinline__ float event_value(const int* __restrict__ idx,
-                                             const T* __restrict__ pay, int b, int E,
-                                             int col) {
-  const float p = to_f32(pay[static_cast<size_t>(b) * E + col]);
-  if (VARIANT != kDual) return p;
-  const bool same = __ldg(idx + b) == __ldg(idx + (b ^ 1));
-  if (b & 1) return same ? 0.f : p;
-  return __fadd_rn(p, same ? to_f32(pay[static_cast<size_t>(b + 1) * E + col]) : 0.f);
-}
-
-template <typename T, int VARIANT, int U>
-__global__ void __launch_bounds__(kThreads)
-micro_rmw_kernel(const int* __restrict__ idx, const T* __restrict__ pay,
-                 float* __restrict__ out, int N, int rows, int E, int rb_bits, int dump) {
-  extern __shared__ float smem[];
-  const int class_mask = (1 << rb_bits) - 1;
-  const int ct = blockIdx.x;
-  const int rb = blockIdx.y;
+// A chunk's stable counting sort by class r & (RB-1): block g takes ids
+// [g*kBinIds, (g+1)*kBinIds), one a thread.  list[g*kBinIds + offs[g*(RB+1)
+// + c] .. g*kBinIds + offs[g*(RB+1) + c+1]) holds the chunk's class-c
+// events in payload order as {b, local row | kind << kRowBits}.
+template <bool DUAL>
+__global__ void __launch_bounds__(kBinIds)
+micro_rmw_bin(const int* __restrict__ idx, int N, int rows, int rb_bits,
+              int2* __restrict__ list, int* __restrict__ offs) {
+  __shared__ int cnt[kBinWarps * kMaxClasses];  // per warp and class: counts, then offsets
+  __shared__ int cstart[kMaxClasses + 1];       // per class: count, then start
+  __shared__ int wsum[kBinWarps];
+  const int RB = 1 << rb_bits;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int col = ct * 32 + lane;
-  const bool live = col < E;
-  const int nl = rows > rb ? ((rows - 1 - rb) >> rb_bits) + 1 : 0;  // local rows
-  float* acc = smem;                                                  // [nl, 32]
-  int* srow = reinterpret_cast<int*>(acc + static_cast<size_t>(nl) * 32);  // [kStage]
-  int* list = srow + kStage + warp * kChunk;                               // [kChunk]
-  for (int i = threadIdx.x; i < nl * 32; i += kThreads) acc[i] = 0.f;
-
-  float read_sum = 0.f;
-  for (int s0 = 0; s0 < N; s0 += kStage) {
-    const int s1 = min(s0 + kStage, N);
-    __syncthreads();  // acc is zeroed and the last stage's rows are read
-#pragma unroll 4
-    for (int b = s0 + threadIdx.x; b < s1; b += kThreads) {
-      srow[b - s0] = event_row<VARIANT>(idx, b, rows, dump);
-    }
-    __syncthreads();
-    for (int c0 = s0; c0 < s1; c0 += kChunk) {
-      const int c1 = min(c0 + kChunk, s1);
-      int cnt = 0;
-#pragma unroll 4
-      for (int base = c0; base < c1; base += 32) {
-        const int b = base + lane;
-        const int r = b < c1 ? srow[b - s0] : -1;
-        const bool mine =
-            r >= 0 && (r & class_mask) == rb && ((r >> rb_bits) & (kWarps - 1)) == warp;
-        const unsigned mask = __ballot_sync(0xffffffffu, mine);
-        if (mine) list[cnt + __popc(mask & ((1u << lane) - 1u))] = b;
-        cnt += __popc(mask);
-      }
-      __syncwarp();
-      for (int j0 = 0; j0 < cnt; j0 += U) {
-        float val[U];
-        int lr[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int b = j0 + u < cnt ? list[j0 + u] : -1;
-          lr[u] = b >= 0 ? srow[b - s0] >> rb_bits : -1;
-          val[u] = 0.f;
-          if (VARIANT != kReadOnly && live && b >= 0) {
-            val[u] = event_value<T, VARIANT>(idx, pay, b, E, col);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if (lr[u] < 0) continue;
-          float* a = acc + lr[u] * 32 + lane;
-          if (VARIANT == kWriteOnly) {
-            *a = val[u];
-          } else if (VARIANT == kReadOnly) {
-            read_sum += *a;
-          } else {
-            *a = __fadd_rn(*a, val[u]);
-          }
-        }
-      }
-      __syncwarp();  // the list is written again by the next chunk
-    }
+  const int b = blockIdx.x * kBinIds + threadIdx.x;
+  for (int i = threadIdx.x; i < kBinWarps * RB; i += kBinIds) cnt[i] = 0;
+  const int2 ev = event<DUAL>(b < N ? __ldg(idx + b) : -1, b, N, rows, lane);
+  const int c = ev.x >= 0 ? ev.x & (RB - 1) : -1;
+  // the lanes with this lane's class: one ballot per class bit
+  unsigned peers = __ballot_sync(kFull, ev.x >= 0);
+  if (ev.x < 0) peers = ~peers;
+  for (int bit = 0; bit < rb_bits; ++bit) {
+    const unsigned on = __ballot_sync(kFull, (c >> bit) & 1);
+    peers &= (c >> bit) & 1 ? on : ~on;
   }
-  // rd: what was read goes back into a row this warp owns (all zeros)
-  if (VARIANT == kReadOnly && warp < nl) {
-    acc[warp * 32 + lane] = __fadd_rn(acc[warp * 32 + lane], read_sum);
+  const int rank = __popc(peers & ((1u << lane) - 1u));
+  __syncthreads();
+  if (ev.x >= 0 && rank == 0) cnt[warp * RB + c] = __popc(peers);
+  __syncthreads();
+  for (int k = threadIdx.x; k < RB; k += kBinIds) {
+    int run = 0;
+    for (int w = 0; w < kBinWarps; ++w) {
+      const int n = cnt[w * RB + k];
+      cnt[w * RB + k] = run;
+      run += n;
+    }
+    cstart[k] = run;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < nl * 32; i += kThreads) {
-    const int l = i >> 5;
-    const int c = ct * 32 + (i & 31);
-    if (c < E) out[static_cast<size_t>((l << rb_bits) + rb) * E + c] = acc[i];
+  // class starts: an exclusive scan, warp w over classes 32w .. 32w+31
+  const int k = warp * 32 + lane;
+  const int n = k < RB ? cstart[k] : 0;
+  int incl = n;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  int before = 0;
+  for (int w = 0; w < warp; ++w) before += wsum[w];
+  if (k < RB) cstart[k] = before + incl - n;
+  if (k == RB - 1) cstart[RB] = before + incl;
+  __syncthreads();
+  int* chunk_offs = offs + static_cast<size_t>(blockIdx.x) * (RB + 1);
+  for (int j = threadIdx.x; j <= RB; j += kBinIds) chunk_offs[j] = cstart[j];
+  if (ev.x >= 0) {
+    list[static_cast<size_t>(blockIdx.x) * kBinIds + cstart[c] + cnt[warp * RB + c] + rank] =
+        make_int2(b, (ev.x >> rb_bits) | (ev.y << kRowBits));
   }
 }
 
-template <typename T, int VARIANT, int U>
-int launch(const int* idx, const void* pay, float* out, int N, int rows, int E,
+// VEC payload floats at offset `at` (bf16 widens exactly: its bits are the
+// top half of the f32's)
+template <int VEC>
+__device__ __forceinline__ void load(const float* __restrict__ pay, size_t at, float* v) {
+  if constexpr (VEC == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(pay + at));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    v[0] = __ldg(pay + at);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void load(const __nv_bfloat16* __restrict__ pay, size_t at,
+                                     float* v) {
+  if constexpr (VEC == 4) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(pay + at));
+    v[0] = __uint_as_float(q.x << 16);
+    v[1] = __uint_as_float(q.x & 0xffff0000u);
+    v[2] = __uint_as_float(q.y << 16);
+    v[3] = __uint_as_float(q.y & 0xffff0000u);
+  } else {
+    v[0] = __bfloat162float(pay[at]);
+  }
+}
+
+// VEC floats of a lane's slice of acc in shared memory, as one 16-byte
+// access when VEC = 4 (four scalar accesses at the lanes' 16-byte stride
+// would meet 4-way bank conflicts)
+template <int VEC>
+__device__ __forceinline__ void load_acc(const float* a, float* v) {
+  if constexpr (VEC == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(a);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    v[0] = a[0];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_acc(float* a, const float* v) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(a) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    a[0] = v[0];
+  }
+}
+
+template <typename T, int VARIANT, int VEC>
+__global__ void __launch_bounds__(32)
+micro_rmw_apply(const int2* __restrict__ list, const int* __restrict__ offs,
+                const T* __restrict__ pay, float* __restrict__ out, int N, int rows, int E,
+                int rb_bits) {
+  extern __shared__ float acc[];  // [local rows][32 * VEC]
+  constexpr int TW = 32 * VEC;
+  constexpr bool kDualSum = VARIANT == kDual;
+  constexpr int kStep = kDualSum ? kChunk / 2 : kChunk;  // dual loads two rows an event
+  const int cls = blockIdx.y;
+  const int lane = threadIdx.x;
+  const int nl = rows > cls ? ((rows - 1 - cls) >> rb_bits) + 1 : 0;
+  const int col = blockIdx.x * TW + lane * VEC;
+  const bool live = col < E;     // VEC = 4 only when E % 4 == 0
+  float* my = acc + lane * VEC;  // this lane's columns of local row l: my[l * TW]
+  const float zeros[VEC] = {};
+  for (int l = 0; l < nl; ++l) store_acc<VEC>(my + l * TW, zeros);
+  float read_sum[VEC] = {};
+  // the class's events, chunk by chunk in payload order: lane g of a group
+  // of 32 chunks holds chunk g's segment [lo, lo + n) and its place excl
+  // among the group's events
+  const int chunks = (N + kBinIds - 1) / kBinIds;
+  const int stride = (1 << rb_bits) + 1;
+  for (int g0 = 0; g0 < chunks; g0 += 32) {
+    const int g = g0 + lane;
+    int lo = 0;
+    int n = 0;
+    if (g < chunks) {
+      lo = offs[static_cast<size_t>(g) * stride + cls];
+      n = offs[static_cast<size_t>(g) * stride + cls + 1] - lo;
+    }
+    int incl = n;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const int excl = incl - n;
+    const int total = __shfl_sync(kFull, incl, 31);
+    for (int p0 = 0; p0 < total; p0 += kStep) {
+      // lane u < kStep fetches event p0 + u: its chunk is the last lane
+      // whose excl <= p (excl does not decrease across the lanes)
+      const int p = p0 + lane;
+      int at = 0;
+      for (int step = 16; step > 0; step >>= 1) {
+        if (__shfl_sync(kFull, excl, at + step) <= p) at += step;
+      }
+      const int seg_lo = __shfl_sync(kFull, lo, at);
+      const int seg_excl = __shfl_sync(kFull, excl, at);
+      const int2 e = lane < kStep && p < total
+          ? list[static_cast<size_t>(g0 + at) * kBinIds + seg_lo + (p - seg_excl)]
+          : make_int2(-1, 0);
+      float val[kStep][VEC];
+      float nxt[kDualSum ? kStep : 1][VEC];  // dual: what the first of a pair adds on
+      int lr[kStep];
+      int kind[kStep];
+      // every payload load of the step first ...
+#pragma unroll
+      for (int u = 0; u < kStep; ++u) {
+        const int b = __shfl_sync(kFull, e.x, u);
+        const int y = __shfl_sync(kFull, e.y, u);
+        lr[u] = b >= 0 ? y & ((1 << kRowBits) - 1) : -1;
+        kind[u] = y >> kRowBits;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) val[u][i] = 0.f;
+        if (VARIANT != kReadOnly && live && b >= 0 && kind[u] != kZero) {
+          load<VEC>(pay, static_cast<size_t>(b) * E + col, val[u]);
+        }
+        if constexpr (kDualSum) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) nxt[u][i] = 0.f;
+          if (live && b >= 0 && kind[u] == kPairSum) {
+            load<VEC>(pay, static_cast<size_t>(b + 1) * E + col, nxt[u]);
+          }
+        }
+      }
+      // ... then the read-modify-writes in payload order
+#pragma unroll
+      for (int u = 0; u < kStep; ++u) {
+        if (lr[u] < 0) continue;
+        float* a = my + lr[u] * TW;
+        float cur[VEC];
+        if (VARIANT != kWriteOnly) load_acc<VEC>(a, cur);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          float x = val[u][i];
+          if constexpr (kDualSum) {
+            if (kind[u] == kPairSum || kind[u] == kPayPlusZero) x = __fadd_rn(x, nxt[u][i]);
+          }
+          if (VARIANT == kReadOnly) {
+            read_sum[i] += cur[i];
+          } else {
+            cur[i] = VARIANT == kWriteOnly ? x : __fadd_rn(cur[i], x);
+          }
+        }
+        if (VARIANT != kReadOnly) store_acc<VEC>(a, cur);
+      }
+    }
+  }
+  // rd: what was read goes back into local row 0 (all zeros)
+  if (VARIANT == kReadOnly && nl > 0) {
+    float cur[VEC];
+    load_acc<VEC>(my, cur);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) cur[i] = __fadd_rn(cur[i], read_sum[i]);
+    store_acc<VEC>(my, cur);
+  }
+  if (!live) return;
+  for (int l = 0; l < nl; ++l) {
+    float v[VEC];
+    load_acc<VEC>(my + l * TW, v);
+    store_acc<VEC>(out + static_cast<size_t>((l << rb_bits) + cls) * E + col, v);
+  }
+}
+
+// The current device's SM count and per-block shared-memory limit (opt-in),
+// read from the runtime once per device.
+cudaError_t device_limits(int* dev, int* sms, int* optin) {
+  static int cache[kMaxDevices][2] = {};
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if (*dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int* c = cache[*dev];
+  if (c[0] == 0) {
+    int s = 0;
+    int o = 0;
+    err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, *dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
+    }
+    if (err != cudaSuccess) return err;
+    c[1] = o;
+    c[0] = s;
+  }
+  *sms = c[0];
+  *optin = c[1];
+  return cudaSuccess;
+}
+
+template <typename T, int VARIANT, int VEC>
+int launch(const int* idx, const void* pay, float* out, int* scratch, int N, int rows, int E,
            cudaStream_t stream) {
+  static bool allowed[kMaxDevices] = {};
+  static int resident[kMaxDevices] = {};  // this instance's warps that fit the card at once
   int dev = 0;
   int sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int optin = 0;
+  cudaError_t err = device_limits(&dev, &sms, &optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto apply = &micro_rmw_apply<T, VARIANT, VEC>;
+  if (resident[dev] == 0) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, apply, 32, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    resident[dev] = max(per_sm, 1) * sms;
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int ct = (E + 31) / 32;
-  // row classes: enough blocks for two per SM and at most kMaxLocal rows of
-  // acc in a block, rounded up to a power of two, at most rows
-  const int want = max((rows + kMaxLocal - 1) / kMaxLocal, (2 * sms + ct - 1) / ct);
+  constexpr int TW = 32 * VEC;
+  const int ct = (E + TW - 1) / TW;
+  // row classes, a power of two: as many as keep the grid in one wave of
+  // at most eight warps per SM (registers permitting), at least as many as
+  // keep a slice within 48 KB, at most rows and kMaxClasses
+  const int fast_rows = kFastBytes / (TW * static_cast<int>(sizeof(float)));
+  const int fit = (rows + fast_rows - 1) / fast_rows;
+  const int wave = max(min(8 * sms, resident[dev]) / ct, 1);
   int rb_bits = 0;
-  while ((1 << rb_bits) < want) ++rb_bits;
-  while (rb_bits > 0 && (1 << rb_bits) > rows) --rb_bits;
+  while ((2 << rb_bits) <= wave) ++rb_bits;
+  while ((1 << rb_bits) < fit) ++rb_bits;
+  while (rb_bits > 0 && ((1 << rb_bits) > rows || (1 << rb_bits) > kMaxClasses)) --rb_bits;
   const int classes = 1 << rb_bits;
-  const int nl = (rows + classes - 1) / classes;
-  const size_t bytes = static_cast<size_t>(nl) * 32 * sizeof(float) +
-                       (kStage + static_cast<size_t>(kWarps) * kChunk) * sizeof(int);
-  auto kernel = &micro_rmw_kernel<T, VARIANT, U>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(ct, classes), kThreads, bytes, stream>>>(idx, static_cast<const T*>(pay), out,
-                                                         N, rows, E, rb_bits, rows - 8);
+  const size_t bytes = static_cast<size_t>((rows + classes - 1) / classes) * TW * sizeof(float);
+  if (bytes > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes > static_cast<size_t>(kFastBytes) && !allowed[dev]) {
+    err = cudaFuncSetAttribute(apply, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed[dev] = true;
+  }
+  int2* list = reinterpret_cast<int2*>(scratch);
+  int* offs = scratch + 2 * static_cast<size_t>(N);
+  const int chunks = (N + kBinIds - 1) / kBinIds;
+  if (chunks > 0) {
+    auto bin = VARIANT == kDual ? &micro_rmw_bin<true> : &micro_rmw_bin<false>;
+    bin<<<chunks, kBinIds, 0, stream>>>(idx, N, rows, rb_bits, list, offs);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  apply<<<dim3(ct, classes), 32, bytes, stream>>>(list, offs, static_cast<const T*>(pay), out,
+                                                   N, rows, E, rb_bits);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_variant(int variant, const int* idx, const void* pay, float* out, int N, int rows,
-                   int E, cudaStream_t s) {
+template <typename T, int VEC>
+int launch_variant(int variant, const int* idx, const void* pay, float* out, int* scratch,
+                   int N, int rows, int E, cudaStream_t s) {
   switch (variant) {
-    case kBase: return launch<T, kBase, 1>(idx, pay, out, N, rows, E, s);
-    case kUnroll8: return launch<T, kUnroll8, 8>(idx, pay, out, N, rows, E, s);
-    case kDual: return launch<T, kDual, 2>(idx, pay, out, N, rows, E, s);
-    case kWriteOnly: return launch<T, kWriteOnly, 1>(idx, pay, out, N, rows, E, s);
-    case kReadOnly: return launch<T, kReadOnly, 1>(idx, pay, out, N, rows, E, s);
+    case kBase:
+    case kUnroll8: return launch<T, kBase, VEC>(idx, pay, out, scratch, N, rows, E, s);
+    case kDual: return launch<T, kDual, VEC>(idx, pay, out, scratch, N, rows, E, s);
+    case kWriteOnly: return launch<T, kWriteOnly, VEC>(idx, pay, out, scratch, N, rows, E, s);
+    case kReadOnly: return launch<T, kReadOnly, VEC>(idx, pay, out, scratch, N, rows, E, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -214,17 +425,31 @@ int launch_variant(int variant, const int* idx, const void* pay, float* out, int
 
 extern "C" {
 
+// Ints of scratch a launch with N ids needs: the event list (N int2), then
+// each chunk's class offsets.
+long long micro_rmw_scratch_ints(int N) {
+  return 2LL * N + static_cast<long long>((N + kBinIds - 1) / kBinIds) * (kMaxClasses + 1);
+}
+
 // Launch on `stream`: idx [N] int32, pay [N, E] (f32, or bf16 when bf16 !=
-// 0), out [rows, E] f32 (every element written), all contiguous on the
-// current device.  variant: 0 base, 1 unroll8, 2 dual (N even, rows >= 8;
-// pair duplicates go to row rows - 8), 3 wo, 4 rd.  Returns the CUDA error of
-// the launch (0 on success).
-int micro_rmw_launch(const int* idx, const void* pay, float* out, int N, int rows, int E,
-                     int variant, int bf16, void* stream) {
+// 0), out [rows, E] f32 (every element written), scratch
+// [micro_rmw_scratch_ints(N)] int32 (8-byte aligned), all on the current
+// device, contiguous.
+// variant: 0 base, 1 unroll8, 2 dual (N even, rows >= 8; pair duplicates go
+// to row rows - 8), 3 wo, 4 rd.  Returns the CUDA error of the launch (0 on
+// success).
+int micro_rmw_launch(const int* idx, const void* pay, float* out, int* scratch, int N,
+                     int rows, int E, int variant, int bf16, void* stream) {
   if (rows == 0 || E == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_variant<__nv_bfloat16>(variant, idx, pay, out, N, rows, E, s)
-              : launch_variant<float>(variant, idx, pay, out, N, rows, E, s);
+  const uintptr_t align = bf16 ? 8 : 16;
+  const bool vec = E % 4 == 0 && reinterpret_cast<uintptr_t>(pay) % align == 0;
+  if (bf16) {
+    return vec ? launch_variant<__nv_bfloat16, 4>(variant, idx, pay, out, scratch, N, rows, E, s)
+               : launch_variant<__nv_bfloat16, 1>(variant, idx, pay, out, scratch, N, rows, E, s);
+  }
+  return vec ? launch_variant<float, 4>(variant, idx, pay, out, scratch, N, rows, E, s)
+             : launch_variant<float, 1>(variant, idx, pay, out, scratch, N, rows, E, s);
 }
 
 }  // extern "C"

@@ -75,10 +75,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ffm_logits_launch.restype = i
     lib.ffm_logits_stages.argtypes = [i, i]
     lib.ffm_logits_stages.restype = i
-    lib.ffm_fused_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.ffm_fused_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p,
+                                     ctypes.POINTER(i)]
     lib.ffm_fused_launch.restype = i
-    lib.ffm_fused_stages.argtypes = [i, i, i]
-    lib.ffm_fused_stages.restype = i
     lib.ftrl_update_launch.argtypes = [
         p, p, i, p, p, p, p, p, p, p, p, i, i, i, f, f, f, f, p,
     ]
@@ -91,7 +90,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.micro_pass3_launch.restype = i
     lib.micro_canon_launch.argtypes = [p, p, p, p, p, p, p, i, i, p]
     lib.micro_canon_launch.restype = i
-    lib.micro_rmw_launch.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.micro_rmw_scratch_ints.argtypes = [i]
+    lib.micro_rmw_scratch_ints.restype = ctypes.c_longlong
+    lib.micro_rmw_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.micro_rmw_launch.restype = i
     lib.micro_gather_chunks.argtypes = [i, i]
     lib.micro_gather_chunks.restype = i

@@ -6,10 +6,13 @@ For CUDA tensors it launches its hand-written kernel (csrc/ffm_logits.cu,
 csrc/ffm_fused.cu) or raises; for CPU tensors it runs its `*_plain` version,
 the plain PyTorch form that the tests hold against the JAX package and the
 card holds the kernel against.  Each entry point counts its launches in its
-`launches` attribute.
+`launches` attribute; the training one also by kernel instance, in
+`launches_by_instance`.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -164,20 +167,35 @@ def ffm_fused_logits_grads(
         )
     if b == 0:
         return logits, *payload
+    instance = ctypes.c_int(-2)  # the launcher writes the instance it picks
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         code = lib.ffm_fused_launch(
             v.data_ptr(), fields.data_ptr(), vals.data_ptr(), lin.data_ptr(),
             y.data_ptr(), sample_w.data_ptr(), logits.data_ptr(), payload[0].data_ptr(),
             None if combined_out else payload[1].data_ptr(),
-            b, f, n_fields, n_factors, aug_lane, stream,
+            b, f, n_fields, n_factors, aug_lane, stream, ctypes.byref(instance),
+        )
+    if instance.value == -1:
+        raise ValueError(
+            f"ffm_fused_logits_grads: no kernel instance takes F={f}, "
+            f"C'={n_fields}, K={n_factors} (its rows overflow shared memory)"
         )
     _build.check(code, "ffm_fused_launch")
     ffm_fused_logits_grads.launches += 1
+    ffm_fused_logits_grads.launches_by_instance[FUSED_INSTANCES[instance.value]] += 1
     return logits, *payload
+
+
+# csrc/ffm_fused.cu's kernel instances, by the code its launcher reports:
+# the one specialised to C'=40, K=16, F <= 40 (the bench's shape), and the
+# general one with its rows in shared or in device memory
+FUSED_INSTANCES = {2: "c40_k16", 1: "general", 0: "general_device_memory"}
 
 
 # Kernel launches since the count was last set to 0 (chip_smoke.py reads
 # them to show that a path went through the kernels).
 ffm_fused_logits.launches = 0
 ffm_fused_logits_grads.launches = 0
+# the same launches by kernel instance (FUSED_INSTANCES' names)
+ffm_fused_logits_grads.launches_by_instance = dict.fromkeys(FUSED_INSTANCES.values(), 0)

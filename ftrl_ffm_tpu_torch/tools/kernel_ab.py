@@ -1,0 +1,105 @@
+"""Time the training kernel #2 (csrc/ffm_fused.cu) and the RMW probe kernel
+(csrc/micro_rmw.cu) of one copy of the package on the card, for A/B runs of
+two commits on one card, in one run:
+
+    PYTHONPATH=<root> python3 <this file>
+
+imports ftrl_ffm_tpu_torch from <root> (a checkout, or a commit unpacked
+with `git archive`), so the same file times either commit; it calls only
+entry points both have (ffm_fused_logits_grads, micro_vmem_rmw2.run_kernel,
+micro_vmem_rmw.rmw).  Run it once per root in turns (parent, change,
+change, parent).  Inputs come from a torch.Generator on the card, seed 0,
+so every run times the same tensors:
+
+  - kernel #2 at chip_smoke.py's training shape: B=16,384, F=39, C'=40,
+    K=16, canonical fields, the linear gradient in lane 39, combined and
+    split output; CUDA events around 10 calls;
+  - the RMW variants at the probe's default shape (N=8,192, PER=2,564,
+    E=640, f32; base also bf16) and one `index_add` (the one PyTorch call
+    that computes base's sum): per call as the probes time it (CUDA events
+    around 50 back-to-back wrapper calls, dispatch included), device
+    time (50 calls captured in a CUDA graph, replayed between events) and
+    each kernel's device time per call from torch.profiler (20 calls), so
+    a wrapper that launches two kernels shows both.
+
+Prints one JSON line: the root, the card, and the times in ms.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import subprocess
+
+import torch
+
+B, F, CP, K, AUG = 16384, 39, 40, 16, 39
+N, PER, E = 8192, 2564, 640
+
+
+def _timers():
+    """time_ms, graph_ms and profile_ms of this file's own
+    tools/__init__.py, whatever copy of the package the imports below
+    resolve to."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "__init__.py")
+    spec = importlib.util.spec_from_file_location("_kernel_ab_timers", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.time_ms, mod.graph_ms, mod.profile_ms
+
+
+def main() -> dict:
+    import ftrl_ffm_tpu_torch
+    from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits_grads
+    from ftrl_ffm_tpu_torch.tools import micro_vmem_rmw as mrmw
+    from ftrl_ffm_tpu_torch.tools import micro_vmem_rmw2 as mrmw2
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device")
+    time_ms, graph_ms, profile_ms = _timers()
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"root": os.path.dirname(os.path.dirname(os.path.abspath(ftrl_ffm_tpu_torch.__file__))),
+           "card": card}
+
+    v = torch.randn((B * F, CP * K), generator=gen, device=dev) * 0.1
+    fields = torch.arange(F, dtype=torch.int32, device=dev).repeat(B, 1)
+    vals = torch.rand((B, F), generator=gen, device=dev)
+    lin = torch.randn((B,), generator=gen, device=dev) * 0.1
+    y = torch.randint(0, 2, (B,), generator=gen, device=dev).to(torch.float32)
+    sw = torch.ones((B,), device=dev)
+    args = (v, fields, vals, lin, y, sw, CP, K)
+    for name, combined in (("fused_ms", True), ("fused_split_ms", False)):
+        out[name] = time_ms(
+            lambda: ffm_fused_logits_grads(*args, aug_lane=AUG, combined_out=combined), dev, 10)
+    del v, fields, vals, args
+    torch.cuda.empty_cache()
+
+    idx = torch.randint(0, PER, (N,), generator=gen, device=dev, dtype=torch.int32)
+    pay = torch.randn((N, E), generator=gen, device=dev)
+    rows = mrmw2.per_pad(PER)
+    acc0 = torch.zeros((rows, E), device=dev)
+    calls = {f"rmw2_{v}": (lambda v=v: mrmw2.run_kernel(idx, pay, v, rows))
+             for v in mrmw2.VARIANTS}
+    pay_bf = pay.to(torch.bfloat16)
+    calls["rmw_bf16"] = lambda: mrmw.rmw(idx, pay_bf, -(-PER // 8) * 8)
+    calls["index_add"] = lambda: acc0.index_add(0, idx, pay)
+    calls["rmw2_rd_no_ids"] = lambda: mrmw2.run_kernel(idx[:0], pay[:0], "rd", rows)
+    # per-call times first: a profiler run may leave the host's launch
+    # path slower for the rest of the process
+    for name, fn in calls.items():
+        out[name] = {"ms": time_ms(fn, dev, 50)}
+    for name, fn in calls.items():
+        out[name]["device_ms"] = graph_ms(fn, 50)
+    for name, fn in calls.items():
+        out[name]["kernels"] = {k[:80]: ms for k, ms in profile_ms(fn, 20)}
+    return out
+
+
+if __name__ == "__main__":
+    print(json.dumps(main()))

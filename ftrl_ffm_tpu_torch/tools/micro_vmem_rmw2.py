@@ -5,7 +5,9 @@ Variants over the single-field shape (acc [PER_PAD, E] f32 in shared
 memory, csrc/micro_rmw.cu; payload [B, E]):
 
   base        one RMW per payload row
-  unroll8     eight payload loads in flight before their eight RMWs
+  unroll8     eight payload loads in flight before their eight RMWs (on
+              the card every variant has a chunk of loads in flight, so
+              unroll8 runs base's code)
   dual        pairs of rows; a duplicate within a pair is merged into the
               first RMW and the second goes to the dump row (acc row
               PER_PAD - 8), so the two RMWs of a pair are independent
@@ -23,6 +25,7 @@ variants (all by default), `--device cpu` for the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
@@ -99,11 +102,20 @@ def launch_rmw(what: str, idx, pay, variant: str, rows: int) -> torch.Tensor:
 
     lib = _build.lib()
     out = torch.empty((rows, e), dtype=torch.float32, device=pay.device)
-    with torch.cuda.device(pay.device):
+    # the events binned by row class (csrc/micro_rmw.cu's first kernel)
+    scratch = torch.empty(
+        (lib.micro_rmw_scratch_ints(n),), dtype=torch.int32, device=pay.device
+    )
+    # the probe's kernels take a few microseconds, so the dispatch is kept
+    # lean: no device switch when pay is on the current device, and the
+    # current stream's raw handle without building a torch.cuda.Stream
+    dev = pay.device
+    switch = dev.index != torch.cuda.current_device()
+    with torch.cuda.device(dev) if switch else contextlib.nullcontext():
         code = lib.micro_rmw_launch(
-            idx.data_ptr(), pay.data_ptr(), out.data_ptr(), n, rows, e,
+            idx.data_ptr(), pay.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, rows, e,
             VARIANTS.index(variant), int(pay.dtype == torch.bfloat16),
-            torch.cuda.current_stream(pay.device).cuda_stream,
+            torch._C._cuda_getCurrentRawStream(dev.index),
         )
     _build.check(code, "micro_rmw_launch")
     return out

@@ -183,6 +183,89 @@ def test_ffm_fused_kernel_split_matches_plain(b, f, c, k, real, aug):
     assert torch.equal(g, gg2[:, :e]) and torch.equal(g2, gg2[:, e:])
 
 
+def spec_fused_inputs(b, f, seed):
+    """numpy inputs of kernel #2 at C'=40, K=16 (csrc/ffm_fused.cu's
+    specialised instance): each sample's fields a shuffle of 40 fields cut
+    to F, then (F >= 6) occurrence 1 repeating occurrence 0's field,
+    occurrences 2 and 3 out of range (40 and -1) and the last two padding
+    (value 0, field 0); with B > 1 the last sample is padding (values and
+    weight 0).  tests/test_torch_fused_kernel.py holds the same inputs
+    against the JAX package."""
+    rng = np.random.default_rng(seed)
+    c, k = 40, 16
+    v = (rng.normal(size=(b * f, c * k)) * 0.1).astype(np.float32)
+    fields = np.stack([rng.permutation(c)[:f] for _ in range(b)]).astype(np.int32)
+    vals = rng.random((b, f)).astype(np.float32)
+    if f >= 6:
+        fields[:, 1] = fields[:, 0]
+        fields[:, 2] = c
+        fields[:, 3] = -1
+        vals[:, -2:] = 0.0
+        fields[:, -2:] = 0
+    lin = (rng.normal(size=(b,)) * 0.1).astype(np.float32)
+    y = (rng.random(b) > 0.5).astype(np.float32)
+    sw = np.ones(b, np.float32)
+    if b > 1:
+        vals[-1] = 0.0
+        sw[-1] = 0.0
+    return v, fields, vals, lin, y, sw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combined", [True, False])
+@pytest.mark.parametrize("aug", [-1, 39])
+@pytest.mark.parametrize("f", [39, 40, 13])
+@pytest.mark.parametrize("b", [1, 33, 256])
+def test_ffm_fused_c40_instance_matches_plain(b, f, aug, combined):
+    """The C'=40, K=16 instance on shuffled, repeated, out-of-range and
+    padding fields: against the plain version (logits rtol=1e-4,
+    atol=1e-5; payload rtol=1e-4, atol=1e-6), launched as that instance,
+    and the same call twice gives the same bits."""
+    dev = _card()
+    args = [torch.from_numpy(a).to(dev) for a in spec_fused_inputs(b, f, b + f + aug)]
+    counts = ffm_fused_logits_grads.launches_by_instance
+    before = dict(counts)
+    got = [ffm_fused_logits_grads(*args, 40, 16, aug_lane=aug, combined_out=combined)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert counts["c40_k16"] == before["c40_k16"] + 2
+    assert counts["general"] == before["general"]
+    want = ffm_fused_logits_grads_plain(*args, 40, 16, aug_lane=aug, combined_out=combined)
+    np.testing.assert_allclose(got[0][0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    for g, w in zip(got[0][1:], want[1:]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-4, atol=1e-6)
+    assert all(torch.equal(x, y) for x, y in zip(*got))
+
+
+@pytest.mark.cuda
+def test_ffm_fused_instance_follows_the_shape():
+    """The bench's shape (C'=40, K=16, F <= 40) runs the specialised
+    instance; F=64, C'=8 and K=8 run the general one, F=100 (too big to
+    stage) the general one on rows in device memory; each launch counts
+    once, under its instance."""
+    dev = _card()
+    counts = ffm_fused_logits_grads.launches_by_instance
+    # (B, F, C', K, instance)
+    for b, f, c, k, name in ((64, 39, 40, 16, "c40_k16"), (17, 64, 40, 16, "general"),
+                             (16, 7, 8, 16, "general"), (16, 10, 40, 8, "general"),
+                             (9, 100, 40, 16, "general_device_memory")):
+        rng = np.random.default_rng(f)
+        arrays = (
+            (rng.normal(size=(b * f, c * k)) * 0.1).astype(np.float32),
+            rng.integers(0, c, (b, f)).astype(np.int32),
+            rng.random((b, f)).astype(np.float32),
+            np.zeros(b, np.float32), np.ones(b, np.float32), np.ones(b, np.float32),
+        )
+        before, total = dict(counts), ffm_fused_logits_grads.launches
+        ffm_fused_logits_grads(*(torch.from_numpy(a).to(dev) for a in arrays), c, k)
+        torch.cuda.synchronize()
+        assert ffm_fused_logits_grads.launches == total + 1
+        assert {n: counts[n] - before[n] for n in counts} == {
+            n: int(n == name) for n in counts
+        }, (b, f, c, k)
+
+
 def _update_inputs(dev, r, e, n, lane, seed):
     """Tables as training leaves them (w = closed form where n > 0, the
     init elsewhere), ids with duplicates and the sentinel r, rows r-3..r-1
@@ -523,6 +606,57 @@ def test_micro_rmw_entry_matches_plain(dtype, n, per, e):
     torch.cuda.synchronize()
     assert rmw.launches == before + 1
     assert torch.equal(got.cpu(), rmw_plain(idx, pay, "base", rows))
+
+
+# (label, N, PER, E): ids that bin unevenly across csrc/micro_rmw.cu's row
+# classes, ids outside [0, rows), no ids, N off the kernel's chunk and warp
+# sizes, an odd width and the probe's default shape
+RMW_EDGES = [
+    ("one_class", 2048, 2564, 640),
+    ("one_row", 1000, 2564, 640),
+    ("outside", 1030, 333, 640),
+    ("no_ids", 0, 333, 640),
+    ("ragged_n", 4102, 2564, 128),
+    ("e37", 512, 100, 37),
+    ("probe_default", 8192, 2564, 640),
+]
+
+
+def _rmw_edge_inputs(label, n, per, e, dtype):
+    rows = -(-per // 8) * 8 + 8  # micro_vmem_rmw2.per_pad
+    rng = np.random.default_rng(n + per + e)
+    if label == "one_class":  # every id a multiple of 256: one class for any RB
+        idx = rng.integers(0, per // 256, n) * 256
+    elif label == "one_row":
+        idx = np.full(n, 5)
+    elif label == "outside":
+        idx = rng.integers(-5, rows + 10, n)
+    else:
+        idx = rng.integers(0, per, n)
+    idx = idx.astype(np.int32)
+    idx[1::2][::3] = idx[0::2][::3]  # duplicate pairs for dual
+    pay = torch.from_numpy(rng.normal(size=(n, e)).astype(np.float32)).to(dtype)
+    return torch.from_numpy(idx), pay, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["base", "unroll8", "dual", "wo", "rd"])
+@pytest.mark.parametrize("label,n,per,e", RMW_EDGES)
+def test_micro_rmw_kernel_edge_ids_match_plain(label, n, per, e, variant, dtype):
+    """Every variant and payload dtype on ids that bin unevenly: bit for
+    bit the plain version on CPU copies, the same call twice the same
+    bits."""
+    from ftrl_ffm_tpu_torch.tools.micro_vmem_rmw2 import rmw_plain, run_kernel
+
+    dev = _card()
+    idx, pay, rows = _rmw_edge_inputs(label, n, per, e, dtype)
+    before = run_kernel.launches
+    got = [run_kernel(idx.to(dev), pay.to(dev), variant, rows) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert run_kernel.launches == before + 2
+    assert torch.equal(got[0].cpu(), rmw_plain(idx, pay, variant, rows))
+    assert torch.equal(got[0], got[1])
 
 
 @pytest.mark.cuda

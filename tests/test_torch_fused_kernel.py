@@ -19,6 +19,7 @@ from ftrl_ffm_tpu_torch.ops.ffm_cuda import (
     ffm_fused_logits_grads,
     ffm_fused_logits_grads_plain,
 )
+from tests.test_torch_cuda import spec_fused_inputs
 
 L_RTOL, L_ATOL = 1e-5, 1e-6
 G_RTOL, G_ATOL = 1e-4, 1e-6
@@ -93,6 +94,20 @@ def test_plain_matches_xla_grads_times_gs(b, f, c, k, aug):
     np.testing.assert_allclose(gg2[:, e:], g_ref * g_ref, rtol=G_RTOL, atol=G_ATOL)
 
 
+@pytest.mark.parametrize("b,f,aug", [(8, 39, -1), (8, 39, 39), (16, 39, 39), (8, 40, 39),
+                                     (8, 13, -1), (8, 13, 39)])
+def test_c40_inputs_match_pallas_interpret(b, f, aug):
+    """The inputs of the card's C'=40, K=16 cases
+    (tests/test_torch_cuda.py::spec_fused_inputs: shuffled fields, a
+    repeated field, out-of-range fields, padding) through the plain version
+    and the Pallas kernel in interpret mode."""
+    arrays = spec_fused_inputs(b, f, b + f + aug)
+    logits, gg2 = _port(arrays, 40, 16, aug)
+    ref_logits, ref_gg2 = _pallas(arrays, 40, 16, aug)
+    np.testing.assert_allclose(logits, ref_logits, rtol=L_RTOL, atol=L_ATOL)
+    np.testing.assert_allclose(gg2, ref_gg2, rtol=G_RTOL, atol=G_ATOL)
+
+
 @pytest.mark.parametrize("bad", [8, 9, -1])
 def test_out_of_range_fields_and_padding(bad):
     """An occurrence whose field is outside [0, C') has a zero factor
@@ -138,11 +153,13 @@ def test_aug_lane_carries_the_linear_gradient():
 def test_wrapper_takes_the_plain_version_on_the_cpu():
     arrays = [torch.from_numpy(a) for a in _inputs(8, 4, 5, 4, 4)]
     before = ffm_fused_logits_grads.launches
+    by_instance = dict(ffm_fused_logits_grads.launches_by_instance)
     got = ffm_fused_logits_grads(*arrays, 5, 4, aug_lane=4)
     ref = ffm_fused_logits_grads_plain(*arrays, 5, 4, aug_lane=4)
     for a, r in zip(got, ref):
         assert torch.equal(a, r)
     assert ffm_fused_logits_grads.launches == before  # no kernel launched
+    assert ffm_fused_logits_grads.launches_by_instance == by_instance
 
 
 def test_interactions_grads_match_jax_xla():

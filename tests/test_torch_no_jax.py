@@ -37,6 +37,7 @@ _MODULES = (
     "ftrl_ffm_tpu_torch.tools.micro_vmem_rmw",
     "ftrl_ffm_tpu_torch.tools.micro_vmem_rmw2",
     "ftrl_ffm_tpu_torch.tools.micro_dma_gather",
+    "ftrl_ffm_tpu_torch.tools.kernel_ab",
 )
 
 
@@ -60,16 +61,20 @@ def test_torch_no_jax():
 
 
 def test_port_sources_name_no_jax_import():
+    """No source of the port, nor chip_smoke.py (which drives the port on
+    the card, where there is no jax), names jax or the JAX package in an
+    import."""
     pat = re.compile(r"^\s*(import|from) (jax|ftrl_ffm_tpu)\b", re.M)
-    offenders = []
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PORT):
-        for fn in files:
-            if fn.endswith(".py"):
-                path = os.path.join(root, fn)
-                with open(path) as f:
-                    if pat.search(f.read()):
-                        offenders.append(os.path.relpath(path, REPO))
+        paths += [os.path.join(root, fn) for fn in files if fn.endswith(".py")]
+    offenders = []
+    for path in paths:
+        with open(path) as f:
+            if pat.search(f.read()):
+                offenders.append(os.path.relpath(path, REPO))
     assert offenders == []
+    assert len(paths) > 1
 
 
 def test_kernel_wrapper_refuses_other_devices():
