@@ -122,6 +122,8 @@ PASS_RTOL, PASS_ATOL = 1e-6, 1e-7
 # chained train steps, kernels against plain versions: ulp noise compounds
 # through the closed form's |z| <= l1 threshold (the JAX suite's bound)
 CHAIN_RTOL, CHAIN_ATOL = 2e-3, 5e-5
+# a bf16 table's w, chained: one bf16 ulp, relative
+BF16_RTOL = 2.0 ** -7
 # the probes' gathered sum: f32 sums in another order, relative to its scale
 GATHER_RTOL = 1e-5
 SEED = 0
@@ -142,6 +144,15 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def within_bf16_ulp(got, want, atol: float = 0.0) -> bool:
+    """Each element within one bf16 ulp of the larger magnitude of the two,
+    plus atol (values near 0 whose f32 forms differ by up to atol)."""
+    a, b = got.float(), want.float()
+    mag = torch.maximum(a.abs(), b.abs())
+    ulp = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7), 0.0)
+    return bool(((a - b).abs() <= ulp + atol).all())
 
 
 def touched_rows(ids, r: int) -> int:
@@ -311,7 +322,7 @@ def plain_kernels():
     training kernels (the in-place updates copy the plain result in)."""
     import ftrl_ffm_tpu_torch.models.base as mbase
     import ftrl_ffm_tpu_torch.models.ffm as mffm
-    from ftrl_ffm_tpu_torch.ftrl import dense_ftrl_update_inplace
+    from ftrl_ffm_tpu_torch.ftrl import dense_ftrl_update2, dense_ftrl_update_inplace
     from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits_grads_plain
     from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update_plain
 
@@ -324,10 +335,15 @@ def plain_kernels():
         for dst, src in zip(args[:3], dense_ftrl_update_inplace(*args)):
             dst.copy_(src)
 
-    names = ("ftrl_update", "ftrl_update_inplace")
+    def linear(*args):
+        for dst, src in zip(args[:3], dense_ftrl_update2(*args)):
+            dst.copy_(src)
+
+    names = ("ftrl_update", "ftrl_update_inplace", "ftrl_update_linear")
     saved = mffm.ffm_fused_logits_grads, *(getattr(mbase, n) for n in names)
     mffm.ffm_fused_logits_grads = ffm_fused_logits_grads_plain
-    mbase.ftrl_update, mbase.ftrl_update_inplace = update, inplace
+    mbase.ftrl_update, mbase.ftrl_update_inplace, mbase.ftrl_update_linear = (
+        update, inplace, linear)
     try:
         yield
     finally:
@@ -393,8 +409,37 @@ def main() -> int:
     by_instance = ffm_fused_logits_grads.launches_by_instance
 
     def zero_instances():
-        for name in by_instance:
-            by_instance[name] = 0
+        """Zero the launch counts by kernel instance and by dtype."""
+        for counts in (by_instance, ftrl_update.launches_by_dtype,
+                       closed_form_pass.launches_by_dtype):
+            for name in counts:
+                counts[name] = 0
+
+    def serving_reference(trainer, data: str, what: str):
+        """The plain version's eval of `data` on the same device tensors,
+        batch by batch, closed on the host in float64: (loss, the logits'
+        max_abs_err, the probabilities of the weighted rows)."""
+        model = trainer.model
+        loss_sum, count, probs, max_err = 0.0, 0.0, [], 0.0
+        reader = StreamReader(data, "libffm", BATCH, N_FIELDS, N_FEATS, N_FIELDS, log_every=0)
+        for arrays in reader.batches():
+            batch = widen_batch(trainer._place_batch(arrays))
+            got = model.predict_logits(trainer.state, batch)
+            vrows = model._gather_vec(trainer.state, batch.feats.reshape(-1))
+            w = model._w_lin_from_rows(trainer.state, vrows, batch, model._lin_read_lane())
+            lin = linear_logits(w, batch.vals, model.bias_weight(trainer.state))
+            ref = ffm_fused_logits_plain(vrows, batch.fields, batch.vals, lin,
+                                         model.field_pad, model.n_factors)
+            require(torch.allclose(got, ref, rtol=RTOL, atol=ATOL),
+                    f"{what} logits disagree with the plain version")
+            max_err = max(max_err, (got - ref).abs().max().item())
+            r = ref.double().cpu().numpy()
+            y = arrays[3].astype(np.float64)
+            m = arrays[4] > 0
+            loss_sum += float(np.sum((np.logaddexp(r, 0) - y * r)[m]))
+            count += float(m.sum())
+            probs.append(1 / (1 + np.exp(-r[m])))
+        return loss_sum / count, max_err, np.concatenate(probs)
 
     where = card()
     print(f"device: {device_name} (torch {torch.__version__}, CUDA {torch.version.cuda})")
@@ -507,6 +552,43 @@ def main() -> int:
             del s_logits, g, g2, ref
         del args, logits
 
+    # the bf16 store (acc_dtype=bfloat16; combined only) on the same shapes:
+    # logits as above, the payload within one bf16 ulp of the plain
+    # version's (plus GRAD_ATOL near 0), and bit for bit the f32 launch's
+    # values rounded to bf16; counted under the instance's "_bf16" name
+    bf16 = torch.bfloat16
+    fused_bf16_err = None
+    for label, b, f, c, k, kind, real, aug in fused_cases:
+        args = fused_inputs(b, f, c, k, gen, device, kind, real)
+        before = dict(by_instance)
+        logits, gg2 = ffm_fused_logits_grads(*args, c, k, aug_lane=aug, out_dtype=bf16)
+        torch.cuda.synchronize()
+        instance = next(n for n, count in by_instance.items() if count > before[n])
+        ref_logits, ref_gg2 = ffm_fused_logits_grads_plain(*args, c, k, aug_lane=aug,
+                                                           out_dtype=bf16)
+        f32_logits, f32_gg2 = ffm_fused_logits_grads(*args, c, k, aug_lane=aug)
+        torch.cuda.synchronize()
+        err = max((logits - ref_logits).abs().max().item(),
+                  (gg2.float() - ref_gg2.float()).abs().max().item())
+        rounded = torch.equal(f32_logits, logits) and torch.equal(f32_gg2.to(bf16), gg2)
+        ok = (torch.allclose(logits, ref_logits, rtol=RTOL, atol=ATOL)
+              and within_bf16_ulp(gg2, ref_gg2, GRAD_ATOL) and rounded
+              and bool(torch.isfinite(gg2).all()) and instance.endswith("_bf16"))
+        print(f"kernel ffm_fused bf16 {label}: B={b} F={f} C'={c} K={k} aug={aug} instance "
+              f"{instance} max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}; the f32 "
+              f"launch's values rounded={rounded}")
+        require(ok, f"ffm_fused bf16 {label} disagrees")
+        if label == "criteo":
+            fused_bf16_err = err
+            again = ffm_fused_logits_grads(*args, c, k, aug_lane=aug, out_dtype=bf16)
+            same = torch.equal(again[0], logits) and torch.equal(again[1], gg2)
+            print(f"kernel ffm_fused bf16 {label}: a second launch bit-identical={same}")
+            require(instance == "c40_k16_bf16" and same,
+                    "the bench shape's bf16 store did not run the C'=40, K=16 instance, or "
+                    "it is not deterministic")
+            del again
+        del args, logits, gg2, ref_logits, ref_gg2, f32_logits, f32_gg2
+
     # ---- 3c. the update kernel against its plain version ----
     p = FtrlParams()
     # (label, R, E, N, ids drawn from [0, hi), linear lane)
@@ -542,6 +624,62 @@ def main() -> int:
         require(same, f"ftrl_update {label} is not deterministic")
         if label == "bench_aug":
             update_err = err
+        del tables, ids, gg2, gg2_lin, runs, want
+
+    # the bf16 forms: a bf16 payload against the plain version on the same
+    # card tensors bit for bit on the touched rows (the same bf16
+    # accumulator, rounded after every add in payload order, and the same
+    # correctly rounded operations), the linear tables too where the
+    # payload's lane carries them (with lane = -1 they sum the f32 gg2_lin,
+    # whose plain index_add_ on the card sums in no fixed order: as above);
+    # an f32 payload with a bf16 w: n, z and the linear tables as above, w
+    # within one bf16 ulp
+    # (label, R, E, N, ids drawn from [0, hi), linear lane, payload, w)
+    update_bf16_cases = [
+        ("bench_aug_bf16", TRAIN_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS, N_FIELDS,
+         bf16, bf16),
+        ("bench_aug_bf16_payload", TRAIN_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS,
+         N_FIELDS, bf16, torch.float32),
+        ("bench_aug_bf16_w", TRAIN_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS,
+         N_FIELDS, torch.float32, bf16),
+        ("no_aug_bf16", 5000, 128, 8000, 4000, -1, bf16, bf16),
+        ("e15_dups_bf16", 50, 15, 1000, 40, 4, bf16, torch.float32),
+    ]
+    update_bf16_err = None
+    for label, r, e, n, hi, lane, pay, wdt in update_bf16_cases:
+        tables, ids, gg2, gg2_lin = update_inputs(r, e, n, hi, gen, device, p, lane)
+        tables[2] = tables[2].to(wdt)
+        gg2 = gg2.to(pay)
+        runs = []
+        for _ in range(2):
+            got = [t.clone() for t in tables]
+            ftrl_update(*got, ids, gg2, lane, p, gg2_lin)
+            torch.cuda.synchronize()
+            runs.append(got)
+        want = list(itertools.chain(*ftrl_update_plain(*tables, ids, gg2, lane, p, gg2_lin)))
+        torch.cuda.synchronize()
+        touched = torch.zeros(r, dtype=torch.bool, device=device)
+        touched[ids[ids < r].long()] = True
+        err, ok = 0.0, True
+        for i, (got, want, before) in enumerate(zip(runs[0], want, tables)):
+            g_t, w_t = got[touched], want[touched]
+            err = max(err, (g_t.float() - w_t.float()).abs().max().item())
+            if pay == bf16 and (i < 3 or lane >= 0):
+                ok &= torch.equal(g_t, w_t)
+            elif i == 2:
+                ok &= within_bf16_ulp(g_t, w_t, UPD_ATOL)
+            else:
+                ok &= torch.allclose(g_t, w_t, rtol=UPD_RTOL, atol=UPD_ATOL)
+            ok &= got.dtype == want.dtype and torch.equal(got[~touched], before[~touched])
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        print(f"kernel ftrl_update {label}: R={r} E={e} N={n} lane={lane} payload {pay} w {wdt} "
+              f"touched rows {int(touched.sum())} max_abs_err={err:.3e} "
+              f"{'ok' if ok else 'MISMATCH'} (bit for bit: {pay == bf16}); repeat "
+              f"bit-identical={same}")
+        require(ok, f"ftrl_update {label} disagrees")
+        require(same, f"ftrl_update {label} is not deterministic")
+        if label == "bench_aug_bf16":
+            update_bf16_err = err
         del tables, ids, gg2, gg2_lin, runs, want
 
     # ---- 3d. the z/A scatter against its plain version ----
@@ -619,6 +757,38 @@ def main() -> int:
             pass_err = err
         del tabs, runs, want, idle
 
+    # with a bf16 w (table_dtype=bfloat16): bit for bit the plain version on
+    # the same card tensors, as the f32 form; n, z and, where touched, w
+    # keep their bits where A = 0
+    pass_bf16_err = None
+    for label, r, e, off in pass_cases:
+        tabs = list(pass_inputs(r, e, gen, device, p))
+        tabs[2] = tabs[2].to(bf16)
+        runs = []
+        for _ in range(2):
+            got = [offset_copy(t, off) for t in tabs]
+            closed_form_pass(*got, p)
+            torch.cuda.synchronize()
+            runs.append(got[:3])
+            del got
+        want = closed_form_pass_plain(*tabs, p)
+        torch.cuda.synchronize()
+        err = max((x.float() - y.float()).abs().max().item() for x, y in zip(runs[0], want))
+        ok = all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(runs[0], want))
+        idle = tabs[3] == 0
+        kept = all(torch.equal(x[idle], y[idle]) for x, y in zip(runs[0][:2], tabs[:2]))
+        idle_w = idle & (tabs[0] > 0)
+        kept &= torch.equal(runs[0][2][idle_w], tabs[2][idle_w])
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        print(f"kernel ftrl_pass bf16 w {label}: R={r} E={e} offset={off} max_abs_err={err:.3e} "
+              f"bit for bit={ok}; A=0 coordinates keep n, z (and touched w) bits={kept}; "
+              f"repeat bit-identical={same}")
+        require(ok and kept, f"ftrl_pass bf16 w {label} disagrees")
+        require(same, f"ftrl_pass bf16 w {label} is not deterministic")
+        if label == "main_1m":
+            pass_bf16_err = err
+        del tabs, runs, want, idle, idle_w
+
     # ---- 4. serving through the entry points ----
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "eval.ffm")
@@ -652,30 +822,8 @@ def main() -> int:
         require(probs.shape == (N_ROWS,) and ((probs > 0) & (probs < 1)).all(),
                 "predictions are not one probability per row")
 
-        # reference: the plain version on the same device tensors, batch by
-        # batch, closed on the host in float64
-        reader = StreamReader(data, "libffm", BATCH, N_FIELDS, N_FEATS, N_FIELDS,
-                              log_every=0)
-        loss_sum, count, plain_probs, max_err = 0.0, 0.0, [], 0.0
-        for arrays in reader.batches():
-            batch = widen_batch(trainer._place_batch(arrays))
-            got = model.predict_logits(trainer.state, batch)
-            vrows = model._gather_vec(trainer.state, batch.feats.reshape(-1))
-            w = model._w_lin_from_rows(trainer.state, vrows, batch, model._lin_read_lane())
-            lin = linear_logits(w, batch.vals, model.bias_weight(trainer.state))
-            ref = ffm_fused_logits_plain(vrows, batch.fields, batch.vals, lin,
-                                         model.field_pad, model.n_factors)
-            require(torch.allclose(got, ref, rtol=RTOL, atol=ATOL),
-                    "serving logits disagree with the plain version")
-            max_err = max(max_err, (got - ref).abs().max().item())
-            r = ref.double().cpu().numpy()
-            y = arrays[3].astype(np.float64)
-            m = arrays[4] > 0
-            loss_sum += float(np.sum((np.logaddexp(r, 0) - y * r)[m]))
-            count += float(m.sum())
-            plain_probs.append(1 / (1 + np.exp(-r[m])))
-        ref_loss = loss_sum / count
-        pdiff = float(np.abs(probs - np.concatenate(plain_probs)).max())
+        ref_loss, max_err, plain_probs = serving_reference(trainer, data, "serving")
+        pdiff = float(np.abs(probs - plain_probs).max())
         print(f"serve: plain-version reference loss={ref_loss:.6f} "
               f"(|diff| {abs(ref_loss - loss):.2e}), logits max_abs_err={max_err:.2e}, "
               f"probability max |diff| {pdiff:.2e}")
@@ -868,6 +1016,133 @@ def main() -> int:
               f"{tparse_ms:.3f} ms/batch; train_epoch() {teps} examples/s "
               f"(n_feats={TRAIN_FEATS}, B={BATCH}, {N_ROWS} rows) [{where}]")
 
+        # ---- 4d. bf16 tables and payload through the entry points ----
+        # bench.py's model with table_dtype and acc_dtype bfloat16: "dense2"
+        # with kernel #2's bf16 store and the update kernel on a bf16
+        # payload and a bf16 w
+        hcfg = dataclasses.replace(tcfg, table_dtype="bfloat16", acc_dtype="bfloat16")
+        htrainer = Trainer(hcfg)
+        hmodel = htrainer.model
+        require(htrainer.state.vec_w.dtype == bf16, "the bf16 init is not bf16")
+        for fn in (ffm_fused_logits_grads, ftrl_update, ffm_fused_logits):
+            fn.launches = 0
+        zero_instances()
+        t0 = time.perf_counter()
+        hhist = htrainer.train()
+        t_h = time.perf_counter() - t0
+        h_launches = {"ffm_fused_logits_grads": ffm_fused_logits_grads.launches,
+                      "ftrl_update": ftrl_update.launches,
+                      "ffm_fused_logits": ffm_fused_logits.launches}
+        h_instances, h_update_dtypes = dict(by_instance), dict(ftrl_update.launches_by_dtype)
+        hsteps = htrainer._steps_done
+        print(f"train bf16: Trainer.train() 2 epochs in {t_h:.2f} s (first): {hsteps} steps; "
+              f"launches {h_launches}; ffm_fused by instance {h_instances}; ftrl_update by "
+              f"payload/w dtype {h_update_dtypes}; history {hhist}")
+        require(hsteps == 2 * n_batches, f"{hsteps} bf16 train steps, expect {2 * n_batches}")
+        require(h_instances["c40_k16_bf16"] == hsteps == h_launches["ffm_fused_logits_grads"],
+                f"the bf16 path ran kernel #2's instances {h_instances}")
+        require(h_update_dtypes["bf16/bf16"] == hsteps == h_launches["ftrl_update"],
+                f"the bf16 path ran the update kernel's instances {h_update_dtypes}")
+        require(h_launches["ffm_fused_logits"] == 2, "bf16 eval did not run through ffm_logits")
+        require(all(math.isfinite(x) for k in ("train_loss", "eval_loss", "eval_auc")
+                    for x in hhist[k]), "non-finite bf16 training history")
+        require(hhist["train_loss"][1] < hhist["train_loss"][0],
+                "bf16: epoch 2 train loss is not below epoch 1's")
+        require(hhist["eval_auc"][-1] > 0.5, "bf16: eval AUC not above 0.5")
+        print(f"train bf16: eval loss {hhist['eval_loss']} against the f32 run's "
+              f"{hist['eval_loss']} (one init seed, one data)")
+
+        # 3 chained train_steps, kernels against plain versions from one
+        # state: the payload may round to the neighbouring bf16, so the
+        # chained bound, and vec_w within one bf16 ulp (rtol 2^-7)
+        base = clone_state(htrainer.state)
+        s_kern, s_plain, s_again = (clone_state(base) for _ in range(3))
+        loss_diff = 0.0
+        for batch in batches:
+            out_k = hmodel.train_step(s_kern, batch)
+            with plain_kernels():
+                out_p = hmodel.train_step(s_plain, batch)
+            hmodel.train_step(s_again, batch)
+            loss_diff = max(loss_diff, abs(out_k.loss_sum.item() - out_p.loss_sum.item())
+                            / abs(out_p.loss_sum.item()))
+        herr = {name: (getattr(s_kern, name).float() - getattr(s_plain, name).float())
+                .abs().max().item() for name in ("lin_z", "vec_n", "vec_z", "vec_w")}
+        chain_ok = all(torch.allclose(getattr(s_kern, name), getattr(s_plain, name),
+                                      rtol=CHAIN_RTOL, atol=CHAIN_ATOL)
+                       for name in ("lin_n", "lin_z", "vec_n", "vec_z"))
+        chain_ok &= torch.allclose(s_kern.vec_w.float(), s_plain.vec_w.float(),
+                                   rtol=BF16_RTOL, atol=CHAIN_ATOL)
+        same = all(torch.equal(a, b) for a, b in zip(s_kern, s_again))
+        print(f"train bf16: 3 chained steps, kernels vs plain: loss rel diff {loss_diff:.2e}, "
+              f"max |diff| {herr}; two kernel runs bit-identical={same}")
+        require(chain_ok, "chained bf16 train steps disagree with the plain versions")
+        require(same, "two runs of the same bf16 train steps differ")
+        del base, s_kern, s_plain, s_again
+
+        # small bf16 training on the CPU (plain versions) and on the card
+        small_h = dict(small_t, table_dtype="bfloat16", acc_dtype="bfloat16")
+        init = make_model(Config(device="cpu", **small_h)).init(
+            torch.Generator().manual_seed(SEED + 4))
+        hres = {}
+        for dev in ("cpu", "cuda"):
+            scfg = Config(train_data=st_p, eval_data=se_p, device=dev, **small_h)
+            hres[dev] = Trainer(scfg, state=clone_state(init)).train()
+        print(f"train bf16: small run eval loss cpu={hres['cpu']['eval_loss']} "
+              f"cuda={hres['cuda']['eval_loss']}")
+        require(abs(hres["cpu"]["eval_loss"][-1] - hres["cuda"]["eval_loss"][-1]) <= 1e-4,
+                "cpu and cuda bf16 training reach different eval losses")
+
+        # ---- 5b, bf16: the bf16 forms' timings, the bf16 train step ----
+        args = fused_inputs(BATCH, N_FIELDS, cp, N_FACTORS, gen, device, "iota", N_FIELDS)
+        hfruns, hf_ms, hfp_ms = interleaved_ms(
+            lambda: ffm_fused_logits_grads(*args, cp, N_FACTORS, aug_lane=N_FIELDS,
+                                           out_dtype=bf16),
+            lambda: ffm_fused_logits_grads_plain(*args, cp, N_FACTORS, aug_lane=N_FIELDS,
+                                                 out_dtype=bf16),
+            10, 3)
+        # reads the rows and per-sample inputs, writes logits and the bf16
+        # payload; ops as the f32 form's
+        fused_bf16_bound = bound(nbytes(*args) + BATCH * 4 + BATCH * N_FIELDS * 2 * e * 2,
+                                 4 * BATCH * N_FIELDS * (N_FIELDS - 1) * N_FACTORS
+                                 + 4 * BATCH * N_FIELDS * e)
+        print(f"timing: ffm_fused bf16 B={BATCH} F={N_FIELDS} E={e}: kernel {hfruns['kernel']} "
+              f"ms, plain {hfruns['plain']} ms; bound {fused_bf16_bound[0]:.4f} ms "
+              f"({fused_bf16_bound[1]}); the f32 store {f_ms:.4f} ms [{where}]")
+        del args
+        update_bf16_time = {}
+        for pay, wdt in ((bf16, bf16), (torch.float32, bf16)):
+            tables, ids, gg2, _ = update_inputs(TRAIN_FEATS, e, BATCH * N_FIELDS, TRAIN_FEATS,
+                                                gen, device, p, N_FIELDS)
+            tables[2] = tables[2].to(wdt)
+            gg2 = gg2.to(pay)
+            uruns_h, uh_ms, uhp_ms = interleaved_ms(
+                lambda: ftrl_update(*tables, ids, gg2, N_FIELDS, p),
+                lambda: ftrl_update_plain(*tables, ids, gg2, N_FIELDS, p), 10, 3)
+            # reads the payload and ids; reads and writes n, z (f32) and w
+            # (bf16) of the touched rows and their three linear entries
+            touched = touched_rows(ids, TRAIN_FEATS)
+            ub = bound(nbytes(ids, gg2) + touched * (e * (4 + 4 + 2) * 2 + 3 * 4 * 2),
+                       gg2.numel() + touched * (e + 1) * 20)
+            update_bf16_time[f"{str(pay)[6:]}/{str(wdt)[6:]}"] = (uh_ms, uhp_ms, ub)
+            print(f"timing: ftrl_update payload {pay} w {wdt} R={TRAIN_FEATS} E={e} "
+                  f"N={BATCH * N_FIELDS}: kernel {uruns_h['kernel']} ms, plain "
+                  f"{uruns_h['plain']} ms; {touched} touched rows, bound {ub[0]:.4f} ms "
+                  f"({ub[1]}); the f32 form {u_ms:.4f} ms [{where}]")
+            del tables, ids, gg2
+        hcycle = itertools.cycle(tplaced)
+        hstep_ms = cuda_ms(lambda: hmodel.train_step(htrainer.state, next(hcycle)),
+                           2 * len(tplaced))
+        epochs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            htrainer.train_epoch()
+            torch.cuda.synchronize()
+            epochs.append(time.perf_counter() - t0)
+        heps = [N_ROWS / t for t in epochs]
+        print(f"timing: bf16 train_step on the device {hstep_ms:.3f} ms/batch (f32 "
+              f"{step_ms:.3f}); train_epoch() {heps} examples/s (n_feats={TRAIN_FEATS}, "
+              f"B={BATCH}, table and payload bf16) [{where}]")
+
         # ---- 4c. training the 1M-row table through the entry points ----
         # the serving state goes first: the 1M state is 7.7 GB, its
         # accumulator A 2.56 GB, rows and payload 4.9 GB, each clone 7.7 GB
@@ -875,6 +1150,7 @@ def main() -> int:
         del trainer, state, model, placed, cycle
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
+        b_mem0 = torch.cuda.memory_allocated(device)
         big_p, big_e = os.path.join(tmp, "train1m.ffm"), os.path.join(tmp, "eval1m.ffm")
         t0 = time.perf_counter()
         write_criteo_split([(big_p, N_ROWS), (big_e, BATCH)], N_FEATS, seed=13)
@@ -901,10 +1177,12 @@ def main() -> int:
         big = {fn.__name__: fn.launches for fn in counted}
         big_instances = dict(by_instance)
         bsteps = btrainer._steps_done
+        b_peak = torch.cuda.max_memory_allocated(device)
         print(f"train 1M: Trainer.train() 2 epochs in {t_big:.2f} s (first): {bsteps} steps, "
               f"update kind {kind!r}; launches {big}; ffm_fused launches by instance "
-              f"{big_instances}; history {bhist}; device memory peak "
-              f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+              f"{big_instances}; history {bhist}; device memory peak {b_peak / 1e9:.2f} GB "
+              f"({(b_peak - b_mem0) / 1e9:.2f} GB above the {b_mem0 / 1e9:.2f} GB resident "
+              f"before)")
         require(bsteps == 2 * n_batches, f"{bsteps} train steps, expect {2 * n_batches}")
         for fn in ("ffm_fused_logits_grads", "za_scatter", "closed_form_pass"):
             require(big[fn] == bsteps, f"{fn} launched {big[fn]} times in {bsteps} steps")
@@ -1056,6 +1334,139 @@ def main() -> int:
               f"dense {step['dense']} ms/batch; host parse {bparse_ms:.3f} ms/batch; "
               f"train_epoch() {beps} examples/s (n_feats={N_FEATS}, B={BATCH}, {N_ROWS} "
               f"rows, inplace) [{where}]")
+
+        # ---- 4e. the 1M-row table with a bf16 w through the entry points ----
+        # table_dtype=bfloat16 at 1M: auto -> "inplace" with an f32 split
+        # payload (acc_dtype only narrows "dense2"), kernel #3 on a bf16 w,
+        # and the separate linear update: the forward pass reads lin_w, not
+        # the mirror lane, so the linear tables are kept every step
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        e_mem0 = torch.cuda.memory_allocated(device)
+        ecfg = dataclasses.replace(bcfg, table_dtype="bfloat16", acc_dtype="bfloat16")
+        etrainer = Trainer(ecfg)
+        emodel = etrainer.model
+        require(not emodel._lin_mirror_maintained() and etrainer.state.vec_w.dtype == bf16,
+                "the bf16 1M table keeps the mirror or is not bf16")
+        for fn in counted:
+            fn.launches = 0
+        zero_instances()
+        t0 = time.perf_counter()
+        ehist = etrainer.train()
+        t_e = time.perf_counter() - t0
+        e_launches = {fn.__name__: fn.launches for fn in counted}
+        e_instances = dict(by_instance)
+        e_pass_dtypes = dict(closed_form_pass.launches_by_dtype)
+        e_update_dtypes = dict(ftrl_update.launches_by_dtype)
+        esteps = etrainer._steps_done
+        e_peak = torch.cuda.max_memory_allocated(device)
+        print(f"train 1M bf16: Trainer.train() 2 epochs in {t_e:.2f} s (first): {esteps} steps; "
+              f"launches {e_launches}; ffm_fused by instance {e_instances}; ftrl_pass by w "
+              f"dtype {e_pass_dtypes}; ftrl_update (the linear update) by dtype "
+              f"{e_update_dtypes}; history {ehist}; device memory peak {e_peak / 1e9:.2f} GB "
+              f"({(e_peak - e_mem0) / 1e9:.2f} GB above the {e_mem0 / 1e9:.2f} GB resident "
+              f"before; the f32 table's 4c run {(b_peak - b_mem0) / 1e9:.2f} GB above its)")
+        require(esteps == 2 * n_batches, f"{esteps} bf16 1M train steps, expect {2 * n_batches}")
+        require(e_pass_dtypes["bf16"] == esteps == e_launches["closed_form_pass"],
+                f"the bf16 1M path ran kernel #3's instances {e_pass_dtypes}")
+        require(e_launches["za_scatter"] == esteps, "the bf16 1M path skipped the z/A scatter")
+        require(e_instances["c40_k16"] == esteps,
+                f"the bf16 1M path ran kernel #2's instances {e_instances}")
+        require(e_update_dtypes["f32/f32"] == esteps == e_launches["ftrl_update"],
+                f"the bf16 1M path's linear update ran {e_update_dtypes}")
+        require(e_launches["ffm_fused_logits"] == 2, "bf16 1M eval did not run through ffm_logits")
+        require(all(math.isfinite(x) for k in ("train_loss", "eval_loss", "eval_auc")
+                    for x in ehist[k]), "non-finite bf16 1M training history")
+        require(ehist["train_loss"][1] < ehist["train_loss"][0],
+                "bf16 1M: epoch 2 train loss is not below epoch 1's")
+        require(ehist["eval_auc"][-1] > 0.5, "bf16 1M: eval AUC not above 0.5")
+        ebase = etrainer.state  # not stepped below: each chain steps a clone
+
+        def echain(ctx=contextlib.nullcontext):
+            s_ = clone_state(ebase)
+            with ctx():
+                losses = [emodel.train_step(s_, b).loss_sum.item() for b in bbatches]
+            return s_, losses
+
+        s_kern, l_kern = echain()
+        s_again, _ = echain()
+        same = all(torch.equal(a, b) for a, b in zip(s_kern, s_again))
+        del s_again
+        s_plain, l_plain = echain(plain_kernels)
+        names = ("lin_n", "lin_z", "lin_w", "vec_n", "vec_z")
+        eerr = {n: (getattr(s_kern, n).float() - getattr(s_plain, n).float()).abs().max().item()
+                for n in (*names, "vec_w")}
+        plain_ok = all(torch.allclose(getattr(s_kern, n), getattr(s_plain, n),
+                                      rtol=CHAIN_RTOL, atol=CHAIN_ATOL) for n in names)
+        plain_ok &= torch.allclose(s_kern.vec_w.float(), s_plain.vec_w.float(),
+                                   rtol=BF16_RTOL, atol=CHAIN_ATOL)
+        ldiff = max(abs(a - b) / abs(b) for a, b in zip(l_kern, l_plain))
+        print(f"train 1M bf16: 3 chained steps, kernels vs plain: loss rel diff {ldiff:.2e}, "
+              f"max |diff| {eerr}; two kernel runs bit-identical={same}")
+        require(plain_ok, "chained bf16 in-place steps disagree with the plain versions")
+        require(same, "two runs of the same bf16 in-place steps differ")
+        del s_kern, s_plain, ebase
+
+        # serving a seeded 1M state with a bf16 table: evaluate() and
+        # predict_file() on phase 4's eval rows, against the plain version
+        scfg_h = dataclasses.replace(cfg, table_dtype="bfloat16")
+        hstate = seeded_state(scfg_h, device, SEED)
+        hstate = hstate._replace(vec_w=hstate.vec_w.to(bf16))
+        strainer = Trainer(scfg_h, state=hstate)
+        del hstate
+        ffm_fused_logits.launches = 0
+        t0 = time.perf_counter()
+        hloss, hauc = strainer.evaluate()
+        t_heval = time.perf_counter() - t0
+        hpreds = os.path.join(tmp, "preds_bf16.txt")
+        n_hpred = strainer.predict_file(data, hpreds)
+        hserve_launches = ffm_fused_logits.launches
+        require(hserve_launches == 2 * n_batches,
+                f"bf16 serving launched ffm_logits {hserve_launches} times")
+        require(n_hpred == N_ROWS, f"bf16 predict_file scored {n_hpred} of {N_ROWS}")
+        href_loss, hmax_err, hplain_probs = serving_reference(strainer, data, "bf16 serving")
+        hpdiff = float(np.abs(np.loadtxt(hpreds) - hplain_probs).max())
+        print(f"serve bf16: evaluate loss={hloss:.6f} auc={hauc:.6f} ({t_heval:.2f} s, first "
+              f"pass); predict_file wrote {n_hpred}; ffm_logits launches={hserve_launches}; "
+              f"plain-version loss {href_loss:.6f}, logits max_abs_err={hmax_err:.2e}, "
+              f"probability max |diff| {hpdiff:.2e}")
+        require(abs(href_loss - hloss) <= 1e-5 * max(1.0, hloss),
+                "bf16 eval loss off the reference")
+        require(hpdiff <= 2e-6, "bf16 predictions off the reference")
+        passes = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            strainer.evaluate()
+            passes.append(time.perf_counter() - t0)
+        print(f"timing: bf16 evaluate() {[N_ROWS / t for t in passes]} examples/s "
+              f"(n_feats={N_FEATS}, B={BATCH}, {N_ROWS} rows) [{where}]")
+        del strainer
+        torch.cuda.empty_cache()
+
+        # ---- 5c, bf16: kernel #3 on a bf16 w, the bf16 1M train step ----
+        tabs = list(pass_inputs(N_FEATS, e, gen, device, p))
+        tabs[2] = tabs[2].to(bf16)
+        pruns_h, pass_bf16_ms, pass_bf16_plain_ms = interleaved_ms(
+            lambda: closed_form_pass(*tabs, p), lambda: closed_form_pass_plain(*tabs, p), 10, 3)
+        # five f32 streams (read n, z', A; write n, z) and two bf16 ones
+        # (read and write w)
+        pass_bf16_bound = bound(N_FEATS * e * (5 * 4 + 2 * 2), 20 * N_FEATS * e)
+        print(f"timing: ftrl_pass bf16 w R={N_FEATS} E={e}: kernel {pruns_h['kernel']} ms, plain "
+              f"{pruns_h['plain']} ms; bound {pass_bf16_bound[0]:.4f} ms ({pass_bf16_bound[1]}); "
+              f"the f32 form {pass_ms:.4f} ms [{where}]")
+        del tabs
+        ecycle = itertools.cycle(bplaced)
+        estep_ms = [cuda_ms(lambda: emodel.train_step(etrainer.state, next(ecycle)),
+                            2 * len(bplaced)) for _ in range(2)]
+        epochs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            etrainer.train_epoch()
+            torch.cuda.synchronize()
+            epochs.append(time.perf_counter() - t0)
+        eeps = [N_ROWS / t for t in epochs]
+        print(f"timing: bf16 train_step on the device at 1M (inplace): {estep_ms} ms/batch (f32 "
+              f"{step['inplace']}); train_epoch() {eeps} examples/s [{where}]")
 
         # ---- 3f. the probe kernels against their plain versions ----
         # the probes at their default sizes need ~25 GB beside 4c's state
@@ -1342,7 +1753,10 @@ def main() -> int:
 
         for label, mdl, trn, cyc, n in (
             ("n_feats=100k dense2", tmodel, ttrainer, tcycle, len(tplaced)),
+            ("n_feats=100k dense2, bf16 table and payload", hmodel, htrainer, hcycle,
+             len(tplaced)),
             ("n_feats=1M inplace", bmodel, btrainer, bcycle, len(bplaced)),
+            ("n_feats=1M inplace, bf16 table", emodel, etrainer, ecycle, len(bplaced)),
             ("n_feats=1M dense", dmodel, btrainer, bcycle, len(bplaced)),
         ):
             print_breakdown(f"train_step {label}", profile_ms(
@@ -1351,7 +1765,9 @@ def main() -> int:
         # copies, fills, on one stream) over the epoch's wall time, both from
         # the traced epoch
         for label, trn, eps_untraced in (("n_feats=100k", ttrainer, teps),
-                                         ("n_feats=1M", btrainer, beps)):
+                                         ("n_feats=100k bf16", htrainer, heps),
+                                         ("n_feats=1M", btrainer, beps),
+                                         ("n_feats=1M bf16", etrainer, eeps)):
             walls = []
 
             def epoch():
@@ -1366,6 +1782,7 @@ def main() -> int:
                   f"traced wall time, idle {1 - busy / wall:.4f}; untraced epochs "
                   f"{[N_ROWS / x * 1e3 for x in eps_untraced]} ms [{where}]")
         del ttrainer, tmodel, tplaced, tcycle, btrainer, bmodel, dmodel, bplaced, bcycle
+        del htrainer, hmodel, hcycle, etrainer, emodel, ecycle
 
     records = [
         {
@@ -1438,6 +1855,50 @@ def main() -> int:
             "bound_by": scatter_bound[1],
             # one index_add_ per output table
             "library_ms": sc_lib_ms,
+        },
+    ]
+    # the bf16 forms of kernel #2 (4d), the update kernel (4d: bf16 payload
+    # and w) and kernel #3 (4e: bf16 w), each launched by its own
+    # instantiation; launches from the bf16 training paths
+    records += [
+        {
+            "name": "ffm_fused_bf16",
+            "route": "cuda",
+            "source": "ftrl_ffm_tpu_torch/csrc/ffm_fused.cu",
+            "replaces": "ftrl_ffm_tpu/ops/ffm_pallas.py:38",
+            "launches": h_instances["c40_k16_bf16"],
+            "max_abs_err": fused_bf16_err,
+            "ms": hf_ms,
+            "plain_ms": hfp_ms,
+            "bound_ms": fused_bf16_bound[0],
+            "bound_by": fused_bf16_bound[1],
+            "library_ms": None,
+        },
+        {
+            "name": "ftrl_update_bf16",
+            "route": "cuda",
+            "source": "ftrl_ffm_tpu_torch/csrc/ftrl_update.cu",
+            "replaces": "ftrl_ffm_tpu/ftrl.py:249",
+            "launches": h_update_dtypes["bf16/bf16"],
+            "max_abs_err": update_bf16_err,
+            "ms": update_bf16_time["bfloat16/bfloat16"][0],
+            "plain_ms": update_bf16_time["bfloat16/bfloat16"][1],
+            "bound_ms": update_bf16_time["bfloat16/bfloat16"][2][0],
+            "bound_by": update_bf16_time["bfloat16/bfloat16"][2][1],
+            "library_ms": None,
+        },
+        {
+            "name": "ftrl_pass_bf16",
+            "route": "cuda",
+            "source": "ftrl_ffm_tpu_torch/csrc/ftrl_pass.cu",
+            "replaces": "ftrl_ffm_tpu/ops/ftrl_pallas.py:32",
+            "launches": e_pass_dtypes["bf16"],
+            "max_abs_err": pass_bf16_err,
+            "ms": pass_bf16_ms,
+            "plain_ms": pass_bf16_plain_ms,
+            "bound_ms": pass_bf16_bound[0],
+            "bound_by": pass_bf16_bound[1],
+            "library_ms": None,
         },
     ]
     # the probe kernels: the TPU kernels of tools/micro_*.py, ported to

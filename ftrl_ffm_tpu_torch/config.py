@@ -81,7 +81,9 @@ class Config:
     # (parallel/sharded.py::_table_update_routed).
     update_mode: str = "auto"
     # Gradient-accumulator dtype for the combined (g || g^2) payload +
-    # scatter accumulator on the Pallas path: "bfloat16" halves the bytes of
+    # scatter accumulator of the "dense2" update (the port's kernel #2 and
+    # update kernel; "inplace" and "sparse2" keep an f32 payload, as in the
+    # JAX package): "bfloat16" halves the bytes of
     # the dominant train-step pass (kernel payload write, scatter read + RMW,
     # accumulator zero-init + closed-form read) at ~3 significant digits per
     # per-occurrence gradient; (n, z, w) tables and the closed form stay f32.
@@ -313,7 +315,7 @@ def detect_file_type(file_path: str) -> str:
 ROADMAP_ITEMS = {
     2: "FFM training on one device",
     3: "checkpoint writing and reference-model import/export",
-    4: "LR and FM models, bfloat16 tables",
+    4: "LR and FM models",
     5: "background feeder and transfer tiers",
     6: "device-resident datasets",
     7: "huge-table path",
@@ -332,17 +334,18 @@ def not_ported(what: str, item: int) -> NotImplementedError:
 
 
 def check_ported(cfg: Config) -> None:
-    """Raise for config values the port does not serve yet.
+    """Raise for config values the port does not serve yet: model_type LR
+    or FM (item 4), a device mesh (item 8), device_cache=on (item 6),
+    steps_per_call > 1 (item 5), and use_pallas=off, which has no
+    counterpart here.
 
     Settings that change only how the JAX package moves bytes
     (compact_transfer, feed_workers, async_checkpoint) do not change what
     the port computes, so they pass.  Every table-update kind
-    (update_mode) trains on one device; the payload dtype is checked when
-    the run trains (train_data or cmd)."""
+    (update_mode) and both dtypes of table_dtype and acc_dtype train on
+    one device."""
     if cfg.model_type != "FFM":
         raise not_ported(f"model_type={cfg.model_type}", 4)
-    if cfg.table_dtype != "float32":
-        raise not_ported(f"table_dtype={cfg.table_dtype}", 4)
     if cfg.mesh_data != 1 or cfg.mesh_model != 1:
         raise not_ported(
             f"a device mesh (mesh_data={cfg.mesh_data}, "
@@ -359,5 +362,3 @@ def check_ported(cfg: Config) -> None:
             "use_pallas=off has no counterpart in the PyTorch port: a CUDA "
             "device runs the CUDA kernel, --device cpu its plain version"
         )
-    if (cfg.train_data or cfg.cmd) and cfg.acc_dtype != "float32":
-        raise not_ported(f"acc_dtype={cfg.acc_dtype}", 4)

@@ -1,6 +1,6 @@
 // FFM logits and the FTRL payload of one train step: the CUDA counterpart of
 // ftrl_ffm_tpu/ops/ffm_pallas.py::_ffm_fused_kernel (entry point
-// ffm_fused_logits_grads, f32 output, combined or split).
+// ffm_fused_logits_grads, f32 or bf16 output, combined or split).
 //
 // What it computes, for each sample b with occurrences m = 0..F-1 (field
 // f_m, value x_m, gathered factor row v_m of E = C'*K floats, slot (k, c) at
@@ -12,6 +12,14 @@
 //   gg2[m]   = (g_m || g_m^2), [2E] floats per occurrence (combined), or
 //   g[m], g2[m] = g_m, g_m^2 in two [B*F, E] tensors (split, for the
 //   huge-table in-place update); only the store differs
+//
+// The payload's type is a template parameter of both instances: float, or
+// __nv_bfloat16 (Config.acc_dtype=bfloat16, the JAX package's out_dtype):
+// g and g^2 are computed in f32 as before and each rounded to bf16 once at
+// the store, g^2 from the f32 g (ffm_pallas.py's (g * g).astype(bf16)).
+// The bf16 payload halves the store, the bound of the kernel: at the bench
+// shape 1.64 GB of rows read and 1.64 GB of payload written, 0.98 ms at
+// 3.35 TB/s (1.47 ms for f32).
 //
 // The sum is ops/interactions.py's T - oh_e * xv (the field-bucketed form of
 // the Pallas kernel) without its one-hot contractions: the sample's
@@ -61,12 +69,29 @@
 // Offsets into v and the payload are size_t: B*F*2E passes 2^31 at
 // B = 65,536.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
 namespace {
+
+// One payload value from its f32 form: as it is, or rounded to nearest even.
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// Four adjacent payload values with one streaming store: a float4, or four
+// bf16 rounded to nearest even in 8 bytes.
+__device__ __forceinline__ void put4(float* p, float a, float b, float c, float d) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
+}
+__device__ __forceinline__ void put4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  __stcs(reinterpret_cast<uint2*>(p), make_uint2(reinterpret_cast<const unsigned&>(lo),
+                                                 reinterpret_cast<const unsigned&>(hi)));
+}
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -82,13 +107,13 @@ size_t fused_floats(int F, int C, int K, bool staged) {
   return n;
 }
 
-template <bool STAGED>
+template <bool STAGED, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 ffm_fused_kernel(const float* __restrict__ v, const int* __restrict__ fields,
                  const float* __restrict__ vals, const float* __restrict__ lin,
                  const float* __restrict__ y, const float* __restrict__ sw,
-                 float* __restrict__ logits, float* __restrict__ g_out,
-                 float* __restrict__ g2_out, int out_stride, int F, int C, int K,
+                 float* __restrict__ logits, OutT* __restrict__ g_out,
+                 OutT* __restrict__ g2_out, int out_stride, int F, int C, int K,
                  int aug_lane, int vec4) {
   extern __shared__ float smem[];
   const int E = C * K;
@@ -196,8 +221,8 @@ ffm_fused_kernel(const float* __restrict__ v, const int* __restrict__ fields,
   const float gs = gs_s[0];
 
   // g_m and g_m^2 of occurrence m start at m*out_stride of their bases
-  float* out_g = g_out + occ0 * out_stride;
-  float* out_g2 = g2_out + occ0 * out_stride;
+  OutT* out_g = g_out + occ0 * out_stride;
+  OutT* out_g2 = g2_out + occ0 * out_stride;
   const int total = F * E;
   for (int i = threadIdx.x; i < total; i += kThreads) {
     const int m = i / E;
@@ -221,8 +246,8 @@ ffm_fused_kernel(const float* __restrict__ v, const int* __restrict__ fields,
       g = gx * s;
     }
     const size_t at = static_cast<size_t>(m) * out_stride + j;
-    out_g[at] = g;
-    out_g2[at] = g * g;
+    put(out_g + at, g);
+    put(out_g2 + at, g * g);
   }
 }
 
@@ -243,12 +268,13 @@ static_assert(kC % 4 == 0 && kC <= 64 && kFMax <= 64, "bucket scan takes 2 per l
 constexpr int kSpecHead = (kSpecWarps + 2 + 3 * kFMax + kC + kC + 1 + 3) / 4 * 4;
 constexpr size_t kSpecBytes = (kSpecHead + static_cast<size_t>(kFMax) * kS) * sizeof(float);
 
+template <typename OutT>
 __global__ void __launch_bounds__(kSpecThreads, 2)
 ffm_fused_c40(const float* __restrict__ v, const int* __restrict__ fields,
               const float* __restrict__ vals, const float* __restrict__ lin,
               const float* __restrict__ y, const float* __restrict__ sw,
-              float* __restrict__ logits, float* __restrict__ g_out,
-              float* __restrict__ g2_out, int out_stride, int F, int aug_lane, int vec4) {
+              float* __restrict__ logits, OutT* __restrict__ g_out,
+              OutT* __restrict__ g2_out, int out_stride, int F, int aug_lane, int vec4) {
   extern __shared__ float smem[];
   const int b = blockIdx.x;
   const size_t occ0 = static_cast<size_t>(b) * F;
@@ -357,9 +383,10 @@ ffm_fused_c40(const float* __restrict__ v, const int* __restrict__ fields,
   const float gs = gs_s[0];
 
   // four slots (k, c0..c0+3) of occurrence m a thread: the bucket sums of
-  // c0..c0+3 all read column k*C + f_m of their partners' rows
-  float* out_g = g_out + occ0 * out_stride;
-  float* out_g2 = g2_out + occ0 * out_stride;
+  // c0..c0+3 all read column k*C + f_m of their partners' rows; one store
+  // of g and one of g^2 (16 bytes each for f32, 8 for bf16)
+  OutT* out_g = g_out + occ0 * out_stride;
+  OutT* out_g2 = g2_out + occ0 * out_stride;
   for (int i = threadIdx.x; i < F * kQuads; i += kSpecThreads) {
     const int m = i / kQuads;
     const int r = i - m * kQuads;
@@ -383,9 +410,8 @@ ffm_fused_c40(const float* __restrict__ v, const int* __restrict__ fields,
 #pragma unroll
     for (int u = 0; u < 4; ++u) g[u] = 4 * r + u == aug_lane ? gx : gx * s[u];
     const size_t at = static_cast<size_t>(m) * out_stride + 4 * r;
-    __stcs(reinterpret_cast<float4*>(out_g + at), make_float4(g[0], g[1], g[2], g[3]));
-    __stcs(reinterpret_cast<float4*>(out_g2 + at),
-           make_float4(g[0] * g[0], g[1] * g[1], g[2] * g[2], g[3] * g[3]));
+    put4(out_g + at, g[0], g[1], g[2], g[3]);
+    put4(out_g2 + at, g[0] * g[0], g[1] * g[1], g[2] * g[2], g[3] * g[3]);
   }
 }
 
@@ -431,53 +457,71 @@ int pick_instance(int F, int C, int K, int optin) {
   return -1;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launch on `stream`: v [B*F, C*K], fields/vals [B, F], lin/y/sw/logits
-// [B], all contiguous on the current device; aug_lane in [-1, C*K).  The
-// payload goes to g [B*F, 2*C*K] (combined, g2 null) or to g and g2, each
-// [B*F, C*K] (split), 16-byte aligned.  Writes the instance it picked to
-// *instance (pick_instance's code; left as it was when the device cannot be
-// queried) and launches it.  Returns the CUDA error of the launch (0 on
-// success, cudaErrorInvalidValue when no instance takes the shape); the
-// caller raises on anything else.
-int ffm_fused_launch(const float* v, const int* fields, const float* vals,
-                     const float* lin, const float* y, const float* sw, float* logits,
-                     float* g, float* g2, int B, int F, int C, int K, int aug_lane,
-                     void* stream, int* instance_out) {
+// Launch the instance `instance` (pick_instance's code) with payload type
+// OutT; each instantiation keeps its own once-per-device allowance flags.
+template <typename OutT>
+int launch_fused(int instance, int dev, int optin, const float* v, const int* fields,
+                 const float* vals, const float* lin, const float* y, const float* sw,
+                 float* logits, OutT* g, OutT* g2, int B, int F, int C, int K, int aug_lane,
+                 cudaStream_t s) {
   static bool done_c40[kMaxDevices] = {};
   static bool done_staged[kMaxDevices] = {};
   static bool done_device[kMaxDevices] = {};
-  int dev = 0;
-  int optin = 0;
-  cudaError_t err = device_optin(&dev, &optin);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int instance = pick_instance(F, C, K, optin);
-  *instance_out = instance;
-  if (instance < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
   const int E = C * K;
   const int vec4 = E % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
   const int stride = g2 == nullptr ? 2 * E : E;
-  float* second = g2 == nullptr ? g + E : g2;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  OutT* second = g2 == nullptr ? g + E : g2;
+  cudaError_t err;
   if (instance == 2) {
-    err = allow_shared(&ffm_fused_c40, dev, optin, done_c40);
+    err = allow_shared(&ffm_fused_c40<OutT>, dev, optin, done_c40);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ffm_fused_c40<<<B, kSpecThreads, kSpecBytes, s>>>(v, fields, vals, lin, y, sw, logits, g,
-                                                      second, stride, F, aug_lane, vec4);
+    ffm_fused_c40<OutT><<<B, kSpecThreads, kSpecBytes, s>>>(v, fields, vals, lin, y, sw, logits,
+                                                            g, second, stride, F, aug_lane, vec4);
     return static_cast<int>(cudaGetLastError());
   }
   const bool staged = instance == 1;
-  auto kernel = staged ? &ffm_fused_kernel<true> : &ffm_fused_kernel<false>;
+  auto kernel = staged ? &ffm_fused_kernel<true, OutT> : &ffm_fused_kernel<false, OutT>;
   err = allow_shared(kernel, dev, optin, staged ? done_staged : done_device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t bytes = fused_floats(F, C, K, staged) * sizeof(float);
   kernel<<<B, kThreads, bytes, s>>>(v, fields, vals, lin, y, sw, logits, g, second, stride, F,
                                     C, K, aug_lane, vec4);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch on `stream`: v [B*F, C*K], fields/vals [B, F], lin/y/sw/logits
+// [B], all contiguous on the current device; aug_lane in [-1, C*K).  The
+// payload, f32 (out_bf16 = 0) or bf16 (out_bf16 = 1), goes to g [B*F,
+// 2*C*K] (combined, g2 null) or to g and g2, each [B*F, C*K] (split),
+// 16-byte aligned.  Writes the instance it picked to *instance
+// (pick_instance's code; left as it was when the device cannot be
+// queried) and launches it.  Returns the CUDA error of the launch (0 on
+// success, cudaErrorInvalidValue when no instance takes the shape); the
+// caller raises on anything else.
+int ffm_fused_launch(const float* v, const int* fields, const float* vals,
+                     const float* lin, const float* y, const float* sw, float* logits,
+                     void* g, void* g2, int B, int F, int C, int K, int aug_lane, int out_bf16,
+                     void* stream, int* instance_out) {
+  int dev = 0;
+  int optin = 0;
+  const cudaError_t err = device_optin(&dev, &optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int instance = pick_instance(F, C, K, optin);
+  *instance_out = instance;
+  if (instance < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_bf16) {
+    return launch_fused(instance, dev, optin, v, fields, vals, lin, y, sw, logits,
+                        static_cast<__nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(g2), B, F,
+                        C, K, aug_lane, s);
+  }
+  return launch_fused(instance, dev, optin, v, fields, vals, lin, y, sw, logits,
+                      static_cast<float*>(g), static_cast<float*>(g2), B, F, C, K, aug_lane, s);
 }
 
 }  // extern "C"

@@ -82,24 +82,52 @@ def bias_update(bias_n, bias_z, grad_per_sample, p: FtrlParams):
     return ftrl_accumulate(bias_n, bias_z, w, sum_g, sum_g2, p)
 
 
+def _segment_sums(n_out: int, slot: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """[n_out, D] sums of the payload rows by slot (int64, every slot in
+    [0, n_out)), in the payload's dtype.  An f32 payload sums through
+    index_add_.  A bf16 payload sums as the JAX package's bf16 scatter-add
+    does on its CPU: into a bf16 accumulator, rounded after every add, each
+    slot's rows in ascending payload order (index_add_ would sum in f32 and
+    round once).  The rows are sorted stably by slot and ranked within
+    their slot; step r adds every slot's r-th row, so no step touches a
+    slot twice and the result is the same on every device."""
+    acc = torch.zeros((n_out, rows.shape[-1]), dtype=rows.dtype, device=rows.device)
+    if rows.dtype != torch.bfloat16:
+        return acc.index_add_(0, slot, rows)
+    if slot.numel() == 0:
+        return acc
+    sslot, perm = torch.sort(slot, stable=True)
+    pos = torch.arange(sslot.numel(), device=slot.device)
+    starts = torch.ones_like(sslot, dtype=torch.bool)
+    starts[1:] = sslot[1:] != sslot[:-1]
+    rank = pos - torch.cummax(torch.where(starts, pos, 0), dim=0).values
+    for r in range(int(rank.max()) + 1):
+        at = rank == r
+        dst, src = sslot[at], rows[perm[at]]
+        acc[dst] = (acc[dst].float() + src.float()).to(torch.bfloat16)
+    return acc
+
+
 def _row_sums(n_rows: int, ids: torch.Tensor, gg2: torch.Tensor) -> torch.Tensor:
-    """[n_rows, 2D] per-row sums of the payload rows.  Ids outside
-    [0, n_rows) — the padding sentinel n_feats — are dropped, as by the JAX
-    scatter's mode="drop": they land in one extra row that is cut off."""
+    """[n_rows, 2D] per-row sums of the payload rows (_segment_sums: f32,
+    or a bf16 accumulator for a bf16 payload).  Ids outside [0, n_rows) —
+    the padding sentinel n_feats — are dropped, as by the JAX scatter's
+    mode="drop"."""
     ids = ids.reshape(-1).to(torch.int64)
     keep = (ids >= 0) & (ids < n_rows)
-    acc = torch.zeros((n_rows + 1, gg2.shape[-1]), dtype=gg2.dtype, device=gg2.device)
-    acc.index_add_(0, torch.where(keep, ids, n_rows), gg2)
-    return acc[:n_rows]
+    return _segment_sums(n_rows, ids[keep], gg2[keep])
 
 
 def _closed_step(n, z, w, sum_g, sum_g2, p: FtrlParams):
     """Accumulator step, then the closed form where the coordinate has been
     touched; untouched coordinates keep their stored weight (the init under
-    keep_init semantics)."""
-    new_n, new_z = ftrl_accumulate(n, z, w, sum_g, sum_g2, p)
-    new_w = torch.where(new_n > UNTOUCHED_N, ftrl_weights(new_n, new_z, p), w)
-    return new_n, new_z, new_w
+    keep_init semantics).  A bf16 w table or bf16 sums are widened to n's
+    f32 first, and the new w is rounded to w's dtype at the store (the JAX
+    package's w.astype(n.dtype) ... new_w.astype(w.dtype))."""
+    wf = w.to(n.dtype)
+    new_n, new_z = ftrl_accumulate(n, z, wf, sum_g.to(n.dtype), sum_g2.to(n.dtype), p)
+    new_w = torch.where(new_n > UNTOUCHED_N, ftrl_weights(new_n, new_z, p), wf)
+    return new_n, new_z, new_w.to(w.dtype)
 
 
 def dense_ftrl_update2(n_tab, z_tab, w_tab, ids, gg2, p: FtrlParams):
@@ -144,12 +172,15 @@ def closed_form_pass_plain(n, z_prime, w, a, p: FtrlParams):
         n     = n + A
         w     = closed form (n, z)  where n > UNTOUCHED_N, else w
 
-    Returns the new (n, z, w)."""
+    A bf16 w is widened before the math and the new w rounded to bf16 at
+    the store.  Returns the new (n, z, w)."""
+    a = a.to(n.dtype)
+    wf = w.to(n.dtype)
     sigma = _div(torch.sqrt(n + a) - torch.sqrt(n), p.alpha)
-    new_z = z_prime - sigma * w
+    new_z = z_prime - sigma * wf
     new_n = n + a
-    new_w = torch.where(new_n > UNTOUCHED_N, ftrl_weights(new_n, new_z, p), w)
-    return new_n, new_z, new_w
+    new_w = torch.where(new_n > UNTOUCHED_N, ftrl_weights(new_n, new_z, p), wf)
+    return new_n, new_z, new_w.to(w.dtype)
 
 
 def dense_ftrl_update_inplace(n_tab, z_tab, w_tab, ids, g, g2, p: FtrlParams):
@@ -173,8 +204,7 @@ def sparse_ftrl_update2(n_tab, z_tab, w_tab, ids, gg2, p: FtrlParams):
     ids = ids.reshape(-1).to(torch.int64)
     keep = (ids >= 0) & (ids < r)
     rows, slot = torch.unique(ids[keep], return_inverse=True)
-    sums = torch.zeros((rows.shape[0], gg2.shape[-1]), dtype=gg2.dtype, device=gg2.device)
-    sums.index_add_(0, slot, gg2[keep])
+    sums = _segment_sums(rows.shape[0], slot, gg2[keep])
     d = gg2.shape[-1] // 2
     if n_tab.dim() == 1:
         sum_g, sum_g2 = sums[:, 0], sums[:, 1]

@@ -113,27 +113,33 @@ _TORCH_DTYPES = {
 }
 
 
+def _to_tensor(name: str, a: np.ndarray) -> torch.Tensor:
+    """A host array as a CPU tensor.  A bfloat16 array (ml_dtypes' numpy
+    type, found by its name so that ml_dtypes need not be importable here)
+    crosses bit for bit: its bits as int16, viewed as torch.bfloat16."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(
+            torch.bfloat16
+        )
+    if a.dtype not in _TORCH_DTYPES:
+        raise IncompatibleStateError(
+            f"state field {name} is {a.dtype}: the PyTorch port takes "
+            f"float32 and bfloat16 tables and an int32 step"
+        )
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = a.copy()  # JAX hands out read-only views
+    return torch.from_numpy(a)
+
+
 def state_from_jax_arrays(state, device) -> ModelState:
     """Carry a state across from the JAX package: each field of `state`
     (a ModelState of either package, or anything with the same field names,
     holding numpy arrays, JAX arrays or None) becomes a tensor on `device`.
-    The port takes float32 tables and an int32 step; a bfloat16
-    table arrives with ROADMAP.md Queue 1 item 4."""
+    The port takes float32 and bfloat16 tables (a table_dtype=bfloat16
+    vec_w) and an int32 step."""
     fields = state._asdict() if hasattr(state, "_asdict") else dict(state)
     out = {}
     for name in ModelState._fields:
         a = fields[name]
-        if a is None:
-            out[name] = None
-            continue
-        a = np.asarray(a)
-        if a.dtype not in _TORCH_DTYPES:
-            raise IncompatibleStateError(
-                f"state field {name} is {a.dtype}: the PyTorch port serves "
-                f"float32 tables (bfloat16 tables arrive with ROADMAP.md "
-                f"Queue 1 item 4)"
-            )
-        if not (a.flags.writeable and a.flags.c_contiguous):
-            a = a.copy()  # JAX hands out read-only views
-        out[name] = torch.from_numpy(a).to(device)
+        out[name] = None if a is None else _to_tensor(name, np.asarray(a)).to(device)
     return ModelState(**out)

@@ -6,7 +6,9 @@ the forward pass gathers one stored w row per occurrence, as in the JAX
 package, and each train step refreshes w for the rows it touches.  The
 train step takes the JAX package's three table-update kinds
 (ftrl.py::select_update_kind): the combined-payload "dense2" and
-"sparse2" forms, and the huge-table "inplace" form from a split payload.
+"sparse2" forms, and the huge-table "inplace" form from a split payload,
+with an f32 or a bfloat16 w table (Config.table_dtype) and, for "dense2",
+an f32 or a bfloat16 payload (Config.acc_dtype).
 """
 
 from __future__ import annotations
@@ -124,7 +126,8 @@ class Model:
         weights start N(init_mean, init_stddev) on live lanes and zero on the
         dead lanes of a padded row (lane (0, n_fields) mirrors the linear
         table, which starts at 0); under reference semantics they start at
-        zero.  A torch.Generator does not reproduce JAX's random stream:
+        zero.  They are drawn in f32 and then stored in cfg.table_dtype; n,
+        z and the linear tables are f32.  A torch.Generator does not reproduce JAX's random stream:
         tests carry a JAX-made init across instead."""
         if generator is None:
             generator = torch.Generator(device=self.cfg.device)
@@ -148,7 +151,8 @@ class Model:
         return ModelState(
             bias_n=zeros(), bias_z=zeros(),
             lin_n=zeros(r), lin_z=zeros(r), lin_w=zeros(r),
-            vec_n=zeros(r, e), vec_z=zeros(r, e), vec_w=vec_w.contiguous(),
+            vec_n=zeros(r, e), vec_z=zeros(r, e),
+            vec_w=vec_w.to(getattr(torch, self.cfg.table_dtype)).contiguous(),
             step=torch.zeros((), dtype=torch.int32, device=dev),
         )
 
@@ -160,10 +164,11 @@ class Model:
         return state.lin_w[feats.clamp(0, rows - 1)]
 
     def _gather_vec(self, state: ModelState, feats: torch.Tensor) -> torch.Tensor:
+        """The rows of feats, widened to f32 (a bf16 table's rows too: the
+        kernels read f32 rows)."""
         rows = state.vec_w.shape[0]
-        return state.vec_w.index_select(0, feats.reshape(-1).clamp(0, rows - 1)).reshape(
-            *feats.shape, -1
-        )
+        v = state.vec_w.index_select(0, feats.reshape(-1).clamp(0, rows - 1))
+        return v.to(torch.float32).reshape(*feats.shape, -1)
 
     def bias_weight(self, state: ModelState) -> torch.Tensor:
         return ftrl_weights(state.bias_n, state.bias_z, self.params)
@@ -172,11 +177,12 @@ class Model:
         """Returns (logits [B], factor gradients or None)."""
         raise NotImplementedError
 
-    def _train_grads(self, state: ModelState, batch: Batch, split: bool = False):
+    def _train_grads(self, state: ModelState, batch: Batch, split: bool = False,
+                     payload_dtype: torch.dtype = torch.float32):
         """(logits [B], payload, lane) of one train step: the payload
-        already scaled by gs, combined ((gg2 [B*F, 2E],)) or, with split,
-        (g [B*F, E], g2 [B*F, E]); and the lane that carries the linear
-        gradient (-1 when the row has no dead lane)."""
+        already scaled by gs, combined ((gg2 [B*F, 2E],), in payload_dtype)
+        or, with split, (g [B*F, E], g2 [B*F, E]); and the lane that carries
+        the linear gradient (-1 when the row has no dead lane)."""
         raise NotImplementedError
 
     def _lin_mirror_maintained(self) -> bool:
@@ -212,10 +218,16 @@ class Model:
         kind = select_update_kind(
             state.vec_n.shape[0], state.vec_n.shape[-1], nnz, self.cfg.update_mode
         )
-        if self.cfg.acc_dtype != "float32":
-            raise not_ported(f"acc_dtype={self.cfg.acc_dtype}", 4)
         split = kind == "inplace"
-        logits, payload, lane = self._train_grads(state, batch, split)
+        # a bf16 payload and accumulator only for "dense2", as in
+        # ftrl_ffm_tpu/models/base.py::train_step: the in-place update adds g
+        # into the f32 z table, and the sparse form's segment sums stay f32
+        payload_dtype = (
+            torch.bfloat16
+            if self.cfg.acc_dtype == "bfloat16" and kind == "dense2"
+            else torch.float32
+        )
+        logits, payload, lane = self._train_grads(state, batch, split, payload_dtype)
         # dL/dlogit = sigmoid(logit) - y  (reference: src/model/ffm.cpp:44)
         gs = (torch.sigmoid(logits) - batch.y) * batch.sample_w
         bias_n, bias_z = bias_update(state.bias_n, state.bias_z, gs, p)

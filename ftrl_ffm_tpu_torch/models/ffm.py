@@ -46,12 +46,13 @@ class FFM(Model):
             return v[:, lane].reshape(batch.feats.shape)
         return self._gather_linear(state, batch.feats)
 
-    def _train_grads(self, state: ModelState, batch: Batch, split: bool = False):
+    def _train_grads(self, state: ModelState, batch: Batch, split: bool = False,
+                     payload_dtype: torch.dtype = torch.float32):
         """Logits and the payload from the fused kernel
         (ftrl_ffm_tpu/models/ffm.py::FFM._train_grads, its Pallas path): a
         flat [B*F, E] gather, w_lin from the mirror lane of those rows, and
         the linear gradient in the dead lane when the row has one, in the
-        combined layout or, with split, in g and g^2 apart."""
+        combined layout (f32 or bf16) or, with split, in g and g^2 apart."""
         v = self._gather_vec(state, batch.feats.reshape(-1))
         w = self._w_lin_from_rows(state, v, batch, self._lin_read_lane())
         lin = linear_logits(w, batch.vals, self.bias_weight(state))
@@ -59,6 +60,7 @@ class FFM(Model):
         logits, *payload = ffm_fused_logits_grads(
             v, batch.fields, batch.vals, lin, batch.y, batch.sample_w,
             self.field_pad, self.n_factors, aug_lane=lane, combined_out=not split,
+            out_dtype=payload_dtype,
         )
         return logits, tuple(payload), lane
 

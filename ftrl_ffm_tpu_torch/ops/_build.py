@@ -75,16 +75,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ffm_logits_launch.restype = i
     lib.ffm_logits_stages.argtypes = [i, i]
     lib.ffm_logits_stages.restype = i
-    lib.ffm_fused_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p,
+    lib.ffm_fused_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p,
                                      ctypes.POINTER(i)]
     lib.ffm_fused_launch.restype = i
     lib.ftrl_update_launch.argtypes = [
-        p, p, i, p, p, p, p, p, p, p, p, i, i, i, f, f, f, f, p,
+        p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, f, p,
     ]
     lib.ftrl_update_launch.restype = i
     lib.za_scatter_launch.argtypes = [p, p, i, p, p, p, p, i, i, p]
     lib.za_scatter_launch.restype = i
-    lib.ftrl_pass_launch.argtypes = [p, p, p, p, n, f, f, f, f, p]
+    lib.ftrl_pass_launch.argtypes = [p, p, p, p, n, i, f, f, f, f, p]
     lib.ftrl_pass_launch.restype = i
     lib.micro_pass3_launch.argtypes = [p, p, p, n, f, f, f, f, p]
     lib.micro_pass3_launch.restype = i

@@ -101,11 +101,13 @@ def ffm_fused_logits_grads_plain(
     n_factors: int,
     aug_lane: int = -1,
     combined_out: bool = True,
+    out_dtype: torch.dtype = torch.float32,
 ):
     """Plain PyTorch version of the training kernel:
     ops/interactions.py::ffm_logits_and_grads on the [B, F, E] view, scaled
     by gs = (sigmoid(logit) - y) * sample_w; g and g^2 side by side, or
-    apart with combined_out=False."""
+    apart with combined_out=False.  The payload is stored in out_dtype:
+    g and the f32 g * g each rounded once, as ffm_pallas.py's store does."""
     b, f = fields.shape
     logits, dv = ffm_logits_and_grads(
         v.reshape(b, f, -1), fields, vals, lin, n_fields, n_factors,
@@ -113,9 +115,10 @@ def ffm_fused_logits_grads_plain(
     )
     gs = (torch.sigmoid(logits) - y) * sample_w
     g = (gs[:, None, None] * dv).reshape(b * f, -1)
+    g, g2 = g.to(out_dtype), (g * g).to(out_dtype)
     if not combined_out:
-        return logits, g, g * g
-    return logits, torch.cat([g, g * g], dim=-1)
+        return logits, g, g2
+    return logits, torch.cat([g, g2], dim=-1)
 
 
 def ffm_fused_logits_grads(
@@ -129,19 +132,27 @@ def ffm_fused_logits_grads(
     n_factors: int,
     aug_lane: int = -1,
     combined_out: bool = True,
+    out_dtype: torch.dtype = torch.float32,
 ):
-    """FFM logits and the FTRL payload of one train step, the f32 outputs
-    of ffm_pallas.py::ffm_fused_logits_grads (its bfloat16 output arrives
-    with ROADMAP.md Queue 1 item 4).  combined_out=True gives (logits [B],
-    gg2 [B*F, 2E]) with the factor gradient, already scaled by gs =
-    (sigmoid(logit) - y) * sample_w, in lanes [:E] and its square in [E:];
-    combined_out=False gives (logits, g [B*F, E], g2 [B*F, E]) for the
-    huge-table in-place update.  aug_lane >= 0 (a dead lane of the padded
-    row) carries the linear gradient gs * x instead, in either layout."""
+    """FFM logits and the FTRL payload of one train step, the outputs of
+    ffm_pallas.py::ffm_fused_logits_grads.  combined_out=True gives
+    (logits [B], gg2 [B*F, 2E]) with the factor gradient, already scaled by
+    gs = (sigmoid(logit) - y) * sample_w, in lanes [:E] and its square in
+    [E:]; combined_out=False gives (logits, g [B*F, E], g2 [B*F, E]) for
+    the huge-table in-place update.  aug_lane >= 0 (a dead lane of the
+    padded row) carries the linear gradient gs * x instead, in either
+    layout.  out_dtype torch.bfloat16 (the combined layout only, the one
+    the JAX package emits in bf16) rounds g and the f32 g * g to bf16 at
+    the store."""
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"ffm_fused_logits_grads: out_dtype {out_dtype}, expect f32 or bf16")
+    bf16 = out_dtype == torch.bfloat16
+    if bf16 and not combined_out:
+        raise ValueError("ffm_fused_logits_grads: a bf16 payload comes only combined")
     if _device_kind("ffm_fused_logits_grads", v) == "cpu":
         return ffm_fused_logits_grads_plain(
             v, fields, vals, lin, y, sample_w, n_fields, n_factors, aug_lane,
-            combined_out,
+            combined_out, out_dtype,
         )
     b, f = fields.shape
     e = n_fields * n_factors
@@ -160,7 +171,7 @@ def ffm_fused_logits_grads(
     lib = _build.lib()
     logits = torch.empty((b,), dtype=torch.float32, device=v.device)
     if combined_out:
-        payload = (torch.empty((b * f, 2 * e), dtype=torch.float32, device=v.device),)
+        payload = (torch.empty((b * f, 2 * e), dtype=out_dtype, device=v.device),)
     else:
         payload = tuple(
             torch.empty((b * f, e), dtype=torch.float32, device=v.device) for _ in range(2)
@@ -174,7 +185,8 @@ def ffm_fused_logits_grads(
             v.data_ptr(), fields.data_ptr(), vals.data_ptr(), lin.data_ptr(),
             y.data_ptr(), sample_w.data_ptr(), logits.data_ptr(), payload[0].data_ptr(),
             None if combined_out else payload[1].data_ptr(),
-            b, f, n_fields, n_factors, aug_lane, stream, ctypes.byref(instance),
+            b, f, n_fields, n_factors, aug_lane, int(bf16), stream,
+            ctypes.byref(instance),
         )
     if instance.value == -1:
         raise ValueError(
@@ -183,13 +195,15 @@ def ffm_fused_logits_grads(
         )
     _build.check(code, "ffm_fused_launch")
     ffm_fused_logits_grads.launches += 1
-    ffm_fused_logits_grads.launches_by_instance[FUSED_INSTANCES[instance.value]] += 1
+    name = FUSED_INSTANCES[instance.value] + ("_bf16" if bf16 else "")
+    ffm_fused_logits_grads.launches_by_instance[name] += 1
     return logits, *payload
 
 
 # csrc/ffm_fused.cu's kernel instances, by the code its launcher reports:
 # the one specialised to C'=40, K=16, F <= 40 (the bench's shape), and the
-# general one with its rows in shared or in device memory
+# general one with its rows in shared or in device memory; each has an f32
+# and a bf16 store, counted apart (the bf16 ones under "<name>_bf16")
 FUSED_INSTANCES = {2: "c40_k16", 1: "general", 0: "general_device_memory"}
 
 
@@ -197,5 +211,8 @@ FUSED_INSTANCES = {2: "c40_k16", 1: "general", 0: "general_device_memory"}
 # them to show that a path went through the kernels).
 ffm_fused_logits.launches = 0
 ffm_fused_logits_grads.launches = 0
-# the same launches by kernel instance (FUSED_INSTANCES' names)
-ffm_fused_logits_grads.launches_by_instance = dict.fromkeys(FUSED_INSTANCES.values(), 0)
+# the same launches by kernel instance and payload dtype (FUSED_INSTANCES'
+# names, "_bf16" added for the bf16 store)
+ffm_fused_logits_grads.launches_by_instance = dict.fromkeys(
+    [*FUSED_INSTANCES.values(), *(f"{n}_bf16" for n in FUSED_INSTANCES.values())], 0
+)

@@ -4,7 +4,8 @@ and csrc/ftrl_pass.cu.
 Every entry point updates the given tables IN PLACE.  For CUDA tensors it
 launches its hand-written kernel or raises; for CPU tensors it runs the
 plain PyTorch version (ftrl.py) and copies the result into the tables.
-Each kernel's wrapper counts its launches in its `launches` attribute.
+Each kernel's wrapper counts its launches in its `launches` attribute, and
+by the dtypes of the kernel instance that ran in `launches_by_dtype`.
 
 - `ftrl_update`: one step's combined (g || g^2) payload applied to the
   factor and linear tables, the arguments of
@@ -20,6 +21,12 @@ Each kernel's wrapper counts its launches in its `launches` attribute.
   `za_scatter` (z += sum g, A = sum g^2 per touched row) into a zeroed
   accumulator, then `closed_form_pass` (the port of
   ftrl_ffm_tpu/ops/ftrl_pallas.py::_pass_kernel) over the whole table.
+
+The factor weight table vec_w is f32 or bf16 (Config.table_dtype), and
+ftrl_update's combined payload f32 or bf16 (Config.acc_dtype, summed in a
+bf16 accumulator as the JAX package does); every other table and payload
+is f32.  A bf16 form launches its own instance of the kernel, never the f32
+one on widened copies.
 """
 
 from __future__ import annotations
@@ -36,6 +43,13 @@ from ftrl_ffm_tpu_torch.ftrl import (
     sparse_ftrl_update2,
 )
 from ftrl_ffm_tpu_torch.ops.ffm_cuda import _check_inputs, _device_kind
+
+
+def _f32_or_bf16(what: str, name: str, t: torch.Tensor) -> torch.dtype:
+    """The dtype of a tensor that may be f32 or bf16; raises for others."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: {name} is {t.dtype}, expect torch.float32 or torch.bfloat16")
+    return t.dtype
 
 
 def _check_lane(lane: int, width: int, gg2_lin) -> None:
@@ -55,6 +69,12 @@ def _copy_into(tables, results) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _short(t) -> str:
+    """"bf16" for a bf16 tensor, else "f32" (also for an absent one: the
+    kernel's f32 instance takes it)."""
+    return "bf16" if t is not None and t.dtype == torch.bfloat16 else "f32"
 
 
 def ftrl_update_plain(
@@ -98,25 +118,27 @@ def _launch_update(what, ids, gg2, gg2_lin, tables, r: int, e: int, lane: int, p
     # order of its float sums
     sids, perm = torch.sort(ids, stable=True)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    dtypes = _short(gg2), _short(tables[2])  # the payload's and vec_w's
     with torch.cuda.device(ids.device):
         code = lib.ftrl_update_launch(
             sids.data_ptr(), perm.data_ptr(), n, ptr(gg2), ptr(gg2_lin),
-            *(ptr(t) for t in tables), r, e, lane,
+            *(ptr(t) for t in tables), r, e, lane, *(int(d == "bf16") for d in dtypes),
             p.alpha, p.beta, p.l1, p.l2, _stream(ids),
         )
     _build.check(code, what)
     ftrl_update.launches += 1
+    ftrl_update.launches_by_dtype["/".join(dtypes)] += 1
 
 
 def ftrl_update(
     vec_n: torch.Tensor,  # [R, E] f32, updated in place
     vec_z: torch.Tensor,
-    vec_w: torch.Tensor,
+    vec_w: torch.Tensor,  # f32 or bf16
     lin_n: torch.Tensor,  # [R] f32, updated in place
     lin_z: torch.Tensor,
     lin_w: torch.Tensor,
     ids: torch.Tensor,    # [N] int32 payload row ids; ids outside [0, R) drop
-    gg2: torch.Tensor,    # [N, 2E] f32 combined payload
+    gg2: torch.Tensor,    # [N, 2E] f32 or bf16 combined payload
     lane: int,            # the payload's linear lane, or -1
     p: FtrlParams,
     gg2_lin: torch.Tensor | None = None,  # [N, 2] f32 when lane == -1
@@ -132,13 +154,15 @@ def ftrl_update(
     r, e = vec_n.shape
     n = ids.shape[0]
     _check_lane(lane, e, gg2_lin)
+    w_dtype = _f32_or_bf16("ftrl_update", "vec_w", vec_w)
     specs = [
-        *((name, t, (r, e), torch.float32)
-          for name, t in zip(("vec_n", "vec_z", "vec_w"), tables[:3])),
+        *((name, t, (r, e), dtype)
+          for name, t, dtype in zip(("vec_n", "vec_z", "vec_w"), tables[:3],
+                                    (torch.float32, torch.float32, w_dtype))),
         *((name, t, (r,), torch.float32)
           for name, t in zip(("lin_n", "lin_z", "lin_w"), tables[3:])),
         ("ids", ids, (n,), torch.int32),
-        ("gg2", gg2, (n, 2 * e), torch.float32),
+        ("gg2", gg2, (n, 2 * e), _f32_or_bf16("ftrl_update", "gg2", gg2)),
     ]
     if gg2_lin is not None:
         specs.append(("gg2_lin", gg2_lin, (n, 2), torch.float32))
@@ -223,19 +247,22 @@ def za_scatter(
 def closed_form_pass(
     n: torch.Tensor,  # [R, E] f32 (any shape, all four alike), in place
     z: torch.Tensor,  # z' = z + sum g on entry, the new z on return
-    w: torch.Tensor,
+    w: torch.Tensor,  # f32 or bf16
     a: torch.Tensor,  # sum g^2, read only
     p: FtrlParams,
 ) -> None:
     """The closed-form pass over whole tables, in place: the port of
     ftrl_ffm_tpu/ops/ftrl_pallas.py::_pass_kernel (csrc/ftrl_pass.cu),
-    for any table shape."""
+    for any table shape, with an f32 or a bf16 w."""
     if _device_kind("closed_form_pass", n) == "cpu":
         _copy_into((n, z, w), closed_form_pass_plain(n, z, w, a, p))
         return
     shape = tuple(n.shape)
+    w_dtype = _f32_or_bf16("closed_form_pass", "w", w)
     _check_inputs("closed_form_pass", n, [
-        (name, t, shape, torch.float32) for name, t in (("n", n), ("z", z), ("w", w), ("a", a))
+        (name, t, shape, dtype) for name, t, dtype in (
+            ("n", n, torch.float32), ("z", z, torch.float32), ("w", w, w_dtype),
+            ("a", a, torch.float32))
     ])
     from ftrl_ffm_tpu_torch.ops import _build
 
@@ -245,16 +272,17 @@ def closed_form_pass(
     with torch.cuda.device(n.device):
         code = lib.ftrl_pass_launch(
             n.data_ptr(), z.data_ptr(), w.data_ptr(), a.data_ptr(), n.numel(),
-            p.alpha, p.beta, p.l1, p.l2, _stream(n),
+            int(w_dtype == torch.bfloat16), p.alpha, p.beta, p.l1, p.l2, _stream(n),
         )
     _build.check(code, "ftrl_pass_launch")
     closed_form_pass.launches += 1
+    closed_form_pass.launches_by_dtype[_short(w)] += 1
 
 
 def ftrl_update_inplace(
     vec_n: torch.Tensor,  # [R, E] f32, updated in place
     vec_z: torch.Tensor,
-    vec_w: torch.Tensor,
+    vec_w: torch.Tensor,  # f32 or bf16
     ids: torch.Tensor,    # [N] int32; ids outside [0, R) drop
     g: torch.Tensor,      # [N, E] f32 split payload
     g2: torch.Tensor,     # [N, E] f32
@@ -278,3 +306,9 @@ def ftrl_update_inplace(
 ftrl_update.launches = 0
 za_scatter.launches = 0
 closed_form_pass.launches = 0
+# the same launches by the dtypes of the kernel instance that ran: the
+# update kernel's "<payload>/<vec_w>" and the pass's w, "f32" or "bf16"
+ftrl_update.launches_by_dtype = {
+    f"{a}/{b}": 0 for a in ("f32", "bf16") for b in ("f32", "bf16")
+}
+closed_form_pass.launches_by_dtype = {"f32": 0, "bf16": 0}

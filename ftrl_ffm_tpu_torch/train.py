@@ -91,7 +91,7 @@ def _validate_state_shapes(cfg: Config, state: ModelState) -> None:
                     f"n_fields={cfg.n_fields}, field_pad={cfg.field_pad}, "
                     f"n_factors={cfg.n_factors}) expects ({r}, {w})"
                 )
-            if state.vec_w.dtype != torch.float32:
+            if state.vec_w.dtype != getattr(torch, cfg.table_dtype):
                 issues.append(
                     f"factor weight table is {state.vec_w.dtype}, config "
                     f"table_dtype={cfg.table_dtype}"

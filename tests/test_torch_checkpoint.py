@@ -96,13 +96,20 @@ def test_not_a_checkpoint(tmp_path):
 
 
 def test_bf16_table_refused():
+    """A bfloat16 table is no longer refused: it crosses bit for bit (as
+    int16 bits viewed as torch.bfloat16).  A dtype the port has no table
+    of (float64) still is."""
     import ml_dtypes
 
+    vec_w = (np.arange(32, dtype=np.float32).reshape(4, 8) / 7 - 2).astype(ml_dtypes.bfloat16)
     state = {
         "bias_n": np.zeros((), np.float32), "bias_z": np.zeros((), np.float32),
         "lin_n": np.zeros(4, np.float32), "lin_z": np.zeros(4, np.float32),
         "lin_w": np.zeros(4, np.float32), "vec_n": None, "vec_z": None,
-        "vec_w": np.zeros((4, 8), ml_dtypes.bfloat16), "step": np.zeros((), np.int32),
+        "vec_w": vec_w, "step": np.zeros((), np.int32),
     }
-    with pytest.raises(IncompatibleStateError, match="float32"):
-        state_from_jax_arrays(state, "cpu")
+    got = state_from_jax_arrays(state, "cpu").vec_w
+    assert got.dtype == torch.bfloat16 and got.shape == (4, 8)
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(), vec_w.view(np.int16))
+    with pytest.raises(IncompatibleStateError, match="float32 and bfloat16"):
+        state_from_jax_arrays({**state, "vec_w": np.zeros((4, 8))}, "cpu")

@@ -482,6 +482,250 @@ def test_inplace_wrappers_check_their_inputs():
         ftrl_update_inplace(*tabs[:3], ids, g, g[:-1], p)
 
 
+# ---- the bf16 forms: kernel #2's bf16 store, the update kernel's bf16
+# payload and w, kernel #3's bf16 w ----
+
+
+def within_bf16_ulp(got: torch.Tensor, want: torch.Tensor, atol: float = 0.0) -> bool:
+    """Each element within one bf16 ulp of the larger magnitude of the
+    two, plus atol (values near 0 whose f32 forms differ by up to atol)."""
+    a, b = got.float(), want.float()
+    mag = torch.maximum(a.abs(), b.abs())
+    ulp = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7), 0.0)
+    return bool(((a - b).abs() <= ulp + atol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,c,k,real,aug", FUSED)
+def test_ffm_fused_kernel_bf16_matches_plain(b, f, c, k, real, aug):
+    """The bf16 store of the general instance (and, for the Criteo rows, of
+    the C'=40 one) against the plain version: logits rtol=1e-4, atol=1e-5,
+    payload within one bf16 ulp; counted under its instance's "_bf16" name;
+    two launches give the same bits."""
+    dev = _card()
+    rng = np.random.default_rng(b * f + c + 3)
+    v = (rng.normal(size=(b * f, c * k)) * 0.1).astype(np.float32)
+    fields = rng.integers(0, real, (b, f)).astype(np.int32)
+    fields[:, 0] = c + 3
+    vals = rng.random((b, f)).astype(np.float32)
+    vals[:, -1] = 0.0
+    lin = (rng.normal(size=(b,)) * 0.1).astype(np.float32)
+    y = (rng.random(b) > 0.5).astype(np.float32)
+    sw = np.ones(b, np.float32)
+    sw[-1] = 0.0
+    args = [torch.from_numpy(a).to(dev) for a in (v, fields, vals, lin, y, sw)]
+    counts = ffm_fused_logits_grads.launches_by_instance
+    before = dict(counts)
+    got = [ffm_fused_logits_grads(*args, c, k, aug_lane=aug, out_dtype=torch.bfloat16)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    grew = {n for n in counts if counts[n] != before[n]}
+    assert len(grew) == 1 and grew.pop().endswith("_bf16")
+    logits, gg2 = got[0]
+    assert gg2.dtype == torch.bfloat16 and gg2.shape == (b * f, 2 * c * k)
+    ref_logits, ref_gg2 = ffm_fused_logits_grads_plain(*args, c, k, aug_lane=aug,
+                                                       out_dtype=torch.bfloat16)
+    np.testing.assert_allclose(logits.cpu().numpy(), ref_logits.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    assert within_bf16_ulp(gg2, ref_gg2, 1e-6)
+    assert all(torch.equal(x, y) for x, y in zip(*got))
+    with pytest.raises(ValueError, match="combined"):
+        ffm_fused_logits_grads(*args, c, k, aug_lane=aug, combined_out=False,
+                               out_dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aug", [-1, 39])
+@pytest.mark.parametrize("f", [39, 40, 13])
+@pytest.mark.parametrize("b", [1, 33, 256])
+def test_ffm_fused_c40_instance_bf16_matches_plain(b, f, aug):
+    """The C'=40, K=16 instance's bf16 store (8-byte streaming stores) on
+    spec_fused_inputs: launched as c40_k16_bf16, payload within one bf16
+    ulp of the plain version, and each value the f32 instance's value
+    rounded to bf16 (g^2 from the f32 g)."""
+    dev = _card()
+    args = [torch.from_numpy(a).to(dev) for a in spec_fused_inputs(b, f, b + f + aug + 1)]
+    counts = ffm_fused_logits_grads.launches_by_instance
+    before = dict(counts)
+    logits, gg2 = ffm_fused_logits_grads(*args, 40, 16, aug_lane=aug, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert counts["c40_k16_bf16"] == before["c40_k16_bf16"] + 1
+    assert counts["c40_k16"] == before["c40_k16"]
+    want = ffm_fused_logits_grads_plain(*args, 40, 16, aug_lane=aug, out_dtype=torch.bfloat16)
+    np.testing.assert_allclose(logits.cpu().numpy(), want[0].cpu().numpy(), rtol=1e-4, atol=1e-5)
+    assert within_bf16_ulp(gg2, want[1], 1e-6)
+    f32_logits, f32_gg2 = ffm_fused_logits_grads(*args, 40, 16, aug_lane=aug)
+    assert torch.equal(f32_logits, logits)
+    assert torch.equal(f32_gg2.to(torch.bfloat16), gg2)
+
+
+# (R, E, N, lane, payload dtype, w dtype): every pair of dtypes, the bench's
+# aug lane, no lane, E not a multiple of 32
+UPDATE_BF16 = [
+    (64, 640, 4000, 39, torch.bfloat16, torch.bfloat16),
+    (64, 640, 4000, 39, torch.bfloat16, torch.float32),
+    (64, 640, 4000, 39, torch.float32, torch.bfloat16),
+    (64, 128, 4000, -1, torch.bfloat16, torch.bfloat16),
+    (20, 15, 300, 4, torch.bfloat16, torch.float32),
+    (300, 80, 10, 7, torch.float32, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,e,n,lane,pay,wdt", UPDATE_BF16)
+def test_ftrl_update_kernel_bf16_matches_plain_and_repeats(r, e, n, lane, pay, wdt):
+    """The update kernel on a bf16 payload and/or a bf16 w against its
+    plain version.  A bf16 payload: bit for bit on the touched rows, against
+    the plain version on the same card tensors (the same bf16 accumulator,
+    rounded after every add in payload order, whose rank loop is
+    deterministic on the card too, and the closed form's operations each
+    rounded on their own; the CPU's torch.sqrt is not correctly rounded, the
+    card's is), the linear tables too where the payload's lane carries them.
+    An f32 payload: against CPU copies, whose index_add_ sums in the
+    kernel's order: n, z and the linear tables rtol=1e-5, atol=1e-6, a bf16
+    w within one bf16 ulp; so are the linear tables of a bf16 payload with
+    lane = -1, summed from the f32 gg2_lin (the card's index_add_ sums in
+    no fixed order).  Untouched rows and repeats bit-identical."""
+    dev = _card()
+    tables, ids, gg2, gg2_lin, p = _update_inputs(dev, r, e, n, lane, r + e + n + 1)
+    tables[2] = tables[2].to(wdt)
+    gg2 = gg2.to(pay)
+    runs = []
+    for _ in range(2):
+        got = [t.clone() for t in tables]
+        before = ftrl_update.launches
+        ftrl_update(*got, ids, gg2, lane, p, gg2_lin)
+        torch.cuda.synchronize()
+        assert ftrl_update.launches == before + 1
+        runs.append(got)
+    on = (lambda t: t) if pay == torch.bfloat16 else (lambda t: None if t is None else t.cpu())
+    vec, lin = ftrl_update_plain(*map(on, tables), on(ids), on(gg2), lane, p, on(gg2_lin))
+    touched = torch.zeros(r, dtype=torch.bool, device=dev)
+    touched[ids[ids < r].long()] = True
+    for i, (got, want, before, again) in enumerate(zip(runs[0], (*vec, *lin), tables, runs[1])):
+        assert got.dtype == want.dtype == before.dtype
+        g_t, w_t = got[touched].cpu(), want[touched.to(want.device)].cpu()
+        if pay == torch.bfloat16 and (i < 3 or lane >= 0):
+            assert torch.equal(g_t, w_t), i
+        elif i == 2 and wdt == torch.bfloat16:
+            assert within_bf16_ulp(g_t, w_t, 1e-6), i
+        else:
+            np.testing.assert_allclose(g_t.float().numpy(), w_t.float().numpy(),
+                                       rtol=1e-5, atol=1e-6)
+        assert torch.equal(got[~touched], before[~touched])
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,e,offset", [(41, 6, 0), (333, 15, 0), (64, 640, 0), (97, 128, 1),
+                                        (1001, 1, 0)])
+def test_closed_form_pass_kernel_bf16_w_matches_plain(r, e, offset):
+    """Kernel #3 with a bf16 w against its plain version on the same card
+    tensors, bit for bit (offset 1: n, z and A off 16-byte alignment, the
+    scalar loop); coordinates with A = 0 keep their n and z bits, and a
+    touched one its w bits; repeats bit-identical."""
+    dev = _card()
+    rng = np.random.default_rng(r + e + 1)
+    p = FtrlParams(alpha=0.05, l1=0.15, l2=1.0)
+    n_tab, z_tab, w_tab = (
+        t.to(dev) for t in _update_inputs(torch.device("cpu"), r, e, 1, 0, r + 1)[0][:3]
+    )
+    w_tab = w_tab.to(torch.bfloat16)
+    a = torch.from_numpy((rng.random((r, e)) * 0.5).astype(np.float32)).to(dev)
+    a[torch.from_numpy(rng.random((r, e)) < 0.4).to(dev)] = 0.0
+
+    def padded(t):  # the same values `offset` elements into a fresh buffer
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+        buf[offset:] = t.reshape(-1)
+        return buf[offset:].view(r, e)
+
+    runs = []
+    for _ in range(2):
+        got = [padded(t) for t in (n_tab, z_tab, w_tab)]
+        before = closed_form_pass.launches
+        closed_form_pass(*got, padded(a), p)
+        torch.cuda.synchronize()
+        assert closed_form_pass.launches == before + 1
+        runs.append(got)
+    want = closed_form_pass_plain(n_tab, z_tab, w_tab, a, p)
+    assert runs[0][2].dtype == want[2].dtype == torch.bfloat16
+    for got, ref in zip(runs[0], want):
+        assert torch.equal(got, ref)
+    zero = a == 0
+    assert torch.equal(runs[0][0][zero], n_tab[zero])
+    assert torch.equal(runs[0][1][zero], z_tab[zero])
+    kept = zero & (n_tab > UNTOUCHED_N)
+    assert torch.equal(runs[0][2][kept], w_tab[kept])
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,kind", [
+    ({"n_feats": 60, "update_mode": "dense", "acc_dtype": "bfloat16"}, "dense2"),
+    ({"n_feats": 60, "update_mode": "inplace"}, "inplace"),
+    ({"n_feats": 60, "update_mode": "sparse", "acc_dtype": "bfloat16"}, "sparse2"),
+])
+def test_bf16_train_steps_launch_and_repeat(kw, kind):
+    """train_step with a bf16 table on the card: each kind launches its
+    kernels (kernel #2's bf16 store on "dense2" with acc_dtype=bfloat16,
+    its f32 split store and kernel #3 on "inplace" plus the separate
+    linear update, which a bf16 table needs); two runs from one state give
+    the same bits, within the chained bound of the CPU's plain run (vec_w
+    within one bf16 ulp, rtol 2^-7)."""
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.models import make_model
+    from ftrl_ffm_tpu_torch.models.base import Batch
+
+    dev = _card()
+    cfg = dict(model_type="FFM", n_fields=7, n_factors=16, batch_size=16, max_nnz=6,
+               w_alpha=0.05, w_l1=0.15, w_l2=1.0, table_dtype="bfloat16", **kw)
+    model = make_model(Config(device="cuda", **cfg))
+    cpu_model = make_model(Config(device="cpu", **cfg))
+    init = cpu_model.init()
+    assert init.vec_w.dtype == torch.bfloat16
+    rng = np.random.default_rng(6)
+    batches = []
+    for _ in range(3):
+        feats = rng.integers(0, 60, (16, 6)).astype(np.int32)
+        feats[:, -1] = 60
+        vals = (rng.random((16, 6)) + 0.05).astype(np.float32)
+        vals[:, -1] = 0.0
+        batches.append(Batch(
+            torch.from_numpy(rng.integers(0, 7, (16, 6)).astype(np.int32)),
+            torch.from_numpy(feats), torch.from_numpy(vals),
+            torch.from_numpy((rng.random(16) > 0.5).astype(np.float32)),
+            torch.ones(16),
+        ))
+    fns = (ffm_fused_logits_grads, ftrl_update, za_scatter, closed_form_pass)
+    expect = {"dense2": [3, 3, 0, 0], "sparse2": [3, 3, 0, 0], "inplace": [3, 3, 3, 3]}[kind]
+    # 7 fields pad to C'=8: the general instance; a bf16 payload on "dense2"
+    instance = "general_bf16" if kind == "dense2" else "general"
+    states = []
+    for _ in range(2):
+        st = type(init)(*(t.to(dev) for t in init))
+        counts = [f.launches for f in fns]
+        by_inst = dict(ffm_fused_logits_grads.launches_by_instance)
+        for b in batches:
+            model.train_step(st, Batch(*(t.to(dev) for t in b)))
+        torch.cuda.synchronize()
+        assert [f.launches - c for f, c in zip(fns, counts)] == expect
+        assert ffm_fused_logits_grads.launches_by_instance[instance] == by_inst[instance] + 3
+        states.append(st)
+    for a, b in zip(*states):
+        assert torch.equal(a, b)
+    plain = type(init)(*(t.clone() for t in init))
+    for b in batches:
+        cpu_model.train_step(plain, b)
+    for name in ("vec_n", "vec_z", "lin_n", "lin_z", "bias_z"):
+        np.testing.assert_allclose(
+            getattr(states[0], name).cpu().numpy(), getattr(plain, name).numpy(),
+            rtol=2e-3, atol=5e-5, err_msg=name,
+        )
+    assert states[0].vec_w.dtype == torch.bfloat16
+    np.testing.assert_allclose(states[0].vec_w.float().cpu().numpy(), plain.vec_w.float().numpy(),
+                               rtol=2.0 ** -7, atol=5e-5)
+
+
 
 # ---- the probe kernels of ftrl_ffm_tpu_torch/tools (csrc/micro_*.cu) ----
 

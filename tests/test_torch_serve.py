@@ -5,6 +5,7 @@ eval numbers within 1e-5, and predictions equal line by line within 2e-6
 (one unit in the sixth decimal, plus a rounding flip).  Flags and settings
 the port does not take yet raise, naming their ROADMAP item."""
 
+import functools
 import io
 import sys
 
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import ftrl_ffm_tpu.ops.ffm_pallas as fp
 from ftrl_ffm_tpu.cli import main as jax_main
 from ftrl_ffm_tpu.config import Config as JConfig
 from ftrl_ffm_tpu.io.checkpoint import load_checkpoint as j_load
@@ -175,14 +177,11 @@ def test_cli_requires_a_model_to_serve(capsys):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        ({"table_dtype": "bfloat16"}, "Queue 1 item 4"),
         ({"mesh_model": 2}, "Queue 1 item 8"),
         ({"mesh_data": 0}, "Queue 1 item 8"),
         ({"device_cache": "on"}, "Queue 1 item 6"),
         ({"steps_per_call": 4}, "Queue 1 item 5"),
         ({"use_pallas": "off"}, "no counterpart"),
-        # a training setting, checked for a Trainer that trains
-        ({"train_data": "t.ffm", "acc_dtype": "bfloat16"}, "Queue 1 item 4"),
     ],
 )
 def test_unported_config_raises(served, kw, match):
@@ -203,14 +202,25 @@ def test_unported_config_raises(served, kw, match):
         {"update_mode": "sparse"},
         # n_feats=100k at B=16: auto resolves to the in-place update
         {"n_feats": 100_000},
+        # once refused (Queue 1 item 4): a bf16 table, a bf16 payload
+        {"table_dtype": "bfloat16"},
+        {"acc_dtype": "bfloat16"},
     ],
 )
-def test_update_kinds_train_and_match_jax(served, kw):
+def test_update_kinds_train_and_match_jax(served, kw, monkeypatch):
     """The training settings the port once refused train one epoch with
-    eval, from the JAX Trainer's init, to the JAX Trainer's losses."""
+    eval, from the JAX Trainer's init, to the JAX Trainer's losses.  A bf16
+    payload is held against the JAX Trainer on its fused Pallas kernel
+    (interpret mode), the only JAX path that emits one."""
     d, _, evald, _ = served
     cfg = dict(train_data=str(d / "train.ffm"), eval_data=evald, n_epochs=1,
                file_type="libffm", max_nnz=7, **{**SHAPE, **kw})
+    if "acc_dtype" in kw:
+        for fn_name in ("ffm_fused_logits_grads", "ffm_fused_logits"):
+            monkeypatch.setattr(
+                fp, fn_name, functools.partial(getattr(fp, fn_name), interpret=True)
+            )
+        cfg["use_pallas"] = "on"
     jtr = JTrainer(JConfig(**cfg))
     tr = Trainer(TConfig(device="cpu", **cfg), state=state_from_jax_arrays(jtr.state, "cpu"))
     hist, j_hist = tr.train(), jtr.train()

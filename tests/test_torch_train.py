@@ -186,30 +186,32 @@ def test_has_zero_weights_matches_jax(table, tmp_path):
         tm.has_zero_weights(state_from_jax_arrays(jtr.state, "cpu"), "bias")
 
 
-@pytest.mark.parametrize("kw,item", [({"acc_dtype": "bfloat16"}, 4)])
-def test_train_step_refuses_unported_updates(kw, item):
-    """A train step the port does not take yet raises, naming its item."""
-    model = t_make_model(TConfig(device="cpu", **{**SEVEN, **kw}))
-    state = model.init()
-    arrays = _batch(np.random.default_rng(0), 16, 6, 7, 60)
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        model.train_step(state, TBatch(*(torch.from_numpy(a) for a in arrays)))
-
-
 @pytest.mark.parametrize(
     "kw,kind",
     [({"update_mode": "inplace"}, "inplace"), ({"update_mode": "sparse"}, "sparse2"),
-     ({"n_feats": 100_000}, "inplace")],
+     ({"n_feats": 100_000}, "inplace"),
+     # once refused (Queue 1 item 4): a bf16 payload, then a bf16 table too
+     ({"acc_dtype": "bfloat16"}, "dense2"),
+     ({"acc_dtype": "bfloat16", "table_dtype": "bfloat16"}, "dense2")],
 )
-def test_train_step_takes_every_update_kind(kw, kind):
+def test_train_step_takes_every_update_kind(monkeypatch, kw, kind):
     """The updates the port once refused train and match the JAX step from
     one JAX-made init; n_feats=100k at B=16 resolves auto to the in-place
-    form."""
+    form.  A bf16 payload is held against the JAX step through its fused
+    Pallas kernel (interpret mode), the only JAX path that emits one; a
+    bf16 w within one bf16 ulp (rtol 2^-7): an f32 w one ulp off can round
+    to the neighbouring bf16."""
     from ftrl_ffm_tpu_torch.ftrl import select_update_kind
 
     cfg = {**SEVEN, **kw}
     assert select_update_kind(cfg["n_feats"], 128, 16 * 6, cfg.get("update_mode", "auto")) == kind
-    jm = j_make_model(JConfig(use_pallas="off", max_nnz=6, **cfg))
+    pallas = "on" if "acc_dtype" in kw else "off"
+    if pallas == "on":
+        for fn_name in ("ffm_fused_logits_grads", "ffm_fused_logits"):
+            monkeypatch.setattr(
+                fp, fn_name, functools.partial(getattr(fp, fn_name), interpret=True)
+            )
+    jm = j_make_model(JConfig(use_pallas=pallas, max_nnz=6, **cfg))
     model = t_make_model(TConfig(device="cpu", max_nnz=6, **cfg))
     j_state = jm.init()
     state = state_from_jax_arrays(j_state, "cpu")
@@ -217,7 +219,14 @@ def test_train_step_takes_every_update_kind(kw, kind):
     out = model.train_step(state, TBatch(*(torch.from_numpy(a) for a in arrays)))
     j_out = jm.train_step(j_state, JBatch(*(jnp.asarray(a) for a in arrays)))
     np.testing.assert_allclose(float(out.loss_sum), float(j_out.loss_sum), rtol=1e-5)
-    _assert_states_close(state, j_out.state, rtol=1e-5, atol=1e-6)
+    for name in ("bias_z", "lin_n", "lin_z", "lin_w", "vec_n", "vec_z"):
+        np.testing.assert_allclose(getattr(state, name).numpy(),
+                                   np.asarray(getattr(j_out.state, name)),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+    np.testing.assert_allclose(state.vec_w.float().numpy(),
+                               np.asarray(j_out.state.vec_w).astype(np.float32),
+                               rtol=2.0 ** -7 if "table_dtype" in kw else 1e-5, atol=1e-6)
+    assert int(state.step) == int(j_out.state.step) == 1
 
 
 def _write_4field(path, n=96, seed=0):
