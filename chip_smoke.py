@@ -18,7 +18,11 @@ each printing its own lines:
   3. kernels      -> the logits kernel against its plain PyTorch version on
                      the same device tensors, at the main path's shape and in
                      a sweep of edge shapes (f32 sums in another order:
-                     rtol=1e-4, atol=1e-5)
+                     rtol=1e-4, atol=1e-5), with the instance each shape
+                     runs (C'=40, K=16, F <= 40: the persistent c40_k16);
+                     on bf16 rows too: bit for bit the f32 launch on the
+                     widened rows; the bench shape's second launches
+                     bit-identical
   3b. fused       -> the training kernel (logits + payload) against its plain
                      version, the same way (logits rtol=1e-4, atol=1e-5;
                      payload rtol=1e-4, atol=1e-6), combined and split
@@ -26,9 +30,12 @@ each printing its own lines:
                      bench shape runs the C'=40, K=16 instance and a second
                      launch gives the same bits
   3c. update      -> the FTRL update kernel against its plain version on
-                     random tables with duplicate and sentinel ids: touched
-                     rows rtol=1e-5, atol=1e-6, untouched rows bit-identical,
-                     the same call twice bit-identical
+                     random tables with duplicate and sentinel ids, uniform
+                     and skewed (skewed_ids: three hot ids, ~14,500 payload
+                     rows each, which take the column-split kernel), in
+                     every payload/w dtype pair: touched rows rtol=1e-5,
+                     atol=1e-6 (a bf16 payload bit for bit), untouched rows
+                     bit-identical, the same call twice bit-identical
   3d. scatter     -> the z/A scatter against its plain version, the same way;
                      untouched A exactly 0
   3e. pass        -> the closed-form pass (kernel #3) against its plain
@@ -36,19 +43,25 @@ each printing its own lines:
                      atol=1e-7; coordinates with A = 0 keep their n and z
                      bits; the same call twice bit-identical
   4. serving      -> Trainer.evaluate() and Trainer.predict_file() with the
-                     launch counts set to 0 just before and read just after;
-                     outputs held against the plain version and a CPU run
+                     launch counts set to 0 just before and read just after
+                     (every batch on kernel #1's c40_k16 instance; a bf16
+                     table's, in 4e, on c40_k16_bf16: its rows reach the
+                     kernel unwidened); outputs held against the plain
+                     version and a CPU run
   4b. training    -> Trainer(cfg).train() for 2 epochs with eval, the launch
                      counts (kernel #2's also by instance: every step runs
                      the C'=40, K=16 one) set to 0 just before and read just
                      after; chained
                      train_steps against the same steps on the plain versions,
                      two runs bit-identical, a small run on the CPU and the card
-  5. timings      -> kernel and plain milliseconds per batch, eval
-                     examples/s, the card's name and power limit beside them
+  5. timings      -> kernel and plain milliseconds per batch (kernel #1 on
+                     f32 and bf16 rows, with its device time from a CUDA
+                     graph), eval examples/s, the card's name and power
+                     limit beside them
   5b. train time  -> the training kernels and their plain versions (kernel
-                     #2's launches by instance), the device train step, host
-                     parse, train_epoch() examples/s
+                     #2's launches by instance; the update kernel also on
+                     the skewed batch), the device train step, host parse,
+                     train_epoch() examples/s
   4c. 1M training -> the same for the 1M-row table, whose update auto
                      resolves to "inplace": launch counts, the stale linear
                      tables and their reconcile, chained steps against the
@@ -95,6 +108,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -287,10 +301,52 @@ def random_ids(n, hi, r, gen, device):
     return ids
 
 
-def update_inputs(r, e, n, hi, gen, device, p, lane):
-    """Tables, ids and payloads for ftrl_update (ftrl_tables, random_ids)."""
+def skewed_ids(n, hi, r, gen, device, hot_fields=3, share=0.9):
+    """[N] int32 ids of a skewed batch, the payload rows of N // N_FIELDS
+    samples of N_FIELDS fields (row b*N_FIELDS + c is sample b's field c, as
+    the trainer lays them out): fields 0..hot_fields-1 carry one hot id each
+    in `share` of the samples, every other id is uniform over [0, hi), and
+    2% of all are the padding sentinel r.  At the bench shape each hot id
+    has ~14,500 payload rows (real Criteo has such ids; the synthetic data
+    has none)."""
+    b = n // N_FIELDS
+    ids = torch.randint(0, hi, (b, N_FIELDS), generator=gen, device=device, dtype=torch.int32)
+    hot = torch.randperm(hi, generator=gen, device=device)[:hot_fields].to(torch.int32)
+    pick = torch.rand((b, hot_fields), generator=gen, device=device) < share
+    ids[:, :hot_fields] = torch.where(pick, hot, ids[:, :hot_fields])
+    ids = ids.reshape(-1)
+    ids[torch.randperm(n, generator=gen, device=device)[: n // 50]] = r
+    return ids
+
+
+def ordered_segment_sums(segment_sums, n_out, slot, rows):
+    """ftrl.py::_segment_sums (given as segment_sums, which sums a bf16
+    payload rank by rank already) with an f32 payload summed the same way:
+    step r adds every slot's r-th row, so each slot adds its rows in
+    ascending payload order, one f32 add at a time."""
+    if rows.dtype != torch.float32 or slot.numel() == 0:
+        return segment_sums(n_out, slot, rows)
+    acc = torch.zeros((n_out, rows.shape[-1]), dtype=rows.dtype, device=rows.device)
+    sslot, perm = torch.sort(slot, stable=True)
+    pos = torch.arange(sslot.numel(), device=slot.device)
+    starts = torch.ones_like(sslot, dtype=torch.bool)
+    starts[1:] = sslot[1:] != sslot[:-1]
+    rank = pos - torch.cummax(torch.where(starts, pos, 0), dim=0).values
+    by_rank = torch.argsort(rank, stable=True)
+    at = 0
+    for count in torch.bincount(rank).tolist():
+        sel = by_rank[at:at + count]
+        dst = sslot[sel]
+        acc[dst] = acc[dst] + rows[perm[sel]]
+        at += count
+    return acc
+
+
+def update_inputs(r, e, n, hi, gen, device, p, lane, skewed=False):
+    """Tables, ids and payloads for ftrl_update (ftrl_tables, random_ids or
+    skewed_ids)."""
     tables = ftrl_tables(gen, device, p, r, e) + ftrl_tables(gen, device, p, r)
-    ids = random_ids(n, hi, r, gen, device)
+    ids = (skewed_ids if skewed else random_ids)(n, hi, r, gen, device)
     g = torch.randn((n, e), generator=gen, device=device) * 0.1
     gl = torch.randn((n,), generator=gen, device=device) * 0.1
     gg2_lin = None if lane >= 0 else torch.stack([gl, gl * gl], dim=-1)
@@ -410,8 +466,8 @@ def main() -> int:
 
     def zero_instances():
         """Zero the launch counts by kernel instance and by dtype."""
-        for counts in (by_instance, ftrl_update.launches_by_dtype,
-                       closed_form_pass.launches_by_dtype):
+        for counts in (by_instance, ffm_fused_logits.launches_by_instance,
+                       ftrl_update.launches_by_dtype, closed_form_pass.launches_by_dtype):
             for name in counts:
                 counts[name] = 0
 
@@ -457,33 +513,64 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     cp = Config(model_type="FFM", n_fields=N_FIELDS, n_factors=N_FACTORS).field_pad
     require(cp == 40, f"field_pad {cp} != 40")
-    # (label, B, F, C', K, fields, real fields)
+    # (label, B, F, C', K, fields, real fields): the C'=40, K=16 instance on
+    # canonical, repeated, out-of-range and padding fields at F = 39, 40 and
+    # 13, then the general instance (staged, and too big to stage)
     cases = [
         ("criteo", BATCH, N_FIELDS, cp, N_FACTORS, "iota", N_FIELDS),
         ("odd_b", 333, N_FIELDS, cp, N_FACTORS, "iota", N_FIELDS),
         ("b1", 1, N_FIELDS, cp, N_FACTORS, "iota", N_FIELDS),
         ("repeated", 257, N_FIELDS, cp, N_FACTORS, "random", N_FIELDS),
+        ("f40_out_of_range", 129, 40, cp, N_FACTORS, "out_of_range", N_FIELDS),
+        ("f13_out_of_range", 300, 13, cp, N_FACTORS, "out_of_range", N_FIELDS),
         ("f64", 129, 64, cp, N_FACTORS, "random", N_FIELDS),
         ("f100_unstaged", 65, 100, cp, N_FACTORS, "random", N_FIELDS),
         ("c8_k16", 511, 7, 8, 16, "random", 7),
         ("out_of_range", 97, 12, 8, 16, "out_of_range", 8),
         ("e15_scalar", 31, 6, 5, 3, "random", 5),
     ]
-    criteo_err = None
+    logits_instances = ffm_fused_logits.launches_by_instance
+    criteo_err = criteo_bf16_err = None
     for label, b, f, c, k, kind, real in cases:
         v, fld, vals, lin = kernel_inputs(b, f, c, k, gen, device, kind, real)
+        before = dict(logits_instances)
         got = ffm_fused_logits(v, fld, vals, lin, c, k)
         torch.cuda.synchronize()
+        instance = next(n for n, count in logits_instances.items() if count > before[n])
         ref = ffm_fused_logits_plain(v, fld, vals, lin, c, k)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         ok = torch.allclose(got, ref, rtol=RTOL, atol=ATOL)
-        path = "staged" if lib.ffm_logits_stages(f, c * k) == 1 else "device-memory"
-        print(f"kernel ffm_logits {label}: B={b} F={f} C'={c} K={k} {path} "
+        print(f"kernel ffm_logits {label}: B={b} F={f} C'={c} K={k} instance {instance} "
               f"max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}")
         require(ok and bool(torch.isfinite(got).all()), f"ffm_logits {label} disagrees")
+        require((instance == "c40_k16") == (c == 40 and k == 16 and f <= 40),
+                f"ffm_logits {label} ran instance {instance}")
+        # the bf16 rows of a bf16 table: against the plain version, and bit
+        # for bit the f32 launch on the rows they widen to
+        vh = v.to(torch.bfloat16)
+        before = dict(logits_instances)
+        got_h = ffm_fused_logits(vh, fld, vals, lin, c, k)
+        torch.cuda.synchronize()
+        instance_h = next(n for n, count in logits_instances.items() if count > before[n])
+        widened = ffm_fused_logits(vh.float(), fld, vals, lin, c, k)
+        ref_h = ffm_fused_logits_plain(vh, fld, vals, lin, c, k)
+        torch.cuda.synchronize()
+        err_h = (got_h - ref_h).abs().max().item()
+        same = torch.equal(got_h, widened)
+        ok = torch.allclose(got_h, ref_h, rtol=RTOL, atol=ATOL) and same
+        print(f"kernel ffm_logits bf16 rows {label}: instance {instance_h} max_abs_err="
+              f"{err_h:.3e} {'ok' if ok else 'MISMATCH'}; the f32 launch on the widened rows "
+              f"bit for bit={same}")
+        require(ok and instance_h == instance + "_bf16", f"ffm_logits bf16 {label} disagrees")
         if label == "criteo":
-            criteo_err = err
+            criteo_err, criteo_bf16_err = err, err_h
+            again = (ffm_fused_logits(v, fld, vals, lin, c, k),
+                     ffm_fused_logits(vh, fld, vals, lin, c, k))
+            same = torch.equal(again[0], got) and torch.equal(again[1], got_h)
+            print(f"kernel ffm_logits {label}: second launches bit-identical={same}")
+            require(same, "ffm_logits is not deterministic")
+        del v, vh, fld, vals, lin
 
     # ---- 3b. the training kernel against its plain version ----
     # (label, B, F, C', K, fields, real fields, aug lane)
@@ -591,23 +678,46 @@ def main() -> int:
 
     # ---- 3c. the update kernel against its plain version ----
     p = FtrlParams()
-    # (label, R, E, N, ids drawn from [0, hi), linear lane)
+
+    def update_reference(tables, ids, gg2, lane, p, gg2_lin, ordered):
+        """The plain version's six tables after the step, on the same card
+        tensors.  With ordered (a skewed batch), its f32 row sums add each
+        row's payload rows rank by rank, in ascending payload order as the
+        kernel and the bf16 accumulator do: the card's index_add_ sums a hot
+        id's ~14,500 rows in no fixed order, ~1e-4 off at that length."""
+        import ftrl_ffm_tpu_torch.ftrl as tftrl
+
+        saved = tftrl._segment_sums
+        if ordered:
+            tftrl._segment_sums = functools.partial(ordered_segment_sums, saved)
+        try:
+            want = list(itertools.chain(*ftrl_update_plain(*tables, ids, gg2, lane, p, gg2_lin)))
+        finally:
+            tftrl._segment_sums = saved
+        torch.cuda.synchronize()
+        return want
+
+    # (label, R, E, N, ids drawn from [0, hi), linear lane, skewed ids): the
+    # skewed batch's hot ids take the column-split kernel
     update_cases = [
-        ("bench_aug", TRAIN_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS, N_FIELDS),
-        ("no_aug", 5000, 128, 8000, 4000, -1),
-        ("e15_dups", 50, 15, 1000, 40, 4),
+        ("bench_aug", TRAIN_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS, N_FIELDS, False),
+        ("bench_skewed", TRAIN_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS, N_FIELDS,
+         True),
+        ("no_aug", 5000, 128, 8000, 4000, -1, False),
+        ("no_aug_skewed", 5000, 128, 8000 // N_FIELDS * N_FIELDS, 4000, -1, True),
+        ("e15_dups", 50, 15, 1000, 40, 4, False),
     ]
-    update_err = None
-    for label, r, e, n, hi, lane in update_cases:
-        tables, ids, gg2, gg2_lin = update_inputs(r, e, n, hi, gen, device, p, lane)
+    update_err = update_skew_err = None
+    hot_rows = lib.ftrl_update_hot_rows()  # longer segments: the column-split kernel
+    for label, r, e, n, hi, lane, skew in update_cases:
+        tables, ids, gg2, gg2_lin = update_inputs(r, e, n, hi, gen, device, p, lane, skew)
         runs = []
         for _ in range(2):
             got = [t.clone() for t in tables]
             ftrl_update(*got, ids, gg2, lane, p, gg2_lin)
             torch.cuda.synchronize()
             runs.append(got)
-        want = list(itertools.chain(*ftrl_update_plain(*tables, ids, gg2, lane, p, gg2_lin)))
-        torch.cuda.synchronize()
+        want = update_reference(tables, ids, gg2, lane, p, gg2_lin, skew)
         touched = torch.zeros(r, dtype=torch.bool, device=device)
         touched[ids[ids < r].long()] = True
         err, ok = 0.0, True
@@ -617,13 +727,18 @@ def main() -> int:
             ok &= torch.equal(got[~touched], want[~touched])
             ok &= torch.equal(got[~touched], before[~touched])
         same = all(torch.equal(a, b) for a, b in zip(*runs))
+        longest = int(torch.bincount(ids[ids < r].long()).max())
         print(f"kernel ftrl_update {label}: R={r} E={e} N={n} lane={lane} touched rows "
-              f"{int(touched.sum())} max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}; "
-              f"repeat bit-identical={same}")
+              f"{int(touched.sum())}, longest segment {longest} rows; max_abs_err={err:.3e} "
+              f"{'ok' if ok else 'MISMATCH'}; repeat bit-identical={same}")
+        require(longest > hot_rows if skew else longest <= hot_rows,
+                f"ftrl_update {label}: the longest segment ({longest}) misses its kernel")
         require(ok, f"ftrl_update {label} disagrees")
         require(same, f"ftrl_update {label} is not deterministic")
         if label == "bench_aug":
             update_err = err
+        if label == "bench_skewed":
+            update_skew_err = err
         del tables, ids, gg2, gg2_lin, runs, want
 
     # the bf16 forms: a bf16 payload against the plain version on the same
@@ -634,20 +749,24 @@ def main() -> int:
     # whose plain index_add_ on the card sums in no fixed order: as above);
     # an f32 payload with a bf16 w: n, z and the linear tables as above, w
     # within one bf16 ulp
-    # (label, R, E, N, ids drawn from [0, hi), linear lane, payload, w)
+    # (label, R, E, N, ids drawn from [0, hi), linear lane, payload, w,
+    # skewed ids): every dtype pair on the bench's uniform and skewed batches
+    bench = (TRAIN_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS, N_FIELDS)
     update_bf16_cases = [
-        ("bench_aug_bf16", TRAIN_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS, N_FIELDS,
-         bf16, bf16),
-        ("bench_aug_bf16_payload", TRAIN_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS,
-         N_FIELDS, bf16, torch.float32),
-        ("bench_aug_bf16_w", TRAIN_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS,
-         N_FIELDS, torch.float32, bf16),
-        ("no_aug_bf16", 5000, 128, 8000, 4000, -1, bf16, bf16),
-        ("e15_dups_bf16", 50, 15, 1000, 40, 4, bf16, torch.float32),
+        ("bench_aug_bf16", *bench, bf16, bf16, False),
+        ("bench_aug_bf16_payload", *bench, bf16, torch.float32, False),
+        ("bench_aug_bf16_w", *bench, torch.float32, bf16, False),
+        ("bench_skewed_bf16", *bench, bf16, bf16, True),
+        ("bench_skewed_bf16_payload", *bench, bf16, torch.float32, True),
+        ("bench_skewed_bf16_w", *bench, torch.float32, bf16, True),
+        ("no_aug_bf16", 5000, 128, 8000, 4000, -1, bf16, bf16, False),
+        ("no_aug_skewed_bf16", 5000, 128, 8000 // N_FIELDS * N_FIELDS, 4000, -1, bf16, bf16,
+         True),
+        ("e15_dups_bf16", 50, 15, 1000, 40, 4, bf16, torch.float32, False),
     ]
     update_bf16_err = None
-    for label, r, e, n, hi, lane, pay, wdt in update_bf16_cases:
-        tables, ids, gg2, gg2_lin = update_inputs(r, e, n, hi, gen, device, p, lane)
+    for label, r, e, n, hi, lane, pay, wdt, skew in update_bf16_cases:
+        tables, ids, gg2, gg2_lin = update_inputs(r, e, n, hi, gen, device, p, lane, skew)
         tables[2] = tables[2].to(wdt)
         gg2 = gg2.to(pay)
         runs = []
@@ -656,8 +775,7 @@ def main() -> int:
             ftrl_update(*got, ids, gg2, lane, p, gg2_lin)
             torch.cuda.synchronize()
             runs.append(got)
-        want = list(itertools.chain(*ftrl_update_plain(*tables, ids, gg2, lane, p, gg2_lin)))
-        torch.cuda.synchronize()
+        want = update_reference(tables, ids, gg2, lane, p, gg2_lin, skew)
         touched = torch.zeros(r, dtype=torch.bool, device=device)
         touched[ids[ids < r].long()] = True
         err, ok = 0.0, True
@@ -672,8 +790,12 @@ def main() -> int:
                 ok &= torch.allclose(g_t, w_t, rtol=UPD_RTOL, atol=UPD_ATOL)
             ok &= got.dtype == want.dtype and torch.equal(got[~touched], before[~touched])
         same = all(torch.equal(a, b) for a, b in zip(*runs))
+        longest = int(torch.bincount(ids[ids < r].long()).max())
+        require(longest > hot_rows if skew else longest <= hot_rows,
+                f"ftrl_update {label}: the longest segment ({longest}) misses its kernel")
         print(f"kernel ftrl_update {label}: R={r} E={e} N={n} lane={lane} payload {pay} w {wdt} "
-              f"touched rows {int(touched.sum())} max_abs_err={err:.3e} "
+              f"touched rows {int(touched.sum())}, longest segment {longest} rows; "
+              f"max_abs_err={err:.3e} "
               f"{'ok' if ok else 'MISMATCH'} (bit for bit: {pay == bf16}); repeat "
               f"bit-identical={same}")
         require(ok, f"ftrl_update {label} disagrees")
@@ -807,15 +929,18 @@ def main() -> int:
         n_batches = math.ceil(N_ROWS / BATCH)
 
         ffm_fused_logits.launches = 0
+        zero_instances()
         t0 = time.perf_counter()
         loss, auc = trainer.evaluate()
         t_eval = time.perf_counter() - t0
         n_pred = trainer.predict_file(data, preds)
         launches = ffm_fused_logits.launches
+        serve_instances = dict(ffm_fused_logits.launches_by_instance)
         print(f"serve: evaluate loss={loss:.6f} auc={auc:.6f} ({t_eval:.2f} s, first pass); "
-              f"predict_file wrote {n_pred}; ffm_logits launches={launches}")
-        require(launches == 2 * n_batches,
-                f"ffm_logits launched {launches} times, expect {2 * n_batches}")
+              f"predict_file wrote {n_pred}; ffm_logits launches={launches}, by instance "
+              f"{serve_instances}")
+        require(launches == 2 * n_batches == serve_instances["c40_k16"],
+                f"ffm_logits launched {serve_instances}, expect {2 * n_batches} c40_k16")
         require(math.isfinite(loss) and math.isfinite(auc), "non-finite eval metrics")
         require(n_pred == N_ROWS, f"predict_file scored {n_pred} of {N_ROWS}")
         probs = np.loadtxt(preds)
@@ -878,6 +1003,8 @@ def main() -> int:
         require(fused_instances["c40_k16"] == steps,
                 f"the training path ran kernel #2's instances {fused_instances}")
         require(update_launches == steps, f"ftrl_update launched {update_launches} times in {steps} steps")
+        require(ffm_fused_logits.launches_by_instance["c40_k16"] == eval_launches == 2,
+                f"eval ran kernel #1's instances {ffm_fused_logits.launches_by_instance}")
         require(all(math.isfinite(x) for k in ("train_loss", "eval_loss", "eval_auc")
                     for x in hist[k]), "non-finite training history")
         require(hist["train_loss"][1] < hist["train_loss"][0], "epoch 2 train loss is not below epoch 1's")
@@ -932,12 +1059,31 @@ def main() -> int:
             lambda: ffm_fused_logits(v, fld, vals, lin, cp, N_FACTORS),
             lambda: ffm_fused_logits_plain(v, fld, vals, lin, cp, N_FACTORS), 20, 5)
         gbps = v.numel() * 4 / (k_ms * 1e-3) / 1e9
-        # reads v, fields, values, lin; writes the logits.  Ops: the pair sum
-        logits_bound = bound(nbytes(v, fld, vals, lin) + BATCH * 4,
-                             4 * BATCH * N_FIELDS * (N_FIELDS - 1) * N_FACTORS)
+        # reads v, fields, values, lin; writes the logits.  Ops: the pair
+        # sum, each unordered pair once (F(F-1)/2 pairs, K multiply-adds
+        # and two multiplies each)
+        pair_ops = BATCH * N_FIELDS * (N_FIELDS - 1) // 2 * (2 * N_FACTORS + 2)
+        logits_bound = bound(nbytes(v, fld, vals, lin) + BATCH * 4, pair_ops)
+        # device time: 20 launches replayed from a CUDA graph (the host's
+        # dispatch left out)
+        from ftrl_ffm_tpu_torch.tools import graph_ms
+
+        k_dev_ms = graph_ms(lambda: ffm_fused_logits(v, fld, vals, lin, cp, N_FACTORS), 20)
         print(f"timing: ffm_logits B={BATCH} F={N_FIELDS} E={cp * N_FACTORS}: kernel "
-              f"{runs['kernel']} ms, plain {runs['plain']} ms; kernel reads v at "
-              f"{gbps:.0f} GB/s; bound {logits_bound[0]:.4f} ms ({logits_bound[1]}) [{where}]")
+              f"{runs['kernel']} ms (device {k_dev_ms:.4f} ms), plain {runs['plain']} ms; "
+              f"kernel reads v at {gbps:.0f} GB/s; bound {logits_bound[0]:.4f} ms "
+              f"({logits_bound[1]}) [{where}]")
+        vh = v.to(torch.bfloat16)
+        hruns, kh_ms, ph_ms = interleaved_ms(
+            lambda: ffm_fused_logits(vh, fld, vals, lin, cp, N_FACTORS),
+            lambda: ffm_fused_logits_plain(vh, fld, vals, lin, cp, N_FACTORS), 20, 5)
+        kh_dev_ms = graph_ms(lambda: ffm_fused_logits(vh, fld, vals, lin, cp, N_FACTORS), 20)
+        logits_bf16_bound = bound(nbytes(vh, fld, vals, lin) + BATCH * 4, pair_ops)
+        print(f"timing: ffm_logits bf16 rows B={BATCH} F={N_FIELDS} E={cp * N_FACTORS}: kernel "
+              f"{hruns['kernel']} ms (device {kh_dev_ms:.4f} ms), plain {hruns['plain']} ms; "
+              f"bound {logits_bf16_bound[0]:.4f} ms ({logits_bf16_bound[1]}); the f32 rows "
+              f"{k_ms:.4f} ms [{where}]")
+        del vh
 
         # where the time of one eval pass goes: device compute per batch on
         # pre-placed batches, host parse per batch, and the whole pass
@@ -994,6 +1140,31 @@ def main() -> int:
               f"{uruns['kernel']} ms, plain {uruns['plain']} ms; {touched} touched rows, bound "
               f"{update_bound[0]:.4f} ms ({update_bound[1]}) [{where}]")
         del tables, ids, gg2
+
+        def time_skewed(pay, wdt, plain_iters):
+            """The update kernel on the skewed batch (its hot ids take the
+            column-split kernel) beside its bound and the uniform batch's
+            time: (kernel ms, plain ms or None, bound)."""
+            tables, ids, gg2, _ = update_inputs(TRAIN_FEATS, e, BATCH * N_FIELDS, TRAIN_FEATS,
+                                                gen, device, p, N_FIELDS, skewed=True)
+            tables[2] = tables[2].to(wdt)
+            gg2 = gg2.to(pay)
+            call = lambda: ftrl_update(*tables, ids, gg2, N_FIELDS, p)  # noqa: E731
+            ms = [cuda_ms(call, 10) for _ in range(2)]
+            plain = (cuda_ms(lambda: ftrl_update_plain(*tables, ids, gg2, N_FIELDS, p),
+                             plain_iters) if plain_iters else None)
+            touched = touched_rows(ids, TRAIN_FEATS)
+            wb = tables[2].element_size()
+            sb = bound(nbytes(ids, gg2) + touched * (e * (4 + 4 + wb) * 2 + 3 * 4 * 2),
+                       gg2.numel() + touched * (e + 1) * 20)
+            longest = int(torch.bincount(ids[ids < TRAIN_FEATS].long()).max())
+            print(f"timing: ftrl_update skewed payload {pay} w {wdt} R={TRAIN_FEATS} E={e} "
+                  f"N={BATCH * N_FIELDS}: kernel {ms} ms, plain {plain} ms; {touched} touched "
+                  f"rows, longest segment {longest} rows; bound {sb[0]:.4f} ms ({sb[1]}) "
+                  f"[{where}]")
+            return float(np.median(ms)), plain, sb
+
+        skew_ms, skew_plain_ms, skew_bound = time_skewed(torch.float32, torch.float32, 3)
         tplaced = [ttrainer._place_batch(a) for a in StreamReader(
             train_p, "libffm", BATCH, N_FIELDS, TRAIN_FEATS, N_FIELDS,
             n_parse_threads=4, log_every=0).batches()]
@@ -1044,6 +1215,10 @@ def main() -> int:
         require(h_update_dtypes["bf16/bf16"] == hsteps == h_launches["ftrl_update"],
                 f"the bf16 path ran the update kernel's instances {h_update_dtypes}")
         require(h_launches["ffm_fused_logits"] == 2, "bf16 eval did not run through ffm_logits")
+        # the eval batches of a bf16 table reach kernel #1 as bf16 rows: no
+        # widening pass before it
+        require(ffm_fused_logits.launches_by_instance["c40_k16_bf16"] == 2,
+                f"bf16 eval ran kernel #1's instances {ffm_fused_logits.launches_by_instance}")
         require(all(math.isfinite(x) for k in ("train_loss", "eval_loss", "eval_auc")
                     for x in hhist[k]), "non-finite bf16 training history")
         require(hhist["train_loss"][1] < hhist["train_loss"][0],
@@ -1129,6 +1304,9 @@ def main() -> int:
                   f"{uruns_h['plain']} ms; {touched} touched rows, bound {ub[0]:.4f} ms "
                   f"({ub[1]}); the f32 form {u_ms:.4f} ms [{where}]")
             del tables, ids, gg2
+        # the plain version's bf16 accumulator takes one step per rank of the
+        # hot ids' ~14,500: not timed here
+        time_skewed(bf16, bf16, 0)
         hcycle = itertools.cycle(tplaced)
         hstep_ms = cuda_ms(lambda: hmodel.train_step(htrainer.state, next(hcycle)),
                            2 * len(tplaced))
@@ -1190,6 +1368,8 @@ def main() -> int:
                 f"the in-place path ran kernel #2's instances {big_instances}")
         require(big["ftrl_update"] == 0, "the in-place path launched the linear update")
         require(big["ffm_fused_logits"] == 2, "eval did not run through ffm_logits")
+        require(ffm_fused_logits.launches_by_instance["c40_k16"] == 2,
+                f"1M eval ran kernel #1's instances {ffm_fused_logits.launches_by_instance}")
         require(all(math.isfinite(x) for k in ("train_loss", "eval_loss", "eval_auc")
                     for x in bhist[k]), "non-finite training history")
         require(bhist["train_loss"][1] < bhist["train_loss"][0],
@@ -1375,6 +1555,8 @@ def main() -> int:
         require(e_update_dtypes["f32/f32"] == esteps == e_launches["ftrl_update"],
                 f"the bf16 1M path's linear update ran {e_update_dtypes}")
         require(e_launches["ffm_fused_logits"] == 2, "bf16 1M eval did not run through ffm_logits")
+        require(ffm_fused_logits.launches_by_instance["c40_k16_bf16"] == 2,
+                f"bf16 1M eval ran kernel #1's instances {ffm_fused_logits.launches_by_instance}")
         require(all(math.isfinite(x) for k in ("train_loss", "eval_loss", "eval_auc")
                     for x in ehist[k]), "non-finite bf16 1M training history")
         require(ehist["train_loss"][1] < ehist["train_loss"][0],
@@ -1415,19 +1597,24 @@ def main() -> int:
         strainer = Trainer(scfg_h, state=hstate)
         del hstate
         ffm_fused_logits.launches = 0
+        zero_instances()
         t0 = time.perf_counter()
         hloss, hauc = strainer.evaluate()
         t_heval = time.perf_counter() - t0
         hpreds = os.path.join(tmp, "preds_bf16.txt")
         n_hpred = strainer.predict_file(data, hpreds)
         hserve_launches = ffm_fused_logits.launches
-        require(hserve_launches == 2 * n_batches,
-                f"bf16 serving launched ffm_logits {hserve_launches} times")
+        hserve_instances = dict(ffm_fused_logits.launches_by_instance)
+        # every batch reaches kernel #1 as the table's bf16 rows: no
+        # widening pass before it
+        require(hserve_launches == 2 * n_batches == hserve_instances["c40_k16_bf16"],
+                f"bf16 serving launched ffm_logits {hserve_instances}")
         require(n_hpred == N_ROWS, f"bf16 predict_file scored {n_hpred} of {N_ROWS}")
         href_loss, hmax_err, hplain_probs = serving_reference(strainer, data, "bf16 serving")
         hpdiff = float(np.abs(np.loadtxt(hpreds) - hplain_probs).max())
         print(f"serve bf16: evaluate loss={hloss:.6f} auc={hauc:.6f} ({t_heval:.2f} s, first "
-              f"pass); predict_file wrote {n_hpred}; ffm_logits launches={hserve_launches}; "
+              f"pass); predict_file wrote {n_hpred}; ffm_logits launches={hserve_launches} "
+              f"{hserve_instances}; "
               f"plain-version loss {href_loss:.6f}, logits max_abs_err={hmax_err:.2e}, "
               f"probability max |diff| {hpdiff:.2e}")
         require(abs(href_loss - hloss) <= 1e-5 * max(1.0, hloss),
@@ -1438,9 +1625,16 @@ def main() -> int:
             t0 = time.perf_counter()
             strainer.evaluate()
             passes.append(time.perf_counter() - t0)
-        print(f"timing: bf16 evaluate() {[N_ROWS / t for t in passes]} examples/s "
+        hplaced = [strainer._place_batch(a) for a in StreamReader(
+            data, "libffm", BATCH, N_FIELDS, N_FEATS, N_FIELDS,
+            n_parse_threads=4, log_every=0).batches()]
+        hcycle_e = itertools.cycle(hplaced)
+        hdev_ms = cuda_ms(lambda: strainer.model.eval_step(strainer.state, next(hcycle_e)),
+                          2 * len(hplaced))
+        print(f"timing: bf16 eval_step on the device {hdev_ms:.3f} ms/batch (f32 table "
+              f"{dev_ms:.3f}); bf16 evaluate() {[N_ROWS / t for t in passes]} examples/s "
               f"(n_feats={N_FEATS}, B={BATCH}, {N_ROWS} rows) [{where}]")
-        del strainer
+        del strainer, hplaced, hcycle_e
         torch.cuda.empty_cache()
 
         # ---- 5c, bf16: kernel #3 on a bf16 w, the bf16 1M train step ----
@@ -1629,8 +1823,6 @@ def main() -> int:
 
         probe_time = {}
 
-        from ftrl_ffm_tpu_torch.tools import graph_ms
-
         def probe_timing(name, label, kern, plain, kern_iters, plain_iters, bytes_moved, ops,
                          library=None):
             runs, k_ms, p_ms = interleaved_ms(kern, plain, kern_iters, plain_iters)
@@ -1793,9 +1985,26 @@ def main() -> int:
             "launches": launches,
             "max_abs_err": criteo_err,
             "ms": k_ms,
+            "device_ms": k_dev_ms,
             "plain_ms": p_ms,
             "bound_ms": logits_bound[0],
             "bound_by": logits_bound[1],
+            "library_ms": None,
+        },
+        {
+            # kernel #1 on a bf16 table's rows, read as they are (4e's
+            # serving launches)
+            "name": "ffm_logits_bf16",
+            "route": "cuda",
+            "source": "ftrl_ffm_tpu_torch/csrc/ffm_logits.cu",
+            "replaces": "ftrl_ffm_tpu/ops/ffm_pallas.py:235",
+            "launches": hserve_instances["c40_k16_bf16"],
+            "max_abs_err": criteo_bf16_err,
+            "ms": kh_ms,
+            "device_ms": kh_dev_ms,
+            "plain_ms": ph_ms,
+            "bound_ms": logits_bf16_bound[0],
+            "bound_by": logits_bf16_bound[1],
             "library_ms": None,
         },
         {
@@ -1825,6 +2034,22 @@ def main() -> int:
             "plain_ms": up_ms,
             "bound_ms": update_bound[0],
             "bound_by": update_bound[1],
+            "library_ms": None,
+        },
+        {
+            # the same wrapper on the skewed batch: its hot ids take the
+            # column-split kernel (ftrl_update_hot), which every main-path
+            # launch also runs, finding no hot id
+            "name": "ftrl_update_skewed",
+            "route": "cuda",
+            "source": "ftrl_ffm_tpu_torch/csrc/ftrl_update.cu",
+            "replaces": "ftrl_ffm_tpu/ftrl.py:249",
+            "launches": update_launches,
+            "max_abs_err": update_skew_err,
+            "ms": skew_ms,
+            "plain_ms": skew_plain_ms,
+            "bound_ms": skew_bound[0],
+            "bound_by": skew_bound[1],
             "library_ms": None,
         },
         {

@@ -9,27 +9,59 @@
 //
 // Input: the payload's row ids sorted stably (sids, and perm: sorted slot ->
 // payload row), so the occurrences of one id form a segment in ascending
-// payload order.  One warp per segment start (a position whose id differs
-// from its left neighbour; the warps stride over all positions, so no
-// segment list is built and the host never waits): for its row id, lane by
-// lane over the columns, it sums gg2[perm[j]] over the segment in sorted
-// order (reading through the permutation, no sorted copy of the payload),
-// then applies the accumulator step and the closed form to vec_n/z/w[id]
-// in place — reading the row's pre-step w for sigma * w before writing it.
-// On the linear lane (`lane` >= 0, the dead-lane mirror) the same sums also
-// update lin_n/z/w[id]; without one (lane = -1) the linear stats come from
-// their own [N, 2] payload gg2_lin.  Ids outside [0, R) — the padding
-// sentinel n_feats — are skipped.  Rows no id touches are not read or
-// written: the dense form leaves them as they are too (sigma = 0, the same
-// closed form).  The closed form rounds each operation on its own (no
-// contracted multiply-adds), as the plain PyTorch version does.
+// payload order.  For its row id, each coordinate sums gg2[perm[j]] over
+// the segment in sorted order, one add at a time from 0 (reading through
+// the permutation, no sorted copy of the payload), then applies the
+// accumulator step and the closed form to vec_n/z/w[id] in place — reading
+// the row's pre-step w for sigma * w before writing it.  On the linear lane
+// (`lane` >= 0, the dead-lane mirror) the same sums also update
+// lin_n/z/w[id]; without one (lane = -1) the linear stats come from their
+// own [N, 2] payload gg2_lin, summed the same way.  Ids outside [0, R) —
+// the padding sentinel n_feats — are skipped.  Rows no id touches are not
+// read or written: the dense form leaves them as they are too (sigma = 0,
+// the same closed form).  The closed form rounds each operation on its own
+// (no contracted multiply-adds), as the plain PyTorch version does.  Every
+// coordinate keeps that order and those operations whichever kernel below
+// runs it, so all three give the same bits.
 //
 // What bounds it on an H100: bytes.  At the bench shape (B=16,384, F=39,
 // E=640, 100k rows) it reads the 3.27 GB payload once plus about 1.5 GB of
-// touched table rows read and written.  Each lane reads consecutive
-// columns, so a warp reads 128 contiguous bytes per payload row and column
-// block.  A very frequent id is one warp's serial work: heavy-tailed data
-// would want the segment split across warps.
+// touched table rows read and written: 1.436 ms at 3.35 TB/s.  Three
+// kernels:
+//
+// - ftrl_update_kernel (E % 4 == 0 and the tables and payloads aligned for
+//   16-byte f32 and 8-byte bf16 accesses: every training shape).  A
+//   persistent grid (as many blocks as fit, sized once per device) whose
+//   warps walk tiles of 32 sorted positions: a warp loads a tile's ids at
+//   once and takes its segment starts (an id that differs from its left
+//   neighbour) from one __ballot_sync, then, start by start, finds the
+//   segment's end with ballots over the next positions.  The warp covers a
+//   whole 640-wide row in one pass: each lane holds five 4-column quads of g
+//   and of g^2 (a float4, or 8 bytes of bf16), ten streaming 16- or 8-byte
+//   loads in flight per payload row (__ldcs: the payload is read once and
+//   would only evict the table rows from L2).  The segment's perm entries
+//   are loaded 32 at a time and broadcast by shuffle.  The table rows are
+//   read and written as float4 (n, z) and float4 or 8 bytes (w).  Registers
+//   are capped so that two blocks (f32 payload) or three (bf16) share an
+//   SM: more warps in flight measured faster than more payload rows loaded
+//   ahead by each (update_blocks_per_sm).  A segment longer than
+//   kHotRows (64) payload rows is not summed here: its start goes to a list
+//   in device memory (an atomic counter; the list's order does not matter,
+//   each segment is its own rows) for the next kernel.
+// - ftrl_update_hot: the segments of that list, split by columns (one id
+//   in most rows of a batch: ~15k payload rows).  One block per (segment,
+//   32-column slice): its eight warps copy the slice of the next payload
+//   rows with cp.async into a ring of four 64-row chunks in shared memory,
+//   while warp 0 sums the current chunk, one lane a column, in order (and,
+//   with lane = -1, one thread of warp 1 sums the gg2_lin pairs the ring
+//   also holds).  So a hot id costs ~15k dependent adds on 20 SMs at once
+//   instead of ~15k payload rows' loads on one warp.
+// - ftrl_update_scalar (any other E or alignment): the earlier design, one
+//   warp per segment start over all positions, columns in passes of 256.
+//
+// The host never waits for a count: the hot kernel reads the list's
+// length from device memory, and the wrapper allocates the list zeroed
+// (ftrl_update_scratch_ints).
 //
 // With E = 0 (no factor tables given) only the linear tables are updated,
 // from gg2_lin: the huge-table path's separate linear step when no dead
@@ -57,9 +89,10 @@
 // step); csrc/ftrl_pass.cu's closed-form pass follows.  It reads the 3.27 GB
 // payload and reads and writes z and writes A on the touched rows (about
 // 470k of a 1M-row table with the synthetic ids).  It keeps its own copy of
-// the segment loop: sharing it with ftrl_update_kernel through inline device
-// functions slowed that kernel from 2.67 to 4.54 ms at the bench shape
-// (H100 80GB HBM3 at 700 W, both versions timed in one run).
+// the segment loop: sharing it with the update kernel of that time (now
+// ftrl_update_scalar) through inline device functions slowed the update
+// kernel from 2.67 to 4.54 ms at the bench
+// shape (H100 80GB HBM3 at 700 W, both versions timed in one run).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,39 +117,129 @@ __device__ __forceinline__ float accumulate(float acc, __nv_bfloat16 x) {
   return __bfloat162float(__float2bfloat16_rn(__fadd_rn(acc, __bfloat162float(x))));
 }
 
+// Four adjacent payload values (a quad): a float4, or four bf16 in 8 bytes;
+// loaded streaming (read once), and added into four sums in order.
+__device__ __forceinline__ float4 load_quad(const float* p) {
+  return __ldcs(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ uint2 load_quad(const __nv_bfloat16* p) {
+  return __ldcs(reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ void add_quad(float* acc, float4 q) {
+  acc[0] = accumulate(acc[0], q.x);
+  acc[1] = accumulate(acc[1], q.y);
+  acc[2] = accumulate(acc[2], q.z);
+  acc[3] = accumulate(acc[3], q.w);
+}
+__device__ __forceinline__ void add_quad(float* acc, uint2 q) {
+  const __nv_bfloat162 lo = reinterpret_cast<const __nv_bfloat162&>(q.x);
+  const __nv_bfloat162 hi = reinterpret_cast<const __nv_bfloat162&>(q.y);
+  acc[0] = accumulate(acc[0], lo.x);
+  acc[1] = accumulate(acc[1], lo.y);
+  acc[2] = accumulate(acc[2], hi.x);
+  acc[3] = accumulate(acc[3], hi.y);
+}
+
+// Four adjacent w values widened to f32, and stored back rounded.
+__device__ __forceinline__ void load_w4(const float* p, float* w) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  w[0] = q.x;
+  w[1] = q.y;
+  w[2] = q.z;
+  w[3] = q.w;
+}
+__device__ __forceinline__ void load_w4(const __nv_bfloat16* p, float* w) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162&>(q.x));
+  const float2 hi = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162&>(q.y));
+  w[0] = lo.x;
+  w[1] = lo.y;
+  w[2] = hi.x;
+  w[3] = hi.y;
+}
+__device__ __forceinline__ void store_w4(float* p, const float* w) {
+  *reinterpret_cast<float4*>(p) = make_float4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void store_w4(__nv_bfloat16* p, const float* w) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(w[0], w[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(w[2], w[3]);
+  *reinterpret_cast<uint2*>(p) = make_uint2(reinterpret_cast<const unsigned&>(lo),
+                                            reinterpret_cast<const unsigned&>(hi));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
+// one quad of the payload into shared memory (16 bytes f32, 8 bytes bf16)
+__device__ __forceinline__ void cp_quad(float* dst, const float* src) { cp_async16(dst, src); }
+__device__ __forceinline__ void cp_quad(__nv_bfloat16* dst, const __nv_bfloat16* src) {
+  cp_async8(dst, src);
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 constexpr int kThreads = 256;
 constexpr int kWarpsPerBlock = kThreads / 32;
-constexpr int kCols = 8;  // columns per lane per pass over a segment
+constexpr int kCols = 8;  // ftrl_update_scalar: columns per lane per pass over a segment
 constexpr float kUntouchedN = 1e-16f;  // ftrl.py::UNTOUCHED_N
+constexpr unsigned kFull = 0xffffffffu;
+// ftrl_update_kernel: quads per lane, so a warp covers 640 columns a pass
+constexpr int kQuadsPerLane = 5;
+constexpr int kPassQuads = 32 * kQuadsPerLane;
+// segments longer than this many payload rows go to ftrl_update_hot
+constexpr int kHotRows = 64;
+// ftrl_update_hot: rows a chunk, chunks in the ring, columns a slice
+constexpr int kChunkRows = 64;
+constexpr int kRing = 4;
+constexpr int kSlice = 32;
+constexpr int kMaxDevices = 64;
+static_assert(kHotRows % 32 == 0 && kThreads == 4 * kChunkRows && kSlice == 32, "shapes");
 
 struct Ftrl {
   float alpha, beta, l1, l2;
 };
 
-// One coordinate: accumulator step with the pre-step w, then the closed
-// form where the coordinate has been touched (ftrl.py::_closed_step).
-template <typename W>
-__device__ __forceinline__ void ftrl_step(float* n_p, float* z_p, W* w_p, float g, float g2,
-                                          const Ftrl& p) {
-  const float n = *n_p;
-  const float w = load(w_p);
+// One coordinate's accumulator step with the pre-step w, then the closed
+// form where the coordinate has been touched (ftrl.py::_closed_step), on
+// values.
+__device__ __forceinline__ void ftrl_coord(float& n, float& z, float& w, float g, float g2,
+                                           const Ftrl& p) {
   const float new_n = __fadd_rn(n, g2);
   const float sigma = __fdiv_rn(__fsub_rn(sqrtf(new_n), sqrtf(n)), p.alpha);
-  const float new_z = __fsub_rn(__fadd_rn(*z_p, g), __fmul_rn(sigma, w));
-  float new_w = w;
+  const float new_z = __fsub_rn(__fadd_rn(z, g), __fmul_rn(sigma, w));
   if (new_n > kUntouchedN) {
     const float sl1 = new_z > 0.f ? p.l1 : -p.l1;
     const float den = __fadd_rn(p.l2, __fdiv_rn(__fadd_rn(p.beta, sqrtf(new_n)), p.alpha));
-    new_w = fabsf(new_z) <= p.l1 ? 0.f : __fdiv_rn(-__fsub_rn(new_z, sl1), den);
+    w = fabsf(new_z) <= p.l1 ? 0.f : __fdiv_rn(-__fsub_rn(new_z, sl1), den);
   }
-  *n_p = new_n;
-  *z_p = new_z;
-  store(w_p, new_w);
+  n = new_n;
+  z = new_z;
+}
+
+// The same on one coordinate of the tables, in place.
+template <typename W>
+__device__ __forceinline__ void ftrl_step(float* n_p, float* z_p, W* w_p, float g, float g2,
+                                          const Ftrl& p) {
+  float n = *n_p, z = *z_p, w = load(w_p);
+  ftrl_coord(n, z, w, g, g2, p);
+  *n_p = n;
+  *z_p = z;
+  store(w_p, w);
 }
 
 template <typename P, typename W>
 __global__ void __launch_bounds__(kThreads)
-ftrl_update_kernel(const int* __restrict__ sids, const long long* __restrict__ perm, int N,
+ftrl_update_scalar(const int* __restrict__ sids, const long long* __restrict__ perm, int N,
                    const P* __restrict__ gg2, const float* __restrict__ gg2_lin,
                    float* vec_n, float* vec_z, W* vec_w, float* lin_n, float* lin_z,
                    float* lin_w, int R, int E, int lane, Ftrl p) {
@@ -165,6 +288,240 @@ ftrl_update_kernel(const int* __restrict__ sids, const long long* __restrict__ p
   }
 }
 
+// The linear stats of the segment [s, end) from gg2_lin, in order, the same
+// on every lane: the lanes load 32 pairs at once, then each sum takes them
+// by shuffle, one add at a time (the sums of one lane's loop over the rows).
+__device__ __forceinline__ void linear_sums(const long long* __restrict__ perm,
+                                            const float* __restrict__ gg2_lin, int s, int end,
+                                            int ln, float& g, float& g2) {
+  g = 0.f;
+  g2 = 0.f;
+  for (int base = s; base < end; base += 32) {
+    const int cnt = min(32, end - base);
+    float a = 0.f, b = 0.f;
+    if (ln < cnt) {
+      const float* src = gg2_lin + 2 * static_cast<size_t>(perm[base + ln]);
+      a = src[0];
+      b = src[1];
+    }
+    for (int r = 0; r < cnt; ++r) {
+      g += __shfl_sync(kFull, a, r);
+      g2 += __shfl_sync(kFull, b, r);
+    }
+  }
+}
+
+// Blocks of ftrl_update_kernel an SM holds: its registers capped so that two
+// (f32 payload) or three (bf16) fit.  Measured at the bench shape (H100
+// 80GB HBM3, 700 W): f32 1.83 ms at two, 2.21-2.34 at one or three; bf16
+// 1.43 at three, 1.94-2.92 at one or two.
+template <typename P>
+__host__ __device__ constexpr int update_blocks_per_sm() {
+  return sizeof(P) == 4 ? 2 : 3;
+}
+
+template <typename P, typename W>
+__global__ void __launch_bounds__(kThreads, update_blocks_per_sm<P>())
+ftrl_update_kernel(const int* __restrict__ sids, const long long* __restrict__ perm, int N,
+                   const P* __restrict__ gg2, const float* __restrict__ gg2_lin,
+                   float* vec_n, float* vec_z, W* vec_w, float* lin_n, float* lin_z,
+                   float* lin_w, int R, int E, int lane, Ftrl p, int* __restrict__ hot) {
+  const int ln = threadIdx.x & 31;
+  const int quads = E / 4;
+  const size_t w2 = 2 * static_cast<size_t>(E);
+  // a persistent grid: each warp walks tiles of 32 sorted positions
+  const int stride = gridDim.x * kWarpsPerBlock * 32;
+  for (int tile0 = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * 32; tile0 < N;
+       tile0 += stride) {
+    // the segment starts among this tile's 32 sorted positions
+    const int j = tile0 + ln;
+    const int id = j < N ? sids[j] : -1;
+    int prev = __shfl_up_sync(kFull, id, 1);
+    if (ln == 0 && j > 0) prev = sids[j - 1];
+    unsigned starts = __ballot_sync(kFull, j < N && id >= 0 && id < R && (j == 0 || prev != id));
+    while (starts) {
+      const int first = __ffs(starts) - 1;
+      starts &= starts - 1;
+      const int s = tile0 + first;
+      const int sid = __shfl_sync(kFull, id, first);
+      // the segment's end: the first later position with another id (or N)
+      int end = -1;
+      for (int c = 0; c < kHotRows / 32 && end < 0; ++c) {
+        const int q = s + 1 + 32 * c + ln;
+        const unsigned other = __ballot_sync(kFull, q >= N || sids[q] != sid);
+        if (other) end = s + 32 * c + __ffs(other);
+      }
+      if (end < 0) {  // more than kHotRows payload rows: ftrl_update_hot's
+        if (ln == 0) hot[1 + atomicAdd(hot, 1)] = s;
+        continue;
+      }
+      const size_t row = static_cast<size_t>(sid) * E;
+      for (int q0 = 0; q0 < quads; q0 += kPassQuads) {
+        float g[4 * kQuadsPerLane], g2[4 * kQuadsPerLane];
+#pragma unroll
+        for (int u = 0; u < 4 * kQuadsPerLane; ++u) g[u] = g2[u] = 0.f;
+        for (int base = s; base < end; base += 32) {
+          const int cnt = min(32, end - base);
+          const long long mine = ln < cnt ? perm[base + ln] : 0;
+          for (int r = 0; r < cnt; ++r) {
+            const P* src = gg2 + static_cast<size_t>(__shfl_sync(kFull, mine, r)) * w2;
+#pragma unroll
+            for (int u = 0; u < kQuadsPerLane; ++u) {
+              const int qd = q0 + ln + 32 * u;
+              if (qd < quads) {
+                add_quad(g + 4 * u, load_quad(src + 4 * qd));
+                add_quad(g2 + 4 * u, load_quad(src + E + 4 * qd));
+              }
+            }
+          }
+        }
+        // the closed form on the row's quads: float4 n and z, 16 or 8 bytes of w
+#pragma unroll
+        for (int u = 0; u < kQuadsPerLane; ++u) {
+          const int qd = q0 + ln + 32 * u;
+          if (qd >= quads) continue;
+          const size_t at = row + 4 * static_cast<size_t>(qd);
+          float4 n4 = *reinterpret_cast<const float4*>(vec_n + at);
+          float4 z4 = *reinterpret_cast<const float4*>(vec_z + at);
+          float w[4];
+          load_w4(vec_w + at, w);
+          ftrl_coord(n4.x, z4.x, w[0], g[4 * u], g2[4 * u], p);
+          ftrl_coord(n4.y, z4.y, w[1], g[4 * u + 1], g2[4 * u + 1], p);
+          ftrl_coord(n4.z, z4.z, w[2], g[4 * u + 2], g2[4 * u + 2], p);
+          ftrl_coord(n4.w, z4.w, w[3], g[4 * u + 3], g2[4 * u + 3], p);
+          *reinterpret_cast<float4*>(vec_n + at) = n4;
+          *reinterpret_cast<float4*>(vec_z + at) = z4;
+          store_w4(vec_w + at, w);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (4 * qd + c == lane) {
+              ftrl_step(lin_n + sid, lin_z + sid, lin_w + sid, g[4 * u + c], g2[4 * u + c], p);
+            }
+          }
+        }
+      }
+      if (lane < 0) {
+        float g, g2;
+        linear_sums(perm, gg2_lin, s, end, ln, g, g2);
+        if (ln == 0) ftrl_step(lin_n + sid, lin_z + sid, lin_w + sid, g, g2, p);
+      }
+    }
+  }
+}
+
+// Dynamic shared memory of ftrl_update_hot: the ring of payload slices
+// [kRing][kChunkRows][g slice | g^2 slice], then the gg2_lin pairs
+// [kRing][kChunkRows][2].
+constexpr size_t kRingElems = static_cast<size_t>(kRing) * kChunkRows * 2 * kSlice;
+template <typename P>
+constexpr size_t hot_bytes() {
+  return kRingElems * sizeof(P) + static_cast<size_t>(kRing) * kChunkRows * 2 * 4;
+}
+
+template <typename P, typename W>
+__global__ void __launch_bounds__(kThreads)
+ftrl_update_hot(const int* __restrict__ sids, const long long* __restrict__ perm, int N,
+                const P* __restrict__ gg2, const float* __restrict__ gg2_lin, float* vec_n,
+                float* vec_z, W* vec_w, float* lin_n, float* lin_z, float* lin_w, int E,
+                int lane, Ftrl p, const int* __restrict__ hot) {
+  extern __shared__ float smem[];
+  __shared__ int seg_end;
+  P* ring = reinterpret_cast<P*>(smem);
+  float* lring = reinterpret_cast<float*>(ring + kRingElems);
+  const int count = hot[0];
+  const int slices = E > 0 ? (E + kSlice - 1) / kSlice : 1;
+  const int ln = threadIdx.x & 31;
+  const int pr = threadIdx.x >> 2;   // the chunk row this thread copies
+  const int part = threadIdx.x & 3;  // its quads: g 0-3, g 4-7, g^2 0-3, g^2 4-7
+  const size_t w2 = 2 * static_cast<size_t>(E);
+  for (int unit = blockIdx.x; unit < count * slices; unit += gridDim.x) {
+    const int seg = unit / slices;
+    const int slice = unit - seg * slices;
+    const int s = hot[1 + seg];
+    const int sid = sids[s];
+    if (threadIdx.x < 32) {
+      // the segment's end by a 32-way search: sids[lo] == sid, and hi == N
+      // or sids[hi] != sid
+      int lo = s, hi = N;
+      while (hi - lo > 1) {
+        const int step = (hi - lo + 31) / 32;
+        const int q = lo + (ln + 1) * step;
+        const int k = __popc(__ballot_sync(kFull, q < hi && sids[q] == sid));
+        hi = min(hi, lo + (k + 1) * step);
+        lo += k * step;
+      }
+      if (ln == 0) seg_end = hi;
+    }
+    __syncthreads();
+    const int end = seg_end;
+    const int col0 = slice * kSlice;
+    const bool lin_here = lane < 0 && slice == 0;
+    const int chunks = (end - s + kChunkRows - 1) / kChunkRows;
+    // the payload row this thread copies in chunk ci (-1: none)
+    auto row_of = [&](int ci) -> long long {
+      const int q = s + ci * kChunkRows + pr;
+      return ci < chunks && q < end ? perm[q] : -1;
+    };
+    // start the copies of chunk ci from payload row `row` (one commit group,
+    // empty past the end)
+    auto start_copies = [&](int ci, long long row) {
+      if (row >= 0) {
+        const size_t src = static_cast<size_t>(row);
+        const int at = (ci % kRing) * kChunkRows + pr;
+        if (E > 0) {
+          const P* from = gg2 + src * w2 + (part >= 2 ? E : 0) + col0;
+          P* to = ring + at * 2 * kSlice + (part >= 2 ? kSlice : 0);
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const int c4 = 4 * ((part & 1) * 4 + h);
+            if (col0 + c4 < E) cp_quad(to + c4, from + c4);
+          }
+        }
+        if (lin_here && part == 0) cp_async8(lring + 2 * at, gg2_lin + 2 * src);
+      }
+      cp_async_commit();
+    };
+    for (int ci = 0; ci < kRing - 1; ++ci) start_copies(ci, row_of(ci));
+    // each perm entry is loaded one chunk before its copy starts, so its
+    // latency hides behind the barriers and the sums
+    long long next = row_of(kRing - 1);
+    float g = 0.f, g2 = 0.f;
+    for (int ci = 0; ci < chunks; ++ci) {
+      start_copies(ci + kRing - 1, next);
+      next = row_of(ci + kRing);
+      cp_async_wait<kRing - 1>();
+      __syncthreads();
+      const int rows = min(kChunkRows, end - s - ci * kChunkRows);
+      const int slot = (ci % kRing) * kChunkRows;
+      if (threadIdx.x < 32) {
+        if (col0 + ln < E) {
+          const P* col = ring + slot * 2 * kSlice + ln;
+#pragma unroll 8
+          for (int r = 0; r < rows; ++r) {
+            g = accumulate(g, col[r * 2 * kSlice]);
+            g2 = accumulate(g2, col[r * 2 * kSlice + kSlice]);
+          }
+        }
+      } else if (threadIdx.x == 32 && lin_here) {
+        const float* pairs = lring + 2 * slot;
+        for (int r = 0; r < rows; ++r) {
+          g += pairs[2 * r];
+          g2 += pairs[2 * r + 1];
+        }
+      }
+      __syncthreads();
+    }
+    const int c = col0 + ln;
+    if (threadIdx.x < 32 && c < E) {
+      const size_t row = static_cast<size_t>(sid) * E;
+      ftrl_step(vec_n + row + c, vec_z + row + c, vec_w + row + c, g, g2, p);
+      if (c == lane) ftrl_step(lin_n + sid, lin_z + sid, lin_w + sid, g, g2, p);
+    } else if (threadIdx.x == 32 && lin_here) {
+      ftrl_step(lin_n + sid, lin_z + sid, lin_w + sid, g, g2, p);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 za_scatter_kernel(const int* __restrict__ sids, const long long* __restrict__ perm, int N,
                   const float* __restrict__ g, const float* __restrict__ g2,
@@ -209,14 +566,66 @@ int segment_blocks(int N) {
   return blocks > 4096 ? 4096 : blocks;
 }
 
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The current device and its SM count, read from the runtime once per device.
+cudaError_t device_sms(int* dev, int* sms) {
+  static int cache[kMaxDevices] = {};
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if (*dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cache[*dev] == 0) {
+    err = cudaDeviceGetAttribute(&cache[*dev], cudaDevAttrMultiProcessorCount, *dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = cache[*dev];
+  return cudaSuccess;
+}
+
 template <typename P, typename W>
 int launch_update(const int* sids, const long long* perm, int N, const void* gg2,
                   const float* gg2_lin, float* vec_n, float* vec_z, void* vec_w, float* lin_n,
-                  float* lin_z, float* lin_w, int R, int E, int lane, Ftrl p,
+                  float* lin_z, float* lin_w, int R, int E, int lane, Ftrl p, int* hot,
                   cudaStream_t stream) {
-  ftrl_update_kernel<P, W><<<segment_blocks(N), kThreads, 0, stream>>>(
-      sids, perm, N, static_cast<const P*>(gg2), gg2_lin, vec_n, vec_z, static_cast<W*>(vec_w),
-      lin_n, lin_z, lin_w, R, E, lane, p);
+  const P* pay = static_cast<const P*>(gg2);
+  W* w = static_cast<W*>(vec_w);
+  // quads need 4-column groups at 16-byte (f32) or 8-byte (bf16) addresses
+  const bool quads = E % 4 == 0 && aligned(pay, 4 * sizeof(P)) && aligned(vec_n, 16) &&
+                     aligned(vec_z, 16) && aligned(w, 4 * sizeof(W)) && aligned(gg2_lin, 8);
+  if (!quads) {
+    ftrl_update_scalar<P, W><<<segment_blocks(N), kThreads, 0, stream>>>(
+        sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n, lin_z, lin_w, R, E, lane, p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = device_sms(&dev, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // once per device: the main kernel's blocks per SM (its persistent grid
+  // fills the card once), and the hot kernel's shared memory allowance
+  // (above the 48 KB default for f32)
+  static int per_sm[kMaxDevices] = {};
+  constexpr size_t bytes = hot_bytes<P>();
+  if (per_sm[dev] == 0) {
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ftrl_update_kernel<P, W>,
+                                                        kThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(&ftrl_update_hot<P, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    per_sm[dev] = blocks > 0 ? blocks : 1;
+  }
+  const int tiles = (N + 31) / 32;
+  const int needed = (tiles + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int grid = needed < per_sm[dev] * sms ? needed : per_sm[dev] * sms;
+  ftrl_update_kernel<P, W><<<grid, kThreads, 0, stream>>>(
+      sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n, lin_z, lin_w, R, E, lane, p, hot);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ftrl_update_hot<P, W><<<2 * sms, kThreads, bytes, stream>>>(
+      sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n, lin_z, lin_w, E, lane, p, hot);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -224,30 +633,38 @@ int launch_update(const int* sids, const long long* perm, int N, const void* gg2
 
 extern "C" {
 
+// Ints of the zeroed scratch ftrl_update_launch takes for N payload rows:
+// a count and the starts of at most N / (kHotRows + 1) long segments.
+int ftrl_update_scratch_ints(int N) { return 1 + N / (kHotRows + 1); }
+
+// Payload rows above which a segment is summed by columns (ftrl_update_hot).
+int ftrl_update_hot_rows() { return kHotRows; }
+
 // Launch on `stream`: sids [N] int32 sorted stably, perm [N] int64, gg2
 // [N, 2E] (f32, or bf16 when payload_bf16), gg2_lin [N, 2] f32 (read only
 // when lane < 0), vec tables [R, E] (unused when E = 0; vec_w f32, or bf16
-// when w_bf16) and lin tables [R] updated in place, all contiguous on the
-// current device.  Returns the CUDA error of the launch (0 on success).
+// when w_bf16) and lin tables [R] updated in place, hot
+// [ftrl_update_scratch_ints(N)] int32 zeroed, all contiguous on the
+// current device.  Returns the CUDA error of the launches (0 on success).
 int ftrl_update_launch(const int* sids, const long long* perm, int N, const void* gg2,
                        const float* gg2_lin, float* vec_n, float* vec_z, void* vec_w,
                        float* lin_n, float* lin_z, float* lin_w, int R, int E, int lane,
                        int payload_bf16, int w_bf16, float alpha, float beta, float l1,
-                       float l2, void* stream) {
+                       float l2, int* hot, void* stream) {
   if (N == 0) return 0;
   const Ftrl p{alpha, beta, l1, l2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   if (payload_bf16) {
     return w_bf16 ? launch_update<bf16, bf16>(sids, perm, N, gg2, gg2_lin, vec_n, vec_z, vec_w,
-                                              lin_n, lin_z, lin_w, R, E, lane, p, s)
+                                              lin_n, lin_z, lin_w, R, E, lane, p, hot, s)
                   : launch_update<bf16, float>(sids, perm, N, gg2, gg2_lin, vec_n, vec_z,
-                                               vec_w, lin_n, lin_z, lin_w, R, E, lane, p, s);
+                                               vec_w, lin_n, lin_z, lin_w, R, E, lane, p, hot, s);
   }
   return w_bf16 ? launch_update<float, bf16>(sids, perm, N, gg2, gg2_lin, vec_n, vec_z, vec_w,
-                                             lin_n, lin_z, lin_w, R, E, lane, p, s)
+                                             lin_n, lin_z, lin_w, R, E, lane, p, hot, s)
                 : launch_update<float, float>(sids, perm, N, gg2, gg2_lin, vec_n, vec_z, vec_w,
-                                              lin_n, lin_z, lin_w, R, E, lane, p, s);
+                                              lin_n, lin_z, lin_w, R, E, lane, p, hot, s);
 }
 
 // Launch on `stream`: sids [N] int32 sorted stably, perm [N] int64, g and

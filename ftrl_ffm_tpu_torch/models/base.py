@@ -163,12 +163,16 @@ class Model:
         rows = state.lin_w.shape[0]
         return state.lin_w[feats.clamp(0, rows - 1)]
 
-    def _gather_vec(self, state: ModelState, feats: torch.Tensor) -> torch.Tensor:
+    def _gather_vec(self, state: ModelState, feats: torch.Tensor,
+                    widen: bool = True) -> torch.Tensor:
         """The rows of feats, widened to f32 (a bf16 table's rows too: the
-        kernels read f32 rows)."""
+        training kernel reads f32 rows); with widen=False in the table's
+        dtype (the eval kernel widens bf16 rows itself)."""
         rows = state.vec_w.shape[0]
         v = state.vec_w.index_select(0, feats.reshape(-1).clamp(0, rows - 1))
-        return v.to(torch.float32).reshape(*feats.shape, -1)
+        if widen:
+            v = v.to(torch.float32)
+        return v.reshape(*feats.shape, -1)
 
     def bias_weight(self, state: ModelState) -> torch.Tensor:
         return ftrl_weights(state.bias_n, state.bias_z, self.params)

@@ -88,8 +88,9 @@ class FFM(Model):
 
     def _logits_and_grads(self, state: ModelState, batch: Batch, train: bool):
         if not train:
-            # flat [B*F, E] gather: one row-major stream into the kernel
-            v = self._gather_vec(state, batch.feats.reshape(-1))
+            # flat [B*F, E] gather: one row-major stream into the kernel,
+            # which reads a bf16 table's rows as they are
+            v = self._gather_vec(state, batch.feats.reshape(-1), widen=False)
             w = self._w_lin_from_rows(state, v, batch, self._lin_read_lane())
             lin = linear_logits(w, batch.vals, self.bias_weight(state))
             logits = ffm_fused_logits(

@@ -71,17 +71,19 @@ def _so_path(sources: list[str]) -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
-    lib.ffm_logits_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.ffm_logits_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p, ctypes.POINTER(i)]
     lib.ffm_logits_launch.restype = i
-    lib.ffm_logits_stages.argtypes = [i, i]
-    lib.ffm_logits_stages.restype = i
     lib.ffm_fused_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p,
                                      ctypes.POINTER(i)]
     lib.ffm_fused_launch.restype = i
     lib.ftrl_update_launch.argtypes = [
-        p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, f, p,
+        p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, f, p, p,
     ]
     lib.ftrl_update_launch.restype = i
+    lib.ftrl_update_scratch_ints.argtypes = [i]
+    lib.ftrl_update_scratch_ints.restype = i
+    lib.ftrl_update_hot_rows.argtypes = []
+    lib.ftrl_update_hot_rows.restype = i
     lib.za_scatter_launch.argtypes = [p, p, i, p, p, p, p, i, i, p]
     lib.za_scatter_launch.restype = i
     lib.ftrl_pass_launch.argtypes = [p, p, p, p, n, i, f, f, f, f, p]

@@ -6,7 +6,7 @@ For CUDA tensors it launches its hand-written kernel (csrc/ffm_logits.cu,
 csrc/ffm_fused.cu) or raises; for CPU tensors it runs its `*_plain` version,
 the plain PyTorch form that the tests hold against the JAX package and the
 card holds the kernel against.  Each entry point counts its launches in its
-`launches` attribute; the training one also by kernel instance, in
+`launches` attribute, and by kernel instance and dtype in
 `launches_by_instance`.
 """
 
@@ -50,25 +50,32 @@ def ffm_fused_logits_plain(
     n_factors: int,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: ops/interactions.py::ffm_logits
-    on the [B, F, E] view of the rows."""
+    on the [B, F, E] view of the rows, widened to f32 first (a bf16
+    table's rows, as ftrl_ffm_tpu/models/base.py widens them)."""
     b, f = fields.shape
-    return ffm_logits(v.reshape(b, f, -1), fields, vals, lin, n_fields, n_factors)
+    return ffm_logits(v.float().reshape(b, f, -1), fields, vals, lin, n_fields, n_factors)
 
 
 def ffm_fused_logits(
-    v: torch.Tensor,       # [B*F, E] gathered factor rows (factor-major)
+    v: torch.Tensor,       # [B*F, E] gathered factor rows (factor-major), f32 or bf16
     fields: torch.Tensor,  # [B, F] int32
     vals: torch.Tensor,    # [B, F] f32
     lin: torch.Tensor,     # [B] bias + linear logits
     n_fields: int,         # the rows' field stride C' (Config.field_pad)
     n_factors: int,
 ) -> torch.Tensor:
-    """Inference-only FFM logits [B] — the serving/eval hot path."""
+    """Inference-only FFM logits [B] — the serving/eval hot path.  bf16
+    rows (a bf16 table's, gathered as they are) are widened inside the
+    kernel: the logits equal those of the f32 rows they widen to."""
+    if v.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"ffm_fused_logits: v is {v.dtype}, expect torch.float32 or "
+                         "torch.bfloat16")
     if _device_kind("ffm_fused_logits", v) == "cpu":
         return ffm_fused_logits_plain(v, fields, vals, lin, n_fields, n_factors)
     b, f = fields.shape
+    bf16 = v.dtype == torch.bfloat16
     _check_inputs("ffm_fused_logits", v, (
-        ("v", v, (b * f, n_fields * n_factors), torch.float32),
+        ("v", v, (b * f, n_fields * n_factors), v.dtype),
         ("fields", fields, (b, f), torch.int32),
         ("vals", vals, (b, f), torch.float32),
         ("lin", lin, (b,), torch.float32),
@@ -77,16 +84,24 @@ def ffm_fused_logits(
 
     lib = _build.lib()
     out = torch.empty((b,), dtype=torch.float32, device=v.device)
-    if b == 0:
-        return out
+    instance = ctypes.c_int(-2)  # the launcher writes the instance it picks
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         code = lib.ffm_logits_launch(
             v.data_ptr(), fields.data_ptr(), vals.data_ptr(), lin.data_ptr(),
-            out.data_ptr(), b, f, n_fields, n_factors, stream,
+            out.data_ptr(), b, f, n_fields, n_factors, int(bf16), stream,
+            ctypes.byref(instance),
+        )
+    if instance.value == -1:
+        raise ValueError(
+            f"ffm_fused_logits: no kernel instance takes F={f}, C'={n_fields}, K={n_factors}"
         )
     _build.check(code, "ffm_logits_launch")
+    if b == 0:
+        return out
     ffm_fused_logits.launches += 1
+    name = INSTANCES[instance.value] + ("_bf16" if bf16 else "")
+    ffm_fused_logits.launches_by_instance[name] += 1
     return out
 
 
@@ -195,24 +210,26 @@ def ffm_fused_logits_grads(
         )
     _build.check(code, "ffm_fused_launch")
     ffm_fused_logits_grads.launches += 1
-    name = FUSED_INSTANCES[instance.value] + ("_bf16" if bf16 else "")
+    name = INSTANCES[instance.value] + ("_bf16" if bf16 else "")
     ffm_fused_logits_grads.launches_by_instance[name] += 1
     return logits, *payload
 
 
-# csrc/ffm_fused.cu's kernel instances, by the code its launcher reports:
-# the one specialised to C'=40, K=16, F <= 40 (the bench's shape), and the
-# general one with its rows in shared or in device memory; each has an f32
-# and a bf16 store, counted apart (the bf16 ones under "<name>_bf16")
-FUSED_INSTANCES = {2: "c40_k16", 1: "general", 0: "general_device_memory"}
+# The kernel instances of csrc/ffm_logits.cu and csrc/ffm_fused.cu, by the
+# code their launchers report: the one specialised to C'=40, K=16, F <= 40
+# (the bench's shape), and the general one with its rows in shared or in
+# device memory.  Each has an f32 and a bf16 form (kernel #1's bf16 rows,
+# kernel #2's bf16 store), counted apart under "<name>_bf16".
+INSTANCES = {2: "c40_k16", 1: "general", 0: "general_device_memory"}
 
 
 # Kernel launches since the count was last set to 0 (chip_smoke.py reads
-# them to show that a path went through the kernels).
+# them to show that a path went through the kernels), and the same
+# launches by kernel instance and dtype.
 ffm_fused_logits.launches = 0
 ffm_fused_logits_grads.launches = 0
-# the same launches by kernel instance and payload dtype (FUSED_INSTANCES'
-# names, "_bf16" added for the bf16 store)
-ffm_fused_logits_grads.launches_by_instance = dict.fromkeys(
-    [*FUSED_INSTANCES.values(), *(f"{n}_bf16" for n in FUSED_INSTANCES.values())], 0
-)
+for _fn in (ffm_fused_logits, ffm_fused_logits_grads):
+    _fn.launches_by_instance = dict.fromkeys(
+        [*INSTANCES.values(), *(f"{n}_bf16" for n in INSTANCES.values())], 0
+    )
+del _fn

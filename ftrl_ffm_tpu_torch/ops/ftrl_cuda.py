@@ -14,7 +14,9 @@ by the dtypes of the kernel instance that ran in `launches_by_dtype`.
   from their own [N, 2] payload `gg2_lin`, as in
   ftrl_ffm_tpu/models/base.py's separate linear update.  On the card it is
   the deterministic touched-rows kernel for every update kind ("dense2" and
-  "sparse2" differ only in their plain versions).  `ftrl_update_linear` is
+  "sparse2" differ only in their plain versions); an id with more than 64
+  payload rows (kHotRows there: one id in most rows of a batch) is summed
+  split by columns in a second kernel, with the same bits.  `ftrl_update_linear` is
   the same kernel on the linear tables alone.
 - `ftrl_update_inplace`: the huge-table form
   (ftrl_ffm_tpu/ftrl.py::dense_ftrl_update_inplace) from a split payload:
@@ -117,13 +119,16 @@ def _launch_update(what, ids, gg2, gg2_lin, tables, r: int, e: int, lane: int, p
     # stable: a row's payload rows stay in ascending order, which fixes the
     # order of its float sums
     sids, perm = torch.sort(ids, stable=True)
+    # the list of segments too long for one warp, which the kernel fills
+    # and its column-split second kernel reads (a count, then starts)
+    hot = torch.zeros(lib.ftrl_update_scratch_ints(n), dtype=torch.int32, device=ids.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     dtypes = _short(gg2), _short(tables[2])  # the payload's and vec_w's
     with torch.cuda.device(ids.device):
         code = lib.ftrl_update_launch(
             sids.data_ptr(), perm.data_ptr(), n, ptr(gg2), ptr(gg2_lin),
             *(ptr(t) for t in tables), r, e, lane, *(int(d == "bf16") for d in dtypes),
-            p.alpha, p.beta, p.l1, p.l2, _stream(ids),
+            p.alpha, p.beta, p.l1, p.l2, hot.data_ptr(), _stream(ids),
         )
     _build.check(code, what)
     ftrl_update.launches += 1

@@ -293,6 +293,36 @@ def test_chained_train_steps_match_jax(interpret, shape, kind, table_dtype, acc_
     assert int(t_state.step) == int(j_state.step) == 3
 
 
+@pytest.mark.parametrize("shape", [SEVEN, EIGHT], ids=["aug", "no_dead_lane"])
+def test_eval_hands_bf16_rows_to_the_logits_kernel(interpret, monkeypatch, shape):
+    """The eval path gathers a bf16 table's rows and hands them to the
+    logits kernel as they are (the kernel widens them itself, so no
+    widening pass runs before it); its logits match the JAX package's,
+    which widens the rows first (ftrl_ffm_tpu/models/base.py), through its
+    Pallas kernel in interpret mode: rtol=L_RTOL, atol=L_ATOL."""
+    import ftrl_ffm_tpu_torch.models.ffm as tffm
+
+    seen = []
+    real = tffm.ffm_fused_logits
+
+    def spy(v, *args):
+        seen.append(v.dtype)
+        return real(v, *args)
+
+    monkeypatch.setattr(tffm, "ffm_fused_logits", spy)
+    b, f, r, c = shape["batch_size"], 6, shape["n_feats"], shape["n_fields"]
+    kw = dict(max_nnz=f, table_dtype="bfloat16", **shape)
+    jm = j_make_model(JConfig(use_pallas="on", **kw))
+    tm = t_make_model(TConfig(device="cpu", **kw))
+    j_state = jm.init()
+    t_state = state_from_jax_arrays(j_state, "cpu")
+    arrays = _batch(np.random.default_rng(3), b, f, c, r)
+    got = tm.predict_logits(t_state, TBatch(*(torch.from_numpy(a) for a in arrays)))
+    ref = jm.predict_logits(j_state, JBatch(*(jnp.asarray(a) for a in arrays)))
+    assert seen == [torch.bfloat16]
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=L_RTOL, atol=L_ATOL)
+
+
 def test_init_stores_table_dtype():
     """Model.init draws vec_w in f32 and stores it in table_dtype: the bf16
     table is the f32 init rounded, dead lanes zero, n and z f32."""

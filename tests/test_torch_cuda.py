@@ -616,6 +616,181 @@ def test_ftrl_update_kernel_bf16_matches_plain_and_repeats(r, e, n, lane, pay, w
         assert torch.equal(got, again)
 
 
+# (R, E, N, lane, payload dtype, w dtype): rows with one hot id (60% of the
+# payload rows, ~1,200-1,800: far above the 64 rows one warp sums), the
+# rest spread; E a whole number of 32-column slices and not (80), the
+# bench's row, with and without a dead lane
+UPDATE_HOT = [
+    (64, 640, 2000, 39, torch.float32, torch.float32),
+    (64, 640, 2000, 39, torch.bfloat16, torch.bfloat16),
+    (64, 80, 3000, 7, torch.bfloat16, torch.float32),
+    (64, 80, 3000, 7, torch.float32, torch.bfloat16),
+    (64, 128, 3000, -1, torch.float32, torch.float32),
+    (64, 128, 3000, -1, torch.bfloat16, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,e,n,lane,pay,wdt", UPDATE_HOT)
+def test_ftrl_update_kernel_column_split_matches_plain_and_repeats(r, e, n, lane, pay, wdt):
+    """An id in most payload rows takes the column-split kernel: against the
+    plain version as test_ftrl_update_kernel_bf16_matches_plain_and_repeats
+    holds it (a bf16 payload bit for bit on the same card tensors; an f32
+    payload rtol=1e-5, atol=1e-6 against CPU copies, a bf16 w within one
+    bf16 ulp); untouched rows and repeats bit-identical."""
+    dev = _card()
+    from ftrl_ffm_tpu_torch.ops import _build
+
+    tables, ids, gg2, gg2_lin, p = _update_inputs(dev, r, e, n, lane, r + e + n + 2)
+    hot = np.random.default_rng(n).random(n) < 0.6
+    ids[torch.from_numpy(hot).to(dev)] = 5
+    assert int((ids == 5).sum()) > _build.lib().ftrl_update_hot_rows()
+    tables[2] = tables[2].to(wdt)
+    gg2 = gg2.to(pay)
+    runs = []
+    for _ in range(2):
+        got = [t.clone() for t in tables]
+        ftrl_update(*got, ids, gg2, lane, p, gg2_lin)
+        torch.cuda.synchronize()
+        runs.append(got)
+    on = (lambda t: t) if pay == torch.bfloat16 else (lambda t: None if t is None else t.cpu())
+    vec, lin = ftrl_update_plain(*map(on, tables), on(ids), on(gg2), lane, p, on(gg2_lin))
+    touched = torch.zeros(r, dtype=torch.bool, device=dev)
+    touched[ids[ids < r].long()] = True
+    for i, (got, want, before, again) in enumerate(zip(runs[0], (*vec, *lin), tables, runs[1])):
+        g_t, w_t = got[touched].cpu(), want[touched.to(want.device)].cpu()
+        if pay == torch.bfloat16 and (i < 3 or lane >= 0):
+            assert torch.equal(g_t, w_t), i
+        elif i == 2 and wdt == torch.bfloat16:
+            assert within_bf16_ulp(g_t, w_t, 1e-6), i
+        else:
+            np.testing.assert_allclose(g_t.float().numpy(), w_t.float().numpy(),
+                                       rtol=1e-5, atol=1e-6)
+        assert torch.equal(got[~touched], before[~touched])
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_ftrl_update_linear_column_split_matches_plain():
+    """The linear-only update (E = 0) with an id in most payload rows: its
+    gg2_lin pairs summed in the column-split kernel, against the plain
+    dense step on CPU copies (index_add_ in payload order): rtol=1e-5,
+    atol=1e-6; repeats bit-identical."""
+    from ftrl_ffm_tpu_torch.ftrl import dense_ftrl_update2
+    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update_linear
+
+    dev = _card()
+    rng = np.random.default_rng(11)
+    r, n = 50, 4000
+    p = FtrlParams(alpha=0.05, l1=0.15, l2=1.0)
+    lin = _update_inputs(torch.device("cpu"), r, 1, 1, 0, 5)[0][3:]
+    ids = rng.integers(0, r - 3, n).astype(np.int32)
+    ids[rng.random(n) < 0.7] = 9
+    ids[rng.random(n) < 0.05] = r
+    gl = (rng.normal(size=n) * 0.2).astype(np.float32)
+    gg2_lin = torch.from_numpy(np.stack([gl, gl * gl], -1))
+    runs = []
+    for _ in range(2):
+        got = [t.clone().to(dev) for t in lin]
+        ftrl_update_linear(*got, torch.from_numpy(ids).to(dev), gg2_lin.to(dev), p)
+        torch.cuda.synchronize()
+        runs.append(got)
+    want = dense_ftrl_update2(*lin, torch.from_numpy(ids), gg2_lin, p)
+    for got, ref, again in zip(runs[0], want, runs[1]):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-5, atol=1e-6)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,c,k,real", SHAPES)
+def test_ffm_logits_kernel_bf16_rows_match_plain(b, f, c, k, real):
+    """bf16 rows on the shapes of test_ffm_logits_kernel_matches_plain:
+    against the plain version (rtol=1e-4, atol=1e-5), counted under the
+    same instance as the f32 rows' launch with "_bf16" added, and bit for
+    bit the f32 launch on the rows they widen to."""
+    dev = _card()
+    rng = np.random.default_rng(b * f + c + 5)
+    v = (rng.normal(size=(b * f, c * k)) * 0.1).astype(np.float32)
+    fields = rng.integers(0, real, (b, f)).astype(np.int32)
+    fields[:, 0] = c + 3
+    vals = rng.random((b, f)).astype(np.float32)
+    vals[:, -1] = 0.0
+    vals[-1] = 0.0
+    lin = (rng.normal(size=(b,)) * 0.1).astype(np.float32)
+    vh, *rest = [torch.from_numpy(a).to(dev) for a in (v, fields, vals, lin)]
+    vh = vh.to(torch.bfloat16)
+    counts = ffm_fused_logits.launches_by_instance
+    before = dict(counts)
+    wide = ffm_fused_logits(vh.float(), *rest, c, k)
+    mid = dict(counts)
+    got = ffm_fused_logits(vh, *rest, c, k)
+    torch.cuda.synchronize()
+    (name,) = [n for n in counts if mid[n] > before[n]]
+    assert {n: counts[n] - mid[n] for n in counts} == {n: int(n == name + "_bf16") for n in counts}
+    assert torch.equal(got, wide)
+    want = ffm_fused_logits_plain(vh, *rest, c, k)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [39, 40, 13])
+@pytest.mark.parametrize("b", [1, 33, 256, 1000])
+def test_ffm_logits_c40_instance_matches_plain(b, f, dtype):
+    """Kernel #1's C'=40, K=16 instance (a persistent grid: B=1000 walks
+    several samples a block) on spec_fused_inputs' shuffled, repeated,
+    out-of-range and padding fields: against the plain version (rtol=1e-4,
+    atol=1e-5), launched as c40_k16 (bf16 rows: c40_k16_bf16, bit for bit
+    the f32 rows they widen to), and the same call twice gives the same
+    bits."""
+    dev = _card()
+    v, fields, vals, lin = [torch.from_numpy(a).to(dev)
+                            for a in spec_fused_inputs(b, f, 3 * b + f)[:4]]
+    v = v.to(dtype)
+    counts = ffm_fused_logits.launches_by_instance
+    name = "c40_k16" if dtype == torch.float32 else "c40_k16_bf16"
+    before = dict(counts)
+    got = [ffm_fused_logits(v, fields, vals, lin, 40, 16) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {n: counts[n] - before[n] for n in counts} == {n: 2 * (n == name) for n in counts}
+    assert torch.equal(got[0], got[1])
+    want = ffm_fused_logits_plain(v, fields, vals, lin, 40, 16)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-5)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got[0], ffm_fused_logits(v.float(), fields, vals, lin, 40, 16))
+
+
+@pytest.mark.cuda
+def test_ffm_logits_instance_follows_the_shape():
+    """C'=40, K=16, F <= 40 with 16-byte aligned rows runs the C'=40
+    instance; F=64, C'=8, K=8 or rows 4 bytes off alignment the general
+    one, F=100 the general one on rows in device memory; each launch counts
+    once, under its instance."""
+    dev = _card()
+    counts = ffm_fused_logits.launches_by_instance
+    # (B, F, C', K, offset, instance)
+    for b, f, c, k, off, name in ((64, 39, 40, 16, 0, "c40_k16"), (17, 64, 40, 16, 0, "general"),
+                                  (16, 7, 8, 16, 0, "general"), (16, 10, 40, 8, 0, "general"),
+                                  (64, 39, 40, 16, 1, "general"),
+                                  (9, 100, 40, 16, 0, "general_device_memory")):
+        rng = np.random.default_rng(f + off)
+        buf = torch.from_numpy(
+            (rng.normal(size=b * f * c * k + off) * 0.1).astype(np.float32)).to(dev)
+        v = buf[off:].view(b * f, c * k)
+        fields = torch.from_numpy(rng.integers(0, c, (b, f)).astype(np.int32)).to(dev)
+        vals = torch.from_numpy(rng.random((b, f)).astype(np.float32)).to(dev)
+        lin = torch.zeros(b, device=dev)
+        before, total = dict(counts), ffm_fused_logits.launches
+        got = ffm_fused_logits(v, fields, vals, lin, c, k)
+        torch.cuda.synchronize()
+        assert ffm_fused_logits.launches == total + 1
+        assert {n: counts[n] - before[n] for n in counts} == {
+            n: int(n == name) for n in counts
+        }, (b, f, c, k, off)
+        want = ffm_fused_logits_plain(v, fields, vals, lin, c, k)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,e,offset", [(41, 6, 0), (333, 15, 0), (64, 640, 0), (97, 128, 1),
                                         (1001, 1, 0)])

@@ -63,6 +63,36 @@ def test_plain_matches_pallas_interpret(b, f, c, k, lane, real):
 
 
 @pytest.mark.parametrize("b,f,c,k,lane,real", CASES)
+def test_bf16_rows_match_pallas_interpret_on_widened_rows(b, f, c, k, lane, real):
+    """bf16 rows (a bf16 table's, gathered as they are) against the JAX
+    package's Pallas kernel in interpret mode on the same rows widened to
+    f32, as ftrl_ffm_tpu/models/base.py widens them before that kernel:
+    rtol=1e-5, atol=1e-6 as above; and bit for bit the port's logits of
+    the widened f32 rows (the plain version widens, then sums)."""
+    v, fields, vals, lin = _inputs(b, f, c, k, 8, lane, real)
+    vh = torch.from_numpy(v).to(torch.bfloat16)
+    wide = vh.float().numpy()
+    ref = jax_fused_logits(
+        jnp.asarray(wide), jnp.asarray(fields), jnp.asarray(vals), jnp.asarray(lin),
+        c, k, block_b=8, interpret=True,
+    )
+    got = ffm_fused_logits(
+        vh, torch.from_numpy(fields), torch.from_numpy(vals), torch.from_numpy(lin), c, k,
+    ).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(got, _plain(wide, fields, vals, lin, c, k))
+
+
+def test_rows_of_another_dtype_raise():
+    v, fields, vals, lin = _inputs(4, 3, 4, 4, 9)
+    with pytest.raises(ValueError, match="float64"):
+        ffm_fused_logits(
+            torch.from_numpy(v).double(), torch.from_numpy(fields), torch.from_numpy(vals),
+            torch.from_numpy(lin), 4, 4,
+        )
+
+
+@pytest.mark.parametrize("b,f,c,k,lane,real", CASES)
 def test_plain_matches_xla_formulation(b, f, c, k, lane, real):
     v, fields, vals, lin = _inputs(b, f, c, k, 1, lane, real)
     ref, _ = ffm_logits_and_grads(
