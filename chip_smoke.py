@@ -10,8 +10,10 @@ factor-major rows and batches of 16,384 — serving a seeded random state of a
 the "dense2" update) and a fresh 1,000,000-row one (the README quick
 start's table, the huge-table "inplace" update) — on Criteo-shaped libffm
 files; then the probes of ftrl_ffm_tpu_torch/tools (the ports of the TPU
-probes in tools/micro_*.py) at the TPU probes' default sizes.  Phases,
-each printing its own lines:
+probes in tools/micro_*.py) at the TPU probes' default sizes; then
+bench.py's protocol from the device-resident dataset.  Phases 4-5 stream
+their files (device_cache="off"), phase 7 reads them from device memory.
+Phases, each printing its own lines:
 
   1. no card      -> exit 1 at once, no result printed
   2. build        -> nvcc builds every kernel from csrc/ (build seconds)
@@ -87,12 +89,27 @@ each printing its own lines:
                      RMW kernels and index_add also in device time (calls
                      replayed from a CUDA graph, the host's dispatch left
                      out: "device_ms" in their records)
+  7. resident     -> the device-resident dataset (Config.device_cache):
+                     evaluate() of phase 4's state and rows from device
+                     memory (kernel #1's launches; the streamed pass's loss
+                     and AUC bit for bit), the DEC6 decode over all 2^24
+                     keys against float64, then bench.py's protocol
+                     (400,000 rows of its generator, online, n_epochs=4,
+                     n_threads=3, one warm-up train_epoch() after the
+                     build, best of 3) at 100k, 100k-bf16 and 1M rows:
+                     examples/s, build seconds, device_cache, the launch
+                     counts set to 0 just before and read just after; the
+                     tables bit-identical to a streamed twin's, and at 100k
+                     to compact storage's; the offline shuffle's index
+                     table against a row uploaded a step; one epoch's step
+                     loop under torch.cuda.set_sync_debug_mode("error")
   6. profiles     -> after every timed phase (a profiler run may slow the
                      host's side for the rest of the process): the
                      torch.profiler breakdown by kernel of the train steps
-                     of 5b and 5c, and one traced train_epoch() at 100k and
-                     at 1M: the device's busy time (kernels, copies, fills)
-                     over the traced epoch's wall time
+                     of 5b and 5c, and one traced train_epoch() per
+                     training cell, streamed and resident: the device's
+                     busy time (kernels, copies, fills) over the traced
+                     epoch's wall time
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
@@ -127,6 +144,7 @@ N_FEATS = 1_000_000
 BATCH = 16384
 N_ROWS = 8 * BATCH  # 131,072 eval or train rows: 8 batches per pass
 TRAIN_FEATS = 100_000  # bench.py's table
+BENCH_ROWS = 400_000  # bench.py::ensure_data's rows
 RTOL, ATOL = 1e-4, 1e-5  # kernel against plain: f32 sums in another order
 GRAD_ATOL = 1e-6  # payload: the JAX suite's kernel-vs-XLA bound
 UPD_RTOL, UPD_ATOL = 1e-5, 1e-6  # update kernel against plain, touched rows
@@ -917,9 +935,11 @@ def main() -> int:
         t0 = time.perf_counter()
         write_criteo_like(data, N_ROWS, N_FEATS)
         print(f"serve: wrote {N_ROWS} Criteo-shaped rows in {time.perf_counter() - t0:.1f} s")
+        # phases 4-5 stream their files (device_cache="off"), as before the
+        # resident dataset existed; phase 7 drives the resident path
         cfg = Config(
             model_type="FFM", n_fields=N_FIELDS, n_factors=N_FACTORS, n_feats=N_FEATS,
-            batch_size=BATCH, eval_data=data, device="cuda", n_threads=4,
+            batch_size=BATCH, eval_data=data, device="cuda", n_threads=4, device_cache="off",
         )
         state = seeded_state(cfg, device, SEED)
         trainer = Trainer(cfg, state=state)
@@ -933,6 +953,7 @@ def main() -> int:
         t0 = time.perf_counter()
         loss, auc = trainer.evaluate()
         t_eval = time.perf_counter() - t0
+        serve_metrics = (loss, auc)
         n_pred = trainer.predict_file(data, preds)
         launches = ffm_fused_logits.launches
         serve_instances = dict(ffm_fused_logits.launches_by_instance)
@@ -979,7 +1000,7 @@ def main() -> int:
         tcfg = Config(
             model_type="FFM", n_fields=N_FIELDS, n_factors=N_FACTORS, n_feats=TRAIN_FEATS,
             batch_size=BATCH, train_data=train_p, eval_data=eval_p, n_epochs=2,
-            device="cuda", n_threads=4,
+            device="cuda", n_threads=4, device_cache="off",
         )
         ttrainer = Trainer(tcfg)
         tmodel = ttrainer.model
@@ -1104,7 +1125,7 @@ def main() -> int:
             passes.append(time.perf_counter() - t0)
         eps = [N_ROWS / t for t in passes]
         print(f"timing: eval_step on the device {dev_ms:.3f} ms/batch; host parse "
-              f"{parse_ms:.3f} ms/batch; evaluate() {eps} examples/s "
+              f"{parse_ms:.3f} ms/batch; evaluate() streamed {eps} examples/s "
               f"(n_feats={N_FEATS}, B={BATCH}, {N_ROWS} rows) [{where}]")
 
         # ---- 5b. training timings ----
@@ -1184,7 +1205,7 @@ def main() -> int:
             epochs.append(time.perf_counter() - t0)
         teps = [N_ROWS / t for t in epochs]
         print(f"timing: train_step on the device {step_ms:.3f} ms/batch; host parse "
-              f"{tparse_ms:.3f} ms/batch; train_epoch() {teps} examples/s "
+              f"{tparse_ms:.3f} ms/batch; train_epoch() streamed {teps} examples/s "
               f"(n_feats={TRAIN_FEATS}, B={BATCH}, {N_ROWS} rows) [{where}]")
 
         # ---- 4d. bf16 tables and payload through the entry points ----
@@ -1318,7 +1339,7 @@ def main() -> int:
             epochs.append(time.perf_counter() - t0)
         heps = [N_ROWS / t for t in epochs]
         print(f"timing: bf16 train_step on the device {hstep_ms:.3f} ms/batch (f32 "
-              f"{step_ms:.3f}); train_epoch() {heps} examples/s (n_feats={TRAIN_FEATS}, "
+              f"{step_ms:.3f}); train_epoch() streamed {heps} examples/s (n_feats={TRAIN_FEATS}, "
               f"B={BATCH}, table and payload bf16) [{where}]")
 
         # ---- 4c. training the 1M-row table through the entry points ----
@@ -1337,7 +1358,7 @@ def main() -> int:
         bcfg = Config(
             model_type="FFM", n_fields=N_FIELDS, n_factors=N_FACTORS, n_feats=N_FEATS,
             batch_size=BATCH, train_data=big_p, eval_data=big_e, n_epochs=2,
-            device="cuda", n_threads=4,
+            device="cuda", n_threads=4, device_cache="off",
         )
         btrainer = Trainer(bcfg)
         bmodel = btrainer.model
@@ -1512,7 +1533,7 @@ def main() -> int:
         beps = [N_ROWS / t for t in epochs]
         print(f"timing: train_step on the device at 1M: inplace {step['inplace']} ms/batch, "
               f"dense {step['dense']} ms/batch; host parse {bparse_ms:.3f} ms/batch; "
-              f"train_epoch() {beps} examples/s (n_feats={N_FEATS}, B={BATCH}, {N_ROWS} "
+              f"train_epoch() streamed {beps} examples/s (n_feats={N_FEATS}, B={BATCH}, {N_ROWS} "
               f"rows, inplace) [{where}]")
 
         # ---- 4e. the 1M-row table with a bf16 w through the entry points ----
@@ -1660,7 +1681,7 @@ def main() -> int:
             epochs.append(time.perf_counter() - t0)
         eeps = [N_ROWS / t for t in epochs]
         print(f"timing: bf16 train_step on the device at 1M (inplace): {estep_ms} ms/batch (f32 "
-              f"{step['inplace']}); train_epoch() {eeps} examples/s [{where}]")
+              f"{step['inplace']}); train_epoch() streamed {eeps} examples/s [{where}]")
 
         # ---- 3f. the probe kernels against their plain versions ----
         # the probes at their default sizes need ~25 GB beside 4c's state
@@ -1937,6 +1958,247 @@ def main() -> int:
               f"[{where}]")
         del perm, pay, pay_bf, bag
 
+        # ---- 7. the device-resident dataset (Config.device_cache) ----
+        # bench.py's protocol at full size: its data (write_criteo_like at
+        # seed 7 is bench.py::ensure_data's generator; 400,000 rows), its
+        # model (FFM, K=16, 39 fields, max_nnz 39, B=16,384, online,
+        # n_epochs=4, n_threads=3), one warm-up train_epoch() (after the
+        # parse and upload), then the best of 3 timed epochs; at 100k rows
+        # (f32, and bf16 tables and payload) and at 1M ("inplace")
+        from ftrl_ffm_tpu_torch.models.base import dec6_decode
+
+        t0 = time.perf_counter()
+        bench_p = {nf: os.path.join(tmp, f"bench{nf}.ffm") for nf in (TRAIN_FEATS, N_FEATS)}
+        for nf, path in bench_p.items():
+            write_criteo_like(path, BENCH_ROWS, nf)
+        print(f"resident: wrote {BENCH_ROWS} bench rows at n_feats {TRAIN_FEATS} and "
+              f"{N_FEATS} in {time.perf_counter() - t0:.1f} s")
+        bench_steps = math.ceil(BENCH_ROWS / BATCH)
+
+        # the sync guard is live: a host sync under it raises
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            torch.zeros(1, device=device).item()
+            guard_live = False
+        except RuntimeError:
+            guard_live = True
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        require(guard_live, "torch.cuda.set_sync_debug_mode('error') let a sync through")
+
+        def guarded_epoch(trn, epoch_rng=None):
+            """One resident epoch whose step loop (the gathers, the train
+            steps, a shuffled epoch's index upload) runs under
+            set_sync_debug_mode("error"): any host sync there raises.  The
+            loss readback after it is outside.  (steps, mean loss)."""
+            batches = trn._cached_batches(trn._fresh_cache("train"), epoch_rng)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                sums = trn._train_steps(batches)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            return len(sums), trn._epoch_loss(sums)
+
+        def same_state(a, b) -> bool:
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+
+        # (a) eval from the resident dataset: serve-ffm-1m's seeded state
+        # and eval rows (phase 4), against phase 4's streamed evaluate()
+        rcfg_e = dataclasses.replace(cfg, device_cache="auto")
+        rserve = Trainer(rcfg_e, state=seeded_state(rcfg_e, device, SEED))
+        ffm_fused_logits.launches = 0
+        zero_instances()
+        t0 = time.perf_counter()
+        r_metrics = rserve.evaluate()
+        t_first = time.perf_counter() - t0
+        r_eval_launches = ffm_fused_logits.launches
+        r_eval_instances = dict(ffm_fused_logits.launches_by_instance)
+        passes = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            rserve.evaluate()
+            passes.append(time.perf_counter() - t0)
+        r_eval_eps = [N_ROWS / t for t in passes]
+        print(f"resident eval: serve-ffm-1m evaluate() resident {r_eval_eps} examples/s "
+              f"(first pass, with the parse and upload, {t_first:.3f} s); streamed (phase 5) "
+              f"{eps} examples/s; device_cache: {rserve._dev_cache.get('eval') is not None}; "
+              f"loss/auc {r_metrics} against the streamed {serve_metrics}; ffm_logits launches "
+              f"in the first pass {r_eval_launches}, by instance {r_eval_instances} [{where}]")
+        require(rserve._dev_cache.get("eval") is not None, "eval did not take the resident dataset")
+        require(r_eval_launches == n_batches == r_eval_instances["c40_k16"],
+                f"resident eval ran kernel #1 {r_eval_instances}, expect {n_batches} c40_k16")
+        require(r_metrics == serve_metrics, "resident and streamed eval differ")
+        del rserve
+        torch.cuda.empty_cache()
+
+        # (b) DEC6 on the card: the compact values' decode over all 2^24 keys
+        got = dec6_decode(torch.arange(1 << 24, dtype=torch.int32, device=device)).cpu().numpy()
+        want = (np.arange(1 << 24, dtype=np.float64) / 1e6).astype(np.float32)
+        dec6_off = int((got.view(np.uint32) != want.view(np.uint32)).sum())
+        print(f"resident: dec6_decode on the card over all 2^24 keys: {dec6_off} differ from "
+              f"float64 k / 1e6 rounded to f32")
+        require(dec6_off == 0, "dec6_decode on the card is not correctly rounded")
+        del got, want
+
+        # (c) the bench protocol, cell by cell; its launches; the same bits
+        # as a streamed twin from the same init
+        resident_counted = (ffm_fused_logits_grads, ftrl_update, za_scatter, closed_form_pass)
+        resident = {}
+        r_trainers = {}
+        bf16_kw = dict(table_dtype="bfloat16", acc_dtype="bfloat16")
+        for label, nf, extra in (("100k", TRAIN_FEATS, {}), ("100k-bf16", TRAIN_FEATS, bf16_kw),
+                                 ("1M", N_FEATS, {})):
+            rcfg = Config(
+                model_type="FFM", n_fields=N_FIELDS, n_factors=N_FACTORS, n_feats=nf,
+                batch_size=BATCH, train_data=bench_p[nf], online=True, n_epochs=4,
+                max_nnz=N_FIELDS, n_threads=3, device="cuda", **extra,
+            )
+            rtr = Trainer(rcfg)
+            init = clone_state(rtr.state)
+            for fn in resident_counted:
+                fn.launches = 0
+            zero_instances()
+            t0 = time.perf_counter()
+            rtr._ensure_device_cache("train")
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            losses = [rtr.train_epoch()]
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                losses.append(rtr.train_epoch())
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            r_launch = {fn.__name__: fn.launches for fn in resident_counted}
+            r_inst = {k: v for k, v in by_instance.items() if v}
+            r_upd = {k: v for k, v in ftrl_update.launches_by_dtype.items() if v}
+            r_pass = {k: v for k, v in closed_form_pass.launches_by_dtype.items() if v}
+            entry = rtr._dev_cache.get("train")
+            rec = {
+                "cell": f"train-ffm-{label.lower()}-resident",
+                "examples_per_s": BENCH_ROWS / min(times),
+                "runs": [BENCH_ROWS / t for t in times],
+                "build_s": build_s,
+                "warmup_s": warm_s,
+                "device_cache": entry is not None,
+                "losses": losses,
+                "steps": rtr._steps_done,
+                "launches": r_launch,
+                "by_instance": r_inst,
+                "update_by_dtype": r_upd,
+                "pass_by_dtype": r_pass,
+                "card": where,
+            }
+            print(f"resident {label}: {json.dumps(rec)}")
+            require(entry is not None and not entry.compact and entry.n == BENCH_ROWS,
+                    f"{label}: the bench run did not take the raw resident dataset")
+            require(entry.ds[0].shape[0] == 0 and entry.ds[2].shape[0] == 0,
+                    f"{label}: the Criteo-shaped rows did not take the iota and ones markers")
+            steps = 4 * bench_steps
+            require(rtr._steps_done == steps, f"{label}: {rtr._steps_done} steps, expect {steps}")
+            require(r_launch["ffm_fused_logits_grads"] == steps, f"{label}: kernel #2 {r_launch}")
+            if nf == N_FEATS:
+                require(r_launch["za_scatter"] == r_launch["closed_form_pass"] == steps
+                        and r_launch["ftrl_update"] == 0 and r_inst == {"c40_k16": steps},
+                        f"{label}: the in-place path ran {r_launch} {r_inst}")
+            else:
+                dt = "bf16/bf16" if extra else "f32/f32"
+                inst = "c40_k16_bf16" if extra else "c40_k16"
+                require(r_upd == {dt: steps} and r_inst == {inst: steps}
+                        and r_launch["za_scatter"] == 0,
+                        f"{label}: the dense2 path ran {r_launch} {r_inst} {r_upd}")
+            require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+                    f"{label}: resident losses {losses}")
+
+            if label == "100k":
+                # compact storage (device_cache_compact=on): split ids,
+                # decoded after each gather; the raw resident run's bits
+                ctr = Trainer(dataclasses.replace(rcfg, device_cache_compact="on"),
+                              state=clone_state(init))
+                c_losses = [ctr.train_epoch() for _ in range(4)]
+                centry = ctr._dev_cache["train"]
+                c_same = same_state(ctr.state, rtr.state) and c_losses == losses
+                print(f"resident {label}: device_cache_compact=on stores feats as "
+                      f"{centry.ds[1].dtype} {tuple(centry.ds[1].shape)} "
+                      f"({centry.ds[1].numel() / BENCH_ROWS:.0f} B a row, raw "
+                      f"{4 * N_FIELDS}); 4 epochs bit-identical to the raw resident run="
+                      f"{c_same}")
+                require(centry.compact and centry.ds[1].dtype == torch.uint8 and c_same,
+                        "compact resident storage differs from the raw one")
+                del ctr, centry
+
+                # the offline shuffled replay: the epoch's index table
+                # uploaded once (train_epoch) against one row uploaded a
+                # step; the same batches, so the same bits; then timed in
+                # turns
+                ocfg = dataclasses.replace(rcfg, online=False)
+                o_tab = Trainer(ocfg, state=clone_state(rtr.state))
+                o_row = Trainer(ocfg, state=clone_state(rtr.state))
+
+                def row_upload_epoch(trn, epoch_rng):
+                    cache = trn._fresh_cache("train")
+                    order = np.arange(cache.n)
+                    epoch_rng.shuffle(order)
+                    idx = trn._cached_idx(cache.n, order)
+                    return trn._epoch_loss(trn._train_steps(
+                        trn._take_cached(cache, trn._upload(row)) for row in idx))
+
+                rng_tab, rng_row = np.random.default_rng(SEED), np.random.default_rng(SEED)
+                l_tab = o_tab.train_epoch(rng_tab)
+                o_row._dev_cache["train"] = o_tab._dev_cache["train"]  # one upload for both
+                l_row = row_upload_epoch(o_row, rng_row)
+                o_same = same_state(o_tab.state, o_row.state) and l_tab == l_row
+                shuf = {"table": [], "rows": []}
+                for which in ("table", "rows", "rows", "table", "table", "rows"):
+                    t0 = time.perf_counter()
+                    if which == "table":
+                        o_tab.train_epoch(rng_tab)
+                    else:
+                        row_upload_epoch(o_row, rng_row)
+                    torch.cuda.synchronize()
+                    shuf[which].append(BENCH_ROWS / (time.perf_counter() - t0))
+                o_steps, o_loss = guarded_epoch(o_tab, rng_tab)
+                print(f"resident {label} offline shuffled: train_epoch() (index table uploaded "
+                      f"once) {shuf['table']} examples/s; one row uploaded a step "
+                      f"{shuf['rows']} examples/s; first epochs bit-identical={o_same}; one "
+                      f"shuffled epoch's step loop ({o_steps} steps) under "
+                      f"set_sync_debug_mode('error'): no sync [{where}]")
+                require(o_same, "the shuffled replays with a table and with row uploads differ")
+                require(o_steps == bench_steps and math.isfinite(o_loss), "guarded shuffled epoch")
+                resident["offline"] = shuf
+                del o_tab, o_row
+
+            # the same bits as the streamed twin (device_cache=off) over the
+            # same 4 epochs from the same init
+            twin = Trainer(dataclasses.replace(rcfg, device_cache="off"), state=init)
+            del init
+            t0 = time.perf_counter()
+            t_losses = [twin.train_epoch() for _ in range(4)]
+            torch.cuda.synchronize()
+            t_s = time.perf_counter() - t0
+            same = same_state(rtr.state, twin.state) and t_losses == losses
+            print(f"resident {label}: the six tables, bias and step after 4 epochs bit-identical "
+                  f"to a streamed twin's (device_cache=off)={same}; losses {losses} vs "
+                  f"{t_losses}; the twin's 4 streamed epochs {t_s:.2f} s "
+                  f"({4 * BENCH_ROWS / t_s:.0f} examples/s) [{where}]")
+            require(same and "train" not in twin._dev_cache,
+                    f"{label}: resident and streamed runs differ")
+            del twin
+            torch.cuda.empty_cache()
+
+            g_steps, g_loss = guarded_epoch(rtr)
+            print(f"resident {label}: one epoch's step loop ({g_steps} steps) ran under "
+                  f"torch.cuda.set_sync_debug_mode('error'): no host sync; loss {g_loss:.6f}")
+            require(g_steps == bench_steps and math.isfinite(g_loss), "guarded resident epoch")
+            resident[label] = rec
+            r_trainers[label] = rtr
+            del rtr, entry
+        if "100k-bf16" in r_trainers:
+            del r_trainers["100k-bf16"]  # phase 6 traces the f32 cells
+        torch.cuda.empty_cache()
+
         # ---- 6. profiles: after every timed phase ----
         # a profiler run may leave the host's launch path slower for the rest
         # of the process, so the device breakdowns of the train steps and the
@@ -1956,10 +2218,16 @@ def main() -> int:
         # the device's busy share of one train_epoch(): device time (kernels,
         # copies, fills, on one stream) over the epoch's wall time, both from
         # the traced epoch
-        for label, trn, eps_untraced in (("n_feats=100k", ttrainer, teps),
-                                         ("n_feats=100k bf16", htrainer, heps),
-                                         ("n_feats=1M", btrainer, beps),
-                                         ("n_feats=1M bf16", etrainer, eeps)):
+        # (label, trainer, untraced examples/s, rows an epoch): the streamed
+        # cells, then the resident ones (bench.py's 400,000 rows)
+        for label, trn, eps_untraced, rows in (
+            ("n_feats=100k", ttrainer, teps, N_ROWS),
+            ("n_feats=100k bf16", htrainer, heps, N_ROWS),
+            ("n_feats=1M", btrainer, beps, N_ROWS),
+            ("n_feats=1M bf16", etrainer, eeps, N_ROWS),
+            ("n_feats=100k resident", r_trainers["100k"], resident["100k"]["runs"], BENCH_ROWS),
+            ("n_feats=1M resident", r_trainers["1M"], resident["1M"]["runs"], BENCH_ROWS),
+        ):
             walls = []
 
             def epoch():
@@ -1968,13 +2236,16 @@ def main() -> int:
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
 
-            rows = profile_ms(epoch, 1)
-            busy, wall = sum(ms for _, ms in rows), walls[-1]
+            prof_rows = profile_ms(epoch, 1)
+            busy, wall = sum(ms for _, ms in prof_rows), walls[-1]
             print(f"profile: train_epoch() {label}: device busy {busy:.3f} ms of {wall:.3f} ms "
                   f"traced wall time, idle {1 - busy / wall:.4f}; untraced epochs "
-                  f"{[N_ROWS / x * 1e3 for x in eps_untraced]} ms [{where}]")
+                  f"{[rows / x * 1e3 for x in eps_untraced]} ms [{where}]")
+            if "resident" in label:
+                print(f"profile: train_epoch() {label}, device ms per epoch by kernel: "
+                      + ", ".join(f"{name[:60]} {ms:.3f}" for name, ms in prof_rows[:10]))
         del ttrainer, tmodel, tplaced, tcycle, btrainer, bmodel, dmodel, bplaced, bcycle
-        del htrainer, hmodel, hcycle, etrainer, emodel, ecycle
+        del htrainer, hmodel, hcycle, etrainer, emodel, ecycle, r_trainers
 
     records = [
         {
@@ -1984,6 +2255,7 @@ def main() -> int:
             "replaces": "ftrl_ffm_tpu/ops/ffm_pallas.py:235",
             "launches": launches,
             "max_abs_err": criteo_err,
+            "resident_launches": r_eval_launches,
             "ms": k_ms,
             "device_ms": k_dev_ms,
             "plain_ms": p_ms,
@@ -2014,6 +2286,8 @@ def main() -> int:
             "replaces": "ftrl_ffm_tpu/ops/ffm_pallas.py:38",
             # both training paths: combined (4b) and split (4c) output
             "launches": fused_launches + big["ffm_fused_logits_grads"],
+            "resident_launches": (resident["100k"]["launches"]["ffm_fused_logits_grads"]
+                                  + resident["1M"]["launches"]["ffm_fused_logits_grads"]),
             "max_abs_err": max(fused_err, split_err),
             "ms": f_ms,
             "plain_ms": fp_ms,
@@ -2030,6 +2304,7 @@ def main() -> int:
             "replaces": "ftrl_ffm_tpu/ftrl.py:249",
             "launches": update_launches,
             "max_abs_err": update_err,
+            "resident_launches": resident["100k"]["launches"]["ftrl_update"],
             "ms": u_ms,
             "plain_ms": up_ms,
             "bound_ms": update_bound[0],
@@ -2058,6 +2333,7 @@ def main() -> int:
             "source": "ftrl_ffm_tpu_torch/csrc/ftrl_pass.cu",
             "replaces": "ftrl_ffm_tpu/ops/ftrl_pallas.py:32",
             "launches": big["closed_form_pass"],
+            "resident_launches": resident["1M"]["launches"]["closed_form_pass"],
             "max_abs_err": pass_err,
             "ms": pass_ms,
             "plain_ms": pass_plain_ms,
@@ -2073,6 +2349,7 @@ def main() -> int:
             "source": "ftrl_ffm_tpu_torch/csrc/ftrl_update.cu",
             "replaces": "ftrl_ffm_tpu/ftrl.py:375",
             "launches": big["za_scatter"],
+            "resident_launches": resident["1M"]["launches"]["za_scatter"],
             "max_abs_err": scatter_err,
             "ms": sc_ms,
             "plain_ms": sc_plain_ms,
@@ -2092,6 +2369,7 @@ def main() -> int:
             "source": "ftrl_ffm_tpu_torch/csrc/ffm_fused.cu",
             "replaces": "ftrl_ffm_tpu/ops/ffm_pallas.py:38",
             "launches": h_instances["c40_k16_bf16"],
+            "resident_launches": resident["100k-bf16"]["launches"]["ffm_fused_logits_grads"],
             "max_abs_err": fused_bf16_err,
             "ms": hf_ms,
             "plain_ms": hfp_ms,
@@ -2105,6 +2383,7 @@ def main() -> int:
             "source": "ftrl_ffm_tpu_torch/csrc/ftrl_update.cu",
             "replaces": "ftrl_ffm_tpu/ftrl.py:249",
             "launches": h_update_dtypes["bf16/bf16"],
+            "resident_launches": resident["100k-bf16"]["launches"]["ftrl_update"],
             "max_abs_err": update_bf16_err,
             "ms": update_bf16_time["bfloat16/bfloat16"][0],
             "plain_ms": update_bf16_time["bfloat16/bfloat16"][1],

@@ -113,20 +113,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shuffle", type=_str2bool, default=True)
     p.add_argument("--device_cache", default="auto",
                    choices=("auto", "on", "off"),
-                   help="offline mode: keep the whole dataset resident in "
-                        "device HBM and run epochs fully on device "
-                        "(auto = when it fits next to the model state)")
+                   help="keep the train and eval datasets resident in device "
+                        "memory (one parse, one upload) and run their passes "
+                        "from there: offline epochs shuffle, online training "
+                        "replays the file order, eval reads the file order; "
+                        "auto = where a dataset fits next to the model state "
+                        "and, for online training, with n_epochs > 1; --cmd "
+                        "stdin training always streams")
     p.add_argument("--device_cache_layout", default="auto",
                    choices=("auto", "replicate", "shard"),
-                   help="cached-dataset layout on a sharded mesh: replicate "
-                        "per device (global shuffle, bit-matching batches) "
-                        "or shard 1/D per device (per-slice shuffle, the "
-                        "multi-host streamed semantics, 1/D the HBM)")
+                   help="cached-dataset layout on a device mesh; on one device "
+                        "every value holds the whole dataset (meshes arrive "
+                        "with ROADMAP.md Queue 1 item 8)")
     p.add_argument("--device_cache_compact", default="auto",
                    choices=("auto", "on", "off"),
-                   help="store the cached dataset compactly in HBM (split "
-                        "ids + DEC6 vals + packed fields, ~2x capacity; "
-                        "auto = only when raw would not fit)")
+                   help="store the cached dataset compactly in device memory "
+                        "(split ids + DEC6 vals + packed fields, decoded "
+                        "after each gather; ~2x capacity; auto = only when "
+                        "the raw form would not fit)")
     p.add_argument("--feed_workers", type=int, default=1,
                    help="device-feed threads; >1 interleaves whole batches "
                         "(compact+upload) across threads with a reorder "

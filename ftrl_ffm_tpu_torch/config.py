@@ -335,15 +335,16 @@ def not_ported(what: str, item: int) -> NotImplementedError:
 
 def check_ported(cfg: Config) -> None:
     """Raise for config values the port does not serve yet: model_type LR
-    or FM (item 4), a device mesh (item 8), device_cache=on (item 6),
-    steps_per_call > 1 (item 5), and use_pallas=off, which has no
-    counterpart here.
+    or FM (item 4), a device mesh (item 8), steps_per_call > 1 (item 5),
+    and use_pallas=off, which has no counterpart here.
 
     Settings that change only how the JAX package moves bytes
     (compact_transfer, feed_workers, async_checkpoint) do not change what
     the port computes, so they pass.  Every table-update kind
-    (update_mode) and both dtypes of table_dtype and acc_dtype train on
-    one device."""
+    (update_mode), both dtypes of table_dtype and acc_dtype, and every
+    device_cache, device_cache_compact and device_cache_layout value
+    (item 6; on one device the shard layout holds the whole dataset, as
+    the replicate one does) train on one device."""
     if cfg.model_type != "FFM":
         raise not_ported(f"model_type={cfg.model_type}", 4)
     if cfg.mesh_data != 1 or cfg.mesh_model != 1:
@@ -351,8 +352,6 @@ def check_ported(cfg: Config) -> None:
             f"a device mesh (mesh_data={cfg.mesh_data}, "
             f"mesh_model={cfg.mesh_model})", 8,
         )
-    if cfg.device_cache == "on":
-        raise not_ported("device_cache=on", 6)
     if cfg.steps_per_call > 1:
         raise not_ported(f"steps_per_call={cfg.steps_per_call}", 5)
     if cfg.use_pallas == "off":

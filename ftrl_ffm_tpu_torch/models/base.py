@@ -21,6 +21,7 @@ from ftrl_ffm_tpu_torch.config import Config, not_ported
 from ftrl_ffm_tpu_torch.ftrl import (
     UNTOUCHED_N,
     FtrlParams,
+    _div,
     bias_update,
     ftrl_weights,
     select_update_kind,
@@ -102,6 +103,36 @@ def widen_batch(b: Batch) -> Batch:
         vals=vals,
         y=b.y.to(torch.float32),
         sample_w=b.sample_w.to(torch.float32),
+    )
+
+
+def dec6_decode(k: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 k / 1e6 of integer keys k < 2^24: the
+    DEC6 value encoding of the compact device-resident dataset
+    (ftrl_ffm_tpu/models/base.py::dec6_decode).  The JAX package needs a
+    Veltkamp two-product there because the TPU divides by a reciprocal;
+    here ftrl.py::_div divides correctly rounded on every device."""
+    return _div(k.to(torch.float32), 1e6)
+
+
+def take_cached(ds, ix: torch.Tensor, n_real: int) -> Batch:
+    """Gather one batch from a device-resident dataset (Config.device_cache;
+    ftrl_ffm_tpu/models/base.py::take_cached).
+
+    ds: (fields, feats, vals, y) tensors carrying one extra inert tail row
+    (field 0, feat id n_feats, value 0, y 0) at index n_real, at which the
+    padded index rows ix point; sample_w marks those rows 0.  fields and
+    vals may be dataset-level zero-size markers ([0, F]: every row's fields
+    are 0..F-1; vals [0, F]: every value is 1.0), re-emitted in the marker
+    shapes widen_batch expands: [0, F] fields and [B, 0] vals."""
+    fields, feats, vals, y = ds
+    return Batch(
+        fields=fields if fields.shape[0] == 0 else fields.index_select(0, ix),
+        feats=feats.index_select(0, ix),
+        vals=vals.new_zeros((ix.shape[0], 0)) if vals.shape[0] == 0
+        else vals.index_select(0, ix),
+        y=y.index_select(0, ix),
+        sample_w=(ix < n_real).to(torch.float32),
     )
 
 

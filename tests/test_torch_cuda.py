@@ -1150,3 +1150,53 @@ def test_probe_wrappers_check_their_inputs(monkeypatch):
         mg.dma_gather_sum(idx.long(), t(6, 8))
     with pytest.raises(ValueError, match="f32 or bf16"):
         mg.dma_gather_sum(idx, t(6, 8, dtype=torch.float64))
+
+
+# ---- the device-resident dataset (Config.device_cache) ----
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    {"online": True},
+    {"online": False},
+    {"online": True, "device_cache_compact": "on"},
+    {"online": True, "update_mode": "inplace"},
+    {"online": True, "table_dtype": "bfloat16", "acc_dtype": "bfloat16"},
+    {"online": False, "auc_mode": "exact"},
+])
+def test_device_cache_matches_streamed_bit_for_bit(tmp_path, kw):
+    """A resident run on the card (device_cache=on: file-order replay
+    online, the shuffled replay offline, compact storage, the in-place
+    update, bf16 tables) and a streamed twin (device_cache=off) from one
+    init: the same histories and the same table bits, through the kernels."""
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    dev = _card()
+    rng = np.random.default_rng(8)
+    paths = []
+    for name, n in (("train", 100), ("eval", 37)):
+        path = tmp_path / f"{name}.ffm"
+        with open(path, "w") as f:
+            for _ in range(n):
+                toks = [str(int(rng.random() > 0.5))] + [
+                    f"{c}:{int(rng.integers(0, 60))}:{rng.integers(1, 10**6) / 10**6:.6f}"
+                    for c in rng.permutation(7) if rng.random() < 0.9]
+                f.write(" ".join(toks) + "\n")
+        paths.append(str(path))
+    base = dict(train_data=paths[0], eval_data=paths[1], model_type="FFM", n_fields=7,
+                n_factors=16, n_feats=60, batch_size=16, n_epochs=2, w_alpha=0.05, w_l1=0.15,
+                w_l2=1.0, device="cuda", **kw)
+    on = Trainer(Config(**base, device_cache="on"))
+    off = Trainer(Config(**base, device_cache="off"),
+                  state=type(on.state)(*(t.clone() for t in on.state)))
+    launches = ffm_fused_logits_grads.launches
+    h_on = on.train()
+    assert ffm_fused_logits_grads.launches - launches == 2 * 7  # 100 rows at B=16
+    h_off = off.train()
+    assert on._dev_cache["train"] is not None and on._dev_cache["eval"] is not None
+    assert on._dev_cache["train"].compact == (kw.get("device_cache_compact") == "on")
+    assert "train" not in off._dev_cache
+    assert h_on == h_off
+    for a, b in zip(on.logical_state, off.logical_state):
+        assert a.device.type == dev.type and torch.equal(a, b)

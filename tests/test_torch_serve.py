@@ -179,7 +179,6 @@ def test_cli_requires_a_model_to_serve(capsys):
     [
         ({"mesh_model": 2}, "Queue 1 item 8"),
         ({"mesh_data": 0}, "Queue 1 item 8"),
-        ({"device_cache": "on"}, "Queue 1 item 6"),
         ({"steps_per_call": 4}, "Queue 1 item 5"),
         ({"use_pallas": "off"}, "no counterpart"),
     ],
@@ -205,6 +204,9 @@ def test_unported_config_raises(served, kw, match):
         # once refused (Queue 1 item 4): a bf16 table, a bf16 payload
         {"table_dtype": "bfloat16"},
         {"acc_dtype": "bfloat16"},
+        # once refused (Queue 1 item 6): the device-resident dataset, which
+        # "on" engages for a single online epoch too
+        {"device_cache": "on"},
     ],
 )
 def test_update_kinds_train_and_match_jax(served, kw, monkeypatch):
@@ -224,6 +226,8 @@ def test_update_kinds_train_and_match_jax(served, kw, monkeypatch):
     jtr = JTrainer(JConfig(**cfg))
     tr = Trainer(TConfig(device="cpu", **cfg), state=state_from_jax_arrays(jtr.state, "cpu"))
     hist, j_hist = tr.train(), jtr.train()
+    if "device_cache" in kw:
+        assert tr._dev_cache["train"] is not None and tr._dev_cache["eval"] is not None
     for key in ("train_loss", "eval_loss", "eval_auc"):
         np.testing.assert_allclose(hist[key], j_hist[key], rtol=1e-5, err_msg=key)
 
