@@ -9,9 +9,10 @@ factor-major rows and batches of 16,384 — serving a seeded random state of a
 1,000,000-row table, training a fresh 100,000-row one (bench.py's model,
 the "dense2" update) and a fresh 1,000,000-row one (the README quick
 start's table, the huge-table "inplace" update) — on Criteo-shaped libffm
-files; then the probes of ftrl_ffm_tpu_torch/tools (the ports of the TPU
-probes in tools/micro_*.py) at the TPU probes' default sizes; then
-bench.py's protocol from the device-resident dataset.  Phases 4-5 stream
+files; LR and FM (K=16) at bench.py's 100,000 rows and FM at an assumed
+hashing-trick table of 2^22 rows ("inplace"); then the probes of ftrl_ffm_tpu_torch/tools
+(the ports of the TPU probes in tools/micro_*.py) at the TPU probes'
+default sizes; then bench.py's protocol from the device-resident dataset.  Phases 4-5 stream
 their files (device_cache="off"), phase 7 reads them from device memory.
 Phases, each printing its own lines:
 
@@ -44,6 +45,13 @@ Phases, each printing its own lines:
                      version at R=1M, E=640 and edge shapes: rtol=1e-6,
                      atol=1e-7; coordinates with A = 0 keep their n and z
                      bits; the same call twice bit-identical
+  3g. LR/FM forms -> in 3c-3e, the same way: the update kernel at FM's
+                     E=16 with the linear stats in gg2_lin (lane -1), f32
+                     and bf16 w, uniform and skewed ids; the scatter and
+                     the pass (f32 and bf16 w) at [2^22, 16]; and the update
+                     kernel with no factor columns (E=0: LR's update,
+                     ftrl_update_linear) at 100k (uniform, skewed) and 2^22
+                     rows against the plain dense step
   4. serving      -> Trainer.evaluate() and Trainer.predict_file() with the
                      launch counts set to 0 just before and read just after
                      (every batch on kernel #1's c40_k16 instance; a bf16
@@ -73,6 +81,20 @@ Phases, each printing its own lines:
   5c. 1M time     -> the pass, the scatter and the split kernel against their
                      plain versions, the device train step under inplace and
                      dense, host parse, train_epoch() examples/s
+  4f. LR and FM   -> Trainer.train() of each LR_FM_CELLS cell (2 epochs with
+                     eval, streamed), launch counts set to 0 just before
+                     and read just after (the update kernel by dtype, the
+                     scatter, the pass by dtype; kernels #1 and #2 never),
+                     3 chained steps against the plain versions and twice
+                     for the bits (2^22: also against update_mode=dense),
+                     evaluate() and predict_file() against a CPU Trainer on
+                     the same state, an LR run from a libsvm file on the
+                     CPU and the card; each cell's device train step by
+                     CUDA events (phase 5's part)
+  5e. LR/FM time  -> the update kernel at E=16 (f32, bf16 w) and E=0, the
+                     scatter and the pass at [2^22, 16] against their plain
+                     versions beside their bounds (the scatter also beside
+                     two index_add_)
   3f. probes      -> after 4c's state is freed: the probe kernels against
                      their plain versions at the probes' default shapes and
                      edge shapes — the no-w pass (rtol=1e-6, atol=1e-7,
@@ -102,12 +124,18 @@ Phases, each printing its own lines:
                      tables bit-identical to a streamed twin's, and at 100k
                      to compact storage's; the offline shuffle's index
                      table against a row uploaded a step; one epoch's step
-                     loop under torch.cuda.set_sync_debug_mode("error")
+                     loop under torch.cuda.set_sync_debug_mode("error");
+                     the same protocol for LR and FM at 100k and FM at 2^22
+                     (auto, "inplace", and update_mode=dense, on uniform
+                     and on Zipf-skewed ids, the two kinds' states compared)
   6. profiles     -> after every timed phase (a profiler run may slow the
                      host's side for the rest of the process): the
                      torch.profiler breakdown by kernel of the train steps
-                     of 5b and 5c, and one traced train_epoch() per
-                     training cell, streamed and resident: the device's
+                     of 5b and 5c, LR and FM's steps by part (gather, the
+                     plain PyTorch ops with their largest, sort, update
+                     kernel, scatter, fills, pass), and one traced
+                     train_epoch() per training cell, streamed and
+                     resident: the device's
                      busy time (kernels, copies, fills) over the traced
                      epoch's wall time
 
@@ -144,6 +172,7 @@ N_FEATS = 1_000_000
 BATCH = 16384
 N_ROWS = 8 * BATCH  # 131,072 eval or train rows: 8 batches per pass
 TRAIN_FEATS = 100_000  # bench.py's table
+HASH_FEATS = 1 << 22  # 4,194,304: an assumed hashing-trick table size (FM's big cell)
 BENCH_ROWS = 400_000  # bench.py::ensure_data's rows
 RTOL, ATOL = 1e-4, 1e-5  # kernel against plain: f32 sums in another order
 GRAD_ATOL = 1e-6  # payload: the JAX suite's kernel-vs-XLA bound
@@ -212,29 +241,42 @@ def card() -> str:
     return out[torch.cuda.current_device()].strip()
 
 
-def write_criteo_like(path: str, n_rows: int, n_feats: int, seed: int = 7) -> None:
+def write_criteo_like(path: str, n_rows: int, n_feats: int, seed: int = 7,
+                      zipf: bool = False) -> np.ndarray:
     """Criteo-shaped libffm data: one feature per field, ids spread over the
     table, labels from a random linear model (bench.py::ensure_data's
-    generator, at this run's row and id counts)."""
-    write_criteo_split([(path, n_rows)], n_feats, seed)
+    generator, at this run's row and id counts; with zipf, the ids of
+    tools/bench_matrix.py::ensure_data's "zipf" variant).  Returns the
+    [n_rows, N_FIELDS] ids."""
+    return write_criteo_split([(path, n_rows)], n_feats, seed, zipf=zipf)
 
 
-def write_criteo_split(parts, n_feats: int, seed: int = 7) -> None:
+def write_criteo_split(parts, n_feats: int, seed: int = 7, libsvm: bool = False,
+                       zipf: bool = False) -> np.ndarray:
     """write_criteo_like's rows, one generator, cut into consecutive files:
-    parts = [(path, rows), ...] (train and eval rows of one model)."""
+    parts = [(path, rows), ...] (train and eval rows of one model); with
+    libsvm, the same rows without their fields ("id:1"); with zipf,
+    Zipf(s=1.1) ranks within each field's ids, the last id taking the tail.
+    Returns the [rows, N_FIELDS] ids of all parts."""
     n_rows = sum(rows for _, rows in parts)
     rng = np.random.default_rng(seed)
     per = n_feats // N_FIELDS
-    ids = rng.integers(0, per, (n_rows, N_FIELDS)) + np.arange(N_FIELDS) * per
+    if zipf:
+        ranks = rng.zipf(1.1, (n_rows, N_FIELDS))
+        ids = np.minimum(ranks - 1, per - 1) + np.arange(N_FIELDS) * per
+    else:
+        ids = rng.integers(0, per, (n_rows, N_FIELDS)) + np.arange(N_FIELDS) * per
     w = rng.normal(0, 0.3, n_feats)
     y = (w[ids].sum(axis=1) + rng.normal(0, 1, n_rows) > 0).astype(int)
     start = 0
     for path, rows in parts:
         with open(path, "w") as f:
             for i in range(start, start + rows):
-                toks = [str(y[i])] + [f"{c}:{ids[i, c]}:1" for c in range(N_FIELDS)]
+                toks = [str(y[i])] + [f"{ids[i, c]}:1" if libsvm else f"{c}:{ids[i, c]}:1"
+                                      for c in range(N_FIELDS)]
                 f.write(" ".join(toks) + "\n")
         start += rows
+    return ids
 
 
 def seeded_state(cfg, device, seed: int):
@@ -396,7 +438,11 @@ def plain_kernels():
     training kernels (the in-place updates copy the plain result in)."""
     import ftrl_ffm_tpu_torch.models.base as mbase
     import ftrl_ffm_tpu_torch.models.ffm as mffm
-    from ftrl_ffm_tpu_torch.ftrl import dense_ftrl_update2, dense_ftrl_update_inplace
+    from ftrl_ffm_tpu_torch.ftrl import (
+        dense_ftrl_update2,
+        dense_ftrl_update_inplace,
+        sparse_ftrl_update2,
+    )
     from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits_grads_plain
     from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update_plain
 
@@ -409,8 +455,9 @@ def plain_kernels():
         for dst, src in zip(args[:3], dense_ftrl_update_inplace(*args)):
             dst.copy_(src)
 
-    def linear(*args):
-        for dst, src in zip(args[:3], dense_ftrl_update2(*args)):
+    def linear(*args, sparse=False):
+        step = sparse_ftrl_update2 if sparse else dense_ftrl_update2
+        for dst, src in zip(args[:3], step(*args)):
             dst.copy_(src)
 
     names = ("ftrl_update", "ftrl_update_inplace", "ftrl_update_linear")
@@ -447,6 +494,453 @@ def cuda_ms(fn, iters: int) -> float:
     from ftrl_ffm_tpu_torch.tools import time_ms
 
     return time_ms(fn, torch.device("cuda"), iters)
+
+
+# ---- LR and FM (phases 4f, 5e and their parts of 5, 6 and 7) ----
+
+# (cell, model_type, n_feats, extra config): bench.py's table at 100k rows
+# (f32, and a bf16 table whose payload stays f32), an assumed hashing-trick
+# table of 2^22 rows (update_mode=auto resolves FM's table to "inplace" there)
+LR_FM_CELLS = (
+    ("train-lr-100k", "LR", TRAIN_FEATS, {}),
+    ("train-fm-100k", "FM", TRAIN_FEATS, {}),
+    ("train-fm-100k-bf16", "FM", TRAIN_FEATS, {"table_dtype": "bfloat16", "acc_dtype": "bfloat16"}),
+    ("train-fm-4m", "FM", HASH_FEATS, {}),
+    ("train-fm-4m-bf16", "FM", HASH_FEATS, {"table_dtype": "bfloat16"}),
+)
+
+
+def counted_wrappers():
+    """The kernel wrappers whose launches the LR/FM phases count."""
+    from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits, ffm_fused_logits_grads
+    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import closed_form_pass, ftrl_update, za_scatter
+
+    return (ffm_fused_logits, ffm_fused_logits_grads, ftrl_update, za_scatter, closed_form_pass)
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch counts, by instance and by dtype too,
+    set to 0."""
+    for fn in counted_wrappers():
+        fn.launches = 0
+        for counts in (getattr(fn, "launches_by_instance", {}), getattr(fn, "launches_by_dtype", {})):
+            for name in counts:
+                counts[name] = 0
+
+
+def read_counts() -> dict:
+    """Each wrapper's launches, and the update kernel's and the pass's by
+    dtype (the entries that ran)."""
+    fns = counted_wrappers()
+    out = {fn.__name__: fn.launches for fn in fns}
+    out["update_by_dtype"] = {k: v for k, v in fns[2].launches_by_dtype.items() if v}
+    out["pass_by_dtype"] = {k: v for k, v in fns[4].launches_by_dtype.items() if v}
+    return out
+
+
+def expected_counts(model_type: str, kind, table_dtype: str, steps: int) -> dict:
+    """The launches `steps` LR or FM train steps must make: no FFM kernel;
+    the update kernel on an f32 payload (FM's payload is f32 under every
+    acc_dtype), with a bf16 w where the factor table is bf16; FM's
+    "inplace" runs the scatter and the pass, then the linear-only update."""
+    w = "bf16" if table_dtype == "bfloat16" else "f32"
+    out = {"ffm_fused_logits": 0, "ffm_fused_logits_grads": 0, "ftrl_update": steps,
+           "za_scatter": 0, "closed_form_pass": 0, "update_by_dtype": {"f32/f32": steps},
+           "pass_by_dtype": {}}
+    if model_type == "FM" and kind == "inplace":
+        out.update(za_scatter=steps, closed_form_pass=steps, pass_by_dtype={w: steps})
+    elif model_type == "FM":
+        out["update_by_dtype"] = {f"f32/{w}": steps}
+    return out
+
+
+def states_close(a, b) -> tuple[bool, dict]:
+    """Two states within the chained bound (a bf16 w within one bf16 ulp,
+    relative), and the largest |difference| by table; absent tables (LR's
+    factor tables) absent on both."""
+    ok, err = True, {}
+    for name, x, y in zip(a._fields, a, b):
+        if x is None or y is None:
+            ok &= x is None and y is None
+            continue
+        if name == "step":
+            ok &= torch.equal(x, y)
+            continue
+        bf16 = x.dtype == torch.bfloat16
+        err[name] = (x.float() - y.float()).abs().max().item()
+        ok &= torch.allclose(x.float(), y.float(), rtol=BF16_RTOL if bf16 else CHAIN_RTOL,
+                             atol=CHAIN_ATOL)
+    return ok, err
+
+
+def step_categories(rows) -> tuple[dict, tuple]:
+    """A train step's device ms (profile_ms rows) summed by what ran: the
+    port's kernels by name, torch's sort, gathers, fills and copies, and
+    the rest: the plain PyTorch ops (FM's interaction chain, the payload,
+    the loss and the bias).  Returns (sums, the largest op of the rest)."""
+    sums = dict.fromkeys(("ftrl_update", "za_scatter", "ftrl_pass", "sort", "gather",
+                          "fill/copy", "other ops"), 0.0)
+    largest = ("", 0.0)
+    for name, ms in rows:
+        if "ftrl_update" in name:
+            key = "ftrl_update"
+        elif "za_scatter" in name:
+            key = "za_scatter"
+        elif "ftrl_pass" in name:
+            key = "ftrl_pass"
+        elif "Sort" in name or "sort" in name:
+            key = "sort"
+        elif "gather" in name or "indexSelect" in name or "index_elementwise" in name:
+            key = "gather"
+        elif any(w in name for w in ("Fill", "Memset", "Memcpy", "memset", "memcpy")):
+            key = "fill/copy"
+        else:
+            key = "other ops"
+            if ms > largest[1]:
+                largest = (name[:80], ms)
+        sums[key] += ms
+    return sums, largest
+
+
+def lr_fm_train(tmp: str, device, where: str) -> dict:
+    """Phase 4f, and LR and FM's part of phase 5: each cell of LR_FM_CELLS
+    through Trainer.train() (2 epochs with eval, streamed), its launches
+    set to 0 just before and read just after; 3 chained train steps
+    against the plain versions and twice for the bits (train-fm-4m also
+    against update_mode=dense); evaluate() and predict_file() against a
+    CPU Trainer (the plain PyTorch path) on the same state; an LR run from
+    a libsvm file on the CPU and the card; then the device train step by
+    CUDA events.  Returns, by cell: trainer, model, placed batches,
+    counts, the chained-step errors and the step ms."""
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.data.stream import StreamReader
+    from ftrl_ffm_tpu_torch.ftrl import select_update_kind
+    from ftrl_ffm_tpu_torch.models import make_model
+    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    n_batches = N_ROWS // BATCH
+    paths = {}
+    t0 = time.perf_counter()
+    for nf, seed in ((TRAIN_FEATS, 17), (HASH_FEATS, 19)):
+        paths[nf] = (os.path.join(tmp, f"lrfm_train{nf}.ffm"), os.path.join(tmp, f"lrfm_eval{nf}.ffm"))
+        write_criteo_split([(paths[nf][0], N_ROWS), (paths[nf][1], BATCH)], nf, seed=seed)
+    print(f"train lr/fm: wrote {N_ROWS} + {BATCH} Criteo-shaped rows at n_feats {TRAIN_FEATS} "
+          f"and {HASH_FEATS} in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for cell, mt, nf, extra in LR_FM_CELLS:
+        train_p, eval_p = paths[nf]
+        cfg = Config(model_type=mt, n_fields=N_FIELDS, n_factors=N_FACTORS, n_feats=nf,
+                     batch_size=BATCH, train_data=train_p, eval_data=eval_p, n_epochs=2,
+                     device="cuda", n_threads=4, device_cache="off", **extra)
+        tr = Trainer(cfg)
+        model = tr.model
+        kind = (select_update_kind(nf, cfg.row_width, BATCH * cfg.max_nnz, cfg.update_mode)
+                if cfg.row_width else None)
+        require(kind == (None if mt == "LR" else "inplace" if nf == HASH_FEATS else "dense2"),
+                f"{cell}: update_mode=auto resolves to {kind!r}")
+        reset_counts()
+        t0 = time.perf_counter()
+        hist = tr.train()
+        t_train = time.perf_counter() - t0
+        counts = read_counts()
+        steps = tr._steps_done
+        print(f"train {cell}: Trainer.train() 2 epochs in {t_train:.2f} s (first): {steps} steps, "
+              f"factor tables' update kind {kind!r}; launches {counts}; history {hist}")
+        require(steps == 2 * n_batches, f"{cell}: {steps} train steps, expect {2 * n_batches}")
+        require(counts == expected_counts(mt, kind, cfg.table_dtype, steps),
+                f"{cell}: the kernels launched {counts}")
+        require(all(math.isfinite(x) for k in ("train_loss", "eval_loss", "eval_auc")
+                    for x in hist[k]), f"{cell}: non-finite training history")
+        require(hist["train_loss"][1] < hist["train_loss"][0],
+                f"{cell}: epoch 2 train loss is not below epoch 1's")
+        # at 2^22 rows an id recurs ~1.2 times in the training rows, so the
+        # eval rows' AUC is not held there
+        require(nf == HASH_FEATS or hist["eval_auc"][-1] > 0.5, f"{cell}: eval AUC not above 0.5")
+        require((tr.state.vec_w is None) == (mt == "LR"), f"{cell}: factor tables {mt}")
+
+        # 3 chained train steps from one state: kernels against the plain
+        # versions, twice for the bits; the 2^22 table also against dense
+        placed = [tr._place_batch(a) for a in StreamReader(
+            train_p, "libffm", BATCH, N_FIELDS, nf, N_FIELDS, n_parse_threads=4,
+            log_every=0).batches()]
+        base = tr.state  # not stepped below: each chain steps a clone
+
+        def chain(mdl, ctx=contextlib.nullcontext):
+            s = clone_state(base)
+            with ctx():
+                losses = [mdl.train_step(s, b).loss_sum.item() for b in placed[:3]]
+            return s, losses
+
+        s_kern, l_kern = chain(model)
+        s_again, _ = chain(model)
+        same = all((a is None and b is None) or torch.equal(a, b) for a, b in zip(s_kern, s_again))
+        del s_again
+        s_plain, l_plain = chain(model, plain_kernels)
+        plain_ok, perr = states_close(s_kern, s_plain)
+        ldiff = max(abs(a - b) / abs(b) for a, b in zip(l_kern, l_plain))
+        del s_plain
+        msg = ""
+        dmodel = None
+        if kind == "inplace":
+            dmodel = make_model(dataclasses.replace(cfg, update_mode="dense"))
+            ftrl_update.launches = 0
+            s_dense, l_dense = chain(dmodel)
+            dense_ok, derr = states_close(s_kern, s_dense)
+            msg = (f"; inplace vs dense ({ftrl_update.launches} ftrl_update launches): max "
+                   f"|diff| {derr}, losses {l_kern} vs {l_dense}")
+            require(dense_ok and ftrl_update.launches == 3,
+                    f"{cell}: in-place and dense steps from one state disagree")
+            del s_dense
+        print(f"train {cell}: 3 chained steps, kernels vs plain: loss rel diff {ldiff:.2e}, max "
+              f"|diff| {perr}; two kernel runs bit-identical={same}{msg}")
+        require(plain_ok, f"{cell}: chained train steps disagree with the plain versions")
+        require(same, f"{cell}: two runs of the same train steps differ")
+        del s_kern
+
+        # serving: evaluate() and predict_file() on the card against a CPU
+        # Trainer on the same state (LR and FM's logits are plain PyTorch
+        # on both: no kernel launches)
+        reset_counts()
+        loss, auc = tr.evaluate()
+        preds = os.path.join(tmp, f"{cell}.txt")
+        n_pred = tr.predict_file(eval_p, preds)
+        serve_counts = read_counts()
+        ctr = Trainer(dataclasses.replace(cfg, device="cpu"),
+                      state=type(tr.state)(*(None if t is None else t.cpu() for t in tr.state)))
+        c_loss, c_auc = ctr.evaluate()
+        ctr.predict_file(eval_p, preds + ".cpu")
+        pdiff = float(np.abs(np.loadtxt(preds) - np.loadtxt(preds + ".cpu")).max())
+        del ctr
+        print(f"serve {cell}: evaluate loss={loss:.6f} auc={auc:.6f}, the CPU's {c_loss:.6f} "
+              f"{c_auc:.6f}; predict_file wrote {n_pred}, probability max |diff| {pdiff:.2e}; "
+              f"launches {serve_counts}")
+        require(n_pred == BATCH, f"{cell}: predict_file scored {n_pred} of {BATCH}")
+        require(abs(loss - c_loss) <= 1e-5 * max(1.0, c_loss) and abs(auc - c_auc) <= 1e-4,
+                f"{cell}: eval off the CPU's")
+        require(pdiff <= 2e-6, f"{cell}: predictions off the CPU's")
+        require(serve_counts["ffm_fused_logits"] == 0 and serve_counts["ftrl_update"] == 0,
+                f"{cell}: serving launched {serve_counts}")
+        out[cell] = dict(trainer=tr, model=model, dense_model=dmodel, placed=placed,
+                         counts=counts, chain_err=perr, kind=kind)
+
+    # a small LR run from a libsvm file on the CPU (plain versions) and on
+    # the card, one init
+    small = dict(model_type="LR", n_fields=N_FIELDS, n_feats=5000, batch_size=1024, n_epochs=2)
+    st_p, se_p = os.path.join(tmp, "lr_train.svm"), os.path.join(tmp, "lr_eval.svm")
+    write_criteo_split([(st_p, 3000), (se_p, 1000)], small["n_feats"], seed=11, libsvm=True)
+    init = make_model(Config(device="cpu", **small)).init()
+    res = {}
+    for dev in ("cpu", "cuda"):
+        reset_counts()
+        scfg = Config(train_data=st_p, eval_data=se_p, device=dev, **small)
+        res[dev] = Trainer(scfg, state=clone_state(init)).train()
+        require(scfg.file_type == "libsvm", f"the LR file sniffed as {scfg.file_type}")
+    svm_launches = ftrl_update.launches
+    print(f"train lr libsvm: small run eval loss cpu={res['cpu']['eval_loss']} "
+          f"cuda={res['cuda']['eval_loss']}; ftrl_update launches on the card {svm_launches}")
+    require(abs(res["cpu"]["eval_loss"][-1] - res["cuda"]["eval_loss"][-1]) <= 1e-4,
+            "cpu and cuda LR training from libsvm reach different eval losses")
+    require(svm_launches == 2 * math.ceil(3000 / 1024), "the libsvm LR run missed the kernel")
+
+    # ---- 5, LR and FM: the device train step by CUDA events ----
+    for cell, rec in out.items():
+        tr, cycle = rec["trainer"], itertools.cycle(rec["placed"])
+        n = len(rec["placed"])
+        if rec["dense_model"] is None:
+            rec["step_ms"] = [cuda_ms(lambda: rec["model"].train_step(tr.state, next(cycle)),
+                                      2 * n) for _ in range(2)]
+            msg = f"{rec['step_ms']} ms/batch"
+        else:
+            rec["step_ms"], rec["dense_step_ms"] = [], []
+            for which in ("inplace", "dense", "dense", "inplace"):
+                mdl = rec["model"] if which == "inplace" else rec["dense_model"]
+                ms = cuda_ms(lambda: mdl.train_step(tr.state, next(cycle)), 2 * n)
+                rec["step_ms" if which == "inplace" else "dense_step_ms"].append(ms)
+            msg = (f"inplace {rec['step_ms']} ms/batch, update_mode=dense "
+                   f"{rec['dense_step_ms']} ms/batch")
+        print(f"timing: train_step {cell} on the device (CUDA events around {2 * n} steps, "
+              f"the host's dispatch included): {msg} (n_feats={rec['trainer'].cfg.n_feats}, "
+              f"B={BATCH}) [{where}]")
+    return out
+
+
+def lr_fm_kernel_times(gen, device, where: str, p) -> dict:
+    """Phase 5e: the kernels at LR and FM's widths, at the main path's
+    shapes, against their plain versions (runs plain, kernel, kernel,
+    plain), beside their bounds: the update kernel at E=16 (uniform ids
+    over 100k rows, f32 and bf16 w), at E=0 (LR's), the z/A scatter and the
+    pass at [2^22, 16].  Returns name -> {ms, plain_ms, bound, library_ms}."""
+    from ftrl_ffm_tpu_torch.ftrl import closed_form_pass_plain, dense_ftrl_update2
+    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import (
+        closed_form_pass,
+        ftrl_update,
+        ftrl_update_linear,
+        ftrl_update_plain,
+        za_scatter,
+        za_scatter_plain,
+    )
+
+    n, k = BATCH * N_FIELDS, N_FACTORS
+    out = {}
+
+    def record(name, runs, bnd, shape, library_ms=None, extra=""):
+        out[name] = {"ms": float(np.median(runs["kernel"])),
+                     "plain_ms": float(np.median(runs["plain"])), "bound": bnd,
+                     "library_ms": library_ms}
+        print(f"timing: {name} {shape}: kernel {runs['kernel']} ms, plain {runs['plain']} ms; "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}){extra} [{where}]")
+
+    for name, wdt in (("ftrl_update_k16", torch.float32), ("ftrl_update_k16_bf16_w", torch.bfloat16)):
+        tables, ids, gg2, gg2_lin = update_inputs(TRAIN_FEATS, k, n, TRAIN_FEATS, gen, device, p, -1)
+        tables[2] = tables[2].to(wdt)
+        runs, _, _ = interleaved_ms(lambda: ftrl_update(*tables, ids, gg2, -1, p, gg2_lin),
+                                    lambda: ftrl_update_plain(*tables, ids, gg2, -1, p, gg2_lin),
+                                    10, 3)
+        # reads the ids and both payloads; reads and writes n, z, w of the
+        # touched factor rows and their three linear entries; ops: the
+        # payload sums and ~20 per touched slot
+        touched = touched_rows(ids, TRAIN_FEATS)
+        wb = tables[2].element_size()
+        bnd = bound(nbytes(ids, gg2, gg2_lin) + touched * (k * (4 + 4 + wb) * 2 + 3 * 4 * 2),
+                    gg2.numel() + gg2_lin.numel() + touched * (k + 1) * 20)
+        record(name, runs, bnd, f"R={TRAIN_FEATS} E={k} N={n} lane=-1 w {wdt}",
+               extra=f"; {touched} touched rows")
+        del tables, ids, gg2, gg2_lin
+    lin = ftrl_tables(gen, device, p, TRAIN_FEATS)
+    ids = random_ids(n, TRAIN_FEATS, TRAIN_FEATS, gen, device)
+    gl = torch.randn((n,), generator=gen, device=device) * 0.1
+    gg2_lin = torch.stack([gl, gl * gl], dim=-1)
+    runs, _, _ = interleaved_ms(lambda: ftrl_update_linear(*lin, ids, gg2_lin, p),
+                                lambda: dense_ftrl_update2(*lin, ids, gg2_lin, p), 10, 3)
+    touched = touched_rows(ids, TRAIN_FEATS)
+    bnd = bound(nbytes(ids, gg2_lin) + touched * 3 * 4 * 2, gg2_lin.numel() + touched * 20)
+    record("ftrl_update_linear", runs, bnd, f"R={TRAIN_FEATS} E=0 N={n}",
+           extra=f"; {touched} touched rows")
+    del lin, ids, gl, gg2_lin
+
+    z, ids, g, g2 = scatter_inputs(HASH_FEATS, k, n, HASH_FEATS, gen, device)
+    a = torch.zeros_like(z)
+    runs, _, _ = interleaved_ms(lambda: za_scatter(z, a, ids, g, g2),
+                                lambda: za_scatter_plain(z, ids, g, g2), 10, 3)
+    touched = touched_rows(ids, HASH_FEATS)
+    bnd = bound(nbytes(ids, g, g2) + touched * k * 4 * 3, 2 * g.numel())
+    # the same function in PyTorch: one index_add_ per output, into tables
+    # with a row for the sentinel id
+    z_ext = torch.zeros((HASH_FEATS + 1, k), device=device)
+    a_ext = torch.zeros_like(z_ext)
+    lib_ms = cuda_ms(lambda: (z_ext.index_add_(0, ids, g), a_ext.index_add_(0, ids, g2)), 10)
+    zero_ms = cuda_ms(lambda: torch.zeros_like(z), 10)
+    record("za_scatter_k16", runs, bnd, f"R={HASH_FEATS} E={k} N={n} (stable sort included)",
+           lib_ms, f"; two index_add_ {lib_ms:.4f} ms; zeroing A {zero_ms:.4f} ms; "
+           f"{touched} touched rows")
+    out["za_scatter_k16"]["zero_a_ms"] = zero_ms
+    del z, ids, g, g2, a, z_ext, a_ext
+    for name, wdt in (("ftrl_pass_k16", torch.float32), ("ftrl_pass_k16_bf16_w", torch.bfloat16)):
+        tabs = list(pass_inputs(HASH_FEATS, k, gen, device, p))
+        tabs[2] = tabs[2].to(wdt)
+        runs, _, _ = interleaved_ms(lambda: closed_form_pass(*tabs, p),
+                                    lambda: closed_form_pass_plain(*tabs, p), 10, 3)
+        # five f32 streams (read n, z', A; write n, z), w read and written
+        wb = tabs[2].element_size()
+        bnd = bound(HASH_FEATS * k * (5 * 4 + 2 * wb), 20 * HASH_FEATS * k)
+        record(name, runs, bnd, f"R={HASH_FEATS} E={k} w {wdt}")
+        del tabs
+    return out
+
+
+def lr_fm_resident(bench_100k: str, tmp: str, device, where: str) -> tuple[dict, dict]:
+    """LR and FM's part of phase 7: bench.py's protocol (400,000 rows of
+    its generator, online, n_epochs=4, n_threads=3, one warm-up
+    train_epoch() after the build, best of 3 timed epochs) from the
+    device-resident dataset, at 100k rows (LR, FM) and 2^22 rows (FM under
+    auto, "inplace", and under update_mode=dense), the 2^22 pair also on
+    Zipf-skewed ids (tools/bench_matrix.py's "zipf" variant), which touch
+    fewer rows a batch than uniform ones; a `resident <cell>:` line each,
+    its launches set to 0 just before the build and read after the last
+    epoch.  Returns (records, trainers) by cell."""
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    data = {}
+    for variant in ("uniform", "zipf"):
+        path = os.path.join(tmp, f"bench_hash_{variant}.ffm")
+        t0 = time.perf_counter()
+        ids = write_criteo_like(path, BENCH_ROWS, HASH_FEATS, zipf=variant == "zipf")
+        # rows a step's update touches: the distinct ids of each full batch
+        touched = [np.unique(ids[i:i + BATCH]).size for i in range(0, BENCH_ROWS - BATCH + 1, BATCH)]
+        data[variant] = path
+        print(f"resident lr/fm: wrote {BENCH_ROWS} bench rows ({variant} ids) at n_feats "
+              f"{HASH_FEATS} in {time.perf_counter() - t0:.1f} s; distinct ids a batch: mean "
+              f"{np.mean(touched):.0f}, min {min(touched)}, max {max(touched)}")
+    steps = 4 * math.ceil(BENCH_ROWS / BATCH)
+    records, trainers = {}, {}
+    dense = {"update_mode": "dense"}
+    for cell, mt, nf, variant, extra in (
+        ("train-lr-100k-resident", "LR", TRAIN_FEATS, None, {}),
+        ("train-fm-100k-resident", "FM", TRAIN_FEATS, None, {}),
+        ("train-fm-4m-resident", "FM", HASH_FEATS, "uniform", {}),
+        ("train-fm-4m-dense-resident", "FM", HASH_FEATS, "uniform", dense),
+        ("train-fm-4m-zipf-resident", "FM", HASH_FEATS, "zipf", {}),
+        ("train-fm-4m-zipf-dense-resident", "FM", HASH_FEATS, "zipf", dense),
+    ):
+        rcfg = Config(model_type=mt, n_fields=N_FIELDS, n_factors=N_FACTORS, n_feats=nf,
+                      batch_size=BATCH, train_data=data.get(variant, bench_100k),
+                      online=True, n_epochs=4, max_nnz=N_FIELDS, n_threads=3, device="cuda",
+                      **extra)
+        rtr = Trainer(rcfg)
+        reset_counts()
+        t0 = time.perf_counter()
+        rtr._ensure_device_cache("train")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        losses = [rtr.train_epoch()]
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            losses.append(rtr.train_epoch())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = read_counts()
+        entry = rtr._dev_cache.get("train")
+        kind = None if mt == "LR" else ("dense2" if extra else "inplace" if nf == HASH_FEATS
+                                        else "dense2")
+        rec = {
+            "cell": cell,
+            "examples_per_s": BENCH_ROWS / min(times),
+            "runs": [BENCH_ROWS / t for t in times],
+            "build_s": build_s,
+            "warmup_s": warm_s,
+            "device_cache": entry is not None,
+            "losses": losses,
+            "steps": rtr._steps_done,
+            "launches": {k: v for k, v in counts.items() if not k.endswith("_dtype")},
+            "update_by_dtype": counts["update_by_dtype"],
+            "pass_by_dtype": counts["pass_by_dtype"],
+            "card": where,
+        }
+        print(f"resident {cell}: {json.dumps(rec)}")
+        require(entry is not None and entry.n == BENCH_ROWS,
+                f"{cell}: the bench run did not take the resident dataset")
+        require(rtr._steps_done == steps, f"{cell}: {rtr._steps_done} steps, expect {steps}")
+        require(counts == expected_counts(mt, kind, "float32", steps),
+                f"{cell}: the kernels launched {counts}")
+        require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+                f"{cell}: resident losses {losses}")
+        records[cell], trainers[cell] = rec, rtr
+    # "inplace" against "dense2" after the same 100 steps (4f holds them bit
+    # for bit over 3 chained steps; here printed, for Queue 1 entry 2)
+    for variant in ("", "-zipf"):
+        a, b = trainers[f"train-fm-4m{variant}-resident"], trainers[f"train-fm-4m{variant}-dense-resident"]
+        diffs = {name: float((x.float() - y.float()).abs().max())
+                 for name, x, y in zip(a.state._fields, a.state, b.state)
+                 if x is not None and x.dim() > 0}
+        same = all(x is None or torch.equal(x, y) for x, y in zip(a.state, b.state))
+        print(f"resident train-fm-4m{variant}: inplace against dense after {steps} steps: "
+              f"bit-identical {same}; max |diff| by table {json.dumps(diffs)}")
+    return records, trainers
 
 
 def main() -> int:
@@ -697,26 +1191,34 @@ def main() -> int:
     # ---- 3c. the update kernel against its plain version ----
     p = FtrlParams()
 
-    def update_reference(tables, ids, gg2, lane, p, gg2_lin, ordered):
-        """The plain version's six tables after the step, on the same card
-        tensors.  With ordered (a skewed batch), its f32 row sums add each
-        row's payload rows rank by rank, in ascending payload order as the
-        kernel and the bf16 accumulator do: the card's index_add_ sums a hot
-        id's ~14,500 rows in no fixed order, ~1e-4 off at that length."""
+    @contextlib.contextmanager
+    def ordered_sums(ordered):
+        """Within, with ordered (a skewed batch): the plain versions' f32
+        row sums add each row's payload rows rank by rank, in ascending
+        payload order as the kernel and the bf16 accumulator do: the card's
+        index_add_ sums a hot id's ~14,500 rows in no fixed order, ~1e-4 off
+        at that length."""
         import ftrl_ffm_tpu_torch.ftrl as tftrl
 
         saved = tftrl._segment_sums
         if ordered:
             tftrl._segment_sums = functools.partial(ordered_segment_sums, saved)
         try:
-            want = list(itertools.chain(*ftrl_update_plain(*tables, ids, gg2, lane, p, gg2_lin)))
+            yield
         finally:
             tftrl._segment_sums = saved
+
+    def update_reference(tables, ids, gg2, lane, p, gg2_lin, ordered):
+        """The plain version's six tables after the step, on the same card
+        tensors (ordered_sums)."""
+        with ordered_sums(ordered):
+            want = list(itertools.chain(*ftrl_update_plain(*tables, ids, gg2, lane, p, gg2_lin)))
         torch.cuda.synchronize()
         return want
 
     # (label, R, E, N, ids drawn from [0, hi), linear lane, skewed ids): the
-    # skewed batch's hot ids take the column-split kernel
+    # skewed batch's hot ids take the column-split kernel; fm_k16 is FM's
+    # K=16 row (phase 3g: no dead lane, the linear stats in gg2_lin)
     update_cases = [
         ("bench_aug", TRAIN_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS, N_FIELDS, False),
         ("bench_skewed", TRAIN_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS, N_FIELDS,
@@ -724,8 +1226,13 @@ def main() -> int:
         ("no_aug", 5000, 128, 8000, 4000, -1, False),
         ("no_aug_skewed", 5000, 128, 8000 // N_FIELDS * N_FIELDS, 4000, -1, True),
         ("e15_dups", 50, 15, 1000, 40, 4, False),
+        ("fm_k16", TRAIN_FEATS, N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS, -1, False),
+        ("fm_k16_skewed", TRAIN_FEATS, N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS, -1, True),
     ]
     update_err = update_skew_err = None
+    # max_abs_err of phase 3g's forms: FM's K=16 rows and LR's linear-only
+    # update, by label
+    narrow_err = {}
     hot_rows = lib.ftrl_update_hot_rows()  # longer segments: the column-split kernel
     for label, r, e, n, hi, lane, skew in update_cases:
         tables, ids, gg2, gg2_lin = update_inputs(r, e, n, hi, gen, device, p, lane, skew)
@@ -757,6 +1264,8 @@ def main() -> int:
             update_err = err
         if label == "bench_skewed":
             update_skew_err = err
+        if label.startswith("fm_"):
+            narrow_err[label] = err
         del tables, ids, gg2, gg2_lin, runs, want
 
     # the bf16 forms: a bf16 payload against the plain version on the same
@@ -781,6 +1290,11 @@ def main() -> int:
         ("no_aug_skewed_bf16", 5000, 128, 8000 // N_FIELDS * N_FIELDS, 4000, -1, bf16, bf16,
          True),
         ("e15_dups_bf16", 50, 15, 1000, 40, 4, bf16, torch.float32, False),
+        # FM's K=16 row with a bf16 table (its payload stays f32)
+        ("fm_k16_bf16_w", TRAIN_FEATS, N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS, -1,
+         torch.float32, bf16, False),
+        ("fm_k16_skewed_bf16_w", TRAIN_FEATS, N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS, -1,
+         torch.float32, bf16, True),
     ]
     update_bf16_err = None
     for label, r, e, n, hi, lane, pay, wdt, skew in update_bf16_cases:
@@ -820,13 +1334,60 @@ def main() -> int:
         require(same, f"ftrl_update {label} is not deterministic")
         if label == "bench_aug_bf16":
             update_bf16_err = err
+        if label.startswith("fm_"):
+            narrow_err[label] = err
         del tables, ids, gg2, gg2_lin, runs, want
+
+    # ---- 3g. the update kernel with no factor columns (E = 0) ----
+    # LR's whole update and FM's in-place linear step (ftrl_update_linear)
+    # against the plain dense step on the same card tensors, as 3c holds
+    # the f32 forms: touched rows rtol=1e-5, atol=1e-6, untouched rows and
+    # repeats bit-identical; at LR's 100k table on uniform and skewed ids
+    # (the hot ids take the column-split kernel) and at FM's 2^22 table
+    from ftrl_ffm_tpu_torch.ftrl import dense_ftrl_update2
+    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update_linear
+
+    for label, r, skew in (("lr", TRAIN_FEATS, False), ("lr_skewed", TRAIN_FEATS, True),
+                           ("lr_4m", HASH_FEATS, False)):
+        n = BATCH * N_FIELDS
+        lin = ftrl_tables(gen, device, p, r)
+        ids = (skewed_ids if skew else random_ids)(n, r, r, gen, device)
+        gl = torch.randn((n,), generator=gen, device=device) * 0.1
+        gg2_lin = torch.stack([gl, gl * gl], dim=-1)
+        runs = []
+        for _ in range(2):
+            got = [t.clone() for t in lin]
+            ftrl_update_linear(*got, ids, gg2_lin, p)
+            torch.cuda.synchronize()
+            runs.append(got)
+        with ordered_sums(skew):
+            want = dense_ftrl_update2(*lin, ids, gg2_lin, p)
+        torch.cuda.synchronize()
+        touched = torch.zeros(r, dtype=torch.bool, device=device)
+        touched[ids[ids < r].long()] = True
+        err = max((g_[touched] - w_[touched]).abs().max().item() for g_, w_ in zip(runs[0], want))
+        ok = all(torch.allclose(g_[touched], w_[touched], rtol=UPD_RTOL, atol=UPD_ATOL)
+                 and torch.equal(g_[~touched], b_[~touched])
+                 for g_, w_, b_ in zip(runs[0], want, lin))
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(*runs))
+        longest = int(torch.bincount(ids[ids < r].long()).max())
+        print(f"kernel ftrl_update_linear {label}: R={r} E=0 N={n} touched rows "
+              f"{int(touched.sum())}, longest segment {longest} rows; max_abs_err={err:.3e} "
+              f"{'ok' if ok else 'MISMATCH'}; repeat bit-identical={same}")
+        require(longest > hot_rows if skew else longest <= hot_rows,
+                f"ftrl_update_linear {label}: the longest segment ({longest}) misses its kernel")
+        require(ok, f"ftrl_update_linear {label} disagrees")
+        require(same, f"ftrl_update_linear {label} is not deterministic")
+        narrow_err[label] = err
+        del lin, ids, gl, gg2_lin, runs, want, touched
 
     # ---- 3d. the z/A scatter against its plain version ----
     # (label, R, E, N, ids drawn from [0, hi)); main_1m is the 1M path's
-    # shape: about 472k distinct rows of 1M touched
+    # shape: about 472k distinct rows of 1M touched; fm_4m FM's in-place
+    # path (phase 3g)
     scatter_cases = [
         ("main_1m", N_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, N_FEATS),
+        ("fm_4m", HASH_FEATS, N_FACTORS, BATCH * N_FIELDS, HASH_FEATS),
         ("small", 5000, 128, 8000, 4000),
         ("e15_dups", 50, 15, 1000, 40),
     ]
@@ -856,14 +1417,17 @@ def main() -> int:
         require(same, f"za_scatter {label} is not deterministic")
         if label == "main_1m":
             scatter_err = err
+        if label == "fm_4m":
+            narrow_err["za_scatter fm_4m"] = err
         del z, ids, g, g2, runs, want, touched
 
     # ---- 3e. the closed-form pass (kernel #3) against its plain version ----
-    # (label, R, E, offset): the 1M path's tables, odd and prime R with E
-    # not a multiple of 4, and tables 4 bytes off 16-byte alignment (offset
-    # 1: the scalar loop)
+    # (label, R, E, offset): the 1M path's tables, FM's 2^22-row K=16 table
+    # (phase 3g), odd and prime R with E not a multiple of 4, and tables 4
+    # bytes off 16-byte alignment (offset 1: the scalar loop)
     pass_cases = [
         ("main_1m", N_FEATS, cp * N_FACTORS, 0),
+        ("fm_4m", HASH_FEATS, N_FACTORS, 0),
         ("r41_e15", 41, 15, 0),
         ("prime_r_e641", 7919, 641, 0),
         ("e1", 1001, 1, 0),
@@ -895,6 +1459,8 @@ def main() -> int:
         require(same, f"ftrl_pass {label} is not deterministic")
         if label == "main_1m":
             pass_err = err
+        if label == "fm_4m":
+            narrow_err["ftrl_pass fm_4m"] = err
         del tabs, runs, want, idle
 
     # with a bf16 w (table_dtype=bfloat16): bit for bit the plain version on
@@ -927,6 +1493,8 @@ def main() -> int:
         require(same, f"ftrl_pass bf16 w {label} is not deterministic")
         if label == "main_1m":
             pass_bf16_err = err
+        if label == "fm_4m":
+            narrow_err["ftrl_pass_bf16 fm_4m"] = err
         del tabs, runs, want, idle, idle_w
 
     # ---- 4. serving through the entry points ----
@@ -1683,6 +2251,11 @@ def main() -> int:
         print(f"timing: bf16 train_step on the device at 1M (inplace): {estep_ms} ms/batch (f32 "
               f"{step['inplace']}); train_epoch() streamed {eeps} examples/s [{where}]")
 
+        # ---- 4f. LR and FM through the entry points (and their device
+        # steps, phase 5's part); 5e. their kernels' forms timed ----
+        lrfm = lr_fm_train(tmp, device, where)
+        narrow_time = lr_fm_kernel_times(gen, device, where, p)
+
         # ---- 3f. the probe kernels against their plain versions ----
         # the probes at their default sizes need ~25 GB beside 4c's state
         # (7.7 GB, kept for phase 6)
@@ -2195,6 +2768,7 @@ def main() -> int:
             resident[label] = rec
             r_trainers[label] = rtr
             del rtr, entry
+        lrfm_resident, lrfm_r_trainers = lr_fm_resident(bench_p[TRAIN_FEATS], tmp, device, where)
         if "100k-bf16" in r_trainers:
             del r_trainers["100k-bf16"]  # phase 6 traces the f32 cells
         torch.cuda.empty_cache()
@@ -2215,6 +2789,23 @@ def main() -> int:
         ):
             print_breakdown(f"train_step {label}", profile_ms(
                 lambda: mdl.train_step(trn.state, next(cyc)), n), where)
+        # LR and FM's steps by part: gather, the plain PyTorch ops (FM's
+        # interaction chain, the payload, the loss) with their largest, the
+        # sort, the update kernel, the scatter, the fills (A's zeroing), the
+        # pass; beside the step's CUDA-event time of phase 5
+        for cell, rec in lrfm.items():
+            cyc = itertools.cycle(rec["placed"])
+            variants = [("", rec["model"], rec["step_ms"])]
+            if rec["dense_model"] is not None:
+                variants.append((" update_mode=dense", rec["dense_model"], rec["dense_step_ms"]))
+            for suffix, mdl, event_ms in variants:
+                rows = profile_ms(lambda: mdl.train_step(rec["trainer"].state, next(cyc)),
+                                  len(rec["placed"]))
+                parts, largest = step_categories(rows)
+                print(f"profile: train_step {cell}{suffix}: device {sum(ms for _, ms in rows):.4f} "
+                      f"ms per step by part {json.dumps(parts)}; largest other op {largest[0]} "
+                      f"{largest[1]:.4f} ms; the step by CUDA events {event_ms} ms [{where}]")
+                print_breakdown(f"train_step {cell}{suffix}", rows, where)
         # the device's busy share of one train_epoch(): device time (kernels,
         # copies, fills, on one stream) over the epoch's wall time, both from
         # the traced epoch
@@ -2227,6 +2818,8 @@ def main() -> int:
             ("n_feats=1M bf16", etrainer, eeps, N_ROWS),
             ("n_feats=100k resident", r_trainers["100k"], resident["100k"]["runs"], BENCH_ROWS),
             ("n_feats=1M resident", r_trainers["1M"], resident["1M"]["runs"], BENCH_ROWS),
+            *((cell, trn, lrfm_resident[cell]["runs"], BENCH_ROWS)
+              for cell, trn in lrfm_r_trainers.items()),
         ):
             walls = []
 
@@ -2245,7 +2838,7 @@ def main() -> int:
                 print(f"profile: train_epoch() {label}, device ms per epoch by kernel: "
                       + ", ".join(f"{name[:60]} {ms:.3f}" for name, ms in prof_rows[:10]))
         del ttrainer, tmodel, tplaced, tcycle, btrainer, bmodel, dmodel, bplaced, bcycle
-        del htrainer, hmodel, hcycle, etrainer, emodel, ecycle, r_trainers
+        del htrainer, hmodel, hcycle, etrainer, emodel, ecycle, r_trainers, lrfm_r_trainers
 
     records = [
         {
@@ -2405,6 +2998,48 @@ def main() -> int:
             "library_ms": None,
         },
     ]
+    # LR and FM's forms of the update kernel (E=16 with the linear stats in
+    # gg2_lin, f32 and bf16 w; E=0, LR's), the scatter and the pass at
+    # [2^22, 16] (f32 and bf16 w): errors from 3c-3g, times from 5e,
+    # launches from 4f's entry points and phase 7's resident cells
+    fm_counts = {cell: rec["counts"] for cell, rec in lrfm.items()}
+    for name, source, replaces, launches, resident_launches, err_key in (
+        ("ftrl_update_k16", "ftrl_update.cu", "ftrl_ffm_tpu/ftrl.py:133",
+         fm_counts["train-fm-100k"]["ftrl_update"],
+         lrfm_resident["train-fm-100k-resident"]["launches"]["ftrl_update"], "fm_k16"),
+        ("ftrl_update_k16_bf16_w", "ftrl_update.cu", "ftrl_ffm_tpu/ftrl.py:133",
+         fm_counts["train-fm-100k-bf16"]["ftrl_update"], None, "fm_k16_bf16_w"),
+        ("ftrl_update_linear", "ftrl_update.cu", "ftrl_ffm_tpu/ftrl.py:219",
+         fm_counts["train-lr-100k"]["ftrl_update"],
+         lrfm_resident["train-lr-100k-resident"]["launches"]["ftrl_update"], "lr"),
+        ("za_scatter_k16", "ftrl_update.cu", "ftrl_ffm_tpu/ftrl.py:375",
+         fm_counts["train-fm-4m"]["za_scatter"],
+         lrfm_resident["train-fm-4m-resident"]["launches"]["za_scatter"], "za_scatter fm_4m"),
+        ("ftrl_pass_k16", "ftrl_pass.cu", "ftrl_ffm_tpu/ops/ftrl_pallas.py:32",
+         fm_counts["train-fm-4m"]["closed_form_pass"],
+         lrfm_resident["train-fm-4m-resident"]["launches"]["closed_form_pass"],
+         "ftrl_pass fm_4m"),
+        ("ftrl_pass_k16_bf16_w", "ftrl_pass.cu", "ftrl_ffm_tpu/ops/ftrl_pallas.py:32",
+         fm_counts["train-fm-4m-bf16"]["closed_form_pass"], None, "ftrl_pass_bf16 fm_4m"),
+    ):
+        require(launches > 0, f"{name} was launched no time on the main path")
+        t = narrow_time[name]
+        rec = {
+            "name": name,
+            "route": "cuda",
+            "source": f"ftrl_ffm_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": narrow_err[err_key],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"],
+        }
+        if resident_launches is not None:
+            rec["resident_launches"] = resident_launches
+        records.append(rec)
     # the probe kernels: the TPU kernels of tools/micro_*.py, ported to
     # ftrl_ffm_tpu_torch/tools; launches from 5d's entry points
     for kname, source, replaces, counted in (

@@ -6,12 +6,14 @@ hand for NVIDIA Hopper (CUDA C++ under csrc/, built at first use).  The JAX
 package ftrl_ffm_tpu is the reference the port is tested against; the port
 never imports it, nor jax.
 
-The port grows in slices (ROADMAP.md Queue 1).  It trains and serves FFM on
-one device today: FTRL-Proximal epochs with the fused logits-and-gradient
-kernel and the deterministic table-update kernel (ops/ffm_cuda.py,
-ops/ftrl_cuda.py), eval and scoring with the logits kernel, from a fresh
-init or a checkpoint of the JAX package.  tools/ holds the TPU probes of
-the repo's tools/micro_*.py, ported to the card with their own kernels.
+The port grows in slices (ROADMAP.md Queue 1).  It trains and serves LR,
+FM and FFM on one device today: FTRL-Proximal epochs with FFM's fused
+logits-and-gradient kernel (ops/ffm_cuda.py) and, for every model, the
+deterministic table-update kernels (ops/ftrl_cuda.py), eval and scoring
+with FFM's logits kernel (LR and FM's logits are plain PyTorch, as the JAX
+package's are XLA), from a fresh init or a checkpoint of the JAX package.
+tools/ holds the TPU probes of the repo's tools/micro_*.py, ported to the
+card with their own kernels.
 """
 
 from ftrl_ffm_tpu_torch.config import Config

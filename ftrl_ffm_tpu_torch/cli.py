@@ -2,13 +2,13 @@
 
 The same flags as the JAX CLI (reference: src/main.cpp:13-34,
 src/include/utils/cmd_option.h:7-27) plus `--device`.  The port trains and
-serves FFM: `--train_data` (or `--cmd true` for stdin) trains, evaluating
-after each epoch when `--eval_data` is set, from a fresh init or from
-`--load_model`; `--predict_data` scores a file after training; without
-training data, `--load_model` with `--eval_data` and/or `--predict_data`
-serves.  The per-epoch lines, the eval line and the prediction file are
-the JAX CLI's.  Flags of capabilities a later slice brings raise
-NotImplementedError naming it.
+serves LR, FM and FFM (`--model_type`): `--train_data` (or `--cmd true`
+for stdin) trains, evaluating after each epoch when `--eval_data` is set,
+from a fresh init or from `--load_model`; `--predict_data` scores a file
+after training; without training data, `--load_model` with `--eval_data`
+and/or `--predict_data` serves.  The per-epoch lines, the eval line and
+the prediction file are the JAX CLI's.  Flags of capabilities a later
+slice brings raise NotImplementedError naming it.
 
 Usage:
     python -m ftrl_ffm_tpu_torch --train_data train.ffm --eval_data eval.ffm \
@@ -42,8 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="ftrl_ffm_tpu_torch",
         description=(
             "FTRL-Proximal LR / FM / FFM on libsvm / libffm data: the "
-            "PyTorch/CUDA port of ftrl_ffm_tpu (trains and serves FFM on "
-            "one device)."
+            "PyTorch/CUDA port of ftrl_ffm_tpu (trains and serves all three "
+            "models on one device)."
         ),
     )
     # ---- reference flags (src/include/utils/cmd_option.h:49-63 defaults) ----

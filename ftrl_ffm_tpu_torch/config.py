@@ -334,9 +334,10 @@ def not_ported(what: str, item: int) -> NotImplementedError:
 
 
 def check_ported(cfg: Config) -> None:
-    """Raise for config values the port does not serve yet: model_type LR
-    or FM (item 4), a device mesh (item 8), steps_per_call > 1 (item 5),
-    and use_pallas=off, which has no counterpart here.
+    """Raise for config values the port does not serve yet: a device mesh
+    (item 8), steps_per_call > 1 (item 5), and use_pallas=off, which has no
+    counterpart here.  Every model_type (LR, FM and FFM: item 4 brought LR
+    and FM) trains and serves.
 
     Settings that change only how the JAX package moves bytes
     (compact_transfer, feed_workers, async_checkpoint) do not change what
@@ -345,8 +346,6 @@ def check_ported(cfg: Config) -> None:
     device_cache, device_cache_compact and device_cache_layout value
     (item 6; on one device the shard layout holds the whole dataset, as
     the replicate one does) train on one device."""
-    if cfg.model_type != "FFM":
-        raise not_ported(f"model_type={cfg.model_type}", 4)
     if cfg.mesh_data != 1 or cfg.mesh_model != 1:
         raise not_ported(
             f"a device mesh (mesh_data={cfg.mesh_data}, "

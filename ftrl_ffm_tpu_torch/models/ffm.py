@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ftrl_ffm_tpu_torch.models.base import Batch, Model, ModelState
+from ftrl_ffm_tpu_torch.models.base import Batch, Model, ModelState, loss_grad
 from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits, ffm_fused_logits_grads
 from ftrl_ffm_tpu_torch.ops.interactions import ffm_logits_and_grads, linear_logits
 
@@ -62,7 +62,11 @@ class FFM(Model):
             self.field_pad, self.n_factors, aug_lane=lane, combined_out=not split,
             out_dtype=payload_dtype,
         )
-        return logits, tuple(payload), lane
+        return logits, loss_grad(logits, batch), tuple(payload), lane
+
+    def _emits_combined(self) -> bool:
+        # kernel #2 writes the combined payload itself, in f32 or bf16
+        return True
 
     def _lin_mirror_maintained(self) -> bool:
         # every payload folds g_lin into the dead lane and the forward pass

@@ -86,8 +86,10 @@ def ftrl_update_plain(
     """Plain PyTorch version: ((vec_n, vec_z, vec_w), (lin_n, lin_z, lin_w))
     after the step, as new tensors (the inputs are left as they were).
     sparse=True is the "sparse2" kind as ftrl_ffm_tpu/models/base.py runs
-    it: sparse_ftrl_update2 on the factor tables, the dense update on the
-    linear ones (from the payload's lane, or gg2_lin)."""
+    it under update_mode=sparse: sparse_ftrl_update2 on the factor tables
+    and on the linear ones (from the payload's lane, or gg2_lin).  (Where
+    auto picks "sparse2" for the factor tables only, JAX gives the linear
+    tables the dense update: on a 1-D table both give the same bits.)"""
     _check_lane(lane, vec_n.shape[-1], gg2_lin)
     if sparse:
         d = vec_n.shape[-1]
@@ -95,7 +97,7 @@ def ftrl_update_plain(
             gg2_lin = torch.stack([gg2[:, lane], gg2[:, d + lane]], dim=-1)
         return (
             sparse_ftrl_update2(vec_n, vec_z, vec_w, ids, gg2, p),
-            dense_ftrl_update2(lin_n, lin_z, lin_w, ids, gg2_lin, p),
+            sparse_ftrl_update2(lin_n, lin_z, lin_w, ids, gg2_lin, p),
         )
     if lane >= 0:
         return dense_ftrl_update2_aug(
@@ -182,14 +184,18 @@ def ftrl_update_linear(
     ids: torch.Tensor,      # [N] int32; ids outside [0, R) drop
     gg2_lin: torch.Tensor,  # [N, 2] f32: (g, g^2) of the linear gradient
     p: FtrlParams,
+    sparse: bool = False,   # the "sparse2" kind's plain version on the CPU
 ) -> None:
-    """The dense2 step of the linear tables alone (the separate linear
-    update of ftrl_ffm_tpu/models/base.py's huge-table path when no dead
-    lane mirrors them), in place: ftrl_update's kernel with no factor
-    tables.  Its launches count in ftrl_update.launches."""
+    """The step of the linear tables alone, in place: LR's whole update,
+    and the separate linear update of ftrl_ffm_tpu/models/base.py's
+    huge-table path when no dead lane mirrors them.  On the card it is
+    ftrl_update's kernel with no factor tables, for either kind; on the CPU
+    dense_ftrl_update2, or sparse_ftrl_update2 with sparse (the JAX
+    package's lin_kind).  Its launches count in ftrl_update.launches."""
     tables = (lin_n, lin_z, lin_w)
     if _device_kind("ftrl_update_linear", lin_n) == "cpu":
-        _copy_into(tables, dense_ftrl_update2(*tables, ids, gg2_lin, p))
+        update = sparse_ftrl_update2 if sparse else dense_ftrl_update2
+        _copy_into(tables, update(*tables, ids, gg2_lin, p))
         return
     r, n = lin_n.shape[0], ids.shape[0]
     _check_inputs("ftrl_update_linear", lin_n, [

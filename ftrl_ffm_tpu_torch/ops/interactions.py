@@ -1,10 +1,11 @@
-"""Batched linear and FFM logit math in plain PyTorch: the port's numerical
-ground truth.
+"""Batched linear, FM and FFM logit math in plain PyTorch: the port's
+numerical ground truth.
 
-ftrl_ffm_tpu/ops/interactions.py::linear_logits and ::ffm_logits_and_grads,
-written with the same field-bucketed contraction, the same factor-major slot
-layout (slot (k, c) = k * C' + c, ops/layout.py) and the same one-hot
-semantics: an occurrence whose field is outside [0, C') selects nothing.
+ftrl_ffm_tpu/ops/interactions.py::linear_logits, ::fm_logits_and_grads and
+::ffm_logits_and_grads, FFM's written with the same field-bucketed
+contraction, the same factor-major slot layout (slot (k, c) = k * C' + c,
+ops/layout.py) and the same one-hot semantics: an occurrence whose field
+is outside [0, C') selects nothing.
 
 Shapes: B = batch, F = max nnz per sample (padded), C = fields (the padded
 field count C' where rows are padded), K = factors, E = C * K.
@@ -29,6 +30,36 @@ def linear_logits(
 
     w_lin, vals: [B, F]; bias: scalar tensor."""
     return bias + torch.sum(w_lin * vals, dim=-1)
+
+
+def fm_logits_and_grads(
+    v: torch.Tensor, vals: torch.Tensor, lin_logits: torch.Tensor,
+    compute_grads: bool = True,
+):
+    """FM second-order logit by the sum-of-squares identity and the
+    per-occurrence gradient (reference: src/model/fm.cpp:40-67 logit,
+    :80-101 gradient g = grad * (x * sum_vx - v * x^2)):
+
+        sum_vx[b, k]  = sum_m x_m * v[b, m, k]
+        logit_b       = lin_b + 0.5 * sum_k (sum_vx[b, k]^2
+                                             - sum_m (x_m * v[b, m, k])^2)
+        dlogit/dv[b,m,k] = x_m * sum_vx[b, k] - v[b, m, k] * x_m^2
+
+    Args:
+      v:    [B, F, K] gathered factor rows (f32).
+      vals: [B, F] values (0 for padding, which makes it inert).
+      lin_logits: [B].
+      compute_grads: False skips the gradient (returned as None).
+
+    Returns: (logits [B], dlogit_dv [B, F, K] or None)."""
+    vx = v * vals[..., None]
+    sum_vx = torch.sum(vx, dim=1)  # [B, K]
+    sum_sq = torch.sum(vx * vx, dim=(1, 2))
+    logits = lin_logits + 0.5 * (torch.sum(sum_vx * sum_vx, dim=-1) - sum_sq)
+    if not compute_grads:
+        return logits, None
+    dlogit_dv = vals[..., None] * sum_vx[:, None, :] - v * (vals * vals)[..., None]
+    return logits, dlogit_dv
 
 
 def ffm_logits(

@@ -242,9 +242,11 @@ def estimate_hbm_bytes(cfg: Config) -> dict:
     its single-device terms; "route" stays 0 until meshes arrive, ROADMAP.md
     Queue 1 item 8).  The port's own allocations: the in-place kind's one
     [R, D] accumulator, and no table-shaped accumulator for "dense2" and
-    "sparse2", whose kernel updates the touched rows in place.  Approximate
+    "sparse2", whose kernel updates the touched rows in place.  LR (row
+    width 0) holds no factor tables: its state is the three linear tables,
+    where the JAX package counts a one-wide factor table too.  Approximate
     by design: the big allocations only."""
-    w = max(1, cfg.row_width)
+    w = cfg.row_width
     r = cfg.n_feats
     nnz = cfg.batch_size * max(1, cfg.max_nnz)
     w_bytes = 2 if cfg.table_dtype == "bfloat16" else 4
@@ -252,8 +254,9 @@ def estimate_hbm_bytes(cfg: Config) -> dict:
     state_b = r * w * (4 + 4 + w_bytes) + 3 * r * 4
     kind = select_update_kind(r, w, nnz, cfg.update_mode)
     work_b = r * w * 4 if kind == "inplace" else 0
-    # gathered rows + the (g, g^2) payload of the batch
-    work_b += 3 * nnz * w * 4
+    # gathered rows + the (g, g^2) payload of the batch (LR: the gathered
+    # linear weights and their [N, 2] payload)
+    work_b += 3 * nnz * max(1, w) * 4
     return {"state": state_b, "work": work_b, "route": 0, "total": state_b + work_b}
 
 
@@ -491,7 +494,9 @@ class Trainer:
         _build_device_cache, its single-device branch): one inert pad row
         (field 0, feat id n_feats, value 0, y 0) after the n real rows, and
         the dataset-level markers where fields or vals carry no
-        information (fields 0..F-1 on every row, every value 1.0)."""
+        information (fields 0..F-1 on every row, every value 1.0).  The
+        markers hold for every model: LR and FM never read the fields, and
+        a libsvm file's (all 0) never match the iota test."""
         cfg = self.cfg
         f = cfg.max_nnz
         if (ds.fields == np.arange(f, dtype=np.int32)).all():

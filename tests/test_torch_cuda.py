@@ -293,7 +293,9 @@ def _update_inputs(dev, r, e, n, lane, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "r,e,n,lane", [(64, 640, 4000, 39), (64, 128, 4000, -1), (20, 15, 300, 4), (300, 80, 10, 7)]
+    "r,e,n,lane", [(64, 640, 4000, 39), (64, 128, 4000, -1), (20, 15, 300, 4), (300, 80, 10, 7),
+                   # FM's K=16 row: no dead lane, the linear stats in gg2_lin
+                   (64, 16, 4000, -1), (300, 16, 10, -1)]
 )
 def test_ftrl_update_kernel_matches_plain_and_repeats(r, e, n, lane):
     dev = _card()
@@ -339,7 +341,8 @@ def test_training_kernels_check_their_inputs():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r,e,n", [(64, 640, 4000), (20, 15, 300), (300, 80, 10), (7, 4, 1)])
+@pytest.mark.parametrize("r,e,n", [(64, 640, 4000), (20, 15, 300), (300, 80, 10), (7, 4, 1),
+                                   (64, 16, 4000)])
 def test_za_scatter_kernel_matches_plain_and_repeats(r, e, n):
     """z += per-row sum of g, A = per-row sum of g^2 on the touched rows;
     untouched z bit-identical, untouched A exactly 0, repeats bit-identical."""
@@ -369,7 +372,8 @@ def test_za_scatter_kernel_matches_plain_and_repeats(r, e, n):
 
 # (R, E): odd sizes, a row width not a multiple of 4, and one float4 tail
 @pytest.mark.cuda
-@pytest.mark.parametrize("r,e,offset", [(41, 6, 0), (333, 15, 0), (64, 640, 0), (97, 128, 1)])
+@pytest.mark.parametrize("r,e,offset", [(41, 6, 0), (333, 15, 0), (64, 640, 0), (97, 128, 1),
+                                        (4099, 16, 0)])
 def test_closed_form_pass_kernel_matches_plain(r, e, offset):
     """The pass against its plain version at odd R and E (offset 1: tables
     not 16-byte aligned, the scalar loop); coordinates with A = 0 keep their
@@ -568,6 +572,8 @@ UPDATE_BF16 = [
     (64, 128, 4000, -1, torch.bfloat16, torch.bfloat16),
     (20, 15, 300, 4, torch.bfloat16, torch.float32),
     (300, 80, 10, 7, torch.float32, torch.bfloat16),
+    # FM's K=16 row with a bf16 table (its payload stays f32)
+    (64, 16, 4000, -1, torch.float32, torch.bfloat16),
 ]
 
 
@@ -627,6 +633,9 @@ UPDATE_HOT = [
     (64, 80, 3000, 7, torch.float32, torch.bfloat16),
     (64, 128, 3000, -1, torch.float32, torch.float32),
     (64, 128, 3000, -1, torch.bfloat16, torch.bfloat16),
+    # FM's K=16 row, f32 and bf16 w: half of one 32-column slice
+    (64, 16, 3000, -1, torch.float32, torch.float32),
+    (64, 16, 3000, -1, torch.float32, torch.bfloat16),
 ]
 
 
@@ -699,6 +708,113 @@ def test_ftrl_update_linear_column_split_matches_plain():
     for got, ref, again in zip(runs[0], want, runs[1]):
         np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-5, atol=1e-6)
         assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse", [False, True])
+def test_ftrl_update_linear_matches_plain(sparse):
+    """LR's whole update (E = 0: the update kernel on the linear tables
+    alone) on uniform ids with duplicates and the sentinel, against the
+    plain dense or sparse step on CPU copies (the card runs one kernel for
+    both kinds): rtol=1e-5, atol=1e-6; rows no id touches bit-identical;
+    repeats bit-identical."""
+    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update_linear
+
+    dev = _card()
+    r, n = 5000, 4000
+    tables, ids, _, gg2_lin, p = _update_inputs(dev, r, 1, n, -1, 17)
+    lin = tables[3:]
+    runs = []
+    for _ in range(2):
+        got = [t.clone() for t in lin]
+        before = ftrl_update.launches
+        ftrl_update_linear(*got, ids, gg2_lin, p, sparse=sparse)
+        torch.cuda.synchronize()
+        assert ftrl_update.launches == before + 1
+        runs.append(got)
+    want = [t.clone().cpu() for t in lin]
+    ftrl_update_linear(*want, ids.cpu(), gg2_lin.cpu(), p, sparse=sparse)
+    touched = torch.zeros(r, dtype=torch.bool, device=dev)
+    touched[ids[ids < r].long()] = True
+    for got, ref, before, again in zip(runs[0], want, lin, runs[1]):
+        np.testing.assert_allclose(got[touched].cpu().numpy(), ref[touched.cpu()].numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        assert torch.equal(got[~touched], before[~touched])
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type,kw,kind", [
+    ("LR", {"update_mode": "dense"}, "dense2"),
+    ("LR", {"update_mode": "sparse"}, "sparse2"),
+    ("FM", {"update_mode": "dense"}, "dense2"),
+    ("FM", {"update_mode": "sparse"}, "sparse2"),
+    ("FM", {"update_mode": "inplace"}, "inplace"),
+    ("FM", {"update_mode": "dense", "table_dtype": "bfloat16", "acc_dtype": "bfloat16"},
+     "dense2"),
+    ("FM", {"update_mode": "inplace", "table_dtype": "bfloat16"}, "inplace"),
+])
+def test_lr_fm_train_steps_launch_and_repeat(model_type, kw, kind):
+    """LR and FM train_step on the card: LR launches the update kernel on
+    its linear tables alone each step; FM the update kernel with the
+    linear stats in gg2_lin ("dense2", "sparse2"; an f32 payload, also
+    under acc_dtype=bfloat16) or the scatter, the pass and the linear
+    update ("inplace"); neither launches kernel #1 or #2.  Two runs from
+    one state give the same bits, within the chained bound of the CPU's
+    plain run (a bf16 w within one bf16 ulp, rtol 2^-7)."""
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.models import make_model
+    from ftrl_ffm_tpu_torch.models.base import Batch
+
+    dev = _card()
+    cfg = dict(model_type=model_type, n_fields=7, n_factors=16, n_feats=60, batch_size=16,
+               max_nnz=6, w_alpha=0.05, w_l1=0.15, w_l2=1.0, **kw)
+    model = make_model(Config(device="cuda", **cfg))
+    cpu_model = make_model(Config(device="cpu", **cfg))
+    init = cpu_model.init()
+    rng = np.random.default_rng(8)
+    batches = []
+    for _ in range(3):
+        feats = rng.integers(0, 60, (16, 6)).astype(np.int32)
+        feats[:, -1] = 60
+        vals = (rng.random((16, 6)) + 0.05).astype(np.float32)
+        vals[:, -1] = 0.0
+        batches.append(Batch(
+            torch.from_numpy(rng.integers(0, 7, (16, 6)).astype(np.int32)),
+            torch.from_numpy(feats), torch.from_numpy(vals),
+            torch.from_numpy((rng.random(16) > 0.5).astype(np.float32)),
+            torch.ones(16),
+        ))
+    fns = (ftrl_update, za_scatter, closed_form_pass, ffm_fused_logits_grads, ffm_fused_logits)
+    expect = [3, 3, 3, 0, 0] if kind == "inplace" else [3, 0, 0, 0, 0]
+    w_dt = "bf16" if "table_dtype" in kw else "f32"
+    states = []
+    for _ in range(2):
+        st = type(init)(*(None if t is None else t.to(dev) for t in init))
+        counts = [f.launches for f in fns]
+        by_dtype = dict(ftrl_update.launches_by_dtype)
+        for b in batches:
+            model.train_step(st, Batch(*(t.to(dev) for t in b)))
+        torch.cuda.synchronize()
+        assert [f.launches - c for f, c in zip(fns, counts)] == expect
+        # the payload is f32 in every kind; the linear-only update's
+        # instance is the f32 one
+        upd = "f32/f32" if model_type == "LR" or kind == "inplace" else f"f32/{w_dt}"
+        assert ftrl_update.launches_by_dtype[upd] == by_dtype[upd] + 3
+        states.append(st)
+    for a, b in zip(*states):
+        assert (a is None and b is None) or torch.equal(a, b)
+    plain = type(init)(*(None if t is None else t.clone() for t in init))
+    for b in batches:
+        cpu_model.train_step(plain, b)
+    for name in ("lin_n", "lin_z", "lin_w", "bias_z", "vec_n", "vec_z", "vec_w"):
+        got, want = getattr(states[0], name), getattr(plain, name)
+        if want is None:
+            assert got is None and model_type == "LR"
+            continue
+        bf16 = want.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(),
+                                   rtol=2.0 ** -7 if bf16 else 2e-3, atol=5e-5, err_msg=name)
 
 
 @pytest.mark.cuda
@@ -793,7 +909,7 @@ def test_ffm_logits_instance_follows_the_shape():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,e,offset", [(41, 6, 0), (333, 15, 0), (64, 640, 0), (97, 128, 1),
-                                        (1001, 1, 0)])
+                                        (1001, 1, 0), (4099, 16, 0)])
 def test_closed_form_pass_kernel_bf16_w_matches_plain(r, e, offset):
     """Kernel #3 with a bf16 w against its plain version on the same card
     tensors, bit for bit (offset 1: n, z and A off 16-byte alignment, the

@@ -179,9 +179,17 @@ def test_sentinel_ids_gather_clipped(trained):
 
 
 def test_make_model_refuses_lr_fm():
-    for mt in ("LR", "FM"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            t_make_model(TConfig(model_type=mt, device="cpu"))
+    """Once refused (ROADMAP.md Queue 1 item 4): make_model now builds LR
+    and FM, and a model type the package does not know still raises."""
+    from ftrl_ffm_tpu_torch.models import FM, LR
+
+    for mt, cls in (("LR", LR), ("FM", FM)):
+        model = t_make_model(TConfig(model_type=mt, device="cpu"))
+        assert type(model) is cls and model.cfg.model_type == mt
+    cfg = TConfig(device="cpu")
+    cfg.model_type = "GBDT"
+    with pytest.raises(ValueError, match="Invalid model_type"):
+        t_make_model(cfg)
 
 
 def test_bucket_counts_match_jax():

@@ -28,6 +28,8 @@ _MODULES = (
     "ftrl_ffm_tpu_torch.models",
     "ftrl_ffm_tpu_torch.models.base",
     "ftrl_ffm_tpu_torch.models.ffm",
+    "ftrl_ffm_tpu_torch.models.fm",
+    "ftrl_ffm_tpu_torch.models.lr",
     "ftrl_ffm_tpu_torch.io",
     "ftrl_ffm_tpu_torch.metrics",
     "ftrl_ffm_tpu_torch.data",
