@@ -36,22 +36,30 @@ Phases, each printing its own lines:
                      random tables with duplicate and sentinel ids, uniform
                      and skewed (skewed_ids: three hot ids, ~14,500 payload
                      rows each, which take the column-split kernel), in
-                     every payload/w dtype pair: touched rows rtol=1e-5,
-                     atol=1e-6 (a bf16 payload bit for bit), untouched rows
+                     every payload/w dtype pair, with the instance each
+                     shape runs: touched rows rtol=1e-5, atol=1e-6 (a bf16
+                     payload, and every narrow row of at most 32 columns,
+                     bit for bit under ordered sums), untouched rows
                      bit-identical, the same call twice bit-identical
-  3d. scatter     -> the z/A scatter against its plain version, the same way;
-                     untouched A exactly 0
+  3d. scatter     -> the z/A scatter against its plain version bit for bit
+                     under ordered sums, with the instance each shape runs,
+                     on uniform ids and on hot ones (skewed_ids at the 1M
+                     shape, Zipf ids at FM's: za_scatter_hot); untouched z
+                     bit-identical, untouched A exactly 0, repeats
+                     bit-identical
   3e. pass        -> the closed-form pass (kernel #3) against its plain
                      version at R=1M, E=640 and edge shapes: rtol=1e-6,
                      atol=1e-7; coordinates with A = 0 keep their n and z
                      bits; the same call twice bit-identical
   3g. LR/FM forms -> in 3c-3e, the same way: the update kernel at FM's
                      E=16 with the linear stats in gg2_lin (lane -1), f32
-                     and bf16 w, uniform and skewed ids; the scatter and
-                     the pass (f32 and bf16 w) at [2^22, 16]; and the update
-                     kernel with no factor columns (E=0: LR's update,
-                     ftrl_update_linear) at 100k (uniform, skewed) and 2^22
-                     rows against the plain dense step
+                     and bf16 w, uniform and skewed ids (ftrl_update_narrow);
+                     the scatter (uniform and Zipf ids) and the pass (f32
+                     and bf16 w) at [2^22, 16]; and the update kernel with
+                     no factor columns (E=0: LR's update, ftrl_update_linear,
+                     its "linear" instance) at 100k (uniform, skewed) and
+                     2^22 rows (uniform, Zipf) against the plain dense step,
+                     bit for bit under ordered sums
   4. serving      -> Trainer.evaluate() and Trainer.predict_file() with the
                      launch counts set to 0 just before and read just after
                      (every batch on kernel #1's c40_k16 instance; a bf16
@@ -92,9 +100,10 @@ Phases, each printing its own lines:
                      CPU and the card; each cell's device train step by
                      CUDA events (phase 5's part)
   5e. LR/FM time  -> the update kernel at E=16 (f32, bf16 w) and E=0, the
-                     scatter and the pass at [2^22, 16] against their plain
-                     versions beside their bounds (the scatter also beside
-                     two index_add_)
+                     scatter (uniform and Zipf ids) and the pass at
+                     [2^22, 16] against their plain versions beside their
+                     bounds and the stable sort of the same ids alone (the
+                     scatter also beside two index_add_)
   3f. probes      -> after 4c's state is freed: the probe kernels against
                      their plain versions at the probes' default shapes and
                      edge shapes — the no-w pass (rtol=1e-6, atol=1e-7,
@@ -107,10 +116,10 @@ Phases, each printing its own lines:
   5d. probes' main -> each probe's main(device="cuda") at its defaults, the
                      launch counts set to 0 just before and read just after;
                      then each probe kernel against its plain version and
-                     its one-call PyTorch equivalent, beside its bound; the
-                     RMW kernels and index_add also in device time (calls
-                     replayed from a CUDA graph, the host's dispatch left
-                     out: "device_ms" in their records)
+                     its one-call PyTorch equivalent, beside its bound; each
+                     probe kernel (and index_add) also in device time
+                     (calls replayed from a CUDA graph, the host's dispatch
+                     left out: "device_ms" in their records)
   7. resident     -> the device-resident dataset (Config.device_cache):
                      evaluate() of phase 4's state and rows from device
                      memory (kernel #1's launches; the streamed pass's loss
@@ -127,7 +136,9 @@ Phases, each printing its own lines:
                      loop under torch.cuda.set_sync_debug_mode("error");
                      the same protocol for LR and FM at 100k and FM at 2^22
                      (auto, "inplace", and update_mode=dense, on uniform
-                     and on Zipf-skewed ids, the two kinds' states compared)
+                     and on Zipf-skewed ids, whose every step has segments
+                     over 64 rows; the two kinds' states bit-identical),
+                     launches also by kernel instance
   6. profiles     -> after every timed phase (a profiler run may slow the
                      host's side for the rest of the process): the
                      torch.profiler breakdown by kernel of the train steps
@@ -228,6 +239,12 @@ def offset_copy(t, off: int):
     return buf[off:].view(t.shape)
 
 
+def ran_instance(counts: dict, before: dict) -> str:
+    """The kernel instance whose launch count rose since `before` (one)."""
+    (name,) = {k for k, v in counts.items() if v > before[k]}
+    return name
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise SystemExit(f"FAILED: {msg}")
@@ -260,12 +277,7 @@ def write_criteo_split(parts, n_feats: int, seed: int = 7, libsvm: bool = False,
     Returns the [rows, N_FIELDS] ids of all parts."""
     n_rows = sum(rows for _, rows in parts)
     rng = np.random.default_rng(seed)
-    per = n_feats // N_FIELDS
-    if zipf:
-        ranks = rng.zipf(1.1, (n_rows, N_FIELDS))
-        ids = np.minimum(ranks - 1, per - 1) + np.arange(N_FIELDS) * per
-    else:
-        ids = rng.integers(0, per, (n_rows, N_FIELDS)) + np.arange(N_FIELDS) * per
+    ids = criteo_ids(rng, n_rows, n_feats, zipf)
     w = rng.normal(0, 0.3, n_feats)
     y = (w[ids].sum(axis=1) + rng.normal(0, 1, n_rows) > 0).astype(int)
     start = 0
@@ -277,6 +289,27 @@ def write_criteo_split(parts, n_feats: int, seed: int = 7, libsvm: bool = False,
                 f.write(" ".join(toks) + "\n")
         start += rows
     return ids
+
+
+def criteo_ids(rng, n_rows: int, n_feats: int, zipf: bool = False) -> np.ndarray:
+    """write_criteo_split's [n_rows, N_FIELDS] ids from rng: field c's ids
+    in [c * per, (c + 1) * per), per = n_feats // N_FIELDS, uniform or,
+    with zipf, Zipf(s=1.1) ranks, the field's last id taking the tail."""
+    per = n_feats // N_FIELDS
+    if zipf:
+        ranks = rng.zipf(1.1, (n_rows, N_FIELDS))
+        return np.minimum(ranks - 1, per - 1) + np.arange(N_FIELDS) * per
+    return rng.integers(0, per, (n_rows, N_FIELDS)) + np.arange(N_FIELDS) * per
+
+
+def zipf_ids(n: int, r: int, device, seed: int = 7):
+    """[N] int32 payload row ids of N // N_FIELDS samples (row b*N_FIELDS +
+    c is sample b's field c, as the trainer lays them out) with Zipf ids
+    over r rows: the first batch of write_criteo_split(zipf=True)'s data
+    with this seed.  Each field's clamped tail is a segment of thousands
+    of rows at B=16,384."""
+    ids = criteo_ids(np.random.default_rng(seed), n // N_FIELDS, r, zipf=True)
+    return torch.from_numpy(ids.reshape(-1).astype(np.int32)).to(device)
 
 
 def seeded_state(cfg, device, seed: int):
@@ -438,11 +471,7 @@ def plain_kernels():
     training kernels (the in-place updates copy the plain result in)."""
     import ftrl_ffm_tpu_torch.models.base as mbase
     import ftrl_ffm_tpu_torch.models.ffm as mffm
-    from ftrl_ffm_tpu_torch.ftrl import (
-        dense_ftrl_update2,
-        dense_ftrl_update_inplace,
-        sparse_ftrl_update2,
-    )
+    from ftrl_ffm_tpu_torch.ftrl import dense_ftrl_update2, dense_ftrl_update_inplace
     from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits_grads_plain
     from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update_plain
 
@@ -451,20 +480,21 @@ def plain_kernels():
         for dst, src in zip(args[:6], (*vec, *lin)):
             dst.copy_(src)
 
-    def inplace(*args):
-        for dst, src in zip(args[:3], dense_ftrl_update_inplace(*args)):
+    def linear(*args):
+        for dst, src in zip(args[:3], dense_ftrl_update2(*args)):
             dst.copy_(src)
 
-    def linear(*args, sparse=False):
-        step = sparse_ftrl_update2 if sparse else dense_ftrl_update2
-        for dst, src in zip(args[:3], step(*args)):
+    def inplace(vec_n, vec_z, vec_w, ids, g, g2, p, lin_tables=None, gg2_lin=None):
+        for dst, src in zip((vec_n, vec_z, vec_w),
+                            dense_ftrl_update_inplace(vec_n, vec_z, vec_w, ids, g, g2, p)):
             dst.copy_(src)
+        if lin_tables is not None:
+            linear(*lin_tables, ids, gg2_lin, p)
 
-    names = ("ftrl_update", "ftrl_update_inplace", "ftrl_update_linear")
+    names = ("ftrl_update", "_inplace_step", "ftrl_update_linear")
     saved = mffm.ffm_fused_logits_grads, *(getattr(mbase, n) for n in names)
     mffm.ffm_fused_logits_grads = ffm_fused_logits_grads_plain
-    mbase.ftrl_update, mbase.ftrl_update_inplace, mbase.ftrl_update_linear = (
-        update, inplace, linear)
+    mbase.ftrl_update, mbase._inplace_step, mbase.ftrl_update_linear = update, inplace, linear
     try:
         yield
     finally:
@@ -529,28 +559,36 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Each wrapper's launches, and the update kernel's and the pass's by
-    dtype (the entries that ran)."""
+    """Each wrapper's launches, the update kernel's and the pass's by dtype
+    and the update's and the scatter's by kernel instance (the entries
+    that ran)."""
     fns = counted_wrappers()
     out = {fn.__name__: fn.launches for fn in fns}
     out["update_by_dtype"] = {k: v for k, v in fns[2].launches_by_dtype.items() if v}
     out["pass_by_dtype"] = {k: v for k, v in fns[4].launches_by_dtype.items() if v}
+    out["update_by_instance"] = {k: v for k, v in fns[2].launches_by_instance.items() if v}
+    out["scatter_by_instance"] = {k: v for k, v in fns[3].launches_by_instance.items() if v}
     return out
 
 
 def expected_counts(model_type: str, kind, table_dtype: str, steps: int) -> dict:
     """The launches `steps` LR or FM train steps must make: no FFM kernel;
     the update kernel on an f32 payload (FM's payload is f32 under every
-    acc_dtype), with a bf16 w where the factor table is bf16; FM's
-    "inplace" runs the scatter and the pass, then the linear-only update."""
+    acc_dtype), with a bf16 w where the factor table is bf16, FM's K=16 row
+    on its narrow instance; FM's "inplace" runs the scatter (narrow) and
+    the pass, then the linear-only update; LR's and that linear-only
+    update run the "linear" instance (E = 0)."""
     w = "bf16" if table_dtype == "bfloat16" else "f32"
     out = {"ffm_fused_logits": 0, "ffm_fused_logits_grads": 0, "ftrl_update": steps,
            "za_scatter": 0, "closed_form_pass": 0, "update_by_dtype": {"f32/f32": steps},
-           "pass_by_dtype": {}}
+           "pass_by_dtype": {}, "update_by_instance": {"linear": steps},
+           "scatter_by_instance": {}}
     if model_type == "FM" and kind == "inplace":
-        out.update(za_scatter=steps, closed_form_pass=steps, pass_by_dtype={w: steps})
+        out.update(za_scatter=steps, closed_form_pass=steps, pass_by_dtype={w: steps},
+                   scatter_by_instance={"narrow": steps})
     elif model_type == "FM":
         out["update_by_dtype"] = {f"f32/{w}": steps}
+        out["update_by_instance"] = {"narrow": steps}
     return out
 
 
@@ -768,9 +806,12 @@ def lr_fm_train(tmp: str, device, where: str) -> dict:
 def lr_fm_kernel_times(gen, device, where: str, p) -> dict:
     """Phase 5e: the kernels at LR and FM's widths, at the main path's
     shapes, against their plain versions (runs plain, kernel, kernel,
-    plain), beside their bounds: the update kernel at E=16 (uniform ids
-    over 100k rows, f32 and bf16 w), at E=0 (LR's), the z/A scatter and the
-    pass at [2^22, 16].  Returns name -> {ms, plain_ms, bound, library_ms}."""
+    plain), beside their bounds and the stable sort of the same ids alone
+    (each wrapper sorts before its kernels): the update kernel at E=16
+    (uniform ids over 100k rows, f32 and bf16 w), at E=0 (LR's), the z/A
+    scatter at [2^22, 16] on uniform and Zipf ids, and the pass at
+    [2^22, 16].  Returns name -> {ms, plain_ms, bound, library_ms,
+    sort_ms}."""
     from ftrl_ffm_tpu_torch.ftrl import closed_form_pass_plain, dense_ftrl_update2
     from ftrl_ffm_tpu_torch.ops.ftrl_cuda import (
         closed_form_pass,
@@ -784,12 +825,14 @@ def lr_fm_kernel_times(gen, device, where: str, p) -> dict:
     n, k = BATCH * N_FIELDS, N_FACTORS
     out = {}
 
-    def record(name, runs, bnd, shape, library_ms=None, extra=""):
+    def record(name, runs, bnd, shape, library_ms=None, extra="", ids=None):
+        sort_ms = None if ids is None else cuda_ms(lambda: torch.sort(ids, stable=True), 10)
         out[name] = {"ms": float(np.median(runs["kernel"])),
                      "plain_ms": float(np.median(runs["plain"])), "bound": bnd,
-                     "library_ms": library_ms}
+                     "library_ms": library_ms, "sort_ms": sort_ms}
+        sort = "" if sort_ms is None else f"; the stable sort alone {sort_ms:.4f} ms"
         print(f"timing: {name} {shape}: kernel {runs['kernel']} ms, plain {runs['plain']} ms; "
-              f"bound {bnd[0]:.4f} ms ({bnd[1]}){extra} [{where}]")
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}){sort}{extra} [{where}]")
 
     for name, wdt in (("ftrl_update_k16", torch.float32), ("ftrl_update_k16_bf16_w", torch.bfloat16)):
         tables, ids, gg2, gg2_lin = update_inputs(TRAIN_FEATS, k, n, TRAIN_FEATS, gen, device, p, -1)
@@ -804,8 +847,8 @@ def lr_fm_kernel_times(gen, device, where: str, p) -> dict:
         wb = tables[2].element_size()
         bnd = bound(nbytes(ids, gg2, gg2_lin) + touched * (k * (4 + 4 + wb) * 2 + 3 * 4 * 2),
                     gg2.numel() + gg2_lin.numel() + touched * (k + 1) * 20)
-        record(name, runs, bnd, f"R={TRAIN_FEATS} E={k} N={n} lane=-1 w {wdt}",
-               extra=f"; {touched} touched rows")
+        record(name, runs, bnd, f"R={TRAIN_FEATS} E={k} N={n} lane=-1 w {wdt} (stable sort "
+               f"included)", extra=f"; {touched} touched rows", ids=ids)
         del tables, ids, gg2, gg2_lin
     lin = ftrl_tables(gen, device, p, TRAIN_FEATS)
     ids = random_ids(n, TRAIN_FEATS, TRAIN_FEATS, gen, device)
@@ -815,27 +858,30 @@ def lr_fm_kernel_times(gen, device, where: str, p) -> dict:
                                 lambda: dense_ftrl_update2(*lin, ids, gg2_lin, p), 10, 3)
     touched = touched_rows(ids, TRAIN_FEATS)
     bnd = bound(nbytes(ids, gg2_lin) + touched * 3 * 4 * 2, gg2_lin.numel() + touched * 20)
-    record("ftrl_update_linear", runs, bnd, f"R={TRAIN_FEATS} E=0 N={n}",
-           extra=f"; {touched} touched rows")
+    record("ftrl_update_linear", runs, bnd, f"R={TRAIN_FEATS} E=0 N={n} (stable sort included)",
+           extra=f"; {touched} touched rows", ids=ids)
     del lin, ids, gl, gg2_lin
 
-    z, ids, g, g2 = scatter_inputs(HASH_FEATS, k, n, HASH_FEATS, gen, device)
-    a = torch.zeros_like(z)
-    runs, _, _ = interleaved_ms(lambda: za_scatter(z, a, ids, g, g2),
-                                lambda: za_scatter_plain(z, ids, g, g2), 10, 3)
-    touched = touched_rows(ids, HASH_FEATS)
-    bnd = bound(nbytes(ids, g, g2) + touched * k * 4 * 3, 2 * g.numel())
-    # the same function in PyTorch: one index_add_ per output, into tables
-    # with a row for the sentinel id
-    z_ext = torch.zeros((HASH_FEATS + 1, k), device=device)
-    a_ext = torch.zeros_like(z_ext)
-    lib_ms = cuda_ms(lambda: (z_ext.index_add_(0, ids, g), a_ext.index_add_(0, ids, g2)), 10)
-    zero_ms = cuda_ms(lambda: torch.zeros_like(z), 10)
-    record("za_scatter_k16", runs, bnd, f"R={HASH_FEATS} E={k} N={n} (stable sort included)",
-           lib_ms, f"; two index_add_ {lib_ms:.4f} ms; zeroing A {zero_ms:.4f} ms; "
-           f"{touched} touched rows")
-    out["za_scatter_k16"]["zero_a_ms"] = zero_ms
-    del z, ids, g, g2, a, z_ext, a_ext
+    for name, zipf in (("za_scatter_k16", False), ("za_scatter_k16_zipf", True)):
+        z, ids, g, g2 = scatter_inputs(HASH_FEATS, k, n, HASH_FEATS, gen, device)
+        if zipf:
+            ids = zipf_ids(n, HASH_FEATS, device)
+        a = torch.zeros_like(z)
+        runs, _, _ = interleaved_ms(lambda: za_scatter(z, a, ids, g, g2),
+                                    lambda: za_scatter_plain(z, ids, g, g2), 10, 3)
+        touched = touched_rows(ids, HASH_FEATS)
+        bnd = bound(nbytes(ids, g, g2) + touched * k * 4 * 3, 2 * g.numel())
+        # the same function in PyTorch: one index_add_ per output, into
+        # tables with a row for the sentinel id
+        z_ext = torch.zeros((HASH_FEATS + 1, k), device=device)
+        a_ext = torch.zeros_like(z_ext)
+        lib_ms = cuda_ms(lambda: (z_ext.index_add_(0, ids, g), a_ext.index_add_(0, ids, g2)), 10)
+        zero_ms = cuda_ms(lambda: torch.zeros_like(z), 10)
+        record(name, runs, bnd, f"R={HASH_FEATS} E={k} N={n}{' Zipf ids' if zipf else ''} "
+               f"(stable sort included)", lib_ms, f"; two index_add_ {lib_ms:.4f} ms; zeroing A "
+               f"{zero_ms:.4f} ms; {touched} touched rows", ids=ids)
+        out[name]["zero_a_ms"] = zero_ms
+        del z, ids, g, g2, a, z_ext, a_ext
     for name, wdt in (("ftrl_pass_k16", torch.float32), ("ftrl_pass_k16_bf16_w", torch.bfloat16)):
         tabs = list(pass_inputs(HASH_FEATS, k, gen, device, p))
         tabs[2] = tabs[2].to(wdt)
@@ -862,17 +908,29 @@ def lr_fm_resident(bench_100k: str, tmp: str, device, where: str) -> tuple[dict,
     from ftrl_ffm_tpu_torch.config import Config
     from ftrl_ffm_tpu_torch.train import Trainer
 
-    data = {}
+    from ftrl_ffm_tpu_torch.ops import _build
+
+    hot_rows = _build.lib().ftrl_update_hot_rows()
+    data, longest = {}, {}
     for variant in ("uniform", "zipf"):
         path = os.path.join(tmp, f"bench_hash_{variant}.ffm")
         t0 = time.perf_counter()
         ids = write_criteo_like(path, BENCH_ROWS, HASH_FEATS, zipf=variant == "zipf")
         # rows a step's update touches: the distinct ids of each full batch
         touched = [np.unique(ids[i:i + BATCH]).size for i in range(0, BENCH_ROWS - BATCH + 1, BATCH)]
+        # each step's longest segment (online steps take the file's order)
+        longest[variant] = [int(np.bincount(ids[i:i + BATCH].ravel()).max())
+                            for i in range(0, BENCH_ROWS, BATCH)]
         data[variant] = path
         print(f"resident lr/fm: wrote {BENCH_ROWS} bench rows ({variant} ids) at n_feats "
               f"{HASH_FEATS} in {time.perf_counter() - t0:.1f} s; distinct ids a batch: mean "
-              f"{np.mean(touched):.0f}, min {min(touched)}, max {max(touched)}")
+              f"{np.mean(touched):.0f}, min {min(touched)}, max {max(touched)}; a step's longest "
+              f"segment: min {min(longest[variant])}, max {max(longest[variant])} rows")
+    # every step of the Zipf cells has segments over hot_rows: the in-place
+    # kind's scatter sends them to za_scatter_hot (launched with every
+    # narrow scatter), the dense kind's update to ftrl_update_hot
+    require(min(longest["zipf"]) > hot_rows >= max(longest["uniform"]),
+            f"the Zipf data's steps miss segments over {hot_rows} rows")
     steps = 4 * math.ceil(BENCH_ROWS / BATCH)
     records, trainers = {}, {}
     dense = {"update_mode": "dense"}
@@ -916,9 +974,8 @@ def lr_fm_resident(bench_100k: str, tmp: str, device, where: str) -> tuple[dict,
             "device_cache": entry is not None,
             "losses": losses,
             "steps": rtr._steps_done,
-            "launches": {k: v for k, v in counts.items() if not k.endswith("_dtype")},
-            "update_by_dtype": counts["update_by_dtype"],
-            "pass_by_dtype": counts["pass_by_dtype"],
+            "launches": {k: v for k, v in counts.items() if isinstance(v, int)},
+            **{k: v for k, v in counts.items() if not isinstance(v, int)},
             "card": where,
         }
         print(f"resident {cell}: {json.dumps(rec)}")
@@ -940,6 +997,7 @@ def lr_fm_resident(bench_100k: str, tmp: str, device, where: str) -> tuple[dict,
         same = all(x is None or torch.equal(x, y) for x, y in zip(a.state, b.state))
         print(f"resident train-fm-4m{variant}: inplace against dense after {steps} steps: "
               f"bit-identical {same}; max |diff| by table {json.dumps(diffs)}")
+        require(same, f"train-fm-4m{variant}: the in-place and dense kinds' states differ")
     return records, trainers
 
 
@@ -979,7 +1037,8 @@ def main() -> int:
     def zero_instances():
         """Zero the launch counts by kernel instance and by dtype."""
         for counts in (by_instance, ffm_fused_logits.launches_by_instance,
-                       ftrl_update.launches_by_dtype, closed_form_pass.launches_by_dtype):
+                       ftrl_update.launches_by_dtype, closed_form_pass.launches_by_dtype,
+                       ftrl_update.launches_by_instance, za_scatter.launches_by_instance):
             for name in counts:
                 counts[name] = 0
 
@@ -1193,11 +1252,11 @@ def main() -> int:
 
     @contextlib.contextmanager
     def ordered_sums(ordered):
-        """Within, with ordered (a skewed batch): the plain versions' f32
-        row sums add each row's payload rows rank by rank, in ascending
-        payload order as the kernel and the bf16 accumulator do: the card's
-        index_add_ sums a hot id's ~14,500 rows in no fixed order, ~1e-4 off
-        at that length."""
+        """Within, with ordered: the plain versions' f32 row sums add each
+        row's payload rows rank by rank, in ascending payload order as the
+        kernels and the bf16 accumulator do, so a kernel can be held bit for
+        bit: the card's index_add_ sums in no fixed order (a hot id's
+        ~14,500 rows ~1e-4 off at that length)."""
         import ftrl_ffm_tpu_torch.ftrl as tftrl
 
         saved = tftrl._segment_sums
@@ -1237,25 +1296,35 @@ def main() -> int:
     for label, r, e, n, hi, lane, skew in update_cases:
         tables, ids, gg2, gg2_lin = update_inputs(r, e, n, hi, gen, device, p, lane, skew)
         runs = []
+        before_inst = dict(ftrl_update.launches_by_instance)
         for _ in range(2):
             got = [t.clone() for t in tables]
             ftrl_update(*got, ids, gg2, lane, p, gg2_lin)
             torch.cuda.synchronize()
             runs.append(got)
-        want = update_reference(tables, ids, gg2, lane, p, gg2_lin, skew)
+        instance = ran_instance(ftrl_update.launches_by_instance, before_inst)
+        # FM's narrow rows: bit for bit the plain version under ordered sums
+        narrow = instance == "narrow"
+        want = update_reference(tables, ids, gg2, lane, p, gg2_lin, skew or narrow)
         touched = torch.zeros(r, dtype=torch.bool, device=device)
         touched[ids[ids < r].long()] = True
         err, ok = 0.0, True
         for got, want, before in zip(runs[0], want, tables):
             err = max(err, (got[touched] - want[touched]).abs().max().item())
-            ok &= torch.allclose(got[touched], want[touched], rtol=UPD_RTOL, atol=UPD_ATOL)
+            if narrow:
+                ok &= torch.equal(got[touched], want[touched])
+            else:
+                ok &= torch.allclose(got[touched], want[touched], rtol=UPD_RTOL, atol=UPD_ATOL)
             ok &= torch.equal(got[~touched], want[~touched])
             ok &= torch.equal(got[~touched], before[~touched])
         same = all(torch.equal(a, b) for a, b in zip(*runs))
         longest = int(torch.bincount(ids[ids < r].long()).max())
-        print(f"kernel ftrl_update {label}: R={r} E={e} N={n} lane={lane} touched rows "
-              f"{int(touched.sum())}, longest segment {longest} rows; max_abs_err={err:.3e} "
-              f"{'ok' if ok else 'MISMATCH'}; repeat bit-identical={same}")
+        print(f"kernel ftrl_update {label}: R={r} E={e} N={n} lane={lane} instance {instance} "
+              f"touched rows {int(touched.sum())}, longest segment {longest} rows; "
+              f"max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'} (bit for bit: {narrow}); "
+              f"repeat bit-identical={same}")
+        require(instance == ("scalar" if e % 4 else "narrow" if e <= 32 else "rows"),
+                f"ftrl_update {label} ran instance {instance}")
         require(longest > hot_rows if skew else longest <= hot_rows,
                 f"ftrl_update {label}: the longest segment ({longest}) misses its kernel")
         require(ok, f"ftrl_update {label} disagrees")
@@ -1275,7 +1344,8 @@ def main() -> int:
     # payload's lane carries them (with lane = -1 they sum the f32 gg2_lin,
     # whose plain index_add_ on the card sums in no fixed order: as above);
     # an f32 payload with a bf16 w: n, z and the linear tables as above, w
-    # within one bf16 ulp
+    # within one bf16 ulp; FM's narrow rows in every dtype pair bit for bit
+    # under ordered sums
     # (label, R, E, N, ids drawn from [0, hi), linear lane, payload, w,
     # skewed ids): every dtype pair on the bench's uniform and skewed batches
     bench = (TRAIN_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, TRAIN_FEATS, N_FIELDS)
@@ -1302,19 +1372,22 @@ def main() -> int:
         tables[2] = tables[2].to(wdt)
         gg2 = gg2.to(pay)
         runs = []
+        before_inst = dict(ftrl_update.launches_by_instance)
         for _ in range(2):
             got = [t.clone() for t in tables]
             ftrl_update(*got, ids, gg2, lane, p, gg2_lin)
             torch.cuda.synchronize()
             runs.append(got)
-        want = update_reference(tables, ids, gg2, lane, p, gg2_lin, skew)
+        narrow = ran_instance(ftrl_update.launches_by_instance, before_inst) == "narrow"
+        require(narrow == (e <= 32 and e % 4 == 0), f"ftrl_update {label}: narrow={narrow}")
+        want = update_reference(tables, ids, gg2, lane, p, gg2_lin, skew or narrow)
         touched = torch.zeros(r, dtype=torch.bool, device=device)
         touched[ids[ids < r].long()] = True
         err, ok = 0.0, True
         for i, (got, want, before) in enumerate(zip(runs[0], want, tables)):
             g_t, w_t = got[touched], want[touched]
             err = max(err, (g_t.float() - w_t.float()).abs().max().item())
-            if pay == bf16 and (i < 3 or lane >= 0):
+            if narrow or (pay == bf16 and (i < 3 or lane >= 0)):
                 ok &= torch.equal(g_t, w_t)
             elif i == 2:
                 ok &= within_bf16_ulp(g_t, w_t, UPD_ATOL)
@@ -1328,7 +1401,7 @@ def main() -> int:
         print(f"kernel ftrl_update {label}: R={r} E={e} N={n} lane={lane} payload {pay} w {wdt} "
               f"touched rows {int(touched.sum())}, longest segment {longest} rows; "
               f"max_abs_err={err:.3e} "
-              f"{'ok' if ok else 'MISMATCH'} (bit for bit: {pay == bf16}); repeat "
+              f"{'ok' if ok else 'MISMATCH'} (bit for bit: {narrow or pay == bf16}); repeat "
               f"bit-identical={same}")
         require(ok, f"ftrl_update {label} disagrees")
         require(same, f"ftrl_update {label} is not deterministic")
@@ -1339,41 +1412,45 @@ def main() -> int:
         del tables, ids, gg2, gg2_lin, runs, want
 
     # ---- 3g. the update kernel with no factor columns (E = 0) ----
-    # LR's whole update and FM's in-place linear step (ftrl_update_linear)
-    # against the plain dense step on the same card tensors, as 3c holds
-    # the f32 forms: touched rows rtol=1e-5, atol=1e-6, untouched rows and
-    # repeats bit-identical; at LR's 100k table on uniform and skewed ids
-    # (the hot ids take the column-split kernel) and at FM's 2^22 table
+    # LR's whole update and FM's in-place linear step (ftrl_update_linear,
+    # the "linear" instance) against the plain dense step on the same card
+    # tensors under ordered sums: touched rows bit for bit, untouched rows
+    # and repeats bit-identical; at LR's 100k table on uniform and skewed
+    # ids and at FM's 2^22 table on uniform and Zipf ids (the hot ids take
+    # the column-split kernel)
     from ftrl_ffm_tpu_torch.ftrl import dense_ftrl_update2
     from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update_linear
 
-    for label, r, skew in (("lr", TRAIN_FEATS, False), ("lr_skewed", TRAIN_FEATS, True),
-                           ("lr_4m", HASH_FEATS, False)):
+    for label, r, skew in (("lr", TRAIN_FEATS, None), ("lr_skewed", TRAIN_FEATS, "skewed"),
+                           ("lr_4m", HASH_FEATS, None), ("lr_4m_zipf", HASH_FEATS, "zipf")):
         n = BATCH * N_FIELDS
         lin = ftrl_tables(gen, device, p, r)
-        ids = (skewed_ids if skew else random_ids)(n, r, r, gen, device)
+        ids = (zipf_ids(n, r, device) if skew == "zipf" else
+               (skewed_ids if skew else random_ids)(n, r, r, gen, device))
         gl = torch.randn((n,), generator=gen, device=device) * 0.1
         gg2_lin = torch.stack([gl, gl * gl], dim=-1)
         runs = []
+        before_inst = dict(ftrl_update.launches_by_instance)
         for _ in range(2):
             got = [t.clone() for t in lin]
             ftrl_update_linear(*got, ids, gg2_lin, p)
             torch.cuda.synchronize()
             runs.append(got)
-        with ordered_sums(skew):
+        instance = ran_instance(ftrl_update.launches_by_instance, before_inst)
+        with ordered_sums(True):
             want = dense_ftrl_update2(*lin, ids, gg2_lin, p)
         torch.cuda.synchronize()
         touched = torch.zeros(r, dtype=torch.bool, device=device)
         touched[ids[ids < r].long()] = True
         err = max((g_[touched] - w_[touched]).abs().max().item() for g_, w_ in zip(runs[0], want))
-        ok = all(torch.allclose(g_[touched], w_[touched], rtol=UPD_RTOL, atol=UPD_ATOL)
-                 and torch.equal(g_[~touched], b_[~touched])
+        ok = all(torch.equal(g_[touched], w_[touched]) and torch.equal(g_[~touched], b_[~touched])
                  for g_, w_, b_ in zip(runs[0], want, lin))
         same = all(torch.equal(a_, b_) for a_, b_ in zip(*runs))
         longest = int(torch.bincount(ids[ids < r].long()).max())
-        print(f"kernel ftrl_update_linear {label}: R={r} E=0 N={n} touched rows "
-              f"{int(touched.sum())}, longest segment {longest} rows; max_abs_err={err:.3e} "
-              f"{'ok' if ok else 'MISMATCH'}; repeat bit-identical={same}")
+        print(f"kernel ftrl_update_linear {label}: R={r} E=0 N={n} instance {instance} touched "
+              f"rows {int(touched.sum())}, longest segment {longest} rows; max_abs_err={err:.3e} "
+              f"{'ok' if ok else 'MISMATCH'} (bit for bit); repeat bit-identical={same}")
+        require(instance == "linear", f"ftrl_update_linear {label} ran instance {instance}")
         require(longest > hot_rows if skew else longest <= hot_rows,
                 f"ftrl_update_linear {label}: the longest segment ({longest}) misses its kernel")
         require(ok, f"ftrl_update_linear {label} disagrees")
@@ -1382,44 +1459,66 @@ def main() -> int:
         del lin, ids, gl, gg2_lin, runs, want, touched
 
     # ---- 3d. the z/A scatter against its plain version ----
-    # (label, R, E, N, ids drawn from [0, hi)); main_1m is the 1M path's
-    # shape: about 472k distinct rows of 1M touched; fm_4m FM's in-place
-    # path (phase 3g)
+    # bit for bit the plain version on the same card tensors under ordered
+    # sums, untouched z bit-identical, untouched A exactly 0, repeats
+    # bit-identical.  (label, R, E, N, ids drawn from [0, hi), hot ids):
+    # main_1m is the 1M path's shape, about 472k distinct rows of 1M
+    # touched (za_scatter_rows), fm_4m FM's in-place path (phase 3g;
+    # za_scatter_narrow); on skewed_ids' three hot ids at the 1M shape and
+    # on Zipf ids at FM's (the first batch of phase 7's Zipf data: ~735
+    # segments over 64 rows) the long segments take za_scatter_hot
     scatter_cases = [
-        ("main_1m", N_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, N_FEATS),
-        ("fm_4m", HASH_FEATS, N_FACTORS, BATCH * N_FIELDS, HASH_FEATS),
-        ("small", 5000, 128, 8000, 4000),
-        ("e15_dups", 50, 15, 1000, 40),
+        ("main_1m", N_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, N_FEATS, None),
+        ("main_1m_skewed", N_FEATS, cp * N_FACTORS, BATCH * N_FIELDS, N_FEATS, "skewed"),
+        ("fm_4m", HASH_FEATS, N_FACTORS, BATCH * N_FIELDS, HASH_FEATS, None),
+        ("fm_4m_zipf", HASH_FEATS, N_FACTORS, BATCH * N_FIELDS, HASH_FEATS, "zipf"),
+        ("small", 5000, 128, 8000, 4000, None),
+        ("e15_dups", 50, 15, 1000, 40, None),
     ]
     scatter_err = None
-    for label, r, e, n, hi in scatter_cases:
+    for label, r, e, n, hi, skew in scatter_cases:
         z, ids, g, g2 = scatter_inputs(r, e, n, hi, gen, device)
+        if skew == "zipf":
+            ids = zipf_ids(n, r, device)
+        elif skew:
+            ids = skewed_ids(n, hi, r, gen, device)
         runs = []
+        before_inst = dict(za_scatter.launches_by_instance)
         for _ in range(2):
             got = (z.clone(), torch.zeros_like(z))
             za_scatter(*got, ids, g, g2)
             torch.cuda.synchronize()
             runs.append(got)
-        want = za_scatter_plain(z, ids, g, g2)
+        instance = ran_instance(za_scatter.launches_by_instance, before_inst)
+        with ordered_sums(True):
+            want = za_scatter_plain(z, ids, g, g2)
         torch.cuda.synchronize()
         touched = torch.zeros(r, dtype=torch.bool, device=device)
         touched[ids[ids < r].long()] = True
         err = max((x[touched] - y[touched]).abs().max().item() for x, y in zip(runs[0], want))
-        ok = all(torch.allclose(x[touched], y[touched], rtol=UPD_RTOL, atol=UPD_ATOL)
-                 for x, y in zip(runs[0], want))
+        ok = all(torch.equal(x[touched], y[touched]) for x, y in zip(runs[0], want))
         ok &= torch.equal(runs[0][0][~touched], z[~touched])
         ok &= bool((runs[0][1][~touched] == 0).all())
         same = all(torch.equal(x, y) for x, y in zip(*runs))
-        print(f"kernel za_scatter {label}: R={r} E={e} N={n} touched rows "
-              f"{int(touched.sum())} max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}; "
-              f"repeat bit-identical={same}")
+        counts = torch.bincount(ids[(ids >= 0) & (ids < r)].long())
+        longest, n_hot = int(counts.max()), int((counts > hot_rows).sum())
+        print(f"kernel za_scatter {label}: R={r} E={e} N={n} instance {instance} touched rows "
+              f"{int(touched.sum())}, longest segment {longest} rows, {n_hot} over {hot_rows}; "
+              f"max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'} (bit for bit); repeat "
+              f"bit-identical={same}")
+        require(instance == ("scalar" if e % 4 else "narrow" if e <= 32 else "rows"),
+                f"za_scatter {label} ran instance {instance}")
+        require(longest > hot_rows if skew else longest <= hot_rows,
+                f"za_scatter {label}: the longest segment ({longest}) misses its kernel")
         require(ok, f"za_scatter {label} disagrees")
         require(same, f"za_scatter {label} is not deterministic")
         if label == "main_1m":
             scatter_err = err
         if label == "fm_4m":
             narrow_err["za_scatter fm_4m"] = err
-        del z, ids, g, g2, runs, want, touched
+        if label == "fm_4m_zipf":
+            narrow_err["za_scatter fm_4m_zipf"] = err
+        del z, ids, g, g2, runs, want, touched, counts
 
     # ---- 3e. the closed-form pass (kernel #3) against its plain version ----
     # (label, R, E, offset): the 1M path's tables, FM's 2^22-row K=16 table
@@ -1591,7 +1690,9 @@ def main() -> int:
         require(fused_launches == steps, f"ffm_fused launched {fused_launches} times in {steps} steps")
         require(fused_instances["c40_k16"] == steps,
                 f"the training path ran kernel #2's instances {fused_instances}")
-        require(update_launches == steps, f"ftrl_update launched {update_launches} times in {steps} steps")
+        require(update_launches == steps == ftrl_update.launches_by_instance["rows"],
+                f"ftrl_update launched {update_launches} times in {steps} steps, by instance "
+                f"{ftrl_update.launches_by_instance}")
         require(ffm_fused_logits.launches_by_instance["c40_k16"] == eval_launches == 2,
                 f"eval ran kernel #1's instances {ffm_fused_logits.launches_by_instance}")
         require(all(math.isfinite(x) for k in ("train_loss", "eval_loss", "eval_auc")
@@ -1953,6 +2054,8 @@ def main() -> int:
         require(bsteps == 2 * n_batches, f"{bsteps} train steps, expect {2 * n_batches}")
         for fn in ("ffm_fused_logits_grads", "za_scatter", "closed_form_pass"):
             require(big[fn] == bsteps, f"{fn} launched {big[fn]} times in {bsteps} steps")
+        require(za_scatter.launches_by_instance["rows"] == bsteps,
+                f"the 640-wide scatter ran instances {za_scatter.launches_by_instance}")
         require(big_instances["c40_k16"] == bsteps,
                 f"the in-place path ran kernel #2's instances {big_instances}")
         require(big["ftrl_update"] == 0, "the in-place path launched the linear update")
@@ -2418,15 +2521,21 @@ def main() -> int:
         probe_time = {}
 
         def probe_timing(name, label, kern, plain, kern_iters, plain_iters, bytes_moved, ops,
-                         library=None):
+                         library=None, device_iters=None):
+            """Kernel, plain and one-call ms beside the bound; with
+            device_iters, also the kernel's device time (that many calls
+            replayed from a CUDA graph)."""
             runs, k_ms, p_ms = interleaved_ms(kern, plain, kern_iters, plain_iters)
             lib_ms = cuda_ms(library, kern_iters) if library is not None else None
             b_ms, b_by = bound(bytes_moved, ops)
             lib_txt = f", one PyTorch call {lib_ms:.4f} ms" if lib_ms is not None else ""
-            print(f"timing: {name} {label}: kernel {runs['kernel']} ms, plain {runs['plain']} ms"
-                  f"{lib_txt}; bound {b_ms:.4f} ms ({b_by}) [{where}]")
             probe_time[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                                     library_ms=lib_ms)
+            if device_iters:
+                probe_time[name]["device_ms"] = graph_ms(kern, device_iters)
+                lib_txt += f"; device {probe_time[name]['device_ms']:.4f} ms (CUDA graph)"
+            print(f"timing: {name} {label}: kernel {runs['kernel']} ms, plain {runs['plain']} ms"
+                  f"{lib_txt}; bound {b_ms:.4f} ms ({b_by}) [{where}]")
             return k_ms
 
         # the no-w pass at micro_lazy's default: read n, z, A, write n, z
@@ -2434,7 +2543,7 @@ def main() -> int:
         n_t, z_t, _, a = pass_inputs(N_FEATS, e, gen, device, mlazy.P)
         probe_timing("micro_pass3", f"R={N_FEATS} E={e}", lambda: mlazy.pass3(n_t, z_t, a),
                      lambda: mlazy.pass3_plain(n_t, z_t, a), 10, 3, 5 * N_FEATS * e * 4,
-                     18 * N_FEATS * e)
+                     18 * N_FEATS * e, device_iters=5)
         del n_t, z_t, a
 
         # the canonical kernel at the probe's batch and the main path's (the
@@ -2452,7 +2561,7 @@ def main() -> int:
             probe_timing("micro_canon", f"B={b}", lambda: mcanon.canon(*args),
                          lambda: mcanon.canon_plain(*args), 10, 3,
                          nbytes(*args) + b * 4 + b * mcanon.CP * 2 * mcanon.E * 4,
-                         6 * b * mcanon.CP * mcanon.E)
+                         6 * b * mcanon.CP * mcanon.E, device_iters=5)
             del args, fields
 
         # read-modify-write at the probes' default field shape: reads the payload
@@ -2519,7 +2628,8 @@ def main() -> int:
                      lambda: mgather.dma_gather_sum(perm, pay),
                      lambda: mgather.dma_gather_sum_plain(perm, pay), 20, 5,
                      nbytes(perm, pay) + 8 * e2 * 4, nnz * e2,
-                     library=lambda: torch.nn.functional.embedding_bag(perm, pay, bag, mode="sum"))
+                     library=lambda: torch.nn.functional.embedding_bag(perm, pay, bag, mode="sum"),
+                     device_iters=20)
         bag_err = (torch.nn.functional.embedding_bag(perm, pay, bag, mode="sum")[0]
                    - mgather.dma_gather_sum(perm, pay)[0]).abs().max().item()
         pay_bf = pay.to(torch.bfloat16)
@@ -2837,6 +2947,12 @@ def main() -> int:
             if "resident" in label:
                 print(f"profile: train_epoch() {label}, device ms per epoch by kernel: "
                       + ", ".join(f"{name[:60]} {ms:.3f}" for name, ms in prof_rows[:10]))
+            if label in lrfm_r_trainers:
+                steps = math.ceil(BENCH_ROWS / BATCH)
+                parts, largest = step_categories(prof_rows)
+                print(f"profile: train_epoch() {label}: device ms per step by part "
+                      f"{json.dumps({k: v / steps for k, v in parts.items()})}; largest other op "
+                      f"{largest[0]} {largest[1] / steps:.4f} ms")
         del ttrainer, tmodel, tplaced, tcycle, btrainer, bmodel, dmodel, bplaced, bcycle
         del htrainer, hmodel, hcycle, etrainer, emodel, ecycle, r_trainers, lrfm_r_trainers
 
@@ -2999,22 +3115,29 @@ def main() -> int:
         },
     ]
     # LR and FM's forms of the update kernel (E=16 with the linear stats in
-    # gg2_lin, f32 and bf16 w; E=0, LR's), the scatter and the pass at
-    # [2^22, 16] (f32 and bf16 w): errors from 3c-3g, times from 5e,
-    # launches from 4f's entry points and phase 7's resident cells
+    # gg2_lin, f32 and bf16 w, ftrl_update_narrow; E=0, LR's, its "linear"
+    # instance), the scatter (za_scatter_narrow, and on Zipf ids also
+    # za_scatter_hot) and the pass at [2^22, 16] (f32 and bf16 w): errors
+    # from 3c-3g, times from 5e, launches by kernel instance from 4f's entry
+    # points and phase 7's resident cells (the Zipf scatter's from its
+    # resident in-place cell, the main path on such ids)
     fm_counts = {cell: rec["counts"] for cell, rec in lrfm.items()}
+    zipf_scatter = lrfm_resident["train-fm-4m-zipf-resident"]["scatter_by_instance"]["narrow"]
     for name, source, replaces, launches, resident_launches, err_key in (
         ("ftrl_update_k16", "ftrl_update.cu", "ftrl_ffm_tpu/ftrl.py:133",
-         fm_counts["train-fm-100k"]["ftrl_update"],
-         lrfm_resident["train-fm-100k-resident"]["launches"]["ftrl_update"], "fm_k16"),
+         fm_counts["train-fm-100k"]["update_by_instance"]["narrow"],
+         lrfm_resident["train-fm-100k-resident"]["update_by_instance"]["narrow"], "fm_k16"),
         ("ftrl_update_k16_bf16_w", "ftrl_update.cu", "ftrl_ffm_tpu/ftrl.py:133",
-         fm_counts["train-fm-100k-bf16"]["ftrl_update"], None, "fm_k16_bf16_w"),
+         fm_counts["train-fm-100k-bf16"]["update_by_instance"]["narrow"], None, "fm_k16_bf16_w"),
         ("ftrl_update_linear", "ftrl_update.cu", "ftrl_ffm_tpu/ftrl.py:219",
-         fm_counts["train-lr-100k"]["ftrl_update"],
-         lrfm_resident["train-lr-100k-resident"]["launches"]["ftrl_update"], "lr"),
+         fm_counts["train-lr-100k"]["update_by_instance"]["linear"],
+         lrfm_resident["train-lr-100k-resident"]["update_by_instance"]["linear"], "lr"),
         ("za_scatter_k16", "ftrl_update.cu", "ftrl_ffm_tpu/ftrl.py:375",
-         fm_counts["train-fm-4m"]["za_scatter"],
-         lrfm_resident["train-fm-4m-resident"]["launches"]["za_scatter"], "za_scatter fm_4m"),
+         fm_counts["train-fm-4m"]["scatter_by_instance"]["narrow"],
+         lrfm_resident["train-fm-4m-resident"]["scatter_by_instance"]["narrow"],
+         "za_scatter fm_4m"),
+        ("za_scatter_k16_zipf", "ftrl_update.cu", "ftrl_ffm_tpu/ftrl.py:375", zipf_scatter,
+         zipf_scatter, "za_scatter fm_4m_zipf"),
         ("ftrl_pass_k16", "ftrl_pass.cu", "ftrl_ffm_tpu/ops/ftrl_pallas.py:32",
          fm_counts["train-fm-4m"]["closed_form_pass"],
          lrfm_resident["train-fm-4m-resident"]["launches"]["closed_form_pass"],
@@ -3037,6 +3160,8 @@ def main() -> int:
             "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
         }
+        if t["sort_ms"] is not None:
+            rec["sort_ms"] = t["sort_ms"]
         if resident_launches is not None:
             rec["resident_launches"] = resident_launches
         records.append(rec)

@@ -26,7 +26,7 @@
 //
 // What bounds it on an H100: bytes.  At the bench shape (B=16,384, F=39,
 // E=640, 100k rows) it reads the 3.27 GB payload once plus about 1.5 GB of
-// touched table rows read and written: 1.436 ms at 3.35 TB/s.  Three
+// touched table rows read and written: 1.436 ms at 3.35 TB/s.  Its
 // kernels:
 //
 // - ftrl_update_kernel (E % 4 == 0 and the tables and payloads aligned for
@@ -59,13 +59,35 @@
 // - ftrl_update_scalar (any other E or alignment): the earlier design, one
 //   warp per segment start over all positions, columns in passes of 256.
 //
+// Narrow rows (0 <= E <= kNarrowCols = 32: FM's K=16 row, LR's E = 0) take
+// ftrl_update_narrow instead of ftrl_update_kernel, chosen from E alone.  A
+// warp built for 640 columns would spend a whole pass on a 16-wide row (4
+// of its 32 lanes busy) and walk a tile's ~30 segments one after another.
+// Here a group of GS lanes (a power of two >= E / 4, one quad a lane) takes
+// one segment, so 32 / GS segments are in flight per warp: at E = 16, 8
+// segments of 4 lanes.  The warp first lists the tile's segments in shared
+// memory (tile_segments: starts from one ballot, each end from the next
+// boundary in the tile, the last one's from ballots past the tile, capped
+// at kHotRows; longer ones go to ftrl_update_hot's list) with the tile's 32
+// perm entries, then each group sums its segments' rows in order, one
+// float4 (or 8 bytes of bf16) of g and one of g^2 a lane, read streaming,
+// kBatchRows rows' loads in flight before their adds.  With lane = -1 the
+// group's first lane sums the gg2_lin pairs in order; on the linear lane
+// the lane holding that column updates lin_n/z/w.  At E = 0 (only the
+// linear tables) the groups are single lanes: each lane that starts a
+// segment sums its own gg2_lin pairs, 32 segments in flight.  Bytes bound
+// them too: at FM's E = 16 (100k rows, ~99,800 touched, N = 638,976) the
+// 82 MB payload and the touched rows take 0.039 ms at 3.35 TB/s, at E = 0
+// the pairs 0.003 ms; the rows sit at random addresses, 64 bytes each.
+//
 // The host never waits for a count: the hot kernel reads the list's
-// length from device memory, and the wrapper allocates the list zeroed
-// (ftrl_update_scratch_ints).
+// length from device memory, and the launcher zeroes that length on the
+// stream before the main kernel (the wrapper allocates the list,
+// ftrl_update_scratch_ints).
 //
 // With E = 0 (no factor tables given) only the linear tables are updated,
-// from gg2_lin: the huge-table path's separate linear step when no dead
-// lane mirrors them.
+// from gg2_lin: LR's whole update, and the huge-table path's separate
+// linear step when no dead lane mirrors them.
 //
 // The payload and the vec_w table each come as float or __nv_bfloat16
 // (template parameters P and W; Config.acc_dtype and table_dtype, all four
@@ -79,20 +101,44 @@
 // bf16 payload and a bf16 w the bench shape's bound falls from 1.44 ms to
 // 0.87 ms (1.64 GB of payload, 1.28 GB of touched rows).
 //
-// za_scatter_kernel is the z/A scatter of the huge-table in-place update:
-// XLA lowered its two scatter-adds (ftrl_ffm_tpu/ftrl.py::
-// dense_ftrl_update_inplace, z.at[ids].add(g) and zeros.at[ids].add(g2)) on
-// the TPU.  The same sorted segments, one warp each, sum the split payload
-// g, g2 [N, E] in ascending payload order and write z[id] += sum g (the
-// row's sum added once; JAX adds each g into z in turn) and A[id] = sum g^2.
-// A must be zero on every row no id touches (the caller zeroes it each
-// step); csrc/ftrl_pass.cu's closed-form pass follows.  It reads the 3.27 GB
-// payload and reads and writes z and writes A on the touched rows (about
-// 470k of a 1M-row table with the synthetic ids).  It keeps its own copy of
-// the segment loop: sharing it with the update kernel of that time (now
+// The z/A scatter of the huge-table in-place update: XLA lowered its two
+// scatter-adds (ftrl_ffm_tpu/ftrl.py::dense_ftrl_update_inplace,
+// z.at[ids].add(g) and zeros.at[ids].add(g2)) on the TPU.  The same sorted
+// segments sum the split payload g, g2 [N, E] in ascending payload order
+// and write z[id] += sum g (the row's sum added once; JAX adds each g into
+// z in turn) and A[id] = sum g^2.  A must be zero on every row no id
+// touches (the caller zeroes it each step); csrc/ftrl_pass.cu's closed-form
+// pass follows.  Bytes bound it: the payload read once, z read and written
+// and A written on the touched rows (at FFM's 1M x 640, 3.27 GB of payload
+// and ~470k rows: 2.05 ms at 3.35 TB/s; at FM's 2^22 x 16, 82 MB and
+// ~590k rows: 0.059 ms).  Its kernels mirror the update's:
+//
+// - za_scatter_rows (E > 32, E % 4 == 0, tables and payload 16-byte
+//   aligned): ftrl_update_kernel's walk — a persistent grid, tiles of 32
+//   sorted positions, starts from one ballot, ends from ballots capped at
+//   kHotRows, 32 perm entries loaded at once and broadcast by shuffle, five
+//   float4 quads of g and of g^2 a lane read streaming, z read and written
+//   and A written as float4.
+// - za_scatter_narrow (E <= 32, aligned): ftrl_update_narrow's groups, one
+//   quad of g and one of g^2 a lane a row.
+// - za_scatter_hot: the segments over kHotRows rows that either listed,
+//   one block per (segment, 32-column slice), its warps copying the next
+//   rows of the slice with cp.async into a ring of 64-row chunks while warp
+//   0 sums the current one, one lane a column, in order: ftrl_update_hot's
+//   design on the split payloads, with each perm entry loaded kPermAhead
+//   chunks before its copy and as many blocks as fit on the card.
+//   Zipf-skewed ids give segments of thousands of rows, which one warp
+//   would walk row by row.
+// - za_scatter_scalar (any other E or alignment): one warp per segment
+//   start over all positions, columns in passes of 256 (the first design).
+//
+// All of them give the same bits.  The scatter keeps its own loops:
+// sharing the segment loop with the update kernel of that time (now
 // ftrl_update_scalar) through inline device functions slowed the update
-// kernel from 2.67 to 4.54 ms at the bench
-// shape (H100 80GB HBM3 at 700 W, both versions timed in one run).
+// kernel from 2.67 to 4.54 ms at the bench shape (H100 80GB HBM3 at 700 W,
+// both versions timed in one run).  Only the narrow forms share
+// tile_segments, the listing of a tile's segments; the E = 640 kernels do
+// not call it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -203,6 +249,11 @@ constexpr int kChunkRows = 64;
 constexpr int kRing = 4;
 constexpr int kSlice = 32;
 constexpr int kMaxDevices = 64;
+// rows at most this wide take the narrow forms (one quad a lane, several
+// segments a warp): ftrl_update_narrow, za_scatter_narrow
+constexpr int kNarrowCols = 32;
+// the narrow forms' rows a group loads before it adds them
+constexpr int kBatchRows = 4;
 static_assert(kHotRows % 32 == 0 && kThreads == 4 * kChunkRows && kSlice == 32, "shapes");
 
 struct Ftrl {
@@ -522,8 +573,387 @@ ftrl_update_hot(const int* __restrict__ sids, const long long* __restrict__ perm
   }
 }
 
+// The segments that start in one tile of 32 sorted positions and are at
+// most kHotRows rows long, listed in a warp's shared memory for the narrow
+// forms: start, end and id, and the tile's perm entries.
+struct TileSegs {
+  int s[32], end[32], id[32];
+  long long perm[32];
+};
+
+// Lists the valid segments that start in the tile at tile0 into t (the
+// whole warp, converged) and returns their count; a segment longer than
+// kHotRows goes to the hot list instead.  Each segment ends at the next
+// position in the tile where the id changes (an invalid id or the end of
+// the ids ends it too); only the tile's last segment can run past the
+// tile, and the warp finds its end by ballots over the next positions, up
+// to kHotRows past its start.
+__device__ __forceinline__ int tile_segments(const int* __restrict__ sids,
+                                             const long long* __restrict__ perm, int N, int R,
+                                             int tile0, int ln, TileSegs& t,
+                                             int* __restrict__ hot) {
+  const int j = tile0 + ln;
+  const int id = j < N ? sids[j] : -1;
+  int prev = __shfl_up_sync(kFull, id, 1);
+  if (ln == 0 && j > 0 && j < N) prev = sids[j - 1];
+  const bool head = j < N && (j == 0 || prev != id);
+  const bool start = head && id >= 0 && id < R;
+  // where a segment begins, or the ids end
+  const unsigned bounds = __ballot_sync(kFull, head || j >= N);
+  t.perm[ln] = j < N ? perm[j] : 0;
+  const unsigned above = ln == 31 ? 0u : bounds & (~0u << (ln + 1));
+  int end = above ? tile0 + __ffs(above) - 1 : -1;
+  const unsigned open = __ballot_sync(kFull, start && end < 0);
+  if (open) {  // the tile's last segment runs to its end
+    const int first = __ffs(open) - 1;
+    const int s = tile0 + first;
+    const int sid = __shfl_sync(kFull, id, first);
+    int e = -1;
+    for (int q0 = tile0 + 32; e < 0 && q0 <= s + kHotRows; q0 += 32) {
+      const int q = q0 + ln;
+      const unsigned other = __ballot_sync(kFull, q >= N || sids[q] != sid);
+      if (other) e = q0 + __ffs(other) - 1;
+    }
+    if (ln == first) end = e;  // -1: more than kHotRows rows
+  }
+  const bool long_seg = start && (end < 0 || end - j > kHotRows);
+  if (long_seg) hot[1 + atomicAdd(hot, 1)] = j;
+  const bool keep = start && !long_seg;
+  const unsigned kept = __ballot_sync(kFull, keep);
+  if (keep) {
+    const int k = __popc(kept & ((1u << ln) - 1));
+    t.s[k] = j;
+    t.end[k] = end;
+    t.id[k] = id;
+  }
+  __syncwarp();
+  return __popc(kept);
+}
+
+// The update for rows of E <= kNarrowCols columns (E % 4 == 0, aligned as
+// ftrl_update_kernel needs; E = 0: the linear tables alone): groups of GS
+// lanes, one segment a group, one quad a lane.
+template <typename P, typename W, int GS>
 __global__ void __launch_bounds__(kThreads)
-za_scatter_kernel(const int* __restrict__ sids, const long long* __restrict__ perm, int N,
+ftrl_update_narrow(const int* __restrict__ sids, const long long* __restrict__ perm, int N,
+                   const P* __restrict__ gg2, const float* __restrict__ gg2_lin,
+                   float* vec_n, float* vec_z, W* vec_w, float* lin_n, float* lin_z,
+                   float* lin_w, int R, int E, int lane, Ftrl p, int* __restrict__ hot) {
+  __shared__ TileSegs segs[kWarpsPerBlock];
+  TileSegs& t = segs[threadIdx.x >> 5];
+  const int ln = threadIdx.x & 31;
+  const int qd = ln % GS;         // this lane's quad of the row
+  const bool cols = qd < E / 4;   // none at E = 0
+  const bool lin_sums = lane < 0 && qd == 0;
+  const size_t w2 = 2 * static_cast<size_t>(E);
+  const int stride = gridDim.x * kWarpsPerBlock * 32;
+  for (int tile0 = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * 32; tile0 < N;
+       tile0 += stride) {
+    const int m = tile_segments(sids, perm, N, R, tile0, ln, t, hot);
+    for (int k = ln / GS; k < m; k += 32 / GS) {
+      const int s = t.s[k], end = t.end[k], sid = t.id[k];
+      const size_t at = static_cast<size_t>(sid) * E + 4 * qd;
+      float4 n4, z4;
+      float w[4];
+      if (cols) {  // the row's quad, loaded before the sums
+        n4 = *reinterpret_cast<const float4*>(vec_n + at);
+        z4 = *reinterpret_cast<const float4*>(vec_z + at);
+        load_w4(vec_w + at, w);
+      }
+      float g[4] = {0.f, 0.f, 0.f, 0.f}, g2[4] = {0.f, 0.f, 0.f, 0.f};
+      float lg = 0.f, lg2 = 0.f;
+      auto row_at = [&](int q) { return q < tile0 + 32 ? t.perm[q - tile0] : perm[q]; };
+      int q = s;
+      // kBatchRows rows at a time: their loads in flight together, then
+      // the adds in the rows' order
+      for (; q + kBatchRows <= end; q += kBatchRows) {
+        long long rows[kBatchRows];
+#pragma unroll
+        for (int u = 0; u < kBatchRows; ++u) rows[u] = row_at(q + u);
+        if (cols) {
+          decltype(load_quad(gg2)) x[kBatchRows], x2[kBatchRows];
+#pragma unroll
+          for (int u = 0; u < kBatchRows; ++u) {
+            const P* src = gg2 + static_cast<size_t>(rows[u]) * w2 + 4 * qd;
+            x[u] = load_quad(src);
+            x2[u] = load_quad(src + E);
+          }
+#pragma unroll
+          for (int u = 0; u < kBatchRows; ++u) {
+            add_quad(g, x[u]);
+            add_quad(g2, x2[u]);
+          }
+        }
+        if (lin_sums) {
+          float2 pr[kBatchRows];
+#pragma unroll
+          for (int u = 0; u < kBatchRows; ++u) {
+            pr[u] = __ldcs(reinterpret_cast<const float2*>(gg2_lin) + rows[u]);
+          }
+#pragma unroll
+          for (int u = 0; u < kBatchRows; ++u) {
+            lg += pr[u].x;
+            lg2 += pr[u].y;
+          }
+        }
+      }
+      for (; q < end; ++q) {
+        const long long row = row_at(q);
+        if (cols) {
+          const P* src = gg2 + static_cast<size_t>(row) * w2 + 4 * qd;
+          add_quad(g, load_quad(src));
+          add_quad(g2, load_quad(src + E));
+        }
+        if (lin_sums) {
+          const float2 pr = __ldcs(reinterpret_cast<const float2*>(gg2_lin) + row);
+          lg += pr.x;
+          lg2 += pr.y;
+        }
+      }
+      if (cols) {
+        ftrl_coord(n4.x, z4.x, w[0], g[0], g2[0], p);
+        ftrl_coord(n4.y, z4.y, w[1], g[1], g2[1], p);
+        ftrl_coord(n4.z, z4.z, w[2], g[2], g2[2], p);
+        ftrl_coord(n4.w, z4.w, w[3], g[3], g2[3], p);
+        *reinterpret_cast<float4*>(vec_n + at) = n4;
+        *reinterpret_cast<float4*>(vec_z + at) = z4;
+        store_w4(vec_w + at, w);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (4 * qd + c == lane) ftrl_step(lin_n + sid, lin_z + sid, lin_w + sid, g[c], g2[c], p);
+        }
+      }
+      if (lin_sums) ftrl_step(lin_n + sid, lin_z + sid, lin_w + sid, lg, lg2, p);
+    }
+    __syncwarp();  // the groups are done with t before the next tile's list
+  }
+}
+
+// One float4 quad of the split payload added into four sums, in order.
+__device__ __forceinline__ void add4(float* acc, float4 q) {
+  acc[0] += q.x;
+  acc[1] += q.y;
+  acc[2] += q.z;
+  acc[3] += q.w;
+}
+
+// z[id] += the sums' quad, added once each (z4 as loaded), and A[id] = the
+// g^2 sums' quad.
+__device__ __forceinline__ void store_za(float* z, float* a, size_t at, float4 z4,
+                                         const float* sg, const float* sg2) {
+  z4.x = __fadd_rn(z4.x, sg[0]);
+  z4.y = __fadd_rn(z4.y, sg[1]);
+  z4.z = __fadd_rn(z4.z, sg[2]);
+  z4.w = __fadd_rn(z4.w, sg[3]);
+  *reinterpret_cast<float4*>(z + at) = z4;
+  *reinterpret_cast<float4*>(a + at) = make_float4(sg2[0], sg2[1], sg2[2], sg2[3]);
+}
+
+__global__ void __launch_bounds__(kThreads)
+za_scatter_rows(const int* __restrict__ sids, const long long* __restrict__ perm, int N,
+                const float* __restrict__ g, const float* __restrict__ g2, float* __restrict__ z,
+                float* __restrict__ a, int R, int E, int* __restrict__ hot) {
+  const int ln = threadIdx.x & 31;
+  const int quads = E / 4;
+  const int stride = gridDim.x * kWarpsPerBlock * 32;
+  for (int tile0 = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * 32; tile0 < N;
+       tile0 += stride) {
+    const int j = tile0 + ln;
+    const int id = j < N ? sids[j] : -1;
+    int prev = __shfl_up_sync(kFull, id, 1);
+    if (ln == 0 && j > 0) prev = sids[j - 1];
+    unsigned starts = __ballot_sync(kFull, j < N && id >= 0 && id < R && (j == 0 || prev != id));
+    while (starts) {
+      const int first = __ffs(starts) - 1;
+      starts &= starts - 1;
+      const int s = tile0 + first;
+      const int sid = __shfl_sync(kFull, id, first);
+      int end = -1;
+      for (int c = 0; c < kHotRows / 32 && end < 0; ++c) {
+        const int q = s + 1 + 32 * c + ln;
+        const unsigned other = __ballot_sync(kFull, q >= N || sids[q] != sid);
+        if (other) end = s + 32 * c + __ffs(other);
+      }
+      if (end < 0) {  // more than kHotRows payload rows: za_scatter_hot's
+        if (ln == 0) hot[1 + atomicAdd(hot, 1)] = s;
+        continue;
+      }
+      const size_t row = static_cast<size_t>(sid) * E;
+      for (int q0 = 0; q0 < quads; q0 += kPassQuads) {
+        float sg[4 * kQuadsPerLane], sg2[4 * kQuadsPerLane];
+#pragma unroll
+        for (int u = 0; u < 4 * kQuadsPerLane; ++u) sg[u] = sg2[u] = 0.f;
+        for (int base = s; base < end; base += 32) {
+          const int cnt = min(32, end - base);
+          const long long mine = ln < cnt ? perm[base + ln] : 0;
+          for (int r = 0; r < cnt; ++r) {
+            const size_t src = static_cast<size_t>(__shfl_sync(kFull, mine, r)) * E;
+#pragma unroll
+            for (int u = 0; u < kQuadsPerLane; ++u) {
+              const int qd = q0 + ln + 32 * u;
+              if (qd < quads) {
+                add4(sg + 4 * u, __ldcs(reinterpret_cast<const float4*>(g + src) + qd));
+                add4(sg2 + 4 * u, __ldcs(reinterpret_cast<const float4*>(g2 + src) + qd));
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kQuadsPerLane; ++u) {
+          const int qd = q0 + ln + 32 * u;
+          if (qd >= quads) continue;
+          const size_t at = row + 4 * static_cast<size_t>(qd);
+          store_za(z, a, at, *reinterpret_cast<const float4*>(z + at), sg + 4 * u, sg2 + 4 * u);
+        }
+      }
+    }
+  }
+}
+
+template <int GS>
+__global__ void __launch_bounds__(kThreads)
+za_scatter_narrow(const int* __restrict__ sids, const long long* __restrict__ perm, int N,
+                  const float* __restrict__ g, const float* __restrict__ g2,
+                  float* __restrict__ z, float* __restrict__ a, int R, int E,
+                  int* __restrict__ hot) {
+  __shared__ TileSegs segs[kWarpsPerBlock];
+  TileSegs& t = segs[threadIdx.x >> 5];
+  const int ln = threadIdx.x & 31;
+  const int qd = ln % GS;  // this lane's quad of the row
+  const bool cols = qd < E / 4;
+  const int stride = gridDim.x * kWarpsPerBlock * 32;
+  for (int tile0 = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * 32; tile0 < N;
+       tile0 += stride) {
+    const int m = tile_segments(sids, perm, N, R, tile0, ln, t, hot);
+    for (int k = ln / GS; cols && k < m; k += 32 / GS) {
+      const int s = t.s[k], end = t.end[k];
+      const size_t at = static_cast<size_t>(t.id[k]) * E + 4 * qd;
+      const float4 z4 = *reinterpret_cast<const float4*>(z + at);
+      float sg[4] = {0.f, 0.f, 0.f, 0.f}, sg2[4] = {0.f, 0.f, 0.f, 0.f};
+      auto quad_at = [&](const float* x, int q) {
+        const long long row = q < tile0 + 32 ? t.perm[q - tile0] : perm[q];
+        return __ldcs(reinterpret_cast<const float4*>(x + static_cast<size_t>(row) * E) + qd);
+      };
+      int q = s;
+      // kBatchRows rows at a time: their loads in flight together, then
+      // the adds in the rows' order
+      for (; q + kBatchRows <= end; q += kBatchRows) {
+        float4 x[kBatchRows], x2[kBatchRows];
+#pragma unroll
+        for (int u = 0; u < kBatchRows; ++u) {
+          x[u] = quad_at(g, q + u);
+          x2[u] = quad_at(g2, q + u);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatchRows; ++u) {
+          add4(sg, x[u]);
+          add4(sg2, x2[u]);
+        }
+      }
+      for (; q < end; ++q) {
+        add4(sg, quad_at(g, q));
+        add4(sg2, quad_at(g2, q));
+      }
+      store_za(z, a, at, z4, sg, sg2);
+    }
+    __syncwarp();  // the groups are done with t before the next tile's list
+  }
+}
+
+// Dynamic shared memory of za_scatter_hot: the ring of payload slices
+// [kRing][kChunkRows][g slice | g^2 slice].
+constexpr size_t kScatterHotBytes = kRingElems * sizeof(float);
+// za_scatter_hot: chunks ahead of its copy that a perm entry is loaded
+constexpr int kPermAhead = 3;
+
+__global__ void __launch_bounds__(kThreads)
+za_scatter_hot(const int* __restrict__ sids, const long long* __restrict__ perm, int N,
+               const float* __restrict__ g, const float* __restrict__ g2, float* __restrict__ z,
+               float* __restrict__ a, int E, const int* __restrict__ hot) {
+  extern __shared__ float ring[];
+  __shared__ int seg_end;
+  const int count = hot[0];
+  const int slices = (E + kSlice - 1) / kSlice;
+  const int ln = threadIdx.x & 31;
+  const int pr = threadIdx.x >> 2;   // the chunk row this thread copies
+  const int part = threadIdx.x & 3;  // its quads: g 0-3, g 4-7, g^2 0-3, g^2 4-7
+  for (int unit = blockIdx.x; unit < count * slices; unit += gridDim.x) {
+    const int seg = unit / slices;
+    const int slice = unit - seg * slices;
+    const int s = hot[1 + seg];
+    const int sid = sids[s];
+    if (threadIdx.x < 32) {
+      // the segment's end by a 32-way search: sids[lo] == sid, and hi == N
+      // or sids[hi] != sid
+      int lo = s, hi = N;
+      while (hi - lo > 1) {
+        const int step = (hi - lo + 31) / 32;
+        const int q = lo + (ln + 1) * step;
+        const int k = __popc(__ballot_sync(kFull, q < hi && sids[q] == sid));
+        hi = min(hi, lo + (k + 1) * step);
+        lo += k * step;
+      }
+      if (ln == 0) seg_end = hi;
+    }
+    __syncthreads();
+    const int end = seg_end;
+    const int col0 = slice * kSlice;
+    const int chunks = (end - s + kChunkRows - 1) / kChunkRows;
+    // the payload row this thread copies in chunk ci (-1: none)
+    auto row_of = [&](int ci) -> long long {
+      const int q = s + ci * kChunkRows + pr;
+      return ci < chunks && q < end ? perm[q] : -1;
+    };
+    // start the copies of chunk ci from payload row `row` (one commit group,
+    // empty past the end)
+    auto start_copies = [&](int ci, long long row) {
+      if (row >= 0) {
+        const float* from = (part >= 2 ? g2 : g) + static_cast<size_t>(row) * E + col0;
+        float* to = ring + ((ci % kRing) * kChunkRows + pr) * 2 * kSlice + (part >= 2 ? kSlice : 0);
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int c4 = 4 * ((part & 1) * 4 + h);
+          if (col0 + c4 < E) cp_async16(to + c4, from + c4);
+        }
+      }
+      cp_async_commit();
+    };
+    for (int ci = 0; ci < kRing - 1; ++ci) start_copies(ci, row_of(ci));
+    // each perm entry is loaded kPermAhead chunks before its copy starts:
+    // one chunk's sums take less time than a load from memory
+    long long next[kPermAhead];
+#pragma unroll
+    for (int u = 0; u < kPermAhead; ++u) next[u] = row_of(kRing - 1 + u);
+    float sg = 0.f, sg2 = 0.f;
+    for (int ci = 0; ci < chunks; ++ci) {
+      start_copies(ci + kRing - 1, next[0]);
+#pragma unroll
+      for (int u = 0; u + 1 < kPermAhead; ++u) next[u] = next[u + 1];
+      next[kPermAhead - 1] = row_of(ci + kRing - 1 + kPermAhead);
+      cp_async_wait<kRing - 1>();
+      __syncthreads();
+      if (threadIdx.x < 32 && col0 + ln < E) {
+        const int rows = min(kChunkRows, end - s - ci * kChunkRows);
+        const float* col = ring + (ci % kRing) * kChunkRows * 2 * kSlice + ln;
+#pragma unroll 8
+        for (int r = 0; r < rows; ++r) {
+          sg += col[r * 2 * kSlice];
+          sg2 += col[r * 2 * kSlice + kSlice];
+        }
+      }
+      __syncthreads();
+    }
+    const int c = col0 + ln;
+    if (threadIdx.x < 32 && c < E) {
+      const size_t at = static_cast<size_t>(sid) * E + c;
+      z[at] = __fadd_rn(z[at], sg);
+      a[at] = sg2;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+za_scatter_scalar(const int* __restrict__ sids, const long long* __restrict__ perm, int N,
                   const float* __restrict__ g, const float* __restrict__ g2,
                   float* __restrict__ z, float* __restrict__ a, int R, int E) {
   const int ln = threadIdx.x & 31;
@@ -584,17 +1014,58 @@ cudaError_t device_sms(int* dev, int* sms) {
   return cudaSuccess;
 }
 
+// The persistent grid of `kernel` over the tiles of N sorted positions: as
+// many blocks as fit on the card (per_sm[dev], the occupancy API's count,
+// read once per device into the caller's cache), or fewer when the tiles
+// run out.
+template <typename K>
+cudaError_t persistent_grid(K kernel, int N, int* per_sm, int* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = device_sms(&dev, &sms);
+  if (err != cudaSuccess) return err;
+  if (per_sm[dev] == 0) {
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    per_sm[dev] = blocks > 0 ? blocks : 1;
+  }
+  const int tiles = (N + 31) / 32;
+  const int needed = (tiles + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  *grid = needed < per_sm[dev] * sms ? needed : per_sm[dev] * sms;
+  return cudaSuccess;
+}
+
+// The kernel instances the launchers report, as ops/ftrl_cuda.py names them.
+enum UpdateInstance { kUpdateRows = 0, kUpdateNarrow = 1, kUpdateLinear = 2, kUpdateScalar = 3 };
+enum ScatterInstance { kScatterRows = 0, kScatterNarrow = 1, kScatterScalar = 2 };
+
+// ftrl_update_narrow for groups of GS lanes.
+template <typename P, typename W, int GS>
+cudaError_t launch_narrow(const int* sids, const long long* perm, int N, const P* pay,
+                          const float* gg2_lin, float* vec_n, float* vec_z, W* w, float* lin_n,
+                          float* lin_z, float* lin_w, int R, int E, int lane, Ftrl p, int* hot,
+                          cudaStream_t stream) {
+  static int per_sm[kMaxDevices] = {};
+  int grid = 0;
+  const cudaError_t err = persistent_grid(ftrl_update_narrow<P, W, GS>, N, per_sm, &grid);
+  if (err != cudaSuccess) return err;
+  ftrl_update_narrow<P, W, GS><<<grid, kThreads, 0, stream>>>(
+      sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n, lin_z, lin_w, R, E, lane, p, hot);
+  return cudaGetLastError();
+}
+
 template <typename P, typename W>
 int launch_update(const int* sids, const long long* perm, int N, const void* gg2,
                   const float* gg2_lin, float* vec_n, float* vec_z, void* vec_w, float* lin_n,
                   float* lin_z, float* lin_w, int R, int E, int lane, Ftrl p, int* hot,
-                  cudaStream_t stream) {
+                  int* instance, cudaStream_t stream) {
   const P* pay = static_cast<const P*>(gg2);
   W* w = static_cast<W*>(vec_w);
   // quads need 4-column groups at 16-byte (f32) or 8-byte (bf16) addresses
   const bool quads = E % 4 == 0 && aligned(pay, 4 * sizeof(P)) && aligned(vec_n, 16) &&
                      aligned(vec_z, 16) && aligned(w, 4 * sizeof(W)) && aligned(gg2_lin, 8);
   if (!quads) {
+    *instance = kUpdateScalar;
     ftrl_update_scalar<P, W><<<segment_blocks(N), kThreads, 0, stream>>>(
         sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n, lin_z, lin_w, R, E, lane, p);
     return static_cast<int>(cudaGetLastError());
@@ -602,80 +1073,168 @@ int launch_update(const int* sids, const long long* perm, int N, const void* gg2
   int dev = 0, sms = 0;
   cudaError_t err = device_sms(&dev, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // once per device: the main kernel's blocks per SM (its persistent grid
-  // fills the card once), and the hot kernel's shared memory allowance
-  // (above the 48 KB default for f32)
-  static int per_sm[kMaxDevices] = {};
+  // once per device: the hot kernel's shared memory allowance (above the
+  // 48 KB default for f32)
+  static bool hot_ready[kMaxDevices] = {};
   constexpr size_t bytes = hot_bytes<P>();
-  if (per_sm[dev] == 0) {
-    int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ftrl_update_kernel<P, W>,
-                                                        kThreads, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (!hot_ready[dev]) {
     err = cudaFuncSetAttribute(&ftrl_update_hot<P, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
-    per_sm[dev] = blocks > 0 ? blocks : 1;
+    hot_ready[dev] = true;
   }
-  const int tiles = (N + 31) / 32;
-  const int needed = (tiles + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const int grid = needed < per_sm[dev] * sms ? needed : per_sm[dev] * sms;
-  ftrl_update_kernel<P, W><<<grid, kThreads, 0, stream>>>(
-      sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n, lin_z, lin_w, R, E, lane, p, hot);
-  err = cudaGetLastError();
+  err = cudaMemsetAsync(hot, 0, sizeof(int), stream);  // the hot list's length
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (E <= kNarrowCols) {
+    // one quad a lane: groups of 1, 2, 4 or 8 lanes (E = 0: 1)
+    *instance = E == 0 ? kUpdateLinear : kUpdateNarrow;
+    const int q = E / 4;
+    err = q <= 1 ? launch_narrow<P, W, 1>(sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n,
+                                          lin_z, lin_w, R, E, lane, p, hot, stream)
+        : q <= 2 ? launch_narrow<P, W, 2>(sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n,
+                                          lin_z, lin_w, R, E, lane, p, hot, stream)
+        : q <= 4 ? launch_narrow<P, W, 4>(sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n,
+                                          lin_z, lin_w, R, E, lane, p, hot, stream)
+                 : launch_narrow<P, W, 8>(sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n,
+                                          lin_z, lin_w, R, E, lane, p, hot, stream);
+  } else {
+    // once per device: the main kernel's blocks per SM (its persistent
+    // grid fills the card once)
+    *instance = kUpdateRows;
+    static int per_sm[kMaxDevices] = {};
+    if (per_sm[dev] == 0) {
+      int blocks = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ftrl_update_kernel<P, W>,
+                                                          kThreads, 0);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      per_sm[dev] = blocks > 0 ? blocks : 1;
+    }
+    const int tiles = (N + 31) / 32;
+    const int needed = (tiles + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    const int grid = needed < per_sm[dev] * sms ? needed : per_sm[dev] * sms;
+    ftrl_update_kernel<P, W><<<grid, kThreads, 0, stream>>>(
+        sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n, lin_z, lin_w, R, E, lane, p, hot);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   ftrl_update_hot<P, W><<<2 * sms, kThreads, bytes, stream>>>(
       sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n, lin_z, lin_w, E, lane, p, hot);
   return static_cast<int>(cudaGetLastError());
 }
 
+// za_scatter_narrow for groups of GS lanes.
+template <int GS>
+cudaError_t launch_scatter_narrow(const int* sids, const long long* perm, int N, const float* g,
+                                  const float* g2, float* z, float* a, int R, int E, int* hot,
+                                  cudaStream_t stream) {
+  static int per_sm[kMaxDevices] = {};
+  int grid = 0;
+  const cudaError_t err = persistent_grid(za_scatter_narrow<GS>, N, per_sm, &grid);
+  if (err != cudaSuccess) return err;
+  za_scatter_narrow<GS><<<grid, kThreads, 0, stream>>>(sids, perm, N, g, g2, z, a, R, E, hot);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Ints of the zeroed scratch ftrl_update_launch takes for N payload rows:
-// a count and the starts of at most N / (kHotRows + 1) long segments.
+// Ints of the scratch ftrl_update_launch and za_scatter_launch take for N
+// payload rows: a count and the starts of at most N / (kHotRows + 1) long
+// segments.
 int ftrl_update_scratch_ints(int N) { return 1 + N / (kHotRows + 1); }
 
-// Payload rows above which a segment is summed by columns (ftrl_update_hot).
+// Payload rows above which a segment is summed by columns (ftrl_update_hot,
+// za_scatter_hot).
 int ftrl_update_hot_rows() { return kHotRows; }
 
 // Launch on `stream`: sids [N] int32 sorted stably, perm [N] int64, gg2
 // [N, 2E] (f32, or bf16 when payload_bf16), gg2_lin [N, 2] f32 (read only
 // when lane < 0), vec tables [R, E] (unused when E = 0; vec_w f32, or bf16
 // when w_bf16) and lin tables [R] updated in place, hot
-// [ftrl_update_scratch_ints(N)] int32 zeroed, all contiguous on the
-// current device.  Returns the CUDA error of the launches (0 on success).
+// [ftrl_update_scratch_ints(N)] int32 scratch, all contiguous on the
+// current device.  Writes the instance it runs to *instance (an
+// UpdateInstance).  Returns the CUDA error of the launches (0 on success).
 int ftrl_update_launch(const int* sids, const long long* perm, int N, const void* gg2,
                        const float* gg2_lin, float* vec_n, float* vec_z, void* vec_w,
                        float* lin_n, float* lin_z, float* lin_w, int R, int E, int lane,
                        int payload_bf16, int w_bf16, float alpha, float beta, float l1,
-                       float l2, int* hot, void* stream) {
+                       float l2, int* hot, int* instance, void* stream) {
   if (N == 0) return 0;
   const Ftrl p{alpha, beta, l1, l2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   if (payload_bf16) {
     return w_bf16 ? launch_update<bf16, bf16>(sids, perm, N, gg2, gg2_lin, vec_n, vec_z, vec_w,
-                                              lin_n, lin_z, lin_w, R, E, lane, p, hot, s)
+                                              lin_n, lin_z, lin_w, R, E, lane, p, hot, instance,
+                                              s)
                   : launch_update<bf16, float>(sids, perm, N, gg2, gg2_lin, vec_n, vec_z,
-                                               vec_w, lin_n, lin_z, lin_w, R, E, lane, p, hot, s);
+                                               vec_w, lin_n, lin_z, lin_w, R, E, lane, p, hot,
+                                               instance, s);
   }
   return w_bf16 ? launch_update<float, bf16>(sids, perm, N, gg2, gg2_lin, vec_n, vec_z, vec_w,
-                                             lin_n, lin_z, lin_w, R, E, lane, p, hot, s)
+                                             lin_n, lin_z, lin_w, R, E, lane, p, hot, instance, s)
                 : launch_update<float, float>(sids, perm, N, gg2, gg2_lin, vec_n, vec_z, vec_w,
-                                              lin_n, lin_z, lin_w, R, E, lane, p, hot, s);
+                                              lin_n, lin_z, lin_w, R, E, lane, p, hot, instance,
+                                              s);
 }
 
 // Launch on `stream`: sids [N] int32 sorted stably, perm [N] int64, g and
-// g2 [N, E], z and a [R, E] (a zero on the rows no id touches), all
-// contiguous on the current device: z[id] += sum g, a[id] = sum g^2.
-// Returns the CUDA error of the launch (0 on success).
+// g2 [N, E], z and a [R, E] (a zero on the rows no id touches), hot
+// [ftrl_update_scratch_ints(N)] int32 scratch, all contiguous on the
+// current device: z[id] += sum g, a[id] = sum g^2.  Writes the instance it
+// runs to *instance (a ScatterInstance).  Returns the CUDA error of the
+// launches (0 on success).
 int za_scatter_launch(const int* sids, const long long* perm, int N, const float* g,
-                      const float* g2, float* z, float* a, int R, int E, void* stream) {
+                      const float* g2, float* z, float* a, int R, int E, int* hot, int* instance,
+                      void* stream) {
   if (N == 0 || E == 0) return 0;
-  za_scatter_kernel<<<segment_blocks(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      sids, perm, N, g, g2, z, a, R, E);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool quads = E % 4 == 0 && aligned(g, 16) && aligned(g2, 16) && aligned(z, 16) &&
+                     aligned(a, 16);
+  if (!quads) {
+    *instance = kScatterScalar;
+    za_scatter_scalar<<<segment_blocks(N), kThreads, 0, s>>>(sids, perm, N, g, g2, z, a, R, E);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = device_sms(&dev, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // once per device: the hot kernel's shared memory allowance (above the
+  // 48 KB default) and its blocks per SM (its grid fills the card once)
+  static int hot_per_sm[kMaxDevices] = {};
+  if (hot_per_sm[dev] == 0) {
+    err = cudaFuncSetAttribute(&za_scatter_hot, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kScatterHotBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, za_scatter_hot, kThreads,
+                                                        kScatterHotBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    hot_per_sm[dev] = blocks > 0 ? blocks : 1;
+  }
+  err = cudaMemsetAsync(hot, 0, sizeof(int), s);  // the hot list's length
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (E <= kNarrowCols) {
+    *instance = kScatterNarrow;
+    const int q = E / 4;
+    err = q <= 1   ? launch_scatter_narrow<1>(sids, perm, N, g, g2, z, a, R, E, hot, s)
+          : q <= 2 ? launch_scatter_narrow<2>(sids, perm, N, g, g2, z, a, R, E, hot, s)
+          : q <= 4 ? launch_scatter_narrow<4>(sids, perm, N, g, g2, z, a, R, E, hot, s)
+                   : launch_scatter_narrow<8>(sids, perm, N, g, g2, z, a, R, E, hot, s);
+  } else {
+    *instance = kScatterRows;
+    static int per_sm[kMaxDevices] = {};
+    int grid = 0;
+    err = persistent_grid(za_scatter_rows, N, per_sm, &grid);
+    if (err == cudaSuccess) {
+      za_scatter_rows<<<grid, kThreads, 0, s>>>(sids, perm, N, g, g2, z, a, R, E, hot);
+      err = cudaGetLastError();
+    }
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  za_scatter_hot<<<hot_per_sm[dev] * sms, kThreads, kScatterHotBytes, s>>>(sids, perm, N, g, g2,
+                                                                           z, a, E, hot);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,8 +29,8 @@ from ftrl_ffm_tpu_torch.ftrl import (
     select_update_kind,
 )
 from ftrl_ffm_tpu_torch.ops.ftrl_cuda import (
+    _inplace_step,
     ftrl_update,
-    ftrl_update_inplace,
     ftrl_update_linear,
 )
 
@@ -317,16 +317,17 @@ class Model:
             # 66-77)
             g_lin = (gs[:, None] * batch.vals).reshape(-1)
             gg2_lin = torch.stack([g_lin, g_lin * g_lin], dim=-1)
-        # the linear tables' own kind, for their own payload (it differs
-        # from the factor tables' only in the plain version on the CPU)
-        lin_sparse = select_update_kind(state.lin_n.shape[0], 0, nnz, mode) == "sparse2"
+        # JAX gives the linear tables' own payload a kind of its own, dense
+        # or sparse; on a 1-D table both give the same bits, which
+        # ftrl_update_linear's one step gives
         lin_tables = (state.lin_n, state.lin_z, state.lin_w)
         if payload is None:
-            ftrl_update_linear(*lin_tables, ids, gg2_lin, p, sparse=lin_sparse)
+            ftrl_update_linear(*lin_tables, ids, gg2_lin, p)
         elif split:
-            ftrl_update_inplace(state.vec_n, state.vec_z, state.vec_w, ids, *payload, p)
-            if lin_own:
-                ftrl_update_linear(*lin_tables, ids, gg2_lin, p, sparse=lin_sparse)
+            # the factor tables' in-place step, then the linear tables' own,
+            # from one sort of the ids
+            _inplace_step(state.vec_n, state.vec_z, state.vec_w, ids, *payload, p,
+                          lin_tables if lin_own else None, gg2_lin)
         else:
             ftrl_update(
                 state.vec_n, state.vec_z, state.vec_w, *lin_tables,

@@ -77,14 +77,14 @@ def _declare(lib: ctypes.CDLL) -> None:
                                      ctypes.POINTER(i)]
     lib.ffm_fused_launch.restype = i
     lib.ftrl_update_launch.argtypes = [
-        p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, f, p, p,
+        p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, f, p, ctypes.POINTER(i), p,
     ]
     lib.ftrl_update_launch.restype = i
     lib.ftrl_update_scratch_ints.argtypes = [i]
     lib.ftrl_update_scratch_ints.restype = i
     lib.ftrl_update_hot_rows.argtypes = []
     lib.ftrl_update_hot_rows.restype = i
-    lib.za_scatter_launch.argtypes = [p, p, i, p, p, p, p, i, i, p]
+    lib.za_scatter_launch.argtypes = [p, p, i, p, p, p, p, i, i, p, ctypes.POINTER(i), p]
     lib.za_scatter_launch.restype = i
     lib.ftrl_pass_launch.argtypes = [p, p, p, p, n, i, f, f, f, f, p]
     lib.ftrl_pass_launch.restype = i

@@ -14,15 +14,27 @@ by the dtypes of the kernel instance that ran in `launches_by_dtype`.
   from their own [N, 2] payload `gg2_lin`, as in
   ftrl_ffm_tpu/models/base.py's separate linear update.  On the card it is
   the deterministic touched-rows kernel for every update kind ("dense2" and
-  "sparse2" differ only in their plain versions); an id with more than 64
-  payload rows (kHotRows there: one id in most rows of a batch) is summed
-  split by columns in a second kernel, with the same bits.  `ftrl_update_linear` is
-  the same kernel on the linear tables alone.
+  "sparse2" differ only in their plain versions): rows of more than 32
+  columns on ftrl_update_kernel, narrower ones (FM's 16) on
+  ftrl_update_narrow; an id with more than 64 payload rows (kHotRows there:
+  one id in most rows of a batch) is summed split by columns in a second
+  kernel, with the same bits.  `ftrl_update_linear` is the same launch on
+  the linear tables alone (E = 0: LR's update).
 - `ftrl_update_inplace`: the huge-table form
   (ftrl_ffm_tpu/ftrl.py::dense_ftrl_update_inplace) from a split payload:
   `za_scatter` (z += sum g, A = sum g^2 per touched row) into a zeroed
   accumulator, then `closed_form_pass` (the port of
   ftrl_ffm_tpu/ops/ftrl_pallas.py::_pass_kernel) over the whole table.
+  `_inplace_step` runs it and then, when given, the linear tables' own
+  update from one stable sort of the ids (models/base.py's in-place step).
+
+The update and the scatter read the ids sorted stably (one torch.sort a
+launch, one for both launches of `_inplace_step`), so the occurrences of
+one id form a segment in ascending payload order, which fixes the order
+of its float sums.  Their `launches_by_instance` counts each launch by
+the kernel instance its launcher picked from E and alignment: "rows",
+"narrow", "linear" (the update at E = 0) or "scalar"; every launch but a
+scalar one also launches the column-split kernel for the long segments.
 
 The factor weight table vec_w is f32 or bf16 (Config.table_dtype), and
 ftrl_update's combined payload f32 or bf16 (Config.acc_dtype, summed in a
@@ -32,6 +44,8 @@ one on widened copies.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -109,32 +123,45 @@ def ftrl_update_plain(
     )
 
 
-def _launch_update(what, ids, gg2, gg2_lin, tables, r: int, e: int, lane: int, p) -> None:
-    """Sort the ids and launch csrc/ftrl_update.cu's kernel on the six
-    tables (the factor ones None when e = 0)."""
+def _sort(ids):
+    """(sids, perm): the ids sorted stably, so a row's payload rows stay in
+    ascending order, which fixes the order of its float sums."""
+    return torch.sort(ids, stable=True)
+
+
+def _hot_list(lib, n: int, device) -> torch.Tensor:
+    """The scratch of a launch: the list of segments too long for the main
+    kernel, which it fills and the column-split kernel reads (a count,
+    zeroed by the launcher on the stream, then starts)."""
+    return torch.empty(lib.ftrl_update_scratch_ints(n), dtype=torch.int32, device=device)
+
+
+def _launch_update(what, ids, gg2, gg2_lin, tables, r: int, e: int, lane: int, p,
+                   order=None) -> None:
+    """Launch csrc/ftrl_update.cu's update on the six tables (the factor
+    ones None when e = 0), from `order` = _sort(ids) or, when None, a sort
+    of its own."""
     from ftrl_ffm_tpu_torch.ops import _build
 
     lib = _build.lib()
     n = ids.shape[0]
     if n == 0:
         return
-    # stable: a row's payload rows stay in ascending order, which fixes the
-    # order of its float sums
-    sids, perm = torch.sort(ids, stable=True)
-    # the list of segments too long for one warp, which the kernel fills
-    # and its column-split second kernel reads (a count, then starts)
-    hot = torch.zeros(lib.ftrl_update_scratch_ints(n), dtype=torch.int32, device=ids.device)
+    sids, perm = _sort(ids) if order is None else order
+    hot = _hot_list(lib, n, ids.device)
+    instance = ctypes.c_int(-1)  # the launcher writes the instance it picks
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     dtypes = _short(gg2), _short(tables[2])  # the payload's and vec_w's
     with torch.cuda.device(ids.device):
         code = lib.ftrl_update_launch(
             sids.data_ptr(), perm.data_ptr(), n, ptr(gg2), ptr(gg2_lin),
             *(ptr(t) for t in tables), r, e, lane, *(int(d == "bf16") for d in dtypes),
-            p.alpha, p.beta, p.l1, p.l2, hot.data_ptr(), _stream(ids),
+            p.alpha, p.beta, p.l1, p.l2, hot.data_ptr(), ctypes.byref(instance), _stream(ids),
         )
     _build.check(code, what)
     ftrl_update.launches += 1
     ftrl_update.launches_by_dtype["/".join(dtypes)] += 1
+    ftrl_update.launches_by_instance[UPDATE_INSTANCES[instance.value]] += 1
 
 
 def ftrl_update(
@@ -184,18 +211,22 @@ def ftrl_update_linear(
     ids: torch.Tensor,      # [N] int32; ids outside [0, R) drop
     gg2_lin: torch.Tensor,  # [N, 2] f32: (g, g^2) of the linear gradient
     p: FtrlParams,
-    sparse: bool = False,   # the "sparse2" kind's plain version on the CPU
 ) -> None:
     """The step of the linear tables alone, in place: LR's whole update,
     and the separate linear update of ftrl_ffm_tpu/models/base.py's
     huge-table path when no dead lane mirrors them.  On the card it is
-    ftrl_update's kernel with no factor tables, for either kind; on the CPU
-    dense_ftrl_update2, or sparse_ftrl_update2 with sparse (the JAX
-    package's lin_kind).  Its launches count in ftrl_update.launches."""
+    ftrl_update's launch with no factor tables (the "linear" instance), on
+    the CPU dense_ftrl_update2: on a 1-D table the JAX package's dense and
+    sparse steps give the same bits, so one step serves either kind.  Its
+    launches count in ftrl_update.launches."""
+    _update_linear(lin_n, lin_z, lin_w, ids, gg2_lin, p)
+
+
+def _update_linear(lin_n, lin_z, lin_w, ids, gg2_lin, p, order=None) -> None:
+    """ftrl_update_linear, from `order` = _sort(ids) when given."""
     tables = (lin_n, lin_z, lin_w)
     if _device_kind("ftrl_update_linear", lin_n) == "cpu":
-        update = sparse_ftrl_update2 if sparse else dense_ftrl_update2
-        _copy_into(tables, update(*tables, ids, gg2_lin, p))
+        _copy_into(tables, dense_ftrl_update2(*tables, ids, gg2_lin, p))
         return
     r, n = lin_n.shape[0], ids.shape[0]
     _check_inputs("ftrl_update_linear", lin_n, [
@@ -206,7 +237,7 @@ def ftrl_update_linear(
     ])
     _launch_update(
         "ftrl_update_launch (linear)", ids, None, gg2_lin, (None, None, None, *tables),
-        r, 0, -1, p,
+        r, 0, -1, p, order,
     )
 
 
@@ -226,8 +257,15 @@ def za_scatter(
 ) -> None:
     """The z/A scatter of the in-place update (XLA's two scatter-adds at
     ftrl_ffm_tpu/ftrl.py::dense_ftrl_update_inplace), deterministic: the
-    ids sorted stably, then csrc/ftrl_update.cu's za_scatter kernel adds
-    each touched row's sum of g to z and writes its sum of g^2 to a."""
+    ids sorted stably, then csrc/ftrl_update.cu's za_scatter kernels add
+    each touched row's sum of g to z and write its sum of g^2 to a (rows
+    of more than 32 columns on za_scatter_rows, narrower ones on
+    za_scatter_narrow, segments over 64 rows on za_scatter_hot)."""
+    _scatter(z, a, ids, g, g2)
+
+
+def _scatter(z, a, ids, g, g2, order=None) -> None:
+    """za_scatter, from `order` = _sort(ids) when given."""
     if _device_kind("za_scatter", z) == "cpu":
         _copy_into((z, a), za_scatter_plain(z, ids, g, g2))
         return
@@ -243,16 +281,19 @@ def za_scatter(
     from ftrl_ffm_tpu_torch.ops import _build
 
     lib = _build.lib()
-    if n == 0:
+    if n == 0 or e == 0:
         return
-    sids, perm = torch.sort(ids, stable=True)  # as in _launch_update
+    sids, perm = _sort(ids) if order is None else order
+    hot = _hot_list(lib, n, z.device)
+    instance = ctypes.c_int(-1)
     with torch.cuda.device(z.device):
         code = lib.za_scatter_launch(
             sids.data_ptr(), perm.data_ptr(), n, g.data_ptr(), g2.data_ptr(),
-            z.data_ptr(), a.data_ptr(), r, e, _stream(z),
+            z.data_ptr(), a.data_ptr(), r, e, hot.data_ptr(), ctypes.byref(instance), _stream(z),
         )
     _build.check(code, "za_scatter_launch")
     za_scatter.launches += 1
+    za_scatter.launches_by_instance[SCATTER_INSTANCES[instance.value]] += 1
 
 
 def closed_form_pass(
@@ -302,14 +343,26 @@ def ftrl_update_inplace(
     """The huge-table FTRL step on the factor tables, in place
     (ftrl_ffm_tpu/ftrl.py::dense_ftrl_update_inplace).  On the card: a
     zeroed [R, E] accumulator A each step, za_scatter, closed_form_pass."""
+    _inplace_step(vec_n, vec_z, vec_w, ids, g, g2, p)
+
+
+def _inplace_step(vec_n, vec_z, vec_w, ids, g, g2, p, lin_tables=None, gg2_lin=None) -> None:
+    """ftrl_update_inplace on the factor tables, then, with lin_tables,
+    ftrl_update_linear on them from gg2_lin: FM's in-place step.  On the
+    card both launches read one stable sort of the ids."""
     if _device_kind("ftrl_update_inplace", vec_n) == "cpu":
         _copy_into(
             (vec_n, vec_z, vec_w), dense_ftrl_update_inplace(vec_n, vec_z, vec_w, ids, g, g2, p)
         )
+        if lin_tables is not None:
+            _update_linear(*lin_tables, ids, gg2_lin, p)
         return
+    order = _sort(ids)
     a = torch.zeros_like(vec_n)
-    za_scatter(vec_z, a, ids, g, g2)
+    _scatter(vec_z, a, ids, g, g2, order)
     closed_form_pass(vec_n, vec_z, vec_w, a, p)
+    if lin_tables is not None:
+        _update_linear(*lin_tables, ids, gg2_lin, p, order)
 
 
 # Kernel launches since the count was last set to 0 (chip_smoke.py reads
@@ -323,3 +376,9 @@ ftrl_update.launches_by_dtype = {
     f"{a}/{b}": 0 for a in ("f32", "bf16") for b in ("f32", "bf16")
 }
 closed_form_pass.launches_by_dtype = {"f32": 0, "bf16": 0}
+# the same launches by kernel instance (the launchers' UpdateInstance and
+# ScatterInstance, in order)
+UPDATE_INSTANCES = ("rows", "narrow", "linear", "scalar")
+SCATTER_INSTANCES = ("rows", "narrow", "scalar")
+ftrl_update.launches_by_instance = dict.fromkeys(UPDATE_INSTANCES, 0)
+za_scatter.launches_by_instance = dict.fromkeys(SCATTER_INSTANCES, 0)

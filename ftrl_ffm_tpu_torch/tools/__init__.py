@@ -11,8 +11,9 @@ is only a check that the probe runs).
     python -m ftrl_ffm_tpu_torch.tools.<name> [arguments] [--device cpu]
 
 runs a probe on the card (the default) or on the CPU.  `kernel_ab.py`
-times kernels #1 and #2, the update kernel and the RMW probe kernel of one
-copy of the package, for A/B runs of two commits (see its docstring).
+times kernels #1 and #2, the update kernel, the z/A scatter and the RMW
+probe kernel of one copy of the package, for A/B runs of two commits (see
+its docstring).
 """
 
 from __future__ import annotations

@@ -1,14 +1,15 @@
-"""Time kernel #1 (csrc/ffm_logits.cu), the update kernel
-(csrc/ftrl_update.cu), the training kernel #2 (csrc/ffm_fused.cu) and the
-RMW probe kernel (csrc/micro_rmw.cu) of one copy of the package on the
-card, for A/B runs of two commits on one card, in one run:
+"""Time kernel #1 (csrc/ffm_logits.cu), the update kernel and the z/A
+scatter (csrc/ftrl_update.cu), the training kernel #2 (csrc/ffm_fused.cu)
+and the RMW probe kernel (csrc/micro_rmw.cu) of one copy of the package on
+the card, for A/B runs of two commits on one card, in one run:
 
     PYTHONPATH=<root> python3 <this file>
 
 imports ftrl_ffm_tpu_torch from <root> (a checkout, or a commit unpacked
 with `git archive`), so the same file times either commit; it calls only
-entry points both have (ffm_fused_logits, ftrl_update,
-ffm_fused_logits_grads, micro_vmem_rmw2.run_kernel, micro_vmem_rmw.rmw).
+entry points both have (ffm_fused_logits, ftrl_update, ftrl_update_linear,
+za_scatter, ffm_fused_logits_grads, micro_vmem_rmw2.run_kernel,
+micro_vmem_rmw.rmw).
 Run it once per root in turns (parent, change, change, parent).  Inputs
 come from torch.Generators on the card, seeded, so every run times the same
 tensors:
@@ -24,6 +25,14 @@ tensors:
     six tables' bytes after one call on fresh copies (equal hashes: the
     same bits), CUDA events around 10 calls (the stable sort included),
     and each kernel's device time per call from torch.profiler (5 calls);
+  - the update kernel's narrow forms: E=16 (FM's row, R=100,000, the
+    linear stats in gg2_lin, uniform ids) and E=0 (ftrl_update_linear at
+    R=100,000 on uniform ids and at 2^22 on Zipf ids), and the z/A scatter
+    at FM's [2^22, 16] on uniform and Zipf ids (chip_smoke.py::zipf_ids)
+    and FFM's [1M, 640] on uniform and skewed ids: the SHA-256 of the updated tables
+    after one call on fresh copies, CUDA events around 10 calls (the
+    stable sort included), the stable sort alone on the same ids, and each
+    kernel's device time per call from torch.profiler (5 calls);
   - kernel #2 at chip_smoke.py's training shape: B=16,384, F=39, C'=40,
     K=16, canonical fields, the linear gradient in lane 39, combined and
     split output; CUDA events around 10 calls;
@@ -122,6 +131,7 @@ def main() -> dict:
     # leave the host's launch path slower for the rest of the process)
     _time_rmw(out, dev, gen, time_ms, graph_ms, profile_ms, mrmw, mrmw2)
     _time_updates(out, dev, time_ms, profile_ms, ftrl_update, FtrlParams())
+    _time_narrow(out, dev, time_ms, profile_ms, FtrlParams())
     return out
 
 
@@ -147,6 +157,52 @@ def _time_updates(out, dev, time_ms, profile_ms, ftrl_update, p) -> None:
     for name, call in updates.items():
         out[name]["kernels"] = {k[:80]: ms for k, ms in profile_ms(call, 5)}
     del updates
+    torch.cuda.empty_cache()
+
+
+def _time_narrow(out, dev, time_ms, profile_ms, p) -> None:
+    """The update kernel at E=16 and E=0 and the z/A scatter at [2^22, 16]
+    and [1M, 640]: output hashes, per-call times beside the stable sort's
+    alone, and per-kernel times into out."""
+    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update, ftrl_update_linear, za_scatter
+
+    smoke = _smoke()
+    n, hash_rows = B * F, 1 << 22
+    calls = {}
+
+    def add(name, ids, tables, call):
+        once = [t.clone() for t in tables]
+        call(once)
+        out[name] = {"sha256": _sha256(once), "ms": time_ms(lambda: call(tables), dev, 10),
+                     "sort_ms": time_ms(lambda: torch.sort(ids, stable=True), dev, 10)}
+        calls[name] = lambda: call(tables)
+
+    ugen = torch.Generator(device=dev).manual_seed(3)
+    tables, ids, gg2, gg2_lin = smoke.update_inputs(R, K, n, R, ugen, dev, p, -1)
+    add("update_k16", ids, tables,
+        lambda t, i=ids, g=gg2, gl=gg2_lin: ftrl_update(*t, i, g, -1, p, gl))
+    for name, r, zipf in (("update_linear", R, False), ("update_linear_4m_zipf", hash_rows, True)):
+        lin = smoke.ftrl_tables(ugen, dev, p, r)
+        ids = smoke.zipf_ids(n, r, dev) if zipf else smoke.random_ids(n, r, r, ugen, dev)
+        gl = torch.randn((n,), generator=ugen, device=dev) * 0.1
+        pairs = torch.stack([gl, gl * gl], dim=-1)
+        add(name, ids, lin, lambda t, i=ids, g=pairs: ftrl_update_linear(*t, i, g, p))
+    for name, r, e, skew in (("scatter_k16", hash_rows, K, None),
+                             ("scatter_k16_zipf", hash_rows, K, "zipf"),
+                             ("scatter_1m", 1_000_000, CP * K, None),
+                             ("scatter_1m_skewed", 1_000_000, CP * K, "skewed")):
+        z, ids, g, g2 = smoke.scatter_inputs(r, e, n, r, ugen, dev)
+        if skew == "zipf":
+            ids = smoke.zipf_ids(n, r, dev)
+        elif skew:
+            ids = smoke.skewed_ids(n, r, r, ugen, dev)
+        add(name, ids, [z, torch.zeros_like(z)],
+            lambda t, i=ids, a=g, b=g2: za_scatter(t[0], t[1], i, a, b))
+        del z, g, g2
+    del tables, gg2, gg2_lin
+    for name, call in calls.items():
+        out[name]["kernels"] = {k[:80]: ms for k, ms in profile_ms(call, 5)}
+    del calls
     torch.cuda.empty_cache()
 
 

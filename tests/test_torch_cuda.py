@@ -19,6 +19,8 @@ the no-w pass the same way, the canonical-fields kernel as the training
 kernel, the read-modify-write variants bit for bit the plain version on CPU
 copies, the gathered sum within 1e-5 of its largest |sum|."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -340,34 +342,190 @@ def test_training_kernels_check_their_inputs():
         ftrl_update(*tables, ids.long(), gg2, 3, p)
 
 
+@contextlib.contextmanager
+def _ordered_sums():
+    """Within: the plain versions' f32 row sums (ftrl.py::_segment_sums)
+    add each row's payload rows one at a time in ascending payload order,
+    the kernels' order (the card's index_add_ sums in no fixed order):
+    step r adds every slot's r-th row, over the stably sorted slots, as
+    ftrl.py already sums a bf16 payload."""
+    import ftrl_ffm_tpu_torch.ftrl as tftrl
+
+    saved = tftrl._segment_sums
+
+    def ordered(n_out, slot, rows):
+        if rows.dtype != torch.float32 or slot.numel() == 0:
+            return saved(n_out, slot, rows)
+        acc = torch.zeros((n_out, rows.shape[-1]), dtype=rows.dtype, device=rows.device)
+        sslot, perm = torch.sort(slot, stable=True)
+        pos = torch.arange(sslot.numel(), device=slot.device)
+        starts = torch.ones_like(sslot, dtype=torch.bool)
+        starts[1:] = sslot[1:] != sslot[:-1]
+        rank = pos - torch.cummax(torch.where(starts, pos, 0), dim=0).values
+        for r in range(int(rank.max()) + 1):
+            at = rank == r
+            dst = sslot[at]
+            acc[dst] = acc[dst] + rows[perm[at]]
+        return acc
+
+    tftrl._segment_sums = ordered
+    try:
+        yield
+    finally:
+        tftrl._segment_sums = saved
+
+
+def _offset(t: torch.Tensor, off: int) -> torch.Tensor:
+    """t's values `off` floats into a fresh buffer (off = 1: 4 bytes off
+    16-byte alignment)."""
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    buf[off:] = t.reshape(-1)
+    return buf[off:].view(t.shape)
+
+
+def _hot_ids(ids: torch.Tensor, hot, seed: int) -> None:
+    """With hot an id: that id in 60% of the payload rows (in place), a
+    segment longer than the main kernels take (the column-split kernel's)."""
+    from ftrl_ffm_tpu_torch.ops import _build
+
+    if hot is None:
+        return
+    n = ids.shape[0]
+    ids[torch.from_numpy(np.random.default_rng(seed).random(n) < 0.6).to(ids.device)] = hot
+    assert int((ids == hot).sum()) > _build.lib().ftrl_update_hot_rows()
+
+
+def _ran(counts: dict, before: dict) -> dict:
+    return {k: v - before[k] for k, v in counts.items() if v != before[k]}
+
+
+# (R, E, N, offset, hot id): za_scatter_rows (E > 32), za_scatter_narrow
+# (E = 4, 8, 16, 32), the scalar form (E = 15; a table 4 bytes off 16-byte
+# alignment), and one id in 60% of the payload rows (za_scatter_hot)
+SCATTER = [
+    (64, 640, 4000, 0, None), (20, 15, 300, 0, None), (300, 80, 10, 0, None),
+    (7, 4, 1, 0, None), (64, 16, 4000, 0, None), (64, 4, 4000, 0, None), (64, 8, 4000, 0, None),
+    (64, 32, 4000, 0, None), (97, 16, 3000, 1, None), (97, 640, 3000, 1, None),
+    (64, 16, 3000, 0, 5), (64, 640, 2000, 0, 5), (64, 4, 3000, 0, 5), (64, 80, 3000, 0, 5),
+    (64, 15, 3000, 0, 5),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("r,e,n", [(64, 640, 4000), (20, 15, 300), (300, 80, 10), (7, 4, 1),
-                                   (64, 16, 4000)])
-def test_za_scatter_kernel_matches_plain_and_repeats(r, e, n):
-    """z += per-row sum of g, A = per-row sum of g^2 on the touched rows;
-    untouched z bit-identical, untouched A exactly 0, repeats bit-identical."""
+@pytest.mark.parametrize("r,e,n,offset,hot", SCATTER)
+def test_za_scatter_kernel_matches_plain_and_repeats(r, e, n, offset, hot):
+    """z += per-row sum of g, A = per-row sum of g^2: bit for bit the plain
+    version on the same card tensors under ordered sums (each row's payload
+    rows added in ascending payload order, one f32 add at a time, as every
+    scatter kernel adds them), through the instance E and alignment pick;
+    untouched z bit-identical, untouched A exactly 0, repeats
+    bit-identical."""
     dev = _card()
     tables, ids, gg2, _, _ = _update_inputs(dev, r, e, n, 0, r * e + n)
+    _hot_ids(ids, hot, n)
     z = tables[1]
     g, g2 = gg2[:, :e].contiguous(), gg2[:, e:].contiguous()
+    instance = "scalar" if offset or e % 4 else "narrow" if e <= 32 else "rows"
     runs = []
     for _ in range(2):
-        got_z, got_a = z.clone(), torch.zeros_like(z)
+        got_z, got_a = _offset(z, offset), _offset(torch.zeros_like(z), offset)
         before = za_scatter.launches
+        by_instance = dict(za_scatter.launches_by_instance)
         za_scatter(got_z, got_a, ids, g, g2)
         torch.cuda.synchronize()
         assert za_scatter.launches == before + 1
+        assert _ran(za_scatter.launches_by_instance, by_instance) == {instance: 1}
         runs.append((got_z, got_a))
-    want_z, want_a = za_scatter_plain(z.cpu(), ids.cpu(), g.cpu(), g2.cpu())
+    with _ordered_sums():
+        want_z, want_a = za_scatter_plain(z, ids, g, g2)
     touched = torch.zeros(r, dtype=torch.bool, device=dev)
     touched[ids[ids < r].long()] = True
-    for got, want in zip(runs[0], (want_z, want_a)):
-        np.testing.assert_allclose(
-            got[touched].cpu().numpy(), want[touched.cpu()].numpy(), rtol=1e-5, atol=1e-6
-        )
+    assert torch.equal(runs[0][0][touched], want_z[touched])
+    assert torch.equal(runs[0][1][touched], want_a[touched])
     assert torch.equal(runs[0][0][~touched], z[~touched])
     assert (runs[0][1][~touched] == 0).all()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# (E, linear lane, payload dtype, w dtype, hot id): FM's K=16 row and the
+# other narrow widths, every dtype pair, with the linear stats in gg2_lin
+# (lane -1) or in a dead lane, with and without a segment over 64 rows
+NARROW = [
+    (e, -1, pay, wdt, hot)
+    for e in (4, 8, 16, 32)
+    for pay in (torch.float32, torch.bfloat16)
+    for wdt in (torch.float32, torch.bfloat16)
+    for hot in (None, 5)
+] + [(32, 7, torch.float32, torch.float32, None), (8, 3, torch.bfloat16, torch.float32, 5),
+     (12, 2, torch.float32, torch.bfloat16, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,lane,pay,wdt,hot", NARROW)
+def test_ftrl_update_kernel_narrow_matches_plain_and_repeats(e, lane, pay, wdt, hot):
+    """Rows of at most 32 columns take ftrl_update_narrow (a group of lanes
+    a segment, one quad a lane), its long segments ftrl_update_hot: bit for
+    bit ftrl_update_plain on the same card tensors under ordered sums (f32
+    sums and the bf16 accumulator in ascending payload order, the same
+    correctly rounded closed form), all six tables; untouched rows and
+    repeats bit-identical."""
+    dev = _card()
+    r, n = 300, 4000
+    tables, ids, gg2, gg2_lin, p = _update_inputs(dev, r, e, n, lane, e + n + (hot or 0))
+    _hot_ids(ids, hot, n + e)
+    tables[2] = tables[2].to(wdt)
+    gg2 = gg2.to(pay)
+    runs = []
+    for _ in range(2):
+        got = [t.clone() for t in tables]
+        by_instance = dict(ftrl_update.launches_by_instance)
+        ftrl_update(*got, ids, gg2, lane, p, gg2_lin)
+        torch.cuda.synchronize()
+        assert _ran(ftrl_update.launches_by_instance, by_instance) == {"narrow": 1}
+        runs.append(got)
+    with _ordered_sums():
+        vec, lin = ftrl_update_plain(*tables, ids, gg2, lane, p, gg2_lin)
+    touched = torch.zeros(r, dtype=torch.bool, device=dev)
+    touched[ids[ids < r].long()] = True
+    for i, (got, want, before, again) in enumerate(zip(runs[0], (*vec, *lin), tables, runs[1])):
+        assert got.dtype == want.dtype
+        assert torch.equal(got[touched], want[touched]), i
+        assert torch.equal(got[~touched], before[~touched]), i
+        assert torch.equal(got, again), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,hot", [(5000, None), (5000, 9), (50, 9), (1 << 16, None)])
+def test_ftrl_update_linear_kernel_matches_plain_bit_for_bit(r, hot):
+    """The update at E = 0 (LR's, and FM's in-place linear step): the
+    "linear" instance, one lane a segment, and the column-split kernel for
+    a segment over 64 rows: bit for bit the plain dense step on the same
+    card tensors under ordered sums; untouched rows and repeats
+    bit-identical."""
+    from ftrl_ffm_tpu_torch.ftrl import dense_ftrl_update2
+    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update_linear
+
+    dev = _card()
+    n = 4000
+    tables, ids, _, gg2_lin, p = _update_inputs(dev, r, 1, n, -1, r + n)
+    _hot_ids(ids, hot, r)
+    lin = tables[3:]
+    runs = []
+    for _ in range(2):
+        got = [t.clone() for t in lin]
+        by_instance = dict(ftrl_update.launches_by_instance)
+        ftrl_update_linear(*got, ids, gg2_lin, p)
+        torch.cuda.synchronize()
+        assert _ran(ftrl_update.launches_by_instance, by_instance) == {"linear": 1}
+        runs.append(got)
+    with _ordered_sums():
+        want = dense_ftrl_update2(*lin, ids, gg2_lin, p)
+    touched = torch.zeros(r, dtype=torch.bool, device=dev)
+    touched[ids[ids < r].long()] = True
+    for got, ref, before, again in zip(runs[0], want, lin, runs[1]):
+        assert torch.equal(got[touched], ref[touched])
+        assert torch.equal(got[~touched], before[~touched])
+        assert torch.equal(got, again)
 
 
 # (R, E): odd sizes, a row width not a multiple of 4, and one float4 tail
@@ -711,13 +869,11 @@ def test_ftrl_update_linear_column_split_matches_plain():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sparse", [False, True])
-def test_ftrl_update_linear_matches_plain(sparse):
+def test_ftrl_update_linear_matches_plain():
     """LR's whole update (E = 0: the update kernel on the linear tables
     alone) on uniform ids with duplicates and the sentinel, against the
-    plain dense or sparse step on CPU copies (the card runs one kernel for
-    both kinds): rtol=1e-5, atol=1e-6; rows no id touches bit-identical;
-    repeats bit-identical."""
+    plain step on CPU copies: rtol=1e-5, atol=1e-6; rows no id touches
+    bit-identical; repeats bit-identical."""
     from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update_linear
 
     dev = _card()
@@ -728,12 +884,12 @@ def test_ftrl_update_linear_matches_plain(sparse):
     for _ in range(2):
         got = [t.clone() for t in lin]
         before = ftrl_update.launches
-        ftrl_update_linear(*got, ids, gg2_lin, p, sparse=sparse)
+        ftrl_update_linear(*got, ids, gg2_lin, p)
         torch.cuda.synchronize()
         assert ftrl_update.launches == before + 1
         runs.append(got)
     want = [t.clone().cpu() for t in lin]
-    ftrl_update_linear(*want, ids.cpu(), gg2_lin.cpu(), p, sparse=sparse)
+    ftrl_update_linear(*want, ids.cpu(), gg2_lin.cpu(), p)
     touched = torch.zeros(r, dtype=torch.bool, device=dev)
     touched[ids[ids < r].long()] = True
     for got, ref, before, again in zip(runs[0], want, lin, runs[1]):

@@ -105,6 +105,36 @@ def test_dense_update_inplace_matches_jax(r, d, block_rows):
         np.testing.assert_array_equal(g_t.numpy()[r - 3:], before[r - 3:])
 
 
+@pytest.mark.parametrize("d", [16, 640])
+def test_scatter_on_hot_ids_matches_jax(d):
+    """FM's [R, 16] and FFM's 640-wide rows with two ids in most payload
+    rows (segments of ~900 and ~500 rows, the column-split kernels' case on
+    the card): za_scatter_plain gives JAX's z.at[ids].add(g) and
+    zeros.at[ids].add(g2) bit for bit (g a multiple of 2^-10 and z of
+    2^-6, so every partial sum is exact in f32 and the order of the adds
+    cannot show), and dense_ftrl_update_inplace the JAX form's tables
+    within rtol=1e-6, atol=1e-7 (the same f32 operations)."""
+    rng = np.random.default_rng(d)
+    r, nnz = 64, 2000
+    tables = _tables(rng, r, d)
+    tables[1] = np.round(tables[1] * 64) / 64
+    ids = _ids(rng, r, nnz)
+    hot = rng.random(nnz)
+    ids[hot < 0.45] = 5
+    ids[(hot >= 0.45) & (hot < 0.7)] = 9
+    assert min(int((ids == 5).sum()), int((ids == 9).sum())) > 64
+    g = (rng.integers(-64, 65, (nnz, d)) / 1024).astype(np.float32)
+    z_ref = jnp.asarray(tables[1]).at[ids].add(g, mode="drop")
+    a_ref = jnp.zeros((r, d), jnp.float32).at[ids].add(g * g, mode="drop")
+    z_got, a_got = za_scatter_plain(*_t((tables[1], ids, g, g * g)))
+    np.testing.assert_array_equal(z_got.numpy(), np.asarray(z_ref))
+    np.testing.assert_array_equal(a_got.numpy(), np.asarray(a_ref))
+    ref = jftrl.dense_ftrl_update_inplace(
+        *(jnp.asarray(x) for x in (*tables, ids, g, g * g)), jftrl.FtrlParams(*P))
+    got = tftrl.dense_ftrl_update_inplace(*_t((*tables, ids, g, g * g)), tftrl.FtrlParams(*P))
+    _close(got, ref)
+
+
 @pytest.mark.parametrize("width", [0, 6])
 def test_sparse_update2_matches_jax(width):
     rng = np.random.default_rng(11)
