@@ -139,6 +139,27 @@ Phases, each printing its own lines:
                      and on Zipf-skewed ids, whose every step has segments
                      over 64 rows; the two kinds' states bit-identical),
                      launches also by kernel instance
+  8. checkpoints  -> at bench.py's full width (FFM-100k, 640-float rows,
+                     B=16,384, phase 7's 400,000 rows and upload): an epoch
+                     with model_path and save_every = its steps (async,
+                     zstd level 3), the file against a clone of the state
+                     at the save and a fresh Trainer resumed from it
+                     against the uninterrupted run, bit for bit; a
+                     synchronous save and an async one through the host
+                     copy (forced) give the same file; a `checkpoint
+                     ffm-100k: {json}` line: each save's inline stall and
+                     snapshot path, the writer's pull, compress and fsync
+                     seconds, the join's wait, raw and file bytes, load
+                     seconds, train_epoch() examples/s with the save and
+                     without, the card's name and power limit; the
+                     reference blob of 1 + 100k + 100k x 624 floats
+                     exported and imported into a fresh card Trainer
+                     (lin_w and vec_w bit for bit, the bias within rtol
+                     1e-6, lane 39 = lin_w; the text form at 2,000 rows);
+                     LR-100k, FM-100k and FFM-100k-bf16 round trips bit
+                     for bit; one async write of phase 7's 1M "inplace"
+                     state (7.7 GB, level 1), its linear tables against the
+                     mirror lane, where 20 GB are free
   6. profiles     -> after every timed phase (a profiler run may slow the
                      host's side for the rest of the process): the
                      torch.profiler breakdown by kernel of the train steps
@@ -999,6 +1020,224 @@ def lr_fm_resident(bench_100k: str, tmp: str, device, where: str) -> tuple[dict,
               f"bit-identical {same}; max |diff| by table {json.dumps(diffs)}")
         require(same, f"train-fm-4m{variant}: the in-place and dense kinds' states differ")
     return records, trainers
+
+
+def checkpoint_phase(bench_100k: str, tmp: str, device, where: str, r_trainers: dict,
+                     lrfm_trainers: dict) -> dict:
+    """Phase 8: checkpoints at bench.py's full width (FFM, 39 fields,
+    640-float rows, K=16, B=16,384, 100k rows, phase 7's 400,000-row file
+    and its resident upload).  (a) an epoch with model_path and save_every =
+    the steps of an epoch (async, the default zstd level 3), the file's
+    arrays against a clone of the state at the save, a fresh Trainer
+    resumed from the file (the port's libzstd loader) against an
+    uninterrupted run, bit for bit; (b) a synchronous save and an async one
+    through the host copy (the device copy made not to fit) give the same
+    file (level 1: the bits do not depend on it); (c) the times: each
+    save's inline stall and snapshot path, the
+    writer's seconds, the join, bytes, load seconds, train_epoch() ex/s
+    with the save (epoch 1 of (a)) and without (the uninterrupted run's
+    epoch 1, next to it); (d) the reference blob at full width exported
+    and imported into a fresh card Trainer, the text form on a small
+    table; (e) LR-100k, FM-100k and FFM-100k-bf16 round trips (level 1:
+    the bits do not depend on it); (f) one async write of phase 7's 1M
+    "inplace" state at level 1 (7.7 GB; level 3 takes minutes), its linear
+    tables against the mirror lane, where 20 GB are free under `tmp`.
+    Returns the records by name."""
+    import ctypes.util
+    import importlib.util
+    import shutil
+
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.io import checkpoint as ck
+    from ftrl_ffm_tpu_torch.io import zstd
+    from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits_grads
+    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    print(f"checkpoint: libzstd {zstd.version()} (find_library: "
+          f"{ctypes.util.find_library('zstd')}); zstandard importable "
+          f"{importlib.util.find_spec('zstandard') is not None}, ml_dtypes importable "
+          f"{importlib.util.find_spec('ml_dtypes') is not None} (the port uses neither)")
+    name, limit = (x.strip() for x in where.rsplit(",", 1))
+    steps = math.ceil(BENCH_ROWS / BATCH)
+    cache = r_trainers["100k"]._dev_cache["train"]
+    base = Config(model_type="FFM", n_fields=N_FIELDS, n_factors=N_FACTORS, n_feats=TRAIN_FEATS,
+                  batch_size=BATCH, train_data=bench_100k, online=True, n_epochs=2,
+                  max_nnz=N_FIELDS, n_threads=3, device=device.type)
+    paths = {k: os.path.join(tmp, f"ckpt_{k}.ckpt") for k in ("async", "sync", "inline", "1m")}
+
+    def trainer(state=None, **kw):
+        """A card Trainer on phase 7's resident upload of the same file."""
+        trn = Trainer(dataclasses.replace(base, **kw), state=state)
+        trn._dev_cache["train"] = cache
+        return trn
+
+    def same(a, b) -> bool:
+        return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+    def timed_epoch(trn) -> float:
+        """One train_epoch() (a save's join included), examples/s."""
+        t0 = time.perf_counter()
+        trn.train_epoch()
+        torch.cuda.synchronize()
+        return BENCH_ROWS / (time.perf_counter() - t0)
+
+    # (a) resume: epoch 1 with an async save at its last step; a fresh
+    # Trainer loads the file and trains epoch 2
+    a = trainer(model_path=paths["async"], save_every=steps)
+    init = clone_state(a.state)
+    u = trainer(state=clone_state(init))
+    ffm_fused_logits_grads.launches = ftrl_update.launches = 0
+    eps = {"save_every": [timed_epoch(a)]}
+    a_launches = (ffm_fused_logits_grads.launches, ftrl_update.launches)
+    at_save = clone_state(a.logical_state)
+    eps["none"] = [timed_epoch(u)]
+    u.train_epoch()
+    t0 = time.perf_counter()
+    host, extra = ck.load_checkpoint(paths["async"])
+    st = ck.state_from_jax_arrays(host, device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    file_same = same(st, at_save)
+    b = trainer(state=st)
+    b.train_epoch()
+    resumed_same = same(b.state, u.state)
+    print(f"checkpoint (a): epoch 1 with save_every={steps} (async) launched kernel #2 "
+          f"{a_launches[0]} and the update kernel {a_launches[1]} times; the file's arrays "
+          f"bit-identical to a clone at the save={file_same} (mid_training_step "
+          f"{extra.get('mid_training_step')}); a fresh Trainer loaded it in {load_s:.3f} s and "
+          f"trained epoch 2: bit-identical to the uninterrupted run={resumed_same} [{where}]")
+    require(a_launches == (steps, steps), f"phase 8's epoch launched {a_launches}")
+    require(file_same and extra.get("mid_training_step") == steps, "the async file differs")
+    require(resumed_same, "resume from the checkpoint differs from the uninterrupted run")
+    del host, st, b, u
+
+    # (b) a synchronous save and an async one through the host copy, from
+    # the same init: the same file
+    saves = {"device_copy": a.checkpoint_log[0]}
+    for how, asyn in (("sync", False), ("inline", True)):
+        s = trainer(state=clone_state(init), model_path=paths[how], save_every=steps,
+                    async_checkpoint=asyn, compress_level=1)
+        if how == "inline":
+            s._snapshot_copy_fits = lambda state: False
+        s.train_epoch()
+        s_host, s_extra = ck.load_checkpoint(paths[how])
+        ok = (s_extra["mid_training_step"] == extra["mid_training_step"]
+              and same(ck.state_from_jax_arrays(s_host, device), at_save))
+        saves[how] = dict(s.checkpoint_log[0], level=1)
+        print(f"checkpoint (b): the {how} save's file equals the async device copy's={ok}")
+        require(ok and saves[how]["snapshot"] == how, f"the {how} save differs")
+        del s, s_host
+    del init, at_save
+
+    # (c) the times
+    rec = {
+        "cell": "train-ffm-100k-resident",
+        "level": base.compress_level,
+        "saves": saves,
+        "load_s": load_s,
+        "examples_per_s": eps,
+        "name": name,
+        "power.limit": limit,
+    }
+    print(f"checkpoint ffm-100k: {json.dumps(rec)}")
+    require(a.checkpoint_log[0]["snapshot"] == "device_copy", "the 100k copy did not fit")
+    require(all(r.get("file_bytes", 0) > 0 for r in rec["saves"].values()), "a save wrote nothing")
+
+    # (d) the reference blob at full width, into a fresh card Trainer
+    bias, lin_w, vec_w = a.model.materialize_weights(a.logical_state)
+    blob = os.path.join(tmp, "ref100k.zst")
+    t0 = time.perf_counter()
+    ck.export_reference_model(blob, float(bias), lin_w, vec_w)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    weights = ck.import_reference_model(blob, TRAIN_FEATS, base.ref_row_width)
+    w = trainer()
+    w.state = w.model.init_from_weights(*weights, device=device)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    b2, l2, v2 = w.model.materialize_weights(w.logical_state)
+    floats = 1 + TRAIN_FEATS + TRAIN_FEATS * base.ref_row_width
+    ok = (torch.equal(l2, lin_w) and torch.equal(v2, vec_w)
+          and abs(float(b2) - float(bias)) <= 1e-6 * abs(float(bias))
+          and torch.equal(w.state.vec_w[:, N_FIELDS], w.state.lin_w))
+    # the text form on a small table (Python writes it a float at a time)
+    small = dataclasses.replace(base, n_feats=2000)
+    sm = Trainer(small, state=seeded_state(small, device, 11))
+    sb, sl, sv = sm.model.materialize_weights(sm.logical_state)
+    txt = os.path.join(tmp, "ref2k.txt")
+    ck.export_reference_text_model(txt, float(sb), sl, sv)
+    st2 = sm.model.init_from_weights(*ck.import_reference_text_model(txt, 2000, small.ref_row_width),
+                                     device=device)
+    tb, tl, tv = sm.model.materialize_weights(st2)
+    txt_ok = (torch.equal(tl, sl) and torch.equal(tv, sv)
+              and abs(float(tb) - float(sb)) <= 1e-6 * abs(float(sb)))
+    print(f"checkpoint (d): reference blob of {floats} floats ({os.path.getsize(blob)} bytes) "
+          f"exported in {export_s:.3f} s, imported into a fresh card Trainer in {import_s:.3f} s: "
+          f"lin_w and vec_w bit for bit, bias within 1e-6, lane {N_FIELDS} = lin_w: {ok}; the "
+          f"text form at 2,000 rows the same: {txt_ok} [{where}]")
+    require(ok and txt_ok, "the reference import/export does not round-trip")
+    del w, weights, b2, l2, v2, bias, lin_w, vec_w, sm, st2, a
+    os.unlink(blob)
+
+    # (e) LR-100k, FM-100k and FFM-100k-bf16 (phase 7's trained states)
+    tables = {}
+    for label, trn in (("lr-100k", lrfm_trainers["train-lr-100k-resident"]),
+                       ("fm-100k", lrfm_trainers["train-fm-100k-resident"]),
+                       ("ffm-100k-bf16", r_trainers["100k-bf16"])):
+        path = os.path.join(tmp, f"ckpt_{label}.ckpt")
+        stats = ck.save_checkpoint(path, trn.logical_state, level=1,
+                                   extra={"model_config": ck.model_signature(trn.cfg)})
+        t0 = time.perf_counter()
+        host, got_extra = ck.load_checkpoint(path)
+        got = ck.state_from_jax_arrays(host, device)
+        torch.cuda.synchronize()
+        ck.validate_header_compat(trn.cfg, got_extra, path)
+        tables[label] = {"same": same(got, trn.logical_state), "level": 1,
+                         "load_s": time.perf_counter() - t0, **stats}
+        require(tables[label]["same"], f"{label}: the checkpoint does not round-trip")
+        os.unlink(path)
+        del host, got
+    print(f"checkpoint tables: {json.dumps(tables)} [{where}]")
+
+    # (f) one async write of the 1M "inplace" state (7.7 GB) at level 1
+    free = shutil.disk_usage(tmp).free
+    big = {"free_disk_bytes": free, "level": 1}
+    if free >= 20e9:
+        r = r_trainers["1M"]
+        cfg0 = r.cfg
+        r.cfg = dataclasses.replace(cfg0, model_path=paths["1m"], compress_level=1)
+        dev_free = torch.cuda.mem_get_info(device)[0]
+        t0 = time.perf_counter()
+        r._save_mid_checkpoint(r._steps_done)
+        stall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r.train_epoch()  # joins the write at its end
+        epoch_s = time.perf_counter() - t0
+        r.cfg = cfg0
+        t0 = time.perf_counter()
+        host, _ = ck.load_checkpoint(paths["1m"])
+        load_1m_s = time.perf_counter() - t0
+        mirror = all(np.array_equal(getattr(host, "lin_" + t), getattr(host, "vec_" + t)[:, N_FIELDS])
+                     for t in ("n", "z", "w"))
+        big.update(r.checkpoint_log[-1], stall_measured_s=stall, epoch_with_join_s=epoch_s,
+                   load_s=load_1m_s, device_free_bytes=dev_free, mirror_equal=mirror,
+                   touched_rows=float((host.lin_n > 0).mean()))
+        del host
+        os.unlink(paths["1m"])
+        require(mirror, "the 1M checkpoint's linear tables differ from the mirror lane")
+        require(big["snapshot"] == "device_copy", "the 1M copy did not fit beside phase 7's state")
+    else:
+        print(f"checkpoint (f): skipped: {free / 1e9:.1f} GB free under {tmp}, 20 GB needed")
+    big.update(name=name, **{"power.limit": limit})
+    print(f"checkpoint ffm-1m: {json.dumps(big)}")
+    for p in paths.values():
+        if os.path.exists(p):
+            os.unlink(p)
+    torch.cuda.empty_cache()
+    print(f"checkpoint: phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return {"ffm-100k": rec, "tables": tables, "ffm-1m": big}
 
 
 def main() -> int:
@@ -2879,6 +3118,9 @@ def main() -> int:
             r_trainers[label] = rtr
             del rtr, entry
         lrfm_resident, lrfm_r_trainers = lr_fm_resident(bench_p[TRAIN_FEATS], tmp, device, where)
+
+        # ---- 8. checkpoints: save, resume, reference import/export ----
+        checkpoint_phase(bench_p[TRAIN_FEATS], tmp, device, where, r_trainers, lrfm_r_trainers)
         if "100k-bf16" in r_trainers:
             del r_trainers["100k-bf16"]  # phase 6 traces the f32 cells
         torch.cuda.empty_cache()

@@ -5,10 +5,14 @@ src/include/utils/cmd_option.h:7-27) plus `--device`.  The port trains and
 serves LR, FM and FFM (`--model_type`): `--train_data` (or `--cmd true`
 for stdin) trains, evaluating after each epoch when `--eval_data` is set,
 from a fresh init or from `--load_model`; `--predict_data` scores a file
-after training; without training data, `--load_model` with `--eval_data`
-and/or `--predict_data` serves.  The per-epoch lines, the eval line and
-the prediction file are the JAX CLI's.  Flags of capabilities a later
-slice brings raise NotImplementedError naming it.
+after training; without training data, `--load_model` (or a reference
+import) with `--eval_data` and/or `--predict_data` serves.  `--model_path`
+saves a full checkpoint at the end (and every `--save_every` steps),
+`--auto_resume` resumes from it, `--import_reference_model` /
+`--import_reference_text_model` warm-start from reference weights and the
+two export flags write them.  The per-epoch lines, the eval line, the
+prediction file and the files written are the JAX CLI's.  Flags of
+capabilities a later slice brings raise NotImplementedError naming it.
 
 Usage:
     python -m ftrl_ffm_tpu_torch --train_data train.ffm --eval_data eval.ffm \
@@ -20,6 +24,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import os
 import sys
 import time
 
@@ -201,13 +206,6 @@ _NON_CONFIG_FLAGS = (
 def _refuse_unported(args) -> None:
     """Raise for a flag whose capability a later slice of the port brings."""
     later = (
-        (args.model_path, "--model_path (writing a checkpoint)", 3),
-        (args.save_every, "--save_every", 3),
-        (args.auto_resume, "--auto_resume", 3),
-        (args.import_reference_model, "--import_reference_model", 3),
-        (args.import_reference_text_model, "--import_reference_text_model", 3),
-        (args.export_reference_model, "--export_reference_model", 3),
-        (args.export_reference_text_model, "--export_reference_text_model", 3),
         (args.profile_dir, "--profile_dir", 9),
         (
             args.coordinator_address or args.num_processes
@@ -228,8 +226,21 @@ def main(argv: list[str] | None = None) -> int:
     cfg = Config(
         **{k: v for k, v in vars(args).items() if k not in _NON_CONFIG_FLAGS}
     )
+    if args.import_reference_model and args.import_reference_text_model:
+        print(
+            "error: --import_reference_model and "
+            "--import_reference_text_model are mutually exclusive",
+            file=sys.stderr,
+        )
+        return 2
+    any_import = args.import_reference_model or args.import_reference_text_model
     training = bool(cfg.train_data or cfg.cmd)
-    if not training and not (args.load_model and (args.predict_data or cfg.eval_data)):
+    serve_only = (
+        bool(args.load_model or any_import)
+        and bool(args.predict_data or cfg.eval_data)
+        and not training
+    )
+    if not training and not serve_only:
         print(
             "error: --train_data is required (or --cmd true for stdin, or "
             "--load_model with --predict_data/--eval_data for serving/eval)",
@@ -252,6 +263,23 @@ def main(argv: list[str] | None = None) -> int:
             file=sys.stderr,
         )
         return 2
+    # the text format has factor rows: refuse before training, not after
+    # hours of it (and before skipping the sibling binary export)
+    if args.export_reference_text_model and cfg.ref_row_width == 0:
+        print(
+            "error: --export_reference_text_model needs a factor model "
+            "(FM/FFM) — the text format has factor rows",
+            file=sys.stderr,
+        )
+        return 2
+    if args.import_reference_text_model and cfg.ref_row_width == 0:
+        print(
+            "error: --import_reference_text_model needs a factor model "
+            "(FM/FFM) — the text format has factor rows "
+            "(reference src/model/ffm.cpp:179-200)",
+            file=sys.stderr,
+        )
+        return 2
     # With predictions streaming to stdout, every informational line must
     # go to stderr or it corrupts the one-probability-per-line contract.
     preds_on_stdout = bool(args.predict_data) and args.predict_output == "-"
@@ -262,32 +290,39 @@ def main(argv: list[str] | None = None) -> int:
         else contextlib.nullcontext()
     )
 
+    from ftrl_ffm_tpu_torch.io import checkpoint as ckpt
     from ftrl_ffm_tpu_torch.train import Trainer, resolve_device
 
     device = resolve_device(cfg.device)
     state = None
-    if args.load_model:
-        from ftrl_ffm_tpu_torch.io.checkpoint import (
-            load_checkpoint,
-            state_from_jax_arrays,
-            validate_header_compat,
-        )
-
-        host_state, extra = load_checkpoint(args.load_model)
+    load_from = args.load_model
+    if not load_from and args.auto_resume and cfg.model_path and os.path.exists(cfg.model_path):
+        load_from = cfg.model_path
+    if load_from:
+        host_state, extra = ckpt.load_checkpoint(load_from)
         # fail loud on a config mismatch (n_feats/n_fields/n_factors/
         # table_dtype/field_pad...) before shapes can silently reinterpret
-        validate_header_compat(cfg, extra, args.load_model)
-        info(f"resumed from {args.load_model} (step {int(host_state.step)})")
-        state = state_from_jax_arrays(host_state, device)
+        ckpt.validate_header_compat(cfg, extra, load_from)
+        info(f"resumed from {load_from} (step {int(host_state.step)})")
+        state = ckpt.state_from_jax_arrays(host_state, device)
 
     t0 = time.perf_counter()
-    if not cfg.max_nnz and not training and args.predict_data and not cfg.eval_data:
+    if not cfg.max_nnz and serve_only and args.predict_data and not cfg.eval_data:
         from ftrl_ffm_tpu_torch.config import detect_file_type
         from ftrl_ffm_tpu_torch.data.parser import sniff_max_nnz
 
         cfg.file_type = cfg.file_type or detect_file_type(args.predict_data)
         cfg.max_nnz = sniff_max_nnz(args.predict_data, cfg.file_type)
     trainer = Trainer(cfg, state=state)
+    # reference weights replace the state: w as given, n 0, z inverted
+    # (Model.init_from_weights); blobs hold the logical row width (C*K)
+    if any_import:
+        src = args.import_reference_model or args.import_reference_text_model
+        read = (ckpt.import_reference_model if args.import_reference_model
+                else ckpt.import_reference_text_model)
+        weights = read(src, cfg.n_feats, cfg.ref_row_width)
+        trainer.state = trainer.model.init_from_weights(*weights, device=device)
+        info(f"imported reference model from {src}")
     with trainer_out:
         if training:
             trainer.train()
@@ -298,9 +333,30 @@ def main(argv: list[str] | None = None) -> int:
             else:
                 print(f"eval loss: {eval_loss:.4f}")
     info(f"total time: {time.perf_counter() - t0:.4f}s")
+    # checkpoint BEFORE prediction and export: a failure in those optional
+    # steps must never discard the trained state
+    if cfg.model_path:
+        trainer.save_checkpoint(cfg.model_path, extra={"config": dict(vars(args))})
+        info(f"checkpoint saved to {cfg.model_path}")
     if args.predict_data:
         n = trainer.predict_file(args.predict_data, args.predict_output)
         info(f"wrote {n} predictions to {args.predict_output}")
+    if args.export_reference_model or args.export_reference_text_model:
+        bias, lin_w, vec_w = trainer.model.materialize_weights(trainer.logical_state)
+        if args.export_reference_model:
+            ckpt.export_reference_model(
+                args.export_reference_model, float(bias), lin_w, vec_w,
+                level=cfg.compress_level,
+            )
+            info(f"reference-format model saved to {args.export_reference_model}")
+        if args.export_reference_text_model:
+            ckpt.export_reference_text_model(
+                args.export_reference_text_model, float(bias), lin_w, vec_w
+            )
+            info(
+                f"reference text-format model saved to "
+                f"{args.export_reference_text_model}"
+            )
     return 0
 
 

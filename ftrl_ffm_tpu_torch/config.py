@@ -186,11 +186,13 @@ class Config:
     # observation protocol needs strictly ordered per-batch observation.
     feed_workers: int = 1
     save_every: int = 0              # checkpoint every N steps (0 = only at end)
-    # Mid-training (--save_every) checkpoints: snapshot device→host inline
-    # (cheap, and required — the next step donates the state buffers), then
+    # Mid-training (--save_every) checkpoints: snapshot the state inline (a
+    # device copy, or pageable host memory where the copy does not fit;
+    # required, since the next step updates the tables in place), then
     # zstd-compress + write + atomic-rename on a background thread while
-    # training continues.  One save in flight at a time; failures re-raise
-    # at the next join.  The final end-of-run save is always synchronous.
+    # training continues (train.py::Trainer._save_mid_checkpoint).  One
+    # save in flight at a time; failures re-raise at the next join.  The
+    # final end-of-run save is always synchronous.
     async_checkpoint: bool = True
     compress_level: int = 3          # zstd level for checkpoints / model export
     # Torch device of the run: "cuda" (or "cuda:N") runs the hand-written
@@ -340,8 +342,10 @@ def check_ported(cfg: Config) -> None:
     and FM) trains and serves.
 
     Settings that change only how the JAX package moves bytes
-    (compact_transfer, feed_workers, async_checkpoint) do not change what
-    the port computes, so they pass.  Every table-update kind
+    (compact_transfer, feed_workers) do not change what the port computes,
+    so they pass; model_path, save_every, async_checkpoint and
+    compress_level write checkpoints as in the JAX package (item 3).
+    Every table-update kind
     (update_mode), both dtypes of table_dtype and acc_dtype, and every
     device_cache, device_cache_compact and device_cache_layout value
     (item 6; on one device the shard layout holds the whole dataset, as

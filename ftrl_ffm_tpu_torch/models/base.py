@@ -271,6 +271,81 @@ class Model:
         (a no-op unless the model keeps one, see FFM)."""
         return state
 
+    # ---- import (reference weights -> trainable state) ----
+    def _import_vec_layout(self, vec_w: torch.Tensor) -> torch.Tensor:
+        """Hook: the reference's factor-row layout -> the internal one
+        (inverse of _export_vec_layout)."""
+        return vec_w
+
+    def init_from_weights(self, bias, lin_w, vec_w=None, device=None) -> ModelState:
+        """A state on `device` (default cfg.device) whose materialized
+        weights equal the given reference-layout weights (host arrays or
+        tensors): the interop path for models trained by the C++ binary
+        (ftrl_ffm_tpu/models/base.py::init_from_weights; reference:
+        src/model/{lr,ffm}.cpp load paths, which likewise restore only w
+        and leave n/z at zero).
+
+        Exact inversion of the closed form at n = 0:
+            w = -(z - sgn(z) l1) / (l2 + beta / alpha)
+            => z = -w * (l2 + beta / alpha) - sign(w) * l1   (w != 0)
+        so the first training touch sees exactly these weights.  The
+        divisor d = l2 + beta / alpha is a Python float (float64, as in the
+        JAX package) that multiplies as float32: no division runs on the
+        device, so the card, the CPU and JAX give the same bits.  n stays
+        0; a factor model given no vec_w keeps a fresh init's factors."""
+        dev = torch.device(device or self.cfg.device)
+        p = self.params
+        d = p.l2 + p.beta / p.alpha
+
+        def f32(x) -> torch.Tensor:
+            # a copy: the state's tables never alias the caller's arrays
+            return torch.as_tensor(x, dtype=torch.float32).to(dev, copy=True)
+
+        def z_of(w: torch.Tensor) -> torch.Tensor:
+            return torch.where(w != 0.0, -w * d - torch.sign(w) * p.l1, 0.0)
+
+        r = self.cfg.n_feats
+        lin = f32(lin_w).reshape(r)
+        b = f32(bias).reshape(())
+        zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)  # noqa: E731
+        vec_n = vec_z = vec_w_t = None
+        if self.cfg.row_width:
+            if vec_w is None:
+                gen = torch.Generator(device=dev).manual_seed(self.cfg.seed)
+                init = self.init(gen)
+                vec_n, vec_z, vec_w_t = init.vec_n, init.vec_z, init.vec_w
+            else:
+                vw = self._import_vec_layout(f32(vec_w)).reshape(r, self.cfg.row_width)
+                vec_n = zeros(r, self.cfg.row_width)
+                vec_z = z_of(vw)
+                vec_w_t = vw.to(getattr(torch, self.cfg.table_dtype)).contiguous()
+        return ModelState(
+            bias_n=zeros(), bias_z=z_of(b),
+            lin_n=zeros(r), lin_z=z_of(lin), lin_w=lin,
+            vec_n=vec_n, vec_z=vec_z, vec_w=vec_w_t,
+            step=torch.zeros((), dtype=torch.int32, device=dev),
+        )
+
+    # ---- export (reference weight-layout materialization) ----
+    def _export_vec_layout(self, vec_w: torch.Tensor) -> torch.Tensor:
+        """Hook: the internal factor-row layout -> the reference's (FFM rows
+        are factor-major internally, see ops/layout.py)."""
+        return vec_w
+
+    def materialize_weights(self, state: ModelState):
+        """(bias, lin_w[, vec_w]) in the reference's save layout
+        (ftrl_ffm_tpu/models/base.py::materialize_weights; reference:
+        src/model/ffm.cpp:138-147), tensors on the state's device, the
+        tables sliced to n_feats.  The w tables are stored, so this is a
+        read-out.  Pass Trainer.logical_state: the in-place form's linear
+        tables ride stale until reconciled."""
+        n = self.cfg.n_feats
+        lin_w = state.lin_w[:n]
+        vec_w = state.vec_w
+        if vec_w is not None:
+            vec_w = self._export_vec_layout(vec_w[:n])
+        return self.bias_weight(state), lin_w, vec_w
+
     # ---- public API ----
     def predict_logits(self, state: ModelState, batch: Batch) -> torch.Tensor:
         logits, _ = self._logits_and_grads(state, widen_batch(batch), train=False)

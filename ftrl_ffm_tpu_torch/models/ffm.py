@@ -16,6 +16,7 @@ import torch
 from ftrl_ffm_tpu_torch.models.base import Batch, Model, ModelState, loss_grad
 from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits, ffm_fused_logits_grads
 from ftrl_ffm_tpu_torch.ops.interactions import ffm_logits_and_grads, linear_logits
+from ftrl_ffm_tpu_torch.ops.layout import kmajor_to_reference, reference_to_kmajor
 
 
 class FFM(Model):
@@ -26,6 +27,30 @@ class FFM(Model):
         # the interaction runs over field_pad >= n_fields fields; the extra
         # fields never occur, so their slots are inert (Config.field_pad)
         self.field_pad = cfg.field_pad
+
+    def _export_vec_layout(self, vec_w: torch.Tensor) -> torch.Tensor:
+        # factor-major padded rows -> the reference's field-major rows, the
+        # dead lanes dropped
+        return kmajor_to_reference(vec_w, self.n_fields, self.n_factors, self.field_pad)
+
+    def _import_vec_layout(self, vec_w: torch.Tensor) -> torch.Tensor:
+        # the reverse, the dead lanes zero
+        return reference_to_kmajor(vec_w, self.n_fields, self.n_factors, self.field_pad)
+
+    def init_from_weights(self, bias, lin_w, vec_w=None, device=None) -> ModelState:
+        """Restore the dead-lane linear mirror on warm starts
+        (ftrl_ffm_tpu/models/ffm.py::init_from_weights): reference blobs
+        know nothing of the padded layout, so after the base import the
+        linear w, z and n are copied into lane (0, n_fields) of the factor
+        tables (see _lin_lane)."""
+        state = super().init_from_weights(bias, lin_w, vec_w, device)
+        lane = self._lin_lane()
+        if lane < 0 or state.vec_w is None:
+            return state
+        state.vec_w[:, lane] = state.lin_w.to(state.vec_w.dtype)
+        state.vec_z[:, lane] = state.lin_z
+        state.vec_n[:, lane] = state.lin_n
+        return state
 
     def _lin_lane(self) -> int:
         """Dead lane (k=0, c=n_fields) that mirrors the linear table when

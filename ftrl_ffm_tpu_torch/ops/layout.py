@@ -19,32 +19,26 @@ import/export and comparisons against reference-layout weights convert.
 
 from __future__ import annotations
 
-import numpy as np
+import torch
 
 
-def kmajor_to_reference(x, n_fields: int, n_factors: int, field_pad: int = 0):
-    """[R, K*C'] factor-major (padded) -> [R, C*K] reference field-major."""
+def kmajor_to_reference(x: torch.Tensor, n_fields: int, n_factors: int, field_pad: int = 0):
+    """[R, K*C'] factor-major (padded) -> [R, C*K] reference field-major,
+    on x's device."""
     cp = field_pad or n_fields
     r = x.shape[0]
     return (
         x.reshape(r, n_factors, cp)[:, :, :n_fields]
-        .transpose(0, 2, 1)
+        .transpose(1, 2)
         .reshape(r, n_fields * n_factors)
     )
 
 
-def reference_to_kmajor(x, n_fields: int, n_factors: int, field_pad: int = 0):
+def reference_to_kmajor(x: torch.Tensor, n_fields: int, n_factors: int, field_pad: int = 0):
     """[R, C*K] reference field-major -> [R, K*C'] factor-major (padded,
-    dead lanes zero)."""
+    dead lanes zero), on x's device."""
     cp = field_pad or n_fields
     r = x.shape[0]
-    kmaj = x.reshape(r, n_fields, n_factors).transpose(0, 2, 1)  # [R, K, C]
-    if cp > n_fields:
-        kmaj = np.concatenate(
-            [
-                np.asarray(kmaj),
-                np.zeros((r, n_factors, cp - n_fields), np.asarray(x).dtype),
-            ],
-            axis=2,
-        )
-    return np.asarray(kmaj).reshape(r, n_factors * cp)
+    out = x.new_zeros((r, n_factors, cp))
+    out[:, :, :n_fields] = x.reshape(r, n_fields, n_factors).transpose(1, 2)
+    return out.reshape(r, n_factors * cp)

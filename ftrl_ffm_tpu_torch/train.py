@@ -24,6 +24,7 @@ from __future__ import annotations
 import contextlib
 import os
 import sys
+import threading
 import time
 from typing import NamedTuple, Optional
 
@@ -40,7 +41,11 @@ from ftrl_ffm_tpu_torch.data.loader import batch_iterator, count_lines, load_fil
 from ftrl_ffm_tpu_torch.data.parser import sniff_max_nnz
 from ftrl_ffm_tpu_torch.data.stream import StreamReader
 from ftrl_ffm_tpu_torch.ftrl import select_update_kind
-from ftrl_ffm_tpu_torch.io.checkpoint import IncompatibleStateError
+from ftrl_ffm_tpu_torch.io.checkpoint import (
+    IncompatibleStateError,
+    model_signature,
+    save_checkpoint,
+)
 from ftrl_ffm_tpu_torch.metrics import (
     AUC_BINS,
     LossAccumulator,
@@ -309,6 +314,14 @@ class Trainer:
         self._steps_done = 0
         # device-resident datasets (Config.device_cache), by role
         self._dev_cache: dict = {}
+        # the background checkpoint write in flight and its failure, if any
+        self._ckpt_thread: Optional[threading.Thread] = None
+        self._ckpt_exc: Optional[BaseException] = None
+        self._ckpt_stream = None
+        # one record a mid-training save: its step, the snapshot path
+        # ("sync", "device_copy", "inline"), the stall on the training
+        # thread and the writer's seconds and bytes (save_checkpoint's)
+        self.checkpoint_log: list = []
 
     def _warn_if_oversized(self) -> None:
         """Warn before the first step when the estimated state and update
@@ -625,15 +638,27 @@ class Trainer:
             batches = self._cached_batches(cache, epoch_rng if shuffle else None)
         else:
             batches = (self._place_batch(a) for a in self._train_batches(epoch_rng))
-        return self._epoch_loss(self._train_steps(batches))
+        sums = self._train_steps(batches)
+        # a checkpoint due within the epoch is durable once the epoch
+        # returns (async writes joined; the atomic rename already landed)
+        self._join_pending_checkpoint()
+        return self._epoch_loss(sums)
 
     def _train_steps(self, batches) -> list:
         """Train on each batch in turn; the per-step [loss sum, count] pairs,
-        left on the device.  Nothing here waits for the device."""
+        left on the device.  Nothing here waits for the device.  With
+        model_path and save_every, a mid-training checkpoint whenever the
+        step count crosses a multiple of save_every
+        (ftrl_ffm_tpu/train.py::train_epoch's maybe_save), in streamed and
+        resident epochs alike."""
         sums = []
+        save_every = self.cfg.save_every if self.cfg.model_path else 0
         for batch in batches:
             out = self.model.train_step(self.state, batch)
             sums.append(torch.stack([out.loss_sum, out.count]))
+            done = self._steps_done + len(sums)
+            if save_every and done // save_every > (done - 1) // save_every:
+                self._save_mid_checkpoint(done)
         self._steps_done += len(sums)
         return sums
 
@@ -681,7 +706,122 @@ class Trainer:
                     print(f"epoch {epoch} eval time: {dt:.4f}s, eval loss: {eval_loss:.4f}")
                 history["eval_loss"].append(eval_loss)
                 history["eval_auc"].append(eval_auc)
+        # no return with a checkpoint still being written in the background
+        self._join_pending_checkpoint()
         return history
+
+    # ---- checkpoints (ftrl_ffm_tpu/train.py::save_checkpoint and
+    # _save_mid_checkpoint) ----
+    def save_checkpoint(self, path: str, extra: Optional[dict] = None) -> dict:
+        """Write the full state (the logical one: the in-place form's stale
+        linear tables reconciled first) to `path`, synchronously, behind
+        any write in flight.  The header always records the model-defining
+        config (model_signature), which every load validates.  Returns
+        io/checkpoint.py::save_checkpoint's seconds and bytes."""
+        self._join_pending_checkpoint()
+        extra = dict(extra or {})
+        extra.setdefault("model_config", model_signature(self.cfg))
+        return save_checkpoint(path, self.logical_state, level=self.cfg.compress_level,
+                               extra=extra)
+
+    def _join_pending_checkpoint(self) -> None:
+        """Wait for the background checkpoint write in flight, if any, and
+        re-raise its failure: a silently lost --save_every checkpoint would
+        defeat the crash-recovery contract.  The wait's seconds go to the
+        write's checkpoint_log record ("join_wait_s")."""
+        t = self._ckpt_thread
+        if t is not None:
+            t0 = time.perf_counter()
+            t.join()
+            self._ckpt_thread = None
+            self.checkpoint_log[-1]["join_wait_s"] = time.perf_counter() - t0
+        exc = self._ckpt_exc
+        if exc is not None:
+            self._ckpt_exc = None
+            raise RuntimeError("background checkpoint write failed") from exc
+
+    def _save_mid_checkpoint(self, step: int) -> None:
+        """A periodic full-state checkpoint at `step` (header
+        "mid_training_step").  Synchronous unless cfg.async_checkpoint; then
+        only the snapshot happens on the training thread — it must, since
+        the next step updates the tables in place — and a background
+        thread compresses and writes (crash-atomic either way).  One write
+        in flight: a new save joins the previous first.
+
+        The snapshot: where a copy of the state fits on the device
+        (_snapshot_copy_fits), a clone on the current stream, which orders
+        it before the next step's kernels; the writer pulls it on its own
+        stream after an event recorded behind the clone, and record_stream
+        keeps the allocator from handing the copy's memory to a later step
+        while the pull runs.  Otherwise the state is copied into (pageable)
+        host memory, finished before this returns."""
+        self._join_pending_checkpoint()
+        extra = {"mid_training_step": step}
+        t0 = time.perf_counter()
+        if not self.cfg.async_checkpoint:
+            rec = {"step": step, "snapshot": "sync"}
+            rec.update(self.save_checkpoint(self.cfg.model_path, extra=extra))
+            rec["stall_s"] = time.perf_counter() - t0
+            self.checkpoint_log.append(rec)
+            return
+        extra["model_config"] = model_signature(self.cfg)
+        state = self.logical_state
+        ready = None
+        if self._snapshot_copy_fits(state):
+            how = "device_copy"
+            snap = ModelState(*(None if t is None else t.clone() for t in state))
+            if self.device.type == "cuda":
+                if self._ckpt_stream is None:
+                    self._ckpt_stream = torch.cuda.Stream(self.device)
+                ready = torch.cuda.Event()
+                ready.record()
+                for t in snap:
+                    if t is not None:
+                        t.record_stream(self._ckpt_stream)
+        else:
+            how = "inline"
+            # pageable, as JAX's device_get: pinning a state too large for
+            # the card would hold that much host memory pinned after the save
+            snap = ModelState(*(None if t is None else t.to("cpu", copy=True) for t in state))
+        rec = {"step": step, "snapshot": how, "stall_s": time.perf_counter() - t0}
+        self.checkpoint_log.append(rec)
+        path, level, stream = self.cfg.model_path, self.cfg.compress_level, self._ckpt_stream
+
+        def write():
+            w0 = time.perf_counter()
+            try:
+                if ready is None:
+                    rec.update(save_checkpoint(path, snap, level=level, extra=extra))
+                else:
+                    with torch.cuda.device(self.device), torch.cuda.stream(stream):
+                        stream.wait_event(ready)
+                        rec.update(save_checkpoint(path, snap, level=level, extra=extra))
+            except BaseException as e:  # surfaced at the next join
+                self._ckpt_exc = e
+            rec["writer_s"] = time.perf_counter() - w0
+
+        self._ckpt_thread = threading.Thread(target=write, name="ftrl-ckpt-writer", daemon=True)
+        self._ckpt_thread.start()
+
+    def _snapshot_copy_fits(self, state: ModelState) -> bool:
+        """Can a device copy of the state live beside everything else
+        (ftrl_ffm_tpu/train.py::_snapshot_copy_fits, with the card's own
+        numbers)?  Always on the CPU.  On the card: the state, the update's
+        working set (estimate_hbm_bytes), the resident datasets and the
+        copy within 80% of the card's memory, and the copy within what is
+        free now (mem_get_info, plus what the caching allocator holds
+        unused)."""
+        if self.device.type != "cuda":
+            return True
+        copy_b = sum(t.numel() * t.element_size() for t in state if t is not None)
+        cache_b = sum(
+            t.numel() * t.element_size()
+            for c in self._dev_cache.values() if c is not None for t in c.ds
+        )
+        free, total = torch.cuda.mem_get_info(self.device)
+        free += torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
+        need = estimate_hbm_bytes(self.cfg)["total"] + cache_b + copy_b
+        return need <= 0.8 * total and copy_b <= free
 
     # ---- serving ----
     def evaluate(self) -> tuple[float, float]:

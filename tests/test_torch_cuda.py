@@ -1472,3 +1472,128 @@ def test_device_cache_matches_streamed_bit_for_bit(tmp_path, kw):
     assert h_on == h_off
     for a, b in zip(on.logical_state, off.logical_state):
         assert a.device.type == dev.type and torch.equal(a, b)
+
+
+# ---- checkpoints (io/checkpoint.py, Trainer._save_mid_checkpoint) ----
+
+
+def _ffm_file(path, n, seed):
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for _ in range(n):
+            toks = [str(int(rng.random() > 0.5))] + [
+                f"{c}:{int(rng.integers(0, 60))}:1" for c in range(7)]
+            f.write(" ".join(toks) + "\n")
+    return str(path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type", ["LR", "FM", "FFM"])
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+def test_card_checkpoint_roundtrip_bit_for_bit(tmp_path, monkeypatch, model_type, table_dtype):
+    """A state on the card, written slab by slab through the pinned staging
+    buffer (CHUNK_BYTES cut so that every table takes several slabs), loads
+    back bit for bit."""
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.io import checkpoint as ck
+    from ftrl_ffm_tpu_torch.models import make_model
+
+    dev = _card()
+    cfg = Config(model_type=model_type, n_fields=7, n_factors=16, n_feats=1000,
+                 table_dtype=table_dtype, device="cuda")
+    state = make_model(cfg).init()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for t in state:
+        if t is not None and t.dim():
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev).to(t.dtype))
+    state.step.fill_(9)
+    monkeypatch.setattr(ck, "CHUNK_BYTES", 4096)
+    path = str(tmp_path / "c.ckpt")
+    stats = ck.save_checkpoint(path, state, extra={"model_config": ck.model_signature(cfg)})
+    assert stats["pull_s"] > 0 and stats["file_bytes"] == (tmp_path / "c.ckpt").stat().st_size
+    back = ck.state_from_jax_arrays(ck.load_checkpoint(path)[0], dev)
+    for a, b in zip(state, back):
+        assert (a is None and b is None) or (b.device == a.device and torch.equal(a, b))
+
+
+@pytest.mark.cuda
+def test_card_snapshot_paths_write_the_same_file(tmp_path, monkeypatch):
+    """save_every through the device copy (async), the host copy
+    (async, the copy made not to fit) and the synchronous save: the same
+    arrays at the same mid_training_step."""
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.io.checkpoint import load_checkpoint
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    _card()
+    data = _ffm_file(tmp_path / "t.ffm", 100, 1)
+    base = dict(train_data=data, model_type="FFM", n_fields=7, n_factors=16, n_feats=60,
+                batch_size=16, n_epochs=1, save_every=3, w_alpha=0.05, device="cuda")
+    runs = {}
+    for how, asyn in (("device_copy", True), ("inline", True), ("sync", False)):
+        tr = Trainer(Config(**base, model_path=str(tmp_path / f"{how}.ckpt"),
+                            async_checkpoint=asyn))
+        if how == "inline":
+            monkeypatch.setattr(tr, "_snapshot_copy_fits", lambda state: False)
+        tr.train_epoch()
+        assert [r["snapshot"] for r in tr.checkpoint_log] == [how] * 2
+        runs[how] = load_checkpoint(str(tmp_path / f"{how}.ckpt"))
+    ref_state, ref_extra = runs["sync"]
+    assert ref_extra["mid_training_step"] == 6
+    for how in ("device_copy", "inline"):
+        state, extra = runs[how]
+        assert extra["mid_training_step"] == 6
+        for a, b in zip(state, ref_state):
+            if a is None:
+                assert b is None
+            else:
+                a, b = (x.view(torch.int16).numpy() if isinstance(x, torch.Tensor) else x
+                        for x in (a, b))
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fits", [True, False])
+def test_card_step_after_async_save_keeps_the_snapshot(tmp_path, monkeypatch, fits):
+    """Steps taken right after an async save, while the writer may still be
+    pulling, update the tables in place: the file holds the state as it was
+    at the save."""
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.io.checkpoint import load_checkpoint
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    _card()
+    data = _ffm_file(tmp_path / "t.ffm", 64, 2)
+    path = str(tmp_path / "a.ckpt")
+    tr = Trainer(Config(train_data=data, model_type="FFM", n_fields=7, n_factors=16,
+                        n_feats=200_000, batch_size=16, model_path=path, w_alpha=0.05,
+                        device="cuda", device_cache="off"))
+    monkeypatch.setattr(tr, "_snapshot_copy_fits", lambda state: fits)
+    tr.train_epoch()
+    before = [None if t is None else t.clone() for t in tr.logical_state]
+    tr._save_mid_checkpoint(tr._steps_done)
+    batches = [tr._place_batch(a) for a in tr._train_batches(np.random.default_rng(0))]
+    for b in batches:
+        tr.model.train_step(tr.state, b)
+    tr._join_pending_checkpoint()
+    assert not torch.equal(tr.state.vec_z, before[6])
+    state, _ = load_checkpoint(path)
+    for a, b in zip(state, before):
+        if b is None:
+            assert a is None
+        else:
+            np.testing.assert_array_equal(np.asarray(a), b.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_card_write_failure_raises_at_join(tmp_path):
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    _card()
+    data = _ffm_file(tmp_path / "t.ffm", 64, 3)
+    tr = Trainer(Config(train_data=data, model_type="FFM", n_fields=7, n_factors=16,
+                        n_feats=60, batch_size=16, save_every=2, model_path=str(tmp_path),
+                        device="cuda"))
+    with pytest.raises(RuntimeError, match="background checkpoint write failed"):
+        tr.train_epoch()

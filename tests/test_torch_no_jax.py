@@ -31,6 +31,8 @@ _MODULES = (
     "ftrl_ffm_tpu_torch.models.fm",
     "ftrl_ffm_tpu_torch.models.lr",
     "ftrl_ffm_tpu_torch.io",
+    "ftrl_ffm_tpu_torch.io.checkpoint",
+    "ftrl_ffm_tpu_torch.io.zstd",
     "ftrl_ffm_tpu_torch.metrics",
     "ftrl_ffm_tpu_torch.data",
     "ftrl_ffm_tpu_torch.tools",

@@ -142,7 +142,8 @@ def test_train_raises_naming_roadmap(served):
 @pytest.mark.parametrize(
     "flags,item",
     [
-        # item 2 (training) has arrived: these now train
+        # items 2 (training) and 3 (checkpoints and reference models) have
+        # arrived: these train, and the item-3 flags write their file
         (["--train_data", "TRAIN"], 2),
         (["--cmd", "true"], 2),
         (["--model_path", "m.ckpt"], 3),
@@ -153,9 +154,10 @@ def test_train_raises_naming_roadmap(served):
         (["--save_every", "10"], 3),
     ],
 )
-def test_cli_training_flags_raise(served, flags, item, monkeypatch, capsys):
+def test_cli_training_flags_raise(served, flags, item, monkeypatch, capsys, tmp_path):
     """A flag whose capability a later slice brings raises, naming its
-    ROADMAP item; the training flags train."""
+    ROADMAP item; the training flags train, and the checkpoint and
+    reference-model flags write (or read) their file."""
     train = served[0] / "train.ffm"
     argv = [str(train) if a == "TRAIN" else a for a in flags]
     argv += [*MODEL_FLAGS, "--file_type", "libffm", "--max_nnz", "7", "--device", "cpu"]
@@ -164,6 +166,37 @@ def test_cli_training_flags_raise(served, flags, item, monkeypatch, capsys):
             monkeypatch.setattr(sys, "stdin", f)
             assert torch_main(argv) == 0
         assert "epoch 1 train time: " in capsys.readouterr().out
+        return
+    if item == 3:
+        from ftrl_ffm_tpu_torch.io.checkpoint import (
+            export_reference_model,
+            import_reference_model,
+        )
+        from ftrl_ffm_tpu_torch.models import make_model
+
+        argv = [str(tmp_path / a) if a.startswith("m.") else a for a in argv]
+        ckpt = str(tmp_path / "m.ckpt")
+        if "--save_every" in argv:
+            argv += ["--model_path", ckpt]
+        model = make_model(TConfig(device="cpu", **SHAPE))
+        if "--import_reference_model" in argv:
+            jstate, _ = load_checkpoint(served[1])
+            export_reference_model(
+                str(tmp_path / "m.zst"),
+                *model.materialize_weights(state_from_jax_arrays(jstate, "cpu")),
+            )
+        assert torch_main([*argv, "--train_data", str(train)]) == 0
+        out = capsys.readouterr().out
+        assert "epoch 1 train time: " in out
+        if "--model_path" in argv:
+            state, extra = load_checkpoint(ckpt)
+            assert int(state.step) == 4 and extra["model_config"]["n_feats"] == 60
+            assert "checkpoint saved to" in out
+        elif "--export_reference_model" in argv:
+            _, lin_w, vec_w = import_reference_model(str(tmp_path / "m.zst"), 60, 7 * 16)
+            assert lin_w.shape == (60,) and vec_w.shape == (60, 112)
+        else:
+            assert "imported reference model" in out
         return
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         torch_main(argv)

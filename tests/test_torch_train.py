@@ -124,7 +124,7 @@ def test_b1_trajectory_matches_oracle(semantics):
     state = model.init()
     vec_init = None
     if semantics == "keep_init":
-        vec_init = kmajor_to_reference(state.vec_w.numpy(), n_fields, k).copy()
+        vec_init = kmajor_to_reference(state.vec_w, n_fields, k).numpy().copy()
     oracle = Oracle("FFM", n_feats, n_fields, k, vec_init=vec_init)
     rng = np.random.default_rng(7)
     for t in range(30):
@@ -144,7 +144,7 @@ def test_b1_trajectory_matches_oracle(semantics):
     np.testing.assert_allclose(state.lin_z.numpy(), oracle.lin_z, rtol=2e-3, atol=2e-4)
     np.testing.assert_allclose(state.lin_n.numpy(), oracle.lin_n, rtol=2e-3, atol=2e-5)
     np.testing.assert_allclose(
-        kmajor_to_reference(state.vec_z.numpy(), n_fields, k), oracle.vec_z,
+        kmajor_to_reference(state.vec_z, n_fields, k).numpy(), oracle.vec_z,
         rtol=2e-2, atol=2e-4,
     )
 
