@@ -8,9 +8,9 @@ width: FFM with 39 fields (field_pad 40), 16 factors, 640-float
 factor-major rows and batches of 16,384 — serving a seeded random state of a
 1,000,000-row table, training a fresh 100,000-row one (bench.py's model,
 the "dense2" update) and a fresh 1,000,000-row one (the README quick
-start's table, the huge-table "inplace" update) — on Criteo-shaped libffm
+start's table, the huge-table "inplace" update, forced) — on Criteo-shaped libffm
 files; LR and FM (K=16) at bench.py's 100,000 rows and FM at an assumed
-hashing-trick table of 2^22 rows ("inplace"); then the probes of ftrl_ffm_tpu_torch/tools
+hashing-trick table of 2^22 rows (forced "inplace"); then the probes of ftrl_ffm_tpu_torch/tools
 (the ports of the TPU probes in tools/micro_*.py) at the TPU probes'
 default sizes; then bench.py's protocol from the device-resident dataset.  Phases 4-5 stream
 their files (device_cache="off"), phase 7 reads them from device memory.
@@ -66,12 +66,17 @@ Phases, each printing its own lines:
                      table's, in 4e, on c40_k16_bf16: its rows reach the
                      kernel unwidened); outputs held against the plain
                      version and a CPU run
-  4b. training    -> Trainer(cfg).train() for 2 epochs with eval, the launch
-                     counts (kernel #2's also by instance: every step runs
-                     the C'=40, K=16 one) set to 0 just before and read just
-                     after; chained
-                     train_steps against the same steps on the plain versions,
-                     two runs bit-identical, a small run on the CPU and the card
+  4b. training    -> each TRAIN_CELLS cell (bench.py's FFM model at 100k
+                     rows, then LR and FM: 4f) through Trainer(cfg).train()
+                     for 2 epochs with eval, the launch counts (by instance
+                     and dtype too: every FFM step runs kernel #2's C'=40,
+                     K=16 instance, every eval batch kernel #1's) set to 0
+                     just before and read just after, against
+                     expected_counts; 3 chained train_steps against the same
+                     steps on the plain versions, two runs bit-identical;
+                     small runs (FFM, and LR from a libsvm file) on the CPU
+                     and the card from one init; each cell's device train
+                     step by CUDA events (phase 5's part)
   5. timings      -> kernel and plain milliseconds per batch (kernel #1 on
                      f32 and bf16 rows, with its device time from a CUDA
                      graph), eval examples/s, the card's name and power
@@ -80,8 +85,8 @@ Phases, each printing its own lines:
                      #2's launches by instance; the update kernel also on
                      the skewed batch), the device train step, host parse,
                      train_epoch() examples/s
-  4c. 1M training -> the same for the 1M-row table, whose update auto
-                     resolves to "inplace": launch counts, the stale linear
+  4c. 1M training -> the same for the 1M-row table under
+                     update_mode=inplace (kernel #3 and the scatter): launch counts, the stale linear
                      tables and their reconcile, chained steps against the
                      plain versions and against update_mode=dense, two runs
                      bit-identical, a small in-place run on the CPU and the
@@ -89,16 +94,12 @@ Phases, each printing its own lines:
   5c. 1M time     -> the pass, the scatter and the split kernel against their
                      plain versions, the device train step under inplace and
                      dense, host parse, train_epoch() examples/s
-  4f. LR and FM   -> Trainer.train() of each LR_FM_CELLS cell (2 epochs with
-                     eval, streamed), launch counts set to 0 just before
-                     and read just after (the update kernel by dtype, the
-                     scatter, the pass by dtype; kernels #1 and #2 never),
-                     3 chained steps against the plain versions and twice
-                     for the bits (2^22: also against update_mode=dense),
+  4f. LR and FM   -> in 4b's loop: LR and FM cells' launch counts (the
+                     update kernel by dtype, the scatter, the pass by dtype;
+                     kernels #1 and #2 never), chained steps (2^22, under
+                     update_mode=inplace: also against update_mode=dense),
                      evaluate() and predict_file() against a CPU Trainer on
-                     the same state, an LR run from a libsvm file on the
-                     CPU and the card; each cell's device train step by
-                     CUDA events (phase 5's part)
+                     the same state
   5e. LR/FM time  -> the update kernel at E=16 (f32, bf16 w) and E=0, the
                      scatter (uniform and Zipf ids) and the pass at
                      [2^22, 16] against their plain versions beside their
@@ -124,18 +125,19 @@ Phases, each printing its own lines:
                      evaluate() of phase 4's state and rows from device
                      memory (kernel #1's launches; the streamed pass's loss
                      and AUC bit for bit), the DEC6 decode over all 2^24
-                     keys against float64, then bench.py's protocol
-                     (400,000 rows of its generator, online, n_epochs=4,
-                     n_threads=3, one warm-up train_epoch() after the
-                     build, best of 3) at 100k, 100k-bf16 and 1M rows:
+                     keys against float64, then the bench twin's protocol
+                     (ftrl_ffm_tpu_torch/bench.py::run: 400,000 rows of
+                     bench.py's generator, online, n_epochs=4, n_threads=3,
+                     one warm-up train_epoch() after the build, best of 3)
+                     at 100k, 100k-bf16 and 1M rows ("inplace", forced):
                      examples/s, build seconds, device_cache, the launch
-                     counts set to 0 just before and read just after; the
+                     counts of the timed epochs; the
                      tables bit-identical to a streamed twin's, and at 100k
                      to compact storage's; the offline shuffle's index
                      table against a row uploaded a step; one epoch's step
                      loop under torch.cuda.set_sync_debug_mode("error");
                      the same protocol for LR and FM at 100k and FM at 2^22
-                     (auto, "inplace", and update_mode=dense, on uniform
+                     (update_mode=inplace and dense, on uniform
                      and on Zipf-skewed ids, whose every step has segments
                      over 64 rows; the two kinds' states bit-identical),
                      launches also by kernel instance
@@ -170,6 +172,20 @@ Phases, each printing its own lines:
                      resident: the device's
                      busy time (kernels, copies, fills) over the traced
                      epoch's wall time
+  9. tools        -> the measurement tools through their entry points, each
+                     in a process of its own, its exit code and output
+                     checked: `python -m ftrl_ffm_tpu_torch.bench` on phase
+                     7's file (75 launches each of kernel #2 and the update
+                     kernel in its timed epochs); bench_matrix's nine rows
+                     at ROWS_SAMPLES=65536, ffm1m under update_mode inplace
+                     and dense; profile_step cuda, infer, huge and trace
+                     (huge under both kinds, beside its roofline floor);
+                     roofline of the 100k "dense2" and 1M "inplace" steps;
+                     micro_scatter at its defaults; then one CLI training
+                     run with --profile_dir, whose trace names kernel #2
+                     and the update kernel
+
+Each phase prints its seconds ("phase <name>: <s> s") as the next starts.
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
@@ -272,11 +288,10 @@ def require(cond: bool, msg: str) -> None:
 
 
 def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[torch.cuda.current_device()].strip()
+    """The card's name and power limit, as nvidia-smi prints them."""
+    from ftrl_ffm_tpu_torch.tools import card_name
+
+    return card_name(torch.device("cuda", torch.cuda.current_device()))
 
 
 def write_criteo_like(path: str, n_rows: int, n_feats: int, seed: int = 7,
@@ -547,64 +562,68 @@ def cuda_ms(fn, iters: int) -> float:
     return time_ms(fn, torch.device("cuda"), iters)
 
 
-# ---- LR and FM (phases 4f, 5e and their parts of 5, 6 and 7) ----
+# ---- the training cells through the entry points (phases 4b, 4f and
+# their parts of 5, 6 and 7) ----
 
-# (cell, model_type, n_feats, extra config): bench.py's table at 100k rows
-# (f32, and a bf16 table whose payload stays f32), an assumed hashing-trick
-# table of 2^22 rows (update_mode=auto resolves FM's table to "inplace" there)
-LR_FM_CELLS = (
-    ("train-lr-100k", "LR", TRAIN_FEATS, {}),
-    ("train-fm-100k", "FM", TRAIN_FEATS, {}),
-    ("train-fm-100k-bf16", "FM", TRAIN_FEATS, {"table_dtype": "bfloat16", "acc_dtype": "bfloat16"}),
-    ("train-fm-4m", "FM", HASH_FEATS, {}),
-    ("train-fm-4m-bf16", "FM", HASH_FEATS, {"table_dtype": "bfloat16"}),
+# (cell, model_type, n_feats, data seed, extra config, the factor tables'
+# update kind): bench.py's FFM model and table at 100k rows; LR and FM
+# there (f32, and a bf16 table whose payload stays f32); FM at an assumed
+# hashing-trick table of 2^22 rows under update_mode=inplace (the scatter
+# and kernel #3 at K=16, held against update_mode=dense)
+TRAIN_CELLS = (
+    ("train-ffm-100k", "FFM", TRAIN_FEATS, 7, {}, "dense2"),
+    ("train-lr-100k", "LR", TRAIN_FEATS, 17, {}, None),
+    ("train-fm-100k", "FM", TRAIN_FEATS, 17, {}, "dense2"),
+    ("train-fm-100k-bf16", "FM", TRAIN_FEATS, 17,
+     {"table_dtype": "bfloat16", "acc_dtype": "bfloat16"}, "dense2"),
+    ("train-fm-4m", "FM", HASH_FEATS, 19, {"update_mode": "inplace"}, "inplace"),
+    ("train-fm-4m-bf16", "FM", HASH_FEATS, 19,
+     {"table_dtype": "bfloat16", "update_mode": "inplace"}, "inplace"),
 )
-
-
-def counted_wrappers():
-    """The kernel wrappers whose launches the LR/FM phases count."""
-    from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits, ffm_fused_logits_grads
-    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import closed_form_pass, ftrl_update, za_scatter
-
-    return (ffm_fused_logits, ffm_fused_logits_grads, ftrl_update, za_scatter, closed_form_pass)
+# the tables an FFM chain is held on: its w may flip across the closed
+# form's |z| <= l1 threshold on one ulp of z, over 640 columns a row
+FFM_CHAIN_TABLES = ("lin_z", "vec_z")
 
 
 def reset_counts() -> None:
     """Every kernel wrapper's launch counts, by instance and by dtype too,
     set to 0."""
-    for fn in counted_wrappers():
-        fn.launches = 0
-        for counts in (getattr(fn, "launches_by_instance", {}), getattr(fn, "launches_by_dtype", {})):
-            for name in counts:
-                counts[name] = 0
+    from ftrl_ffm_tpu_torch.tools import reset_launch_counts
+
+    reset_launch_counts()
 
 
 def read_counts() -> dict:
-    """Each wrapper's launches, the update kernel's and the pass's by dtype
-    and the update's and the scatter's by kernel instance (the entries
-    that ran)."""
-    fns = counted_wrappers()
-    out = {fn.__name__: fn.launches for fn in fns}
-    out["update_by_dtype"] = {k: v for k, v in fns[2].launches_by_dtype.items() if v}
-    out["pass_by_dtype"] = {k: v for k, v in fns[4].launches_by_dtype.items() if v}
-    out["update_by_instance"] = {k: v for k, v in fns[2].launches_by_instance.items() if v}
-    out["scatter_by_instance"] = {k: v for k, v in fns[3].launches_by_instance.items() if v}
-    return out
+    """Each wrapper's launches and the entries that ran by instance and
+    dtype (ftrl_ffm_tpu_torch/tools::read_launch_counts)."""
+    from ftrl_ffm_tpu_torch.tools import read_launch_counts
+
+    return read_launch_counts()
 
 
-def expected_counts(model_type: str, kind, table_dtype: str, steps: int) -> dict:
-    """The launches `steps` LR or FM train steps must make: no FFM kernel;
-    the update kernel on an f32 payload (FM's payload is f32 under every
-    acc_dtype), with a bf16 w where the factor table is bf16, FM's K=16 row
-    on its narrow instance; FM's "inplace" runs the scatter (narrow) and
-    the pass, then the linear-only update; LR's and that linear-only
-    update run the "linear" instance (E = 0)."""
+def expected_counts(model_type: str, kind, table_dtype: str, steps: int,
+                    evals: int = 0) -> dict:
+    """The launches `steps` train steps (and `evals` FFM eval batches) must
+    make.  FFM's "dense2" (an f32 table): kernel #2 and the update kernel
+    once a step on their C'=40, K=16 and "rows" instances, kernel #1 once
+    an eval batch.  LR and FM: no FFM kernel; the update kernel on an f32
+    payload (FM's payload is f32 under every acc_dtype), with a bf16 w
+    where the factor table is bf16, FM's K=16 row on its narrow instance;
+    FM's "inplace" runs the scatter (narrow) and the pass, then the
+    linear-only update; LR's and that linear-only update run the "linear"
+    instance (E = 0)."""
     w = "bf16" if table_dtype == "bfloat16" else "f32"
     out = {"ffm_fused_logits": 0, "ffm_fused_logits_grads": 0, "ftrl_update": steps,
-           "za_scatter": 0, "closed_form_pass": 0, "update_by_dtype": {"f32/f32": steps},
+           "za_scatter": 0, "closed_form_pass": 0, "logits_by_instance": {},
+           "fused_by_instance": {}, "update_by_dtype": {"f32/f32": steps},
            "pass_by_dtype": {}, "update_by_instance": {"linear": steps},
            "scatter_by_instance": {}}
-    if model_type == "FM" and kind == "inplace":
+    if model_type == "FFM":
+        out.update(ffm_fused_logits=evals, ffm_fused_logits_grads=steps,
+                   fused_by_instance={"c40_k16": steps}, update_by_instance={"rows": steps})
+        if evals:
+            out["logits_by_instance"] = {"c40_k16": evals}
+    elif model_type == "FM" and kind == "inplace":
         out.update(za_scatter=steps, closed_form_pass=steps, pass_by_dtype={w: steps},
                    scatter_by_instance={"narrow": steps})
     elif model_type == "FM":
@@ -613,10 +632,11 @@ def expected_counts(model_type: str, kind, table_dtype: str, steps: int) -> dict
     return out
 
 
-def states_close(a, b) -> tuple[bool, dict]:
-    """Two states within the chained bound (a bf16 w within one bf16 ulp,
-    relative), and the largest |difference| by table; absent tables (LR's
-    factor tables) absent on both."""
+def states_close(a, b, names=None) -> tuple[bool, dict]:
+    """Two states within the chained bound on the tables `names` (all by
+    default; a bf16 w within one bf16 ulp, relative), and the largest
+    |difference| of every table; absent tables (LR's factor tables)
+    absent on both."""
     ok, err = True, {}
     for name, x, y in zip(a._fields, a, b):
         if x is None or y is None:
@@ -627,8 +647,9 @@ def states_close(a, b) -> tuple[bool, dict]:
             continue
         bf16 = x.dtype == torch.bfloat16
         err[name] = (x.float() - y.float()).abs().max().item()
-        ok &= torch.allclose(x.float(), y.float(), rtol=BF16_RTOL if bf16 else CHAIN_RTOL,
-                             atol=CHAIN_ATOL)
+        if names is None or name in names:
+            ok &= torch.allclose(x.float(), y.float(), rtol=BF16_RTOL if bf16 else CHAIN_RTOL,
+                                 atol=CHAIN_ATOL)
     return ok, err
 
 
@@ -661,16 +682,19 @@ def step_categories(rows) -> tuple[dict, tuple]:
     return sums, largest
 
 
-def lr_fm_train(tmp: str, device, where: str) -> dict:
-    """Phase 4f, and LR and FM's part of phase 5: each cell of LR_FM_CELLS
-    through Trainer.train() (2 epochs with eval, streamed), its launches
-    set to 0 just before and read just after; 3 chained train steps
-    against the plain versions and twice for the bits (train-fm-4m also
-    against update_mode=dense); evaluate() and predict_file() against a
-    CPU Trainer (the plain PyTorch path) on the same state; an LR run from
-    a libsvm file on the CPU and the card; then the device train step by
-    CUDA events.  Returns, by cell: trainer, model, placed batches,
-    counts, the chained-step errors and the step ms."""
+def train_cells(tmp: str, device, where: str) -> dict:
+    """Phases 4b and 4f, and their part of phase 5: each cell of
+    TRAIN_CELLS through Trainer.train() (2 epochs with eval, streamed), its
+    launches set to 0 just before and read just after (expected_counts);
+    3 chained train steps against the plain versions and twice for the
+    bits (an "inplace" cell also against update_mode=dense); LR and FM's
+    evaluate() and predict_file() against a CPU Trainer (the plain PyTorch
+    path) on the same state (FFM serving is held in phase 4); then the
+    device train step by CUDA events.  After the cells, small runs on the
+    CPU and the card from one init: FFM, and LR from a libsvm file.
+    Returns, by cell: trainer, model, dense model, placed batches, counts,
+    history, the chained-step errors and the step ms; and "small": (the
+    small FFM model's settings, its train and eval files)."""
     from ftrl_ffm_tpu_torch.config import Config
     from ftrl_ffm_tpu_torch.data.stream import StreamReader
     from ftrl_ffm_tpu_torch.ftrl import select_update_kind
@@ -681,14 +705,17 @@ def lr_fm_train(tmp: str, device, where: str) -> dict:
     n_batches = N_ROWS // BATCH
     paths = {}
     t0 = time.perf_counter()
-    for nf, seed in ((TRAIN_FEATS, 17), (HASH_FEATS, 19)):
-        paths[nf] = (os.path.join(tmp, f"lrfm_train{nf}.ffm"), os.path.join(tmp, f"lrfm_eval{nf}.ffm"))
-        write_criteo_split([(paths[nf][0], N_ROWS), (paths[nf][1], BATCH)], nf, seed=seed)
-    print(f"train lr/fm: wrote {N_ROWS} + {BATCH} Criteo-shaped rows at n_feats {TRAIN_FEATS} "
-          f"and {HASH_FEATS} in {time.perf_counter() - t0:.1f} s")
+    for _, _, nf, seed, _, _ in TRAIN_CELLS:
+        if (nf, seed) not in paths:
+            paths[nf, seed] = (os.path.join(tmp, f"train{nf}_{seed}.ffm"),
+                               os.path.join(tmp, f"eval{nf}_{seed}.ffm"))
+            write_criteo_split([(paths[nf, seed][0], N_ROWS), (paths[nf, seed][1], BATCH)], nf,
+                               seed=seed)
+    print(f"train: wrote {N_ROWS} + {BATCH} Criteo-shaped rows for each of {sorted(paths)} "
+          f"(n_feats, seed) in {time.perf_counter() - t0:.1f} s")
     out = {}
-    for cell, mt, nf, extra in LR_FM_CELLS:
-        train_p, eval_p = paths[nf]
+    for cell, mt, nf, seed, extra, want_kind in TRAIN_CELLS:
+        train_p, eval_p = paths[nf, seed]
         cfg = Config(model_type=mt, n_fields=N_FIELDS, n_factors=N_FACTORS, n_feats=nf,
                      batch_size=BATCH, train_data=train_p, eval_data=eval_p, n_epochs=2,
                      device="cuda", n_threads=4, device_cache="off", **extra)
@@ -696,18 +723,19 @@ def lr_fm_train(tmp: str, device, where: str) -> dict:
         model = tr.model
         kind = (select_update_kind(nf, cfg.row_width, BATCH * cfg.max_nnz, cfg.update_mode)
                 if cfg.row_width else None)
-        require(kind == (None if mt == "LR" else "inplace" if nf == HASH_FEATS else "dense2"),
-                f"{cell}: update_mode=auto resolves to {kind!r}")
+        require(kind == want_kind, f"{cell}: update_mode={cfg.update_mode} resolves to {kind!r}")
         reset_counts()
         t0 = time.perf_counter()
         hist = tr.train()
         t_train = time.perf_counter() - t0
         counts = read_counts()
         steps = tr._steps_done
-        print(f"train {cell}: Trainer.train() 2 epochs in {t_train:.2f} s (first): {steps} steps, "
-              f"factor tables' update kind {kind!r}; launches {counts}; history {hist}")
+        print(f"train {cell}: Trainer.train() 2 epochs with eval in {t_train:.2f} s (first): "
+              f"{steps} steps, factor tables' update kind {kind!r}; launches {counts}; history "
+              f"{hist}")
         require(steps == 2 * n_batches, f"{cell}: {steps} train steps, expect {2 * n_batches}")
-        require(counts == expected_counts(mt, kind, cfg.table_dtype, steps),
+        evals = 2 if mt == "FFM" else 0  # one eval batch an epoch
+        require(counts == expected_counts(mt, kind, cfg.table_dtype, steps, evals),
                 f"{cell}: the kernels launched {counts}")
         require(all(math.isfinite(x) for k in ("train_loss", "eval_loss", "eval_auc")
                     for x in hist[k]), f"{cell}: non-finite training history")
@@ -719,11 +747,12 @@ def lr_fm_train(tmp: str, device, where: str) -> dict:
         require((tr.state.vec_w is None) == (mt == "LR"), f"{cell}: factor tables {mt}")
 
         # 3 chained train steps from one state: kernels against the plain
-        # versions, twice for the bits; the 2^22 table also against dense
+        # versions, twice for the bits; an in-place cell also against dense
         placed = [tr._place_batch(a) for a in StreamReader(
             train_p, "libffm", BATCH, N_FIELDS, nf, N_FIELDS, n_parse_threads=4,
             log_every=0).batches()]
         base = tr.state  # not stepped below: each chain steps a clone
+        names = FFM_CHAIN_TABLES if mt == "FFM" else None
 
         def chain(mdl, ctx=contextlib.nullcontext):
             s = clone_state(base)
@@ -736,7 +765,7 @@ def lr_fm_train(tmp: str, device, where: str) -> dict:
         same = all((a is None and b is None) or torch.equal(a, b) for a, b in zip(s_kern, s_again))
         del s_again
         s_plain, l_plain = chain(model, plain_kernels)
-        plain_ok, perr = states_close(s_kern, s_plain)
+        plain_ok, perr = states_close(s_kern, s_plain, names)
         ldiff = max(abs(a - b) / abs(b) for a, b in zip(l_kern, l_plain))
         del s_plain
         msg = ""
@@ -751,59 +780,77 @@ def lr_fm_train(tmp: str, device, where: str) -> dict:
             require(dense_ok and ftrl_update.launches == 3,
                     f"{cell}: in-place and dense steps from one state disagree")
             del s_dense
+        held = "every table" if names is None else ", ".join(names)
         print(f"train {cell}: 3 chained steps, kernels vs plain: loss rel diff {ldiff:.2e}, max "
-              f"|diff| {perr}; two kernel runs bit-identical={same}{msg}")
+              f"|diff| {perr} (held: {held}); two kernel runs bit-identical={same}{msg}")
         require(plain_ok, f"{cell}: chained train steps disagree with the plain versions")
         require(same, f"{cell}: two runs of the same train steps differ")
         del s_kern
 
-        # serving: evaluate() and predict_file() on the card against a CPU
-        # Trainer on the same state (LR and FM's logits are plain PyTorch
-        # on both: no kernel launches)
-        reset_counts()
-        loss, auc = tr.evaluate()
-        preds = os.path.join(tmp, f"{cell}.txt")
-        n_pred = tr.predict_file(eval_p, preds)
-        serve_counts = read_counts()
-        ctr = Trainer(dataclasses.replace(cfg, device="cpu"),
-                      state=type(tr.state)(*(None if t is None else t.cpu() for t in tr.state)))
-        c_loss, c_auc = ctr.evaluate()
-        ctr.predict_file(eval_p, preds + ".cpu")
-        pdiff = float(np.abs(np.loadtxt(preds) - np.loadtxt(preds + ".cpu")).max())
-        del ctr
-        print(f"serve {cell}: evaluate loss={loss:.6f} auc={auc:.6f}, the CPU's {c_loss:.6f} "
-              f"{c_auc:.6f}; predict_file wrote {n_pred}, probability max |diff| {pdiff:.2e}; "
-              f"launches {serve_counts}")
-        require(n_pred == BATCH, f"{cell}: predict_file scored {n_pred} of {BATCH}")
-        require(abs(loss - c_loss) <= 1e-5 * max(1.0, c_loss) and abs(auc - c_auc) <= 1e-4,
-                f"{cell}: eval off the CPU's")
-        require(pdiff <= 2e-6, f"{cell}: predictions off the CPU's")
-        require(serve_counts["ffm_fused_logits"] == 0 and serve_counts["ftrl_update"] == 0,
-                f"{cell}: serving launched {serve_counts}")
+        if mt != "FFM":
+            # serving: evaluate() and predict_file() on the card against a
+            # CPU Trainer on the same state (LR and FM's logits are plain
+            # PyTorch on both: no kernel launches)
+            reset_counts()
+            loss, auc = tr.evaluate()
+            preds = os.path.join(tmp, f"{cell}.txt")
+            n_pred = tr.predict_file(eval_p, preds)
+            serve_counts = read_counts()
+            ctr = Trainer(dataclasses.replace(cfg, device="cpu"),
+                          state=type(tr.state)(*(None if t is None else t.cpu() for t in tr.state)))
+            c_loss, c_auc = ctr.evaluate()
+            ctr.predict_file(eval_p, preds + ".cpu")
+            pdiff = float(np.abs(np.loadtxt(preds) - np.loadtxt(preds + ".cpu")).max())
+            del ctr
+            print(f"serve {cell}: evaluate loss={loss:.6f} auc={auc:.6f}, the CPU's "
+                  f"{c_loss:.6f} {c_auc:.6f}; predict_file wrote {n_pred}, probability max "
+                  f"|diff| {pdiff:.2e}; launches {serve_counts}")
+            require(n_pred == BATCH, f"{cell}: predict_file scored {n_pred} of {BATCH}")
+            require(abs(loss - c_loss) <= 1e-5 * max(1.0, c_loss) and abs(auc - c_auc) <= 1e-4,
+                    f"{cell}: eval off the CPU's")
+            require(pdiff <= 2e-6, f"{cell}: predictions off the CPU's")
+            require(serve_counts["ffm_fused_logits"] == 0 and serve_counts["ftrl_update"] == 0,
+                    f"{cell}: serving launched {serve_counts}")
         out[cell] = dict(trainer=tr, model=model, dense_model=dmodel, placed=placed,
-                         counts=counts, chain_err=perr, kind=kind)
+                         counts=counts, hist=hist, chain_err=perr, kind=kind,
+                         paths=(train_p, eval_p))
 
-    # a small LR run from a libsvm file on the CPU (plain versions) and on
-    # the card, one init
-    small = dict(model_type="LR", n_fields=N_FIELDS, n_feats=5000, batch_size=1024, n_epochs=2)
-    st_p, se_p = os.path.join(tmp, "lr_train.svm"), os.path.join(tmp, "lr_eval.svm")
-    write_criteo_split([(st_p, 3000), (se_p, 1000)], small["n_feats"], seed=11, libsvm=True)
-    init = make_model(Config(device="cpu", **small)).init()
-    res = {}
-    for dev in ("cpu", "cuda"):
-        reset_counts()
-        scfg = Config(train_data=st_p, eval_data=se_p, device=dev, **small)
-        res[dev] = Trainer(scfg, state=clone_state(init)).train()
-        require(scfg.file_type == "libsvm", f"the LR file sniffed as {scfg.file_type}")
-    svm_launches = ftrl_update.launches
-    print(f"train lr libsvm: small run eval loss cpu={res['cpu']['eval_loss']} "
-          f"cuda={res['cuda']['eval_loss']}; ftrl_update launches on the card {svm_launches}")
-    require(abs(res["cpu"]["eval_loss"][-1] - res["cuda"]["eval_loss"][-1]) <= 1e-4,
-            "cpu and cuda LR training from libsvm reach different eval losses")
-    require(svm_launches == 2 * math.ceil(3000 / 1024), "the libsvm LR run missed the kernel")
+    # small runs on the CPU (plain versions) and on the card from one init:
+    # FFM, and LR from a libsvm file (sniffed as such)
+    small_ffm = dict(model_type="FFM", n_fields=N_FIELDS, n_factors=N_FACTORS,
+                     n_feats=5000, batch_size=1024, n_epochs=2)
+    small_lr = dict(small_ffm, model_type="LR")
+    ffm_p = (os.path.join(tmp, "strain.ffm"), os.path.join(tmp, "seval.ffm"))
+    lr_p = (os.path.join(tmp, "lr_train.svm"), os.path.join(tmp, "lr_eval.svm"))
+    for label, small, (st_p, se_p), libsvm, init_seed in (
+        ("ffm", small_ffm, ffm_p, False, SEED + 2),
+        ("lr libsvm", small_lr, lr_p, True, None),
+    ):
+        write_criteo_split([(st_p, 3000), (se_p, 1000)], small["n_feats"], seed=11,
+                           libsvm=libsvm)
+        gen = None if init_seed is None else torch.Generator().manual_seed(init_seed)
+        init = make_model(Config(device="cpu", **small)).init(gen)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            reset_counts()
+            scfg = Config(train_data=st_p, eval_data=se_p, device=dev, **small)
+            res[dev] = Trainer(scfg, state=clone_state(init)).train()
+            require(scfg.file_type == ("libsvm" if libsvm else "libffm"),
+                    f"the small {label} file sniffed as {scfg.file_type}")
+        card_launches = ftrl_update.launches
+        print(f"train small {label}: eval loss cpu={res['cpu']['eval_loss']} "
+              f"cuda={res['cuda']['eval_loss']}; ftrl_update launches on the card "
+              f"{card_launches}")
+        require(abs(res["cpu"]["eval_loss"][-1] - res["cuda"]["eval_loss"][-1]) <= 1e-4,
+                f"cpu and cuda {label} training reach different eval losses")
+        require(card_launches == 2 * math.ceil(3000 / 1024),
+                f"the small {label} run missed the update kernel")
+    out["small"] = (small_ffm, *ffm_p)
 
-    # ---- 5, LR and FM: the device train step by CUDA events ----
+    # ---- 5: the device train step by CUDA events ----
     for cell, rec in out.items():
+        if cell == "small":
+            continue
         tr, cycle = rec["trainer"], itertools.cycle(rec["placed"])
         n = len(rec["placed"])
         if rec["dense_model"] is None:
@@ -917,18 +964,16 @@ def lr_fm_kernel_times(gen, device, where: str, p) -> dict:
 
 
 def lr_fm_resident(bench_100k: str, tmp: str, device, where: str) -> tuple[dict, dict]:
-    """LR and FM's part of phase 7: bench.py's protocol (400,000 rows of
-    its generator, online, n_epochs=4, n_threads=3, one warm-up
-    train_epoch() after the build, best of 3 timed epochs) from the
-    device-resident dataset, at 100k rows (LR, FM) and 2^22 rows (FM under
-    auto, "inplace", and under update_mode=dense), the 2^22 pair also on
-    Zipf-skewed ids (tools/bench_matrix.py's "zipf" variant), which touch
-    fewer rows a batch than uniform ones; a `resident <cell>:` line each,
-    its launches set to 0 just before the build and read after the last
-    epoch.  Returns (records, trainers) by cell."""
-    from ftrl_ffm_tpu_torch.config import Config
-    from ftrl_ffm_tpu_torch.train import Trainer
-
+    """LR and FM's part of phase 7: the bench twin's protocol
+    (ftrl_ffm_tpu_torch/bench.py::run: 400,000 rows of its generator,
+    online, n_epochs=4, n_threads=3, one warm-up train_epoch() after the
+    build, best of 3 timed epochs) from the device-resident dataset, at
+    100k rows (LR, FM) and 2^22 rows (FM under update_mode=inplace and
+    dense), the 2^22 pair also on Zipf-skewed ids (tools/bench_matrix.py's
+    "zipf" variant), which touch fewer rows a batch than uniform ones; a
+    `resident <cell>:` line each, with the launches of the timed epochs.
+    Returns (records, trainers) by cell."""
+    from ftrl_ffm_tpu_torch import bench
     from ftrl_ffm_tpu_torch.ops import _build
 
     hot_rows = _build.lib().ftrl_update_hot_rows()
@@ -952,71 +997,57 @@ def lr_fm_resident(bench_100k: str, tmp: str, device, where: str) -> tuple[dict,
     # narrow scatter), the dense kind's update to ftrl_update_hot
     require(min(longest["zipf"]) > hot_rows >= max(longest["uniform"]),
             f"the Zipf data's steps miss segments over {hot_rows} rows")
-    steps = 4 * math.ceil(BENCH_ROWS / BATCH)
+    timed_steps = 3 * math.ceil(BENCH_ROWS / BATCH)
     records, trainers = {}, {}
-    dense = {"update_mode": "dense"}
+    inplace, dense = {"update_mode": "inplace"}, {"update_mode": "dense"}
     for cell, mt, nf, variant, extra in (
         ("train-lr-100k-resident", "LR", TRAIN_FEATS, None, {}),
         ("train-fm-100k-resident", "FM", TRAIN_FEATS, None, {}),
-        ("train-fm-4m-resident", "FM", HASH_FEATS, "uniform", {}),
+        ("train-fm-4m-resident", "FM", HASH_FEATS, "uniform", inplace),
         ("train-fm-4m-dense-resident", "FM", HASH_FEATS, "uniform", dense),
-        ("train-fm-4m-zipf-resident", "FM", HASH_FEATS, "zipf", {}),
+        ("train-fm-4m-zipf-resident", "FM", HASH_FEATS, "zipf", inplace),
         ("train-fm-4m-zipf-dense-resident", "FM", HASH_FEATS, "zipf", dense),
     ):
-        rcfg = Config(model_type=mt, n_fields=N_FIELDS, n_factors=N_FACTORS, n_feats=nf,
-                      batch_size=BATCH, train_data=data.get(variant, bench_100k),
-                      online=True, n_epochs=4, max_nnz=N_FIELDS, n_threads=3, device="cuda",
-                      **extra)
-        rtr = Trainer(rcfg)
-        reset_counts()
-        t0 = time.perf_counter()
-        rtr._ensure_device_cache("train")
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        losses = [rtr.train_epoch()]
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            losses.append(rtr.train_epoch())
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        counts = read_counts()
+        # the bench twin's protocol and config (ftrl_ffm_tpu_torch/bench.py)
+        res = bench.run(bench.make_config(data.get(variant, bench_100k), "cuda",
+                                          model_type=mt, n_feats=nf, **extra))
+        rtr, counts = res["trainer"], res["counts"]
         entry = rtr._dev_cache.get("train")
-        kind = None if mt == "LR" else ("dense2" if extra else "inplace" if nf == HASH_FEATS
-                                        else "dense2")
+        kind = None if mt == "LR" else ("inplace" if extra is inplace else "dense2")
         rec = {
             "cell": cell,
-            "examples_per_s": BENCH_ROWS / min(times),
-            "runs": [BENCH_ROWS / t for t in times],
-            "build_s": build_s,
-            "warmup_s": warm_s,
-            "device_cache": entry is not None,
-            "losses": losses,
+            "examples_per_s": res["value"],
+            "runs": res["runs"],
+            "build_s": res["build_s"],
+            "warmup_s": res["warmup_s"],
+            "device_cache": res["device_cache"],
+            "losses": res["losses"],
             "steps": rtr._steps_done,
-            "launches": {k: v for k, v in counts.items() if isinstance(v, int)},
+            "launches": res["launches"],
             **{k: v for k, v in counts.items() if not isinstance(v, int)},
             "card": where,
         }
         print(f"resident {cell}: {json.dumps(rec)}")
         require(entry is not None and entry.n == BENCH_ROWS,
                 f"{cell}: the bench run did not take the resident dataset")
-        require(rtr._steps_done == steps, f"{cell}: {rtr._steps_done} steps, expect {steps}")
-        require(counts == expected_counts(mt, kind, "float32", steps),
-                f"{cell}: the kernels launched {counts}")
+        require(rtr._steps_done == 4 * timed_steps // 3,
+                f"{cell}: {rtr._steps_done} steps, expect {4 * timed_steps // 3}")
+        require(counts == expected_counts(mt, kind, "float32", timed_steps),
+                f"{cell}: the kernels launched {counts} in the timed epochs")
+        losses = res["losses"]
         require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
                 f"{cell}: resident losses {losses}")
         records[cell], trainers[cell] = rec, rtr
     # "inplace" against "dense2" after the same 100 steps (4f holds them bit
-    # for bit over 3 chained steps; here printed, for Queue 1 entry 2)
+    # for bit over 3 chained steps; here over 4 epochs, for item 7's
+    # thresholds)
     for variant in ("", "-zipf"):
         a, b = trainers[f"train-fm-4m{variant}-resident"], trainers[f"train-fm-4m{variant}-dense-resident"]
         diffs = {name: float((x.float() - y.float()).abs().max())
                  for name, x, y in zip(a.state._fields, a.state, b.state)
                  if x is not None and x.dim() > 0}
         same = all(x is None or torch.equal(x, y) for x, y in zip(a.state, b.state))
-        print(f"resident train-fm-4m{variant}: inplace against dense after {steps} steps: "
+        print(f"resident train-fm-4m{variant}: inplace against dense after {a._steps_done} steps: "
               f"bit-identical {same}; max |diff| by table {json.dumps(diffs)}")
         require(same, f"train-fm-4m{variant}: the in-place and dense kinds' states differ")
     return records, trainers
@@ -1240,6 +1271,123 @@ def checkpoint_phase(bench_100k: str, tmp: str, device, where: str, r_trainers: 
     return {"ffm-100k": rec, "tables": tables, "ffm-1m": big}
 
 
+def run_tool(label: str, args: list, env: dict, timeout: int) -> tuple[str, float]:
+    """Phase 9: one tool of ftrl_ffm_tpu_torch as a subprocess (python -m
+    <args>) from the repository's root with `env` added; its standard
+    output (echoed, one line each, prefixed) and seconds.  A non-zero exit
+    fails the smoke run."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    full = dict(os.environ, **env)
+    full["PYTHONPATH"] = os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=root, env=full, text=True,
+                          capture_output=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"tools {label}: {line}")
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    require(proc.returncode == 0, f"{label} exited {proc.returncode}")
+    print(f"tools {label}: {seconds:.1f} s")
+    return proc.stdout, seconds
+
+
+def json_lines(out: str) -> list:
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def tools_phase(bench_100k: str, train_100k: str, tmp: str, where: str) -> dict:
+    """Phase 9: the measurement tools through their entry points, each in
+    its own process on the card (the bench twin on phase 7's file; the
+    bench matrix's nine rows at 65,536 rows, ffm1m under update_mode
+    inplace and dense; profile_step's cuda, infer, huge and trace phases,
+    huge under both kinds; the roofline of the 100k "dense2" and the 1M
+    "inplace" steps; micro_scatter at its defaults), then one CLI training
+    run with --profile_dir in this process, whose trace must name kernel
+    #2 and the update kernel.  Every tool's exit code and output are
+    checked.  Returns what the tools printed, parsed."""
+    from ftrl_ffm_tpu_torch import bench, cli
+    from ftrl_ffm_tpu_torch.tools import bench_matrix, micro_scatter
+
+    env = {"TMPDIR": tmp}
+    out = {}
+    steps = 3 * math.ceil(BENCH_ROWS / BATCH)
+    text, _ = run_tool("bench", ["ftrl_ffm_tpu_torch.bench", "--data", bench_100k], env, 300)
+    (line,) = json_lines(text)
+    require(tuple(line) == bench.PRINTED and line["metric"] == bench.METRIC,
+            f"the bench twin printed {line}")
+    require(line["launches"]["ffm_fused_logits_grads"] == steps == line["launches"]["ftrl_update"],
+            f"the bench twin's timed epochs launched {line['launches']}, expect {steps} of each")
+    require(line["device_cache"] and line["batch"] == BATCH and line["device"] == where
+            and line["value"] > 0, f"the bench twin printed {line}")
+    out["bench"] = line
+
+    rows = []
+    matrix_env = dict(env, ROWS_SAMPLES="65536")
+    others = [r for r in bench_matrix.ROWS if r != "ffm1m"]
+    text, _ = run_tool("bench_matrix", ["ftrl_ffm_tpu_torch.tools.bench_matrix", *others],
+                       matrix_env, 600)
+    rows += json_lines(text)
+    for mode, kind in (("inplace", "inplace"), ("dense", "dense2")):
+        text, _ = run_tool(f"bench_matrix ffm1m {mode}",
+                           ["ftrl_ffm_tpu_torch.tools.bench_matrix", "ffm1m"],
+                           dict(matrix_env, UPDATE_MODE=mode), 300)
+        (row,) = json_lines(text)
+        require(row["update_kind"] == kind, f"ffm1m under {mode} ran {row['update_kind']}")
+        rows.append(row)
+    require(sorted(r["row"] for r in rows) == sorted([*others, "ffm1m", "ffm1m"]),
+            f"the matrix printed rows {[r['row'] for r in rows]}")
+    for r in rows:
+        loss = r.get("train_loss", r.get("eval_loss"))
+        require(r["examples_per_s"] > 0 and math.isfinite(loss) and r["device"] == where
+                and (r["update_kind"] is None) == (r["row"] == "lr"), f"matrix row {r}")
+    out["matrix"] = rows
+
+    prof = {}
+    for mode, phases in (("dense", ["cuda", "infer", "huge", "trace"]), ("inplace", ["huge"])):
+        text, _ = run_tool(f"profile_step {mode}",
+                           ["ftrl_ffm_tpu_torch.tools.profile_step", *phases],
+                           dict(env, UPDATE_MODE=mode), 300)
+        for phase in phases:
+            if phase == "trace":
+                require("ffm_fused_c40" in text and "ftrl_update" in text,
+                        "profile_step's trace names no kernel #2 or update kernel")
+                continue
+            (ln,) = [ln for ln in text.splitlines() if ln.startswith(f"{phase}: ")]
+            ms = float(ln.split()[1])
+            require(ms > 0 and (phase == "infer" or "roofline floor" in ln),
+                    f"profile_step {phase}: {ln}")
+            prof[f"{phase} {mode}" if phase == "huge" else phase] = ln
+    out["profile_step"] = prof
+
+    for label, args in (("dense2 100k", ["--batch", str(BATCH)]),
+                        ("inplace 1M", ["--batch", str(BATCH), "--n_feats", str(N_FEATS),
+                                        "--update", "inplace"])):
+        text, _ = run_tool(f"roofline {label}", ["ftrl_ffm_tpu_torch.tools.roofline", *args],
+                           env, 120)
+        require("floor @ 3350 GB/s" in text, f"roofline {label} printed no floor")
+        out[f"roofline {label}"] = text.splitlines()[-1]
+
+    text, _ = run_tool("micro_scatter", ["ftrl_ffm_tpu_torch.tools.micro_scatter"], env, 300)
+    got = {ln.split()[0] for ln in text.splitlines() if ln.startswith("  ")}
+    require(got == set(micro_scatter.PHASES), f"micro_scatter printed {got}")
+
+    # the CLI with --profile_dir (epoch 1 traced) on phase 4b's training rows
+    prof_dir = os.path.join(tmp, "profile")
+    t0 = time.perf_counter()
+    rc = cli.main(["--train_data", train_100k, "--model_type", "FFM", "--n_fields", str(N_FIELDS),
+                   "--n_factors", str(N_FACTORS), "--n_feats", str(TRAIN_FEATS),
+                   "--batch_size", str(BATCH), "--n_epochs", "1", "--profile_dir", prof_dir])
+    traces = [os.path.join(prof_dir, f) for f in os.listdir(prof_dir)
+              if f.endswith(".pt.trace.json")] if os.path.isdir(prof_dir) else []
+    body = open(traces[0]).read() if len(traces) == 1 else ""
+    named = {k: k in body for k in ("ffm_fused_c40", "ftrl_update_kernel")}
+    print(f"tools cli --profile_dir: rc {rc}, traces {[os.path.basename(t) for t in traces]} "
+          f"({len(body)} bytes), kernel names in it {named}; {time.perf_counter() - t0:.1f} s")
+    require(rc == 0 and all(named.values()), "the --profile_dir trace misses the kernels")
+    return out
+
+
 def main() -> int:
     # ---- 1. no card ----
     if not torch.cuda.is_available():
@@ -1311,6 +1459,14 @@ def main() -> int:
     print(f"device: {device_name} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     print(f"nvidia-smi: {where}")
 
+    # each phase's seconds, printed as the next one starts
+    t_phase = [time.perf_counter(), "1-2"]
+
+    def phase_done(next_phase: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {t_phase[1]}: {now - t_phase[0]:.1f} s")
+        t_phase[:] = [now, next_phase]
+
     # ---- 2. build ----
     t0 = time.perf_counter()
     lib = _build.lib()
@@ -1319,6 +1475,7 @@ def main() -> int:
         if any(w in line for w in ("registers", "spill", "smem", "Compiling")):
             print(f"build: {line.strip()}")
 
+    phase_done("3")
     # ---- 3. kernels against their plain versions ----
     gen = torch.Generator(device=device).manual_seed(SEED)
     cp = Config(model_type="FFM", n_fields=N_FIELDS, n_factors=N_FACTORS).field_pad
@@ -1382,6 +1539,7 @@ def main() -> int:
             require(same, "ffm_logits is not deterministic")
         del v, vh, fld, vals, lin
 
+    phase_done("3b")
     # ---- 3b. the training kernel against its plain version ----
     # (label, B, F, C', K, fields, real fields, aug lane)
     fused_cases = [
@@ -1486,6 +1644,7 @@ def main() -> int:
             del again
         del args, logits, gg2, ref_logits, ref_gg2, f32_logits, f32_gg2
 
+    phase_done("3c")
     # ---- 3c. the update kernel against its plain version ----
     p = FtrlParams()
 
@@ -1650,6 +1809,7 @@ def main() -> int:
             narrow_err[label] = err
         del tables, ids, gg2, gg2_lin, runs, want
 
+    phase_done("3g")
     # ---- 3g. the update kernel with no factor columns (E = 0) ----
     # LR's whole update and FM's in-place linear step (ftrl_update_linear,
     # the "linear" instance) against the plain dense step on the same card
@@ -1697,6 +1857,7 @@ def main() -> int:
         narrow_err[label] = err
         del lin, ids, gl, gg2_lin, runs, want, touched
 
+    phase_done("3d")
     # ---- 3d. the z/A scatter against its plain version ----
     # bit for bit the plain version on the same card tensors under ordered
     # sums, untouched z bit-identical, untouched A exactly 0, repeats
@@ -1759,6 +1920,7 @@ def main() -> int:
             narrow_err["za_scatter fm_4m_zipf"] = err
         del z, ids, g, g2, runs, want, touched, counts
 
+    phase_done("3e")
     # ---- 3e. the closed-form pass (kernel #3) against its plain version ----
     # (label, R, E, offset): the 1M path's tables, FM's 2^22-row K=16 table
     # (phase 3g), odd and prime R with E not a multiple of 4, and tables 4
@@ -1835,6 +1997,7 @@ def main() -> int:
             narrow_err["ftrl_pass_bf16 fm_4m"] = err
         del tabs, runs, want, idle, idle_w
 
+    phase_done("4")
     # ---- 4. serving through the entry points ----
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "eval.ffm")
@@ -1897,90 +2060,22 @@ def main() -> int:
         require(abs(res["cpu"][0] - res["cuda"][0]) <= 1e-5, "cpu and cuda eval loss differ")
         require(abs(res["cpu"][1] - res["cuda"][1]) <= 1e-4, "cpu and cuda eval auc differ")
 
-        # ---- 4b. training through the entry points ----
-        train_p, eval_p = os.path.join(tmp, "train.ffm"), os.path.join(tmp, "teval.ffm")
-        t0 = time.perf_counter()
-        write_criteo_split([(train_p, N_ROWS), (eval_p, BATCH)], TRAIN_FEATS)
-        print(f"train: wrote {N_ROWS} + {BATCH} Criteo-shaped rows in "
-              f"{time.perf_counter() - t0:.1f} s")
-        tcfg = Config(
-            model_type="FFM", n_fields=N_FIELDS, n_factors=N_FACTORS, n_feats=TRAIN_FEATS,
-            batch_size=BATCH, train_data=train_p, eval_data=eval_p, n_epochs=2,
-            device="cuda", n_threads=4, device_cache="off",
-        )
-        ttrainer = Trainer(tcfg)
-        tmodel = ttrainer.model
-        ffm_fused_logits_grads.launches = ftrl_update.launches = 0
-        ffm_fused_logits.launches = 0
-        zero_instances()
-        t0 = time.perf_counter()
-        hist = ttrainer.train()
-        t_train = time.perf_counter() - t0
-        fused_launches, update_launches = ffm_fused_logits_grads.launches, ftrl_update.launches
-        fused_instances = dict(by_instance)
-        eval_launches = ffm_fused_logits.launches
-        steps = ttrainer._steps_done
-        print(f"train: Trainer.train() 2 epochs in {t_train:.2f} s (first, with build "
-              f"and warm-up): {steps} steps; ffm_fused launches={fused_launches}, "
-              f"ftrl_update launches={update_launches}, ffm_logits launches (eval) "
-              f"={eval_launches}; ffm_fused launches by instance {fused_instances}; "
-              f"history {hist}")
-        require(steps == 2 * n_batches, f"{steps} train steps, expect {2 * n_batches}")
-        require(fused_launches == steps, f"ffm_fused launched {fused_launches} times in {steps} steps")
-        require(fused_instances["c40_k16"] == steps,
-                f"the training path ran kernel #2's instances {fused_instances}")
-        require(update_launches == steps == ftrl_update.launches_by_instance["rows"],
-                f"ftrl_update launched {update_launches} times in {steps} steps, by instance "
-                f"{ftrl_update.launches_by_instance}")
-        require(ffm_fused_logits.launches_by_instance["c40_k16"] == eval_launches == 2,
-                f"eval ran kernel #1's instances {ffm_fused_logits.launches_by_instance}")
-        require(all(math.isfinite(x) for k in ("train_loss", "eval_loss", "eval_auc")
-                    for x in hist[k]), "non-finite training history")
-        require(hist["train_loss"][1] < hist["train_loss"][0], "epoch 2 train loss is not below epoch 1's")
-        require(hist["eval_auc"][-1] > 0.5, "eval AUC not above 0.5")
+        phase_done("4b/4f")
+        # ---- 4b and 4f. training through the entry points: bench.py's FFM
+        # model at 100k rows, LR and FM (TRAIN_CELLS), with their device
+        # steps (phase 5's part) ----
+        cells = train_cells(tmp, device, where)
+        small_t, st_p, se_p = cells.pop("small")
+        frec = cells["train-ffm-100k"]
+        ttrainer, tmodel, tplaced, hist = frec["trainer"], frec["model"], frec["placed"], frec["hist"]
+        tcfg, train_p = ttrainer.cfg, frec["paths"][0]
+        batches = tplaced[:3]
+        fused_launches = frec["counts"]["ffm_fused_logits_grads"]
+        update_launches = frec["counts"]["ftrl_update"]
+        lrfm = {cell: rec for cell, rec in cells.items() if rec["model"].cfg.model_type != "FFM"}
+        del cells
 
-        # 3 chained train_steps, kernels against plain versions from one state
-        batches = [ttrainer._place_batch(a) for a in itertools.islice(StreamReader(
-            train_p, "libffm", BATCH, N_FIELDS, TRAIN_FEATS, N_FIELDS, log_every=0
-        ).batches(), 3)]
-        base = clone_state(ttrainer.state)
-        s_kern, s_plain, s_again = (clone_state(base) for _ in range(3))
-        loss_diff = 0.0
-        for batch in batches:
-            out_k = tmodel.train_step(s_kern, batch)
-            with plain_kernels():
-                out_p = tmodel.train_step(s_plain, batch)
-            tmodel.train_step(s_again, batch)
-            loss_diff = max(loss_diff, abs(out_k.loss_sum.item() - out_p.loss_sum.item())
-                            / abs(out_p.loss_sum.item()))
-        zerr = {name: (getattr(s_kern, name) - getattr(s_plain, name)).abs().max().item()
-                for name in ("lin_z", "vec_z", "vec_w")}
-        chain_ok = all(torch.allclose(getattr(s_kern, name), getattr(s_plain, name),
-                                      rtol=CHAIN_RTOL, atol=CHAIN_ATOL)
-                       for name in ("lin_z", "vec_z"))
-        same = all(torch.equal(a, b) for a, b in zip(s_kern, s_again))
-        print(f"train: 3 chained steps, kernels vs plain: loss rel diff {loss_diff:.2e}, "
-              f"max |diff| {zerr}; two kernel runs bit-identical={same}")
-        require(chain_ok, "chained train steps disagree with the plain versions")
-        require(same, "two runs of the same train steps differ")
-        del base, s_kern, s_plain, s_again
-
-        # small training on the CPU (plain versions) and on the card, one init
-        small_t = dict(model_type="FFM", n_fields=N_FIELDS, n_factors=N_FACTORS,
-                       n_feats=5000, batch_size=1024, n_epochs=2)
-        st_p, se_p = os.path.join(tmp, "strain.ffm"), os.path.join(tmp, "seval.ffm")
-        write_criteo_split([(st_p, 3000), (se_p, 1000)], small_t["n_feats"], seed=11)
-        init = make_model(Config(device="cpu", **small_t)).init(
-            torch.Generator().manual_seed(SEED + 2))
-        tres = {}
-        for dev in ("cpu", "cuda"):
-            scfg = Config(train_data=st_p, eval_data=se_p, device=dev, **small_t)
-            tres[dev] = Trainer(scfg, state=clone_state(init)).train()
-        print(f"train: small run eval loss cpu={tres['cpu']['eval_loss']} "
-              f"cuda={tres['cuda']['eval_loss']}")
-        require(abs(tres["cpu"]["eval_loss"][-1] - tres["cuda"]["eval_loss"][-1]) <= 1e-4,
-                "cpu and cuda training reach different eval losses")
-
+        phase_done("5")
         # ---- 5. timings (the card's name and power limit beside each) ----
         v, fld, vals, lin = kernel_inputs(BATCH, N_FIELDS, cp, N_FACTORS, gen, device,
                                           "iota", N_FIELDS, pad=False)
@@ -2036,6 +2131,7 @@ def main() -> int:
               f"{parse_ms:.3f} ms/batch; evaluate() streamed {eps} examples/s "
               f"(n_feats={N_FEATS}, B={BATCH}, {N_ROWS} rows) [{where}]")
 
+        phase_done("5b")
         # ---- 5b. training timings ----
         args = fused_inputs(BATCH, N_FIELDS, cp, N_FACTORS, gen, device, "iota", N_FIELDS)
         zero_instances()
@@ -2094,12 +2190,8 @@ def main() -> int:
             return float(np.median(ms)), plain, sb
 
         skew_ms, skew_plain_ms, skew_bound = time_skewed(torch.float32, torch.float32, 3)
-        tplaced = [ttrainer._place_batch(a) for a in StreamReader(
-            train_p, "libffm", BATCH, N_FIELDS, TRAIN_FEATS, N_FIELDS,
-            n_parse_threads=4, log_every=0).batches()]
         tcycle = itertools.cycle(tplaced)
-        step_ms = cuda_ms(lambda: tmodel.train_step(ttrainer.state, next(tcycle)),
-                          2 * len(tplaced))
+        step_ms = float(np.median(frec["step_ms"]))
         t0 = time.perf_counter()
         for _ in StreamReader(train_p, "libffm", BATCH, N_FIELDS, TRAIN_FEATS, N_FIELDS,
                               n_parse_threads=4, log_every=0).batches():
@@ -2116,6 +2208,7 @@ def main() -> int:
               f"{tparse_ms:.3f} ms/batch; train_epoch() streamed {teps} examples/s "
               f"(n_feats={TRAIN_FEATS}, B={BATCH}, {N_ROWS} rows) [{where}]")
 
+        phase_done("4d")
         # ---- 4d. bf16 tables and payload through the entry points ----
         # bench.py's model with table_dtype and acc_dtype bfloat16: "dense2"
         # with kernel #2's bf16 store and the update kernel on a bf16
@@ -2196,6 +2289,7 @@ def main() -> int:
         require(abs(hres["cpu"]["eval_loss"][-1] - hres["cuda"]["eval_loss"][-1]) <= 1e-4,
                 "cpu and cuda bf16 training reach different eval losses")
 
+        phase_done("5b bf16")
         # ---- 5b, bf16: the bf16 forms' timings, the bf16 train step ----
         args = fused_inputs(BATCH, N_FIELDS, cp, N_FACTORS, gen, device, "iota", N_FIELDS)
         hfruns, hf_ms, hfp_ms = interleaved_ms(
@@ -2250,6 +2344,7 @@ def main() -> int:
               f"{step_ms:.3f}); train_epoch() streamed {heps} examples/s (n_feats={TRAIN_FEATS}, "
               f"B={BATCH}, table and payload bf16) [{where}]")
 
+        phase_done("4c")
         # ---- 4c. training the 1M-row table through the entry points ----
         # the serving state goes first: the 1M state is 7.7 GB, its
         # accumulator A 2.56 GB, rows and payload 4.9 GB, each clone 7.7 GB
@@ -2266,13 +2361,13 @@ def main() -> int:
         bcfg = Config(
             model_type="FFM", n_fields=N_FIELDS, n_factors=N_FACTORS, n_feats=N_FEATS,
             batch_size=BATCH, train_data=big_p, eval_data=big_e, n_epochs=2,
-            device="cuda", n_threads=4, device_cache="off",
+            device="cuda", n_threads=4, device_cache="off", update_mode="inplace",
         )
         btrainer = Trainer(bcfg)
         bmodel = btrainer.model
         kind = select_update_kind(N_FEATS, bcfg.row_width, BATCH * bcfg.max_nnz,
                                   bcfg.update_mode)
-        require(kind == "inplace", f"update_mode=auto resolves to {kind!r} at 1M, expect inplace")
+        require(kind == "inplace", f"update_mode=inplace resolves to {kind!r} at 1M")
         counted = (ffm_fused_logits_grads, za_scatter, closed_form_pass, ftrl_update,
                    ffm_fused_logits)
         for fn in counted:
@@ -2377,6 +2472,7 @@ def main() -> int:
         require(abs(ires["cpu"]["eval_loss"][-1] - ires["cuda"]["eval_loss"][-1]) <= 1e-4,
                 "cpu and cuda in-place training reach different eval losses")
 
+        phase_done("5c")
         # ---- 5c. 1M training timings ----
         e = cp * N_FACTORS
         tabs = pass_inputs(N_FEATS, e, gen, device, p)
@@ -2446,8 +2542,9 @@ def main() -> int:
               f"train_epoch() streamed {beps} examples/s (n_feats={N_FEATS}, B={BATCH}, {N_ROWS} "
               f"rows, inplace) [{where}]")
 
+        phase_done("4e")
         # ---- 4e. the 1M-row table with a bf16 w through the entry points ----
-        # table_dtype=bfloat16 at 1M: auto -> "inplace" with an f32 split
+        # table_dtype=bfloat16 at 1M, "inplace" (4c's config) with an f32 split
         # payload (acc_dtype only narrows "dense2"), kernel #3 on a bf16 w,
         # and the separate linear update: the forward pass reads lin_w, not
         # the mirror lane, so the linear tables are kept every step
@@ -2568,6 +2665,7 @@ def main() -> int:
         del strainer, hplaced, hcycle_e
         torch.cuda.empty_cache()
 
+        phase_done("5c bf16")
         # ---- 5c, bf16: kernel #3 on a bf16 w, the bf16 1M train step ----
         tabs = list(pass_inputs(N_FEATS, e, gen, device, p))
         tabs[2] = tabs[2].to(bf16)
@@ -2593,11 +2691,11 @@ def main() -> int:
         print(f"timing: bf16 train_step on the device at 1M (inplace): {estep_ms} ms/batch (f32 "
               f"{step['inplace']}); train_epoch() streamed {eeps} examples/s [{where}]")
 
-        # ---- 4f. LR and FM through the entry points (and their device
-        # steps, phase 5's part); 5e. their kernels' forms timed ----
-        lrfm = lr_fm_train(tmp, device, where)
+        phase_done("5e")
+        # ---- 5e. LR and FM's kernel forms timed (4f ran with 4b) ----
         narrow_time = lr_fm_kernel_times(gen, device, where, p)
 
+        phase_done("3f")
         # ---- 3f. the probe kernels against their plain versions ----
         # the probes at their default sizes need ~25 GB beside 4c's state
         # (7.7 GB, kept for phase 6)
@@ -2738,6 +2836,7 @@ def main() -> int:
                 probe_err["micro_gather"] = err
             del perm, pay, got, want
 
+        phase_done("5d")
         # ---- 5d. the probes' entry points, then their kernels timed ----
         for key in PROBE_ENV:  # each probe at its defaults
             os.environ.pop(key, None)
@@ -2880,6 +2979,7 @@ def main() -> int:
               f"[{where}]")
         del perm, pay, pay_bf, bag
 
+        phase_done("7")
         # ---- 7. the device-resident dataset (Config.device_cache) ----
         # bench.py's protocol at full size: its data (write_criteo_like at
         # seed 7 is bench.py::ensure_data's generator; 400,000 rows), its
@@ -2889,10 +2989,14 @@ def main() -> int:
         # (f32, and bf16 tables and payload) and at 1M ("inplace")
         from ftrl_ffm_tpu_torch.models.base import dec6_decode
 
+        from ftrl_ffm_tpu_torch import bench
+
         t0 = time.perf_counter()
         bench_p = {nf: os.path.join(tmp, f"bench{nf}.ffm") for nf in (TRAIN_FEATS, N_FEATS)}
-        for nf, path in bench_p.items():
-            write_criteo_like(path, BENCH_ROWS, nf)
+        # bench.py's file (the bench twin writes its bytes), and the same
+        # generator over 1M ids
+        bench.ensure_data(bench_p[TRAIN_FEATS])
+        write_criteo_like(bench_p[N_FEATS], BENCH_ROWS, N_FEATS)
         print(f"resident: wrote {BENCH_ROWS} bench rows at n_feats {TRAIN_FEATS} and "
               f"{N_FEATS} in {time.perf_counter() - t0:.1f} s")
         bench_steps = math.ceil(BENCH_ROWS / BATCH)
@@ -2964,53 +3068,34 @@ def main() -> int:
 
         # (c) the bench protocol, cell by cell; its launches; the same bits
         # as a streamed twin from the same init
-        resident_counted = (ffm_fused_logits_grads, ftrl_update, za_scatter, closed_form_pass)
         resident = {}
         r_trainers = {}
         bf16_kw = dict(table_dtype="bfloat16", acc_dtype="bfloat16")
         for label, nf, extra in (("100k", TRAIN_FEATS, {}), ("100k-bf16", TRAIN_FEATS, bf16_kw),
-                                 ("1M", N_FEATS, {})):
-            rcfg = Config(
-                model_type="FFM", n_fields=N_FIELDS, n_factors=N_FACTORS, n_feats=nf,
-                batch_size=BATCH, train_data=bench_p[nf], online=True, n_epochs=4,
-                max_nnz=N_FIELDS, n_threads=3, device="cuda", **extra,
-            )
-            rtr = Trainer(rcfg)
-            init = clone_state(rtr.state)
-            for fn in resident_counted:
-                fn.launches = 0
-            zero_instances()
-            t0 = time.perf_counter()
-            rtr._ensure_device_cache("train")
-            torch.cuda.synchronize()
-            build_s = time.perf_counter() - t0
-            losses = [rtr.train_epoch()]
-            torch.cuda.synchronize()
-            warm_s = time.perf_counter() - t0
-            times = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                losses.append(rtr.train_epoch())
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            r_launch = {fn.__name__: fn.launches for fn in resident_counted}
-            r_inst = {k: v for k, v in by_instance.items() if v}
-            r_upd = {k: v for k, v in ftrl_update.launches_by_dtype.items() if v}
-            r_pass = {k: v for k, v in closed_form_pass.launches_by_dtype.items() if v}
+                                 ("1M", N_FEATS, {"update_mode": "inplace"})):
+            # the bench twin's config and protocol (ftrl_ffm_tpu_torch/bench.py)
+            # from an init kept for the twins below (the Trainer's own seeded
+            # init)
+            rcfg = bench.make_config(bench_p[nf], "cuda", n_feats=nf, **extra)
+            init = make_model(rcfg).init(torch.Generator(device=device).manual_seed(rcfg.seed))
+            res = bench.run(rcfg, state=clone_state(init))
+            rtr, counts, losses = res["trainer"], res["counts"], res["losses"]
+            r_launch = res["launches"]
+            r_inst, r_upd = counts["fused_by_instance"], counts["update_by_dtype"]
             entry = rtr._dev_cache.get("train")
             rec = {
                 "cell": f"train-ffm-{label.lower()}-resident",
-                "examples_per_s": BENCH_ROWS / min(times),
-                "runs": [BENCH_ROWS / t for t in times],
-                "build_s": build_s,
-                "warmup_s": warm_s,
-                "device_cache": entry is not None,
+                "examples_per_s": res["value"],
+                "runs": res["runs"],
+                "build_s": res["build_s"],
+                "warmup_s": res["warmup_s"],
+                "device_cache": res["device_cache"],
                 "losses": losses,
                 "steps": rtr._steps_done,
                 "launches": r_launch,
                 "by_instance": r_inst,
                 "update_by_dtype": r_upd,
-                "pass_by_dtype": r_pass,
+                "pass_by_dtype": counts["pass_by_dtype"],
                 "card": where,
             }
             print(f"resident {label}: {json.dumps(rec)}")
@@ -3018,8 +3103,9 @@ def main() -> int:
                     f"{label}: the bench run did not take the raw resident dataset")
             require(entry.ds[0].shape[0] == 0 and entry.ds[2].shape[0] == 0,
                     f"{label}: the Criteo-shaped rows did not take the iota and ones markers")
-            steps = 4 * bench_steps
-            require(rtr._steps_done == steps, f"{label}: {rtr._steps_done} steps, expect {steps}")
+            require(rtr._steps_done == 4 * bench_steps,
+                    f"{label}: {rtr._steps_done} steps, expect {4 * bench_steps}")
+            steps = 3 * bench_steps  # the timed epochs' launches
             require(r_launch["ffm_fused_logits_grads"] == steps, f"{label}: kernel #2 {r_launch}")
             if nf == N_FEATS:
                 require(r_launch["za_scatter"] == r_launch["closed_form_pass"] == steps
@@ -3119,12 +3205,14 @@ def main() -> int:
             del rtr, entry
         lrfm_resident, lrfm_r_trainers = lr_fm_resident(bench_p[TRAIN_FEATS], tmp, device, where)
 
+        phase_done("8")
         # ---- 8. checkpoints: save, resume, reference import/export ----
         checkpoint_phase(bench_p[TRAIN_FEATS], tmp, device, where, r_trainers, lrfm_r_trainers)
         if "100k-bf16" in r_trainers:
             del r_trainers["100k-bf16"]  # phase 6 traces the f32 cells
         torch.cuda.empty_cache()
 
+        phase_done("6")
         # ---- 6. profiles: after every timed phase ----
         # a profiler run may leave the host's launch path slower for the rest
         # of the process, so the device breakdowns of the train steps and the
@@ -3197,6 +3285,14 @@ def main() -> int:
                       f"{largest[0]} {largest[1] / steps:.4f} ms")
         del ttrainer, tmodel, tplaced, tcycle, btrainer, bmodel, dmodel, bplaced, bcycle
         del htrainer, hmodel, hcycle, etrainer, emodel, ecycle, r_trainers, lrfm_r_trainers
+        fm_counts = {cell: rec["counts"] for cell, rec in lrfm.items()}
+        del lrfm, frec
+        torch.cuda.empty_cache()
+
+        phase_done("9")
+        # ---- 9. the measurement tools, each through its entry point ----
+        tools_phase(bench_p[TRAIN_FEATS], train_p, tmp, where)
+        phase_done("end")
 
     records = [
         {
@@ -3363,7 +3459,6 @@ def main() -> int:
     # from 3c-3g, times from 5e, launches by kernel instance from 4f's entry
     # points and phase 7's resident cells (the Zipf scatter's from its
     # resident in-place cell, the main path on such ids)
-    fm_counts = {cell: rec["counts"] for cell, rec in lrfm.items()}
     zipf_scatter = lrfm_resident["train-fm-4m-zipf-resident"]["scatter_by_instance"]["narrow"]
     for name, source, replaces, launches, resident_launches, err_key in (
         ("ftrl_update_k16", "ftrl_update.cu", "ftrl_ffm_tpu/ftrl.py:133",

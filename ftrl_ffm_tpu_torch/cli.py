@@ -165,7 +165,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also export weights in the reference's plain-text "
                         "model format (src/model/ffm.cpp:161)")
     p.add_argument("--profile_dir", default="",
-                   help="write a jax.profiler trace of epoch 1 here")
+                   help="write a torch.profiler trace of epoch 1 here "
+                        "(TensorBoard format: *.pt.trace.json)")
     p.add_argument("--predict_data", default="",
                    help="after training, score this file ('-': stdin stream; "
                         "requires --file_type and --max_nnz)")
@@ -206,7 +207,6 @@ _NON_CONFIG_FLAGS = (
 def _refuse_unported(args) -> None:
     """Raise for a flag whose capability a later slice of the port brings."""
     later = (
-        (args.profile_dir, "--profile_dir", 9),
         (
             args.coordinator_address or args.num_processes
             or args.process_id >= 0,
@@ -325,7 +325,7 @@ def main(argv: list[str] | None = None) -> int:
         info(f"imported reference model from {src}")
     with trainer_out:
         if training:
-            trainer.train()
+            trainer.train(profile_dir=args.profile_dir or None)
         elif cfg.eval_data:
             eval_loss, eval_auc = trainer.evaluate()
             if cfg.eval_auc:

@@ -220,21 +220,28 @@ def sparse_ftrl_update2(n_tab, z_tab, w_tab, ids, gg2, p: FtrlParams):
 
 
 def select_update_kind(n_rows: int, row_width: int, nnz: int, mode: str = "auto") -> str:
-    """The table-update strategy (ftrl_ffm_tpu/ftrl.py::select_update_kind,
-    the same thresholds): "dense2" (combined-payload update), "inplace"
-    (huge tables) or "sparse2" (tables whose one accumulator would not fit).
-    The thresholds were sized for a TPU's 16 GB of HBM; the port keeps them
-    so that each kind is held against the JAX package's (ROADMAP.md lists
-    revisiting them with the card's measurements)."""
+    """The table-update strategy: "dense2" (the combined-payload update),
+    "inplace" (the z/A scatter and the closed-form pass over the whole
+    table) or "sparse2" (tables whose one accumulator would not fit).
+
+    The modes are ftrl_ffm_tpu/ftrl.py::select_update_kind's; "auto"
+    differs by design.  JAX's auto picks "inplace" for tables over 4 x nnz
+    rows (or a 2 GB accumulator) up to 4 GB, since its "dense2" scatters
+    into an [R, 2D] accumulator and passes over every row.  The port's
+    "dense2" updates only the rows a batch touches, with no table-shaped
+    accumulator (ops/ftrl_cuda.py::ftrl_update), and beat "inplace" with
+    the same bits at every shape measured on the card (PERF.md section 6:
+    FFM at 1M and 4M rows, FM at 2^22), so auto takes "dense2" there.
+    Tables over 4 GB take "sparse2" as in JAX, which runs the same kernel
+    on the card.  update_mode=inplace still selects "inplace".  nnz (the
+    occurrences a step) sets JAX's auto and not the port's; the signature
+    stays JAX's."""
     if mode == "dense":
         return "dense2"
     if mode == "sparse":
         return "sparse2"
     if mode == "inplace":
         return "inplace" if row_width else "dense2"
-    d = max(1, row_width)
-    if n_rows <= 4 * nnz and 2 * n_rows * d * 4 <= (2 << 30):
+    if n_rows * max(1, row_width) * 4 <= (4 << 30):
         return "dense2"
-    if n_rows * d * 4 <= (4 << 30):
-        return "inplace" if row_width else "dense2"
     return "sparse2"

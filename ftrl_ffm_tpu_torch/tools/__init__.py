@@ -14,14 +14,82 @@ runs a probe on the card (the default) or on the CPU.  `kernel_ab.py`
 times kernels #1 and #2, the update kernel, the z/A scatter and the RMW
 probe kernel of one copy of the package, for A/B runs of two commits (see
 its docstring).
+
+The measurement tools of tools/*.py have twins here too, with the same
+names, environment variables, rows or phases and output keys:
+`bench_matrix` (the end-to-end matrix, one subprocess a row),
+`profile_step` (one train or eval step by the difference method, beside
+its roofline floor), `roofline` (the bytes a train step of the port's
+design moves) and `micro_scatter` (torch's sort, gather and scatter-add
+calls timed; no hand-written kernel).  The headline benchmark is
+`python -m ftrl_ffm_tpu_torch.bench`.
 """
 
 from __future__ import annotations
 
 import argparse
+import subprocess
 import time
 
 import torch
+
+
+def card_name(device: torch.device) -> str:
+    """The card's name and power limit as nvidia-smi prints them
+    (`--query-gpu=name,power.limit --format=csv,noheader`), for the line
+    of every number measured on it; "cpu" on the CPU."""
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return out[index].strip()
+
+
+def counted_wrappers() -> tuple:
+    """The kernel wrappers of the training and serving paths, each counting
+    its launches: kernels #1 and #2, the update kernel, the z/A scatter and
+    kernel #3."""
+    from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits, ffm_fused_logits_grads
+    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import closed_form_pass, ftrl_update, za_scatter
+
+    return (ffm_fused_logits, ffm_fused_logits_grads, ftrl_update, za_scatter, closed_form_pass)
+
+
+def reset_launch_counts() -> None:
+    """Every counted wrapper's launches, by instance and by dtype too, set
+    to 0."""
+    for fn in counted_wrappers():
+        fn.launches = 0
+        for counts in (getattr(fn, "launches_by_instance", {}),
+                       getattr(fn, "launches_by_dtype", {})):
+            for name in counts:
+                counts[name] = 0
+
+
+def read_launch_counts() -> dict:
+    """Each counted wrapper's launches since the last reset, by its name;
+    then the update kernel's and kernel #3's by dtype, and kernels #1 and
+    #2, the update kernel and the scatter by kernel instance (the entries
+    that ran)."""
+    fns = counted_wrappers()
+    out = {fn.__name__: fn.launches for fn in fns}
+    out["logits_by_instance"] = {k: v for k, v in fns[0].launches_by_instance.items() if v}
+    out["fused_by_instance"] = {k: v for k, v in fns[1].launches_by_instance.items() if v}
+    out["update_by_dtype"] = {k: v for k, v in fns[2].launches_by_dtype.items() if v}
+    out["pass_by_dtype"] = {k: v for k, v in fns[4].launches_by_dtype.items() if v}
+    out["update_by_instance"] = {k: v for k, v in fns[2].launches_by_instance.items() if v}
+    out["scatter_by_instance"] = {k: v for k, v in fns[3].launches_by_instance.items() if v}
+    return out
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (the read-back that closes a timed
+    region); nothing to wait for on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def split_device(argv: list[str]) -> tuple[str, list[str]]:

@@ -385,6 +385,8 @@ def test_bf16_checkpoint_serves_like_jax(bf16_served, tmp_path):
     "kw",
     [{"table_dtype": "bfloat16"}, {"table_dtype": "bfloat16", "acc_dtype": "bfloat16"},
      {"table_dtype": "bfloat16", "update_mode": "inplace"},
+     # auto at 100k rows: JAX's takes "inplace", the port's "dense2"
+     # (ftrl.py::select_update_kind): the two runs' histories agree
      {"table_dtype": "bfloat16", "n_feats": 100_000}],
     ids=["dense2", "dense2_bf16_payload", "inplace", "auto_inplace_100k"],
 )

@@ -394,7 +394,9 @@ def test_estimate_hbm_bytes_single_device_regimes():
     regimes: the resident state and the in-place kind's one [R, D]
     accumulator as the JAX package's; "dense2" allocates no [R, 2D]
     accumulator in the port (its kernel updates the touched rows in
-    place)."""
+    place), and the port's auto takes "dense2" at 1.2M rows, where JAX's
+    takes "inplace" (ftrl.py::select_update_kind); forced, the in-place
+    kind's working set is JAX's."""
     kw = dict(model_type="FFM", n_fields=39, n_factors=16, max_nnz=39, batch_size=8192)
     w = TConfig(**kw).row_width
     nnz = 8192 * 39
@@ -402,7 +404,9 @@ def test_estimate_hbm_bytes_single_device_regimes():
     ref = {r: j_estimate(JConfig(**kw, n_feats=r)) for r in (100_000, 1_200_000)}
     assert est[100_000]["work"] == 3 * nnz * w * 4
     assert est[100_000]["work"] == ref[100_000]["work"] - 2 * 100_000 * w * 4
-    assert est[1_200_000]["work"] == 1_200_000 * w * 4 + 3 * nnz * w * 4 == ref[1_200_000]["work"]
+    assert est[1_200_000]["work"] == 3 * nnz * w * 4
+    forced = estimate_hbm_bytes(TConfig(**kw, n_feats=1_200_000, update_mode="inplace"))
+    assert forced["work"] == 1_200_000 * w * 4 + 3 * nnz * w * 4 == ref[1_200_000]["work"]
     for r in est:
         assert est[r]["state"] == ref[r]["state"] == r * w * 12 + 3 * r * 4
         assert est[r]["route"] == 0

@@ -120,8 +120,9 @@ def test_fm_logits_and_grads_matches_jax(b, f, k):
         ("FM", {"update_mode": "dense"}),
         ("FM", {"update_mode": "sparse"}),
         ("FM", {"update_mode": "inplace"}),
-        # n_feats=100k at B=16: auto resolves FM's table to the in-place form
-        ("FM", {"n_feats": 100_000}),
+        # n_feats=100k at B=16: the in-place form at JAX auto's shape (the
+        # port's auto takes "dense2" there: ftrl.py::select_update_kind)
+        ("FM", {"n_feats": 100_000, "update_mode": "inplace"}),
         ("FM", {"update_mode": "dense", "table_dtype": "bfloat16"}),
         ("FM", {"update_mode": "sparse", "table_dtype": "bfloat16"}),
         ("FM", {"update_mode": "inplace", "table_dtype": "bfloat16"}),
@@ -212,10 +213,12 @@ def test_fm_payload_stays_f32_under_bf16_acc(monkeypatch, model_type, want):
 def test_b1_trajectory_matches_oracle(model_type, semantics):
     """Twin of tests/test_models.py::test_b1_trajectory_matches_oracle for
     LR and FM: 4 fields, K=3, batch size 1, from the port's own init
-    (update_mode=auto: FM's table takes the in-place form at B=1)."""
+    (FM's table in the in-place form, which JAX's auto takes at B=1;
+    LR's tables have none, so "inplace" gives them "dense2")."""
     n_feats, n_fields, k = 50, 4, 3
     cfg = TConfig(model_type=model_type, n_feats=n_feats, n_fields=n_fields, n_factors=k,
-                  factor_semantics=semantics, batch_size=1, device="cpu")
+                  factor_semantics=semantics, batch_size=1, update_mode="inplace",
+                  device="cpu")
     model = t_make_model(cfg)
     state = model.init()
     vec_init = None

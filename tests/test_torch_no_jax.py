@@ -42,6 +42,11 @@ _MODULES = (
     "ftrl_ffm_tpu_torch.tools.micro_vmem_rmw2",
     "ftrl_ffm_tpu_torch.tools.micro_dma_gather",
     "ftrl_ffm_tpu_torch.tools.kernel_ab",
+    "ftrl_ffm_tpu_torch.bench",
+    "ftrl_ffm_tpu_torch.tools.roofline",
+    "ftrl_ffm_tpu_torch.tools.profile_step",
+    "ftrl_ffm_tpu_torch.tools.bench_matrix",
+    "ftrl_ffm_tpu_torch.tools.micro_scatter",
 )
 
 

@@ -126,17 +126,22 @@ def test_api_predict_file_counts_real_rows(served, tmp_path):
     assert probs.shape == (50,) and ((probs > 0) & (probs < 1)).all()
 
 
-def test_train_raises_naming_roadmap(served):
+def test_train_raises_naming_roadmap(served, tmp_path):
     """Training arrived (item 2): Trainer.train from the served checkpoint
-    follows the JAX Trainer's history; what is still to come (profiling,
-    item 9) raises, naming its item."""
+    follows the JAX Trainer's history.  Profiling arrived too (item 9):
+    train(profile_dir=...) writes epoch 1's torch.profiler trace there and
+    returns the unprofiled run's history bit for bit."""
     d, ckpt, evald, _ = served
     jtr, ttr = _trainers(ckpt, evald, train_data=str(d / "train.ffm"))
     hist, ref = ttr.train(), jtr.train()
     for key in ("train_loss", "eval_loss", "eval_auc"):
         np.testing.assert_allclose(hist[key], ref[key], rtol=0, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ttr.train(profile_dir=str(d / "prof"))
+    _, ptr = _trainers(ckpt, evald, train_data=str(d / "train.ffm"))
+    prof = tmp_path / "prof"
+    assert ptr.train(profile_dir=str(prof)) == hist
+    assert all(torch.equal(a, b) for a, b in zip(ptr.state, ttr.state))
+    traces = list(prof.glob("*.pt.trace.json"))
+    assert len(traces) == 1 and traces[0].stat().st_size > 0
 
 
 @pytest.mark.parametrize(
@@ -156,11 +161,19 @@ def test_train_raises_naming_roadmap(served):
 )
 def test_cli_training_flags_raise(served, flags, item, monkeypatch, capsys, tmp_path):
     """A flag whose capability a later slice brings raises, naming its
-    ROADMAP item; the training flags train, and the checkpoint and
-    reference-model flags write (or read) their file."""
+    ROADMAP item; the training flags train, the checkpoint and
+    reference-model flags write (or read) their file, and --profile_dir
+    (item 9) writes epoch 1's trace."""
     train = served[0] / "train.ffm"
     argv = [str(train) if a == "TRAIN" else a for a in flags]
     argv += [*MODEL_FLAGS, "--file_type", "libffm", "--max_nnz", "7", "--device", "cpu"]
+    if item == 9:
+        prof = tmp_path / "prof"
+        argv[argv.index("prof")] = str(prof)
+        assert torch_main([*argv, "--train_data", str(train)]) == 0
+        assert "epoch 1 train time: " in capsys.readouterr().out
+        assert len(list(prof.glob("*.pt.trace.json"))) == 1
+        return
     if item == 2:
         with open(train) as f:
             monkeypatch.setattr(sys, "stdin", f)
@@ -232,8 +245,9 @@ def test_unported_config_raises(served, kw, match):
     [
         {"update_mode": "inplace"},
         {"update_mode": "sparse"},
-        # n_feats=100k at B=16: auto resolves to the in-place update
-        {"n_feats": 100_000},
+        # n_feats=100k at B=16: the in-place update at JAX auto's shape
+        # (the port's auto takes "dense2" there)
+        {"n_feats": 100_000, "update_mode": "inplace"},
         # once refused (Queue 1 item 4): a bf16 table, a bf16 payload
         {"table_dtype": "bfloat16"},
         {"acc_dtype": "bfloat16"},

@@ -189,15 +189,16 @@ def test_has_zero_weights_matches_jax(table, tmp_path):
 @pytest.mark.parametrize(
     "kw,kind",
     [({"update_mode": "inplace"}, "inplace"), ({"update_mode": "sparse"}, "sparse2"),
-     ({"n_feats": 100_000}, "inplace"),
+     ({"n_feats": 100_000, "update_mode": "inplace"}, "inplace"),
      # once refused (Queue 1 item 4): a bf16 payload, then a bf16 table too
      ({"acc_dtype": "bfloat16"}, "dense2"),
      ({"acc_dtype": "bfloat16", "table_dtype": "bfloat16"}, "dense2")],
 )
 def test_train_step_takes_every_update_kind(monkeypatch, kw, kind):
     """The updates the port once refused train and match the JAX step from
-    one JAX-made init; n_feats=100k at B=16 resolves auto to the in-place
-    form.  A bf16 payload is held against the JAX step through its fused
+    one JAX-made init; the in-place form also at n_feats=100k, B=16 (the
+    shape where JAX's auto takes it; the port's auto takes "dense2",
+    ftrl.py::select_update_kind, so both sides force it).  A bf16 payload is held against the JAX step through its fused
     Pallas kernel (interpret mode), the only JAX path that emits one; a
     bf16 w within one bf16 ulp (rtol 2^-7): an f32 w one ulp off can round
     to the neighbouring bf16."""
