@@ -162,6 +162,23 @@ Phases, each printing its own lines:
                      for bit; one async write of phase 7's 1M "inplace"
                      state (7.7 GB, level 1), its linear tables against the
                      mirror lane, where 20 GB are free
+  10. multi-step  -> steps_per_call=S>1 (CUDA-graph groups) on phase 7's
+                     resident datasets through the bench twin's config:
+                     LR-100k, FM-100k and FM-2^22 "dense" (S=4, 8), FM-2^22
+                     "inplace" on Zipf ids, FFM-100k, -bf16 and 1M
+                     "inplace" (S=4; LR and FFM-100k also S=5, which
+                     divides the 25 steps: no inert step) against
+                     S=1 from one init: 2 epochs and an eval pass
+                     bit-identical, launches by kernel instance
+                     ceil(25/S)*S an epoch, every group after the first of
+                     its kind a replay, peak memory above the state; the
+                     bench twin's run protocol (examples/s, S=1 beside);
+                     streamed FFM-100k epochs through the feeder
+                     (feed_workers 1, 2, and 2 at S=4) bit-identical to the
+                     resident one; a state swap captured again and equal
+                     to an eager run; one replayed epoch under
+                     set_sync_debug_mode("error"); then a traced epoch
+                     each (idle share; the streamed ones' H2D ms a batch)
   6. profiles     -> after every timed phase (a profiler run may slow the
                      host's side for the rest of the process): the
                      torch.profiler breakdown by kernel of the train steps
@@ -1269,6 +1286,244 @@ def checkpoint_phase(bench_100k: str, tmp: str, device, where: str, r_trainers: 
     torch.cuda.empty_cache()
     print(f"checkpoint: phase 8 took {time.perf_counter() - t_phase:.1f} s")
     return {"ffm-100k": rec, "tables": tables, "ffm-1m": big}
+
+
+def scaled_counts(counts: dict, num: int, den: int) -> dict:
+    """Launch counts (read_launch_counts' form) times num / den, by
+    wrapper and by instance and dtype: the launches of a run whose steps
+    are num for one of den."""
+    return {k: (v * num // den if isinstance(v, int) else
+                {i: n * num // den for i, n in v.items()}) for k, v in counts.items()}
+
+
+def graph_pool_bytes() -> int:
+    """Bytes the caching allocator holds in private pools: the captured
+    CUDA graphs' memory."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def release_graphs(trainers) -> None:
+    """Drop the trainers' captured groups and give their pools back to the
+    card (the next grouped epoch captures again)."""
+    for trn in trainers:
+        trn._graphs.clear()
+    torch.cuda.empty_cache()
+
+
+def multi_step_phase(device, where: str, r_trainers: dict, lrfm_r: dict) -> dict:
+    """Phase 10: steps_per_call = S > 1, one CUDA-graph replay a group, on
+    phase 7's resident datasets (400,000 rows, bench.py's config through
+    the bench twin's make_config, online, B=16,384: 25 steps an epoch, 7
+    groups at S=4, the last padded with 3 inert steps; 4 groups at S=8).
+    Each cell trains an S = 1 Trainer and an S Trainer from one seeded
+    init for 2 epochs and evaluates once: the tables, losses and eval
+    bit-identical, the launches the S = 1 run's times ceil(25/S)*S/25 by
+    kernel instance, every group after the first of its kind a replay,
+    the peak device memory above the state (train and eval graphs alive);
+    then the bench twin's run protocol on both (examples/s side by side);
+    last, one traced epoch each (idle share).  Also: streamed FFM-100k
+    epochs through the feeder (feed_workers 1 and 2, and 2 at S=4)
+    bit-identical to the resident epoch, with the profiler's H2D copy ms
+    a batch; a state swap (init_from_weights) that forces a new capture,
+    then equal to an eager twin; one replayed epoch under
+    set_sync_debug_mode("error").  Returns the S runs' launch counts by
+    cell (train and eval), for the kernels' record."""
+    from ftrl_ffm_tpu_torch import bench
+    from ftrl_ffm_tpu_torch.models import make_model
+    from ftrl_ffm_tpu_torch.tools import profile_ms, read_launch_counts, reset_launch_counts
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    steps = math.ceil(BENCH_ROWS / BATCH)
+    same = lambda a, b: all(  # noqa: E731
+        (x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+    gb = 1e9
+    cells = (
+        # S=5 divides the 25 steps: no inert step, the padding's cost apart
+        ("lr-100k", lrfm_r["train-lr-100k-resident"], {"model_type": "LR"}, (4, 5, 8)),
+        ("fm-100k", lrfm_r["train-fm-100k-resident"], {"model_type": "FM"}, (4, 8)),
+        ("fm-4m-dense", lrfm_r["train-fm-4m-dense-resident"],
+         {"model_type": "FM", "n_feats": HASH_FEATS, "update_mode": "dense"}, (4, 8)),
+        ("fm-4m-zipf", lrfm_r["train-fm-4m-zipf-resident"],
+         {"model_type": "FM", "n_feats": HASH_FEATS, "update_mode": "inplace"}, (4,)),
+        ("ffm-100k", r_trainers["100k"], {}, (4, 5)),
+        ("ffm-100k-bf16", r_trainers["100k-bf16"],
+         {"table_dtype": "bfloat16", "acc_dtype": "bfloat16"}, (4,)),
+        ("ffm-1m", r_trainers["1M"], {"n_feats": N_FEATS, "update_mode": "inplace"}, (4,)),
+    )
+    multi_counts, kept = {}, {}
+    for label, src, over, s_values in cells:
+        path, cache = src.cfg.train_data, src._dev_cache["train"]
+
+        def config(s, **kw):
+            # the bench twin's config; eval reads the same resident rows
+            return bench.make_config(path, "cuda", eval_data=path, steps_per_call=s,
+                                     **{**over, **kw})
+
+        torch.cuda.empty_cache()
+        init = make_model(config(1)).init(torch.Generator(device=device).manual_seed(SEED))
+        trainers = {s: Trainer(config(s), state=clone_state(init)) for s in (1, *s_values)}
+        del init
+        runs = {}
+        for s, trn in trainers.items():
+            trn._dev_cache["train"] = trn._dev_cache["eval"] = cache  # no second upload
+            torch.cuda.synchronize()
+            base, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            losses = [trn.train_epoch()]
+            if label == "ffm-100k" and s == 1:
+                epoch1 = (clone_state(trn.state), losses[0])
+            losses.append(trn.train_epoch())
+            counts = read_launch_counts()
+            train_dispatch = dict(trn.group_dispatch)
+            reset_launch_counts()
+            metrics = trn.evaluate()
+            eval_counts = read_launch_counts()
+            torch.cuda.synchronize()
+            # the train and the eval graph alive: their private pools
+            runs[s] = {"trainer": trn, "losses": losses, "counts": counts, "eval": metrics,
+                       "eval_counts": eval_counts, "train_dispatch": train_dispatch,
+                       "dispatch": dict(trn.group_dispatch),
+                       "peak_above_state_gb": (torch.cuda.max_memory_allocated() - base) / gb,
+                       "reserved_growth_gb": (torch.cuda.memory_reserved() - reserved0) / gb,
+                       "graph_pools_gb": graph_pool_bytes() / gb}
+        one = runs[1]
+        for s in s_values:
+            r = runs[s]
+            groups = math.ceil(steps / s)
+            padded = groups * s
+            ok = (same(r["trainer"].state, one["trainer"].state) and r["losses"] == one["losses"]
+                  and r["eval"] == one["eval"])
+            require(ok, f"multi-step {label} S={s}: tables, losses or eval differ from S=1 "
+                        f"({r['losses']} {r['eval']} against {one['losses']} {one['eval']})")
+            require(r["counts"] == scaled_counts(one["counts"], 2 * padded, 2 * steps),
+                    f"multi-step {label} S={s}: launches {r['counts']}, S=1 {one['counts']}")
+            require(r["eval_counts"] == scaled_counts(one["eval_counts"], padded, steps),
+                    f"multi-step {label} S={s}: eval launches {r['eval_counts']}, S=1 "
+                    f"{one['eval_counts']}")
+            want = {"eager": 1, "captures": 1, "replays": 2 * groups - 1}
+            require(r["train_dispatch"] == want,
+                    f"multi-step {label} S={s}: train groups dispatched {r['train_dispatch']}")
+            require(r["dispatch"] == {"eager": 2, "captures": 2,
+                                      "replays": 2 * groups - 1 + groups - 1},
+                    f"multi-step {label} S={s}: groups dispatched {r['dispatch']}")
+        # the bench twin's protocol (a warm-up epoch, best of 3), S = 1 first
+        for s in (1, *s_values):
+            res = bench.run(config(s), trainer=runs[s]["trainer"])
+            runs[s].update(examples_per_s=res["value"], runs=res["runs"],
+                           timed_launches=res["launches"])
+        for s in s_values:
+            require(same(runs[s]["trainer"].state, one["trainer"].state),
+                    f"multi-step {label} S={s}: the states differ after the bench protocol")
+            padded = math.ceil(steps / s) * s
+            require(runs[s]["timed_launches"] == scaled_counts(
+                one["timed_launches"], padded, steps),
+                f"multi-step {label} S={s}: the timed epochs launched "
+                f"{runs[s]['timed_launches']}")
+        rec = {"cell": label, "card": where, "steps_per_epoch": steps,
+               **{f"S={s}": {k: v for k, v in r.items() if k not in ("trainer", "counts",
+                                                                     "eval_counts")}
+                  for s, r in runs.items()},
+               "launches_S1": one["counts"],
+               "launches_S": {s: runs[s]["counts"] for s in s_values}}
+        print(f"multi-step {label}: {json.dumps(rec)}")
+        s = s_values[0]
+        multi_counts[label] = {"train": runs[s]["counts"], "eval": runs[s]["eval_counts"]}
+        kept[label] = trainers
+        release_graphs(trainers.values())  # captured again when traced
+
+    # streamed FFM-100k through the feeder: one epoch from the 100k init,
+    # the resident S=1 epoch's bits; feed_workers 1 and 2, and 2 at S=4
+    ffm = kept["ffm-100k"]
+    path = ffm[1].cfg.train_data
+    init = make_model(ffm[1].cfg).init(torch.Generator(device=device).manual_seed(SEED))
+    streamed = {}
+    for workers, s in ((1, 1), (2, 1), (2, 4)):
+        trn = Trainer(bench.make_config(path, "cuda", device_cache="off", feed_workers=workers,
+                                        steps_per_call=s), state=clone_state(init))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trn.train_epoch()
+        wall = time.perf_counter() - t0
+        require(same(trn.state, epoch1[0]) and loss == epoch1[1] and "train" not in trn._dev_cache,
+                f"streamed feed_workers={workers} S={s}: differs from the resident epoch")
+        release_graphs([trn])
+        streamed[f"feed_workers={workers} S={s}"] = {"trainer": trn, "examples_per_s": BENCH_ROWS / wall}
+    print(f"multi-step streamed ffm-100k: one epoch bit-identical to the resident one at "
+          + ", ".join(f"{k} ({v['examples_per_s']:.0f} examples/s)" for k, v in streamed.items())
+          + f"; host os.cpu_count()={os.cpu_count()} [{where}]")
+
+    # a state swap between epochs: new tensors, so a new capture; the next
+    # epoch equals an eager run from the same weights
+    trn = ffm[4]
+    trn.state = trn.model.init_from_weights(
+        *trn.model.materialize_weights(trn.logical_state), device=device)
+    twin = Trainer(ffm[1].cfg, state=clone_state(trn.state))
+    twin._dev_cache["train"] = trn._dev_cache["train"]
+    before = dict(trn.group_dispatch)
+    l_graph, l_eager = trn.train_epoch(), twin.train_epoch()
+    groups = math.ceil(steps / 4)
+    require(trn.group_dispatch == {"eager": before["eager"] + 1,
+                                   "captures": before["captures"] + 1,
+                                   "replays": before["replays"] + groups - 1},
+            f"the swapped state was not captured again: {before} -> {trn.group_dispatch}")
+    require(same(trn.state, twin.state) and l_graph == l_eager,
+            "the epoch after a state swap differs from an eager run from the same weights")
+    # one replayed epoch under the sync guard (its graph is captured)
+    cache = trn._fresh_cache("train")
+    before = dict(trn.group_dispatch)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sums = trn._train_groups(trn._cached_groups(cache, None))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    g_loss = trn._epoch_loss(sums)
+    require(trn.group_dispatch["replays"] == before["replays"] + groups
+            and trn.group_dispatch["captures"] == before["captures"] and math.isfinite(g_loss),
+            f"the guarded epoch: {before} -> {trn.group_dispatch}")
+    print(f"multi-step ffm-100k S=4: a state swap (init_from_weights) captured again "
+          f"({trn.group_dispatch}) and its epoch equals an eager run's (loss {l_graph}); one "
+          f"epoch of {groups} replays under set_sync_debug_mode('error'): no host sync")
+    del twin
+    release_graphs([trn])
+
+    # the traced epochs, last (profile_ms's untraced first epoch captures
+    # the groups again, so the traced one replays them all): the device's
+    # busy share of one epoch each
+    def idle(trn):
+        walls = []
+
+        def epoch():
+            t0 = time.perf_counter()
+            trn.train_epoch()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+        rows = profile_ms(epoch, 1)
+        busy = sum(ms for _, ms in rows)
+        return 1 - busy / walls[-1], rows
+
+    device_step = {}  # device ms a step of each traced resident epoch
+    for label, trns in kept.items():
+        shares = {}
+        for s, t in trns.items():
+            shares[f"S={s}"], rows = idle(t)
+            device_step[label, s] = sum(ms for _, ms in rows) / steps
+            release_graphs([t])
+        print(f"profile: multi-step {label} train_epoch() idle share {json.dumps(shares)}; "
+              f"device ms a step {json.dumps({f'S={s}': device_step[label, s] for s in trns})} "
+              f"[{where}]")
+    for key, rec in streamed.items():
+        share, rows = idle(rec["trainer"])
+        release_graphs([rec["trainer"]])
+        h2d = sum(ms for name, ms in rows if "HtoD" in name) / steps
+        print(f"profile: multi-step streamed ffm-100k {key}: idle share {share:.4f}; H2D copies "
+              f"{h2d:.4f} ms a batch against the resident epoch's {device_step['ffm-100k', 1]:.4f} "
+              f"device ms a step [{where}]")
+    print(f"multi-step: phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return multi_counts
 
 
 def run_tool(label: str, args: list, env: dict, timeout: int) -> tuple[str, float]:
@@ -3208,6 +3463,10 @@ def main() -> int:
         phase_done("8")
         # ---- 8. checkpoints: save, resume, reference import/export ----
         checkpoint_phase(bench_p[TRAIN_FEATS], tmp, device, where, r_trainers, lrfm_r_trainers)
+
+        phase_done("10")
+        # ---- 10. steps_per_call > 1: CUDA-graph groups, the feeder ----
+        multi = multi_step_phase(device, where, r_trainers, lrfm_r_trainers)
         if "100k-bf16" in r_trainers:
             del r_trainers["100k-bf16"]  # phase 6 traces the f32 cells
         torch.cuda.empty_cache()
@@ -3520,6 +3779,25 @@ def main() -> int:
             "max_abs_err": probe_err[kname],
             **probe_time[kname],
         })
+    # the launches of phase 10's S = 4 runs (2 epochs and one eval pass,
+    # every group after the first of its kind a CUDA-graph replay), by the
+    # record of the kernel form they ran
+    for name, cell, part, counter, key in (
+        ("ffm_logits", "ffm-100k", "eval", "logits_by_instance", "c40_k16"),
+        ("ffm_fused", "ffm-100k", "train", "fused_by_instance", "c40_k16"),
+        ("ftrl_update", "ffm-100k", "train", "update_by_dtype", "f32/f32"),
+        ("ftrl_pass", "ffm-1m", "train", "pass_by_dtype", "f32"),
+        ("za_scatter", "ffm-1m", "train", "scatter_by_instance", "rows"),
+        ("ffm_fused_bf16", "ffm-100k-bf16", "train", "fused_by_instance", "c40_k16_bf16"),
+        ("ftrl_update_bf16", "ffm-100k-bf16", "train", "update_by_dtype", "bf16/bf16"),
+        ("ftrl_update_k16", "fm-100k", "train", "update_by_instance", "narrow"),
+        ("ftrl_update_linear", "lr-100k", "train", "update_by_instance", "linear"),
+        ("za_scatter_k16_zipf", "fm-4m-zipf", "train", "scatter_by_instance", "narrow"),
+        ("ftrl_pass_k16", "fm-4m-zipf", "train", "pass_by_dtype", "f32"),
+    ):
+        (rec,) = [r for r in records if r["name"] == name]
+        rec["replayed_launches"] = multi[cell][part][counter].get(key, 0)
+        require(rec["replayed_launches"] > 0, f"{name} was launched no time in phase 10")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))

@@ -102,9 +102,10 @@ def make_config(path: str, device: str = "cuda", **overrides):
     return Config(**kw)
 
 
-def run(cfg, state=None) -> dict:
+def run(cfg, state=None, trainer=None) -> dict:
     """bench.py's protocol on a Trainer of `cfg` (a fresh seeded init, or
-    `state`), whose data holds N_SAMPLES rows: one warm-up train_epoch(),
+    `state`; or `trainer`, built by a caller that shares a resident dataset
+    between Trainers), whose data holds N_SAMPLES rows: one warm-up train_epoch(),
     then 3 timed ones, each closed by a device synchronize.  Returns bench.py's JSON keys plus "batch", "device", "launches", and,
     for callers that check more: "losses" (the 4 epochs' mean losses),
     "times" (the timed epochs' seconds), "build_s" (the resident dataset's
@@ -119,7 +120,8 @@ def run(cfg, state=None) -> dict:
     )
     from ftrl_ffm_tpu_torch.train import Trainer
 
-    trainer = Trainer(cfg, state=state)
+    if trainer is None:
+        trainer = Trainer(cfg, state=state)
     device = trainer.device
     # the resident dataset's parse and upload (where one engages), then the
     # warm-up epoch: the kernels' build and load (excluded, as the

@@ -95,7 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compact_transfer", type=_str2bool, default=True,
                    help="narrow host->device upload dtypes (lossless only)")
     p.add_argument("--steps_per_call", type=int, default=1,
-                   help="train steps per device dispatch (>1 scans)")
+                   help="train/eval steps per dispatch (>1: one CUDA-graph "
+                        "replay per S steps on the card; the same result)")
     p.add_argument("--lookup_mode", default="auto",
                    choices=("auto", "replicate", "route"),
                    help="sharded-table lookup strategy (see Config.lookup_mode)")
@@ -138,8 +139,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "the raw form would not fit)")
     p.add_argument("--feed_workers", type=int, default=1,
                    help="device-feed threads; >1 interleaves whole batches "
-                        "(compact+upload) across threads with a reorder "
-                        "buffer — update order unchanged (multi-host pins 1)")
+                        "(pinned copy + upload) across threads with a reorder "
+                        "buffer — update order unchanged (--cmd pins 1)")
     p.add_argument("--compress_level", type=int, default=3, help="zstd level")
     p.add_argument("--save_every", type=int, default=0,
                    help="mid-training checkpoint every N steps (0 = end only)")

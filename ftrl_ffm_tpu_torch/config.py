@@ -38,10 +38,11 @@ class Config:
     # ---- TPU-native extras ----
     batch_size: int = 4096           # samples per device step (global batch)
     max_nnz: int = 0                 # fixed nnz padding per sample; 0 = sniff from data
-    steps_per_call: int = 1          # train steps per device dispatch; >1 scans
-                                     # S batches per dispatch (useful when
-                                     # dispatch latency dominates tiny steps;
-                                     # measured best at 1 for B=8192 FFM)
+    steps_per_call: int = 1          # train/eval steps per dispatch; >1 runs
+                                     # S batches per dispatch (on the card one
+                                     # CUDA-graph replay per S steps: for
+                                     # steps whose host dispatch outlasts
+                                     # their device time)
     seed: int = 42
     # Semantics of L1 on the factor tables:
     #   "reference": factor weight = closed_form(n, z) always.  Matches the
@@ -178,12 +179,11 @@ class Config:
     device_cache_compact: str = "auto"  # "auto" | "on" | "off"
     # Device-feed threads.  1 = the single background uploader thread
     # (train.py::_feed).  >1 = order-preserving interleaved feeders: each
-    # thread runs the FULL compact+upload for alternating whole batches —
-    # no per-batch stage handoff (the compact/upload pipeline split was
-    # measured WORSE, see train.py::_device_feed) — with a reorder buffer
-    # so the consumer still sees stream order (FTRL update order is
-    # semantics).  Multi-host always pins 1: the dynamic-narrowing
-    # observation protocol needs strictly ordered per-batch observation.
+    # thread runs the whole placement (pinned copy + device copy) for
+    # alternating whole batches, with a reorder buffer so the consumer
+    # still sees stream order (FTRL update order is semantics): the same
+    # result for every value.  --cmd stdin pins 1 (train.py::
+    # _feed_worker_count).
     feed_workers: int = 1
     save_every: int = 0              # checkpoint every N steps (0 = only at end)
     # Mid-training (--save_every) checkpoints: snapshot the state inline (a
@@ -318,7 +318,7 @@ ROADMAP_ITEMS = {
     2: "FFM training on one device",
     3: "checkpoint writing and reference-model import/export",
     4: "LR and FM models",
-    5: "background feeder and transfer tiers",
+    5: "the transfer tiers",
     6: "device-resident datasets",
     7: "huge-table path",
     8: "multi-GPU and multi-host",
@@ -336,16 +336,18 @@ def not_ported(what: str, item: int) -> NotImplementedError:
 
 
 def check_ported(cfg: Config) -> None:
-    """Raise for config values the port does not serve yet: a device mesh
-    (item 8), steps_per_call > 1 (item 5), and use_pallas=off, which has no
-    counterpart here.  Every model_type (LR, FM and FFM: item 4 brought LR
-    and FM) trains and serves.
+    """Raise for config values the port does not serve: a device mesh
+    (item 8), and use_pallas=off, which has no counterpart here.  Every
+    model_type (LR, FM and FFM: item 4 brought LR and FM) trains and
+    serves.
 
-    Settings that change only how the JAX package moves bytes
-    (compact_transfer, feed_workers) do not change what the port computes,
-    so they pass; model_path, save_every, async_checkpoint and
-    compress_level write checkpoints as in the JAX package (item 3).
-    Every table-update kind
+    steps_per_call > 1 groups S steps a dispatch (CUDA-graph replays on
+    the card) and feed_workers sets the feeder's threads (item 5): both
+    give the S = 1, one-thread run's bits.  compact_transfer names the
+    JAX package's transfer tiers, which the port does not use (it uploads
+    the parsed arrays as they are), so it changes nothing and passes;
+    model_path, save_every, async_checkpoint and compress_level write
+    checkpoints as in the JAX package (item 3).  Every table-update kind
     (update_mode), both dtypes of table_dtype and acc_dtype, and every
     device_cache, device_cache_compact and device_cache_layout value
     (item 6; on one device the shard layout holds the whole dataset, as
@@ -355,8 +357,6 @@ def check_ported(cfg: Config) -> None:
             f"a device mesh (mesh_data={cfg.mesh_data}, "
             f"mesh_model={cfg.mesh_model})", 8,
         )
-    if cfg.steps_per_call > 1:
-        raise not_ported(f"steps_per_call={cfg.steps_per_call}", 5)
     if cfg.use_pallas == "off":
         # the port has no user switch between kernel and plain version: the
         # tensor's device picks (ops/ffm_cuda.py::ffm_fused_logits)

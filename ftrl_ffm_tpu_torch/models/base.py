@@ -75,8 +75,9 @@ class TrainOut(NamedTuple):
 
 
 # dtypes of the JAX package's transfer tiers (uint16 delta/split feature
-# ids, DEC6 uint8 values, bit-packed uint8 fields): their decode arrives
-# with the feeder (ROADMAP.md Queue 1 item 5)
+# ids, DEC6 uint8 values, bit-packed uint8 fields), which the port does not
+# upload: ROADMAP.md Queue 1 item 5 ports them only if a cell proves bound
+# by the host-to-device copy
 _TIER_DTYPES = (torch.uint16, torch.uint8)
 
 

@@ -33,6 +33,8 @@ import time
 
 import torch
 
+from ftrl_ffm_tpu_torch.ops import counted_wrappers
+
 
 def card_name(device: torch.device) -> str:
     """The card's name and power limit as nvidia-smi prints them
@@ -46,16 +48,6 @@ def card_name(device: torch.device) -> str:
     ).stdout.strip().splitlines()
     index = device.index if device.index is not None else torch.cuda.current_device()
     return out[index].strip()
-
-
-def counted_wrappers() -> tuple:
-    """The kernel wrappers of the training and serving paths, each counting
-    its launches: kernels #1 and #2, the update kernel, the z/A scatter and
-    kernel #3."""
-    from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits, ffm_fused_logits_grads
-    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import closed_form_pass, ftrl_update, za_scatter
-
-    return (ffm_fused_logits, ffm_fused_logits_grads, ftrl_update, za_scatter, closed_form_pass)
 
 
 def reset_launch_counts() -> None:

@@ -30,12 +30,13 @@ nvidia-smi prints them) and "update_kind" (the factor tables' kind: None
 for LR).  "vals_upload" / "feats_upload" report what the port uploads: a
 streamed batch's host arrays (f32 values, int32 ids), or the resident
 dataset's stored form ("ones-marker" for values that are all 1, uint8
-under the compact form).  The JAX tool's transfer tiers (`_compact`)
-arrive with ROADMAP.md Queue 1 item 5.
+under the compact form).  The JAX tool's transfer tiers (`_compact`) are
+not ported (ROADMAP.md Queue 1 item 5).
 
 Env: ROWS_SAMPLES (400000), ACC_DTYPE, TABLE_DTYPE, DEVICE_CACHE,
 DEVICE_CACHE_COMPACT and FEED_WORKERS forwarded to Config as in the JAX
-tool (feed_workers changes no result in the port); the port's own:
+tool (FEED_WORKERS sets the streamed rows' feeder threads; the result
+is the same at every count); the port's own:
 UPDATE_MODE (auto; "inplace" or "dense" to time both kinds) and N_FEATS
 (the row's table size in place of its 100k or 1M).  Data files go to the
 system's temporary directory under the JAX tool's names, so both tools

@@ -1597,3 +1597,153 @@ def test_card_write_failure_raises_at_join(tmp_path):
                         device="cuda"))
     with pytest.raises(RuntimeError, match="background checkpoint write failed"):
         tr.train_epoch()
+
+
+# ---- steps_per_call > 1: CUDA-graph groups (train.py::_run_group) ----
+
+
+def _graph_files(tmp_path):
+    """100 train and 37 eval rows over 7 fields (field_pad 8 at K=16): at
+    B=16, 7 train steps (3 groups of 3, the last with 2 inert steps) and 3
+    eval batches (1 group) a pass."""
+    rng = np.random.default_rng(9)
+    paths = []
+    for name, n in (("train", 100), ("eval", 37)):
+        path = tmp_path / f"{name}.ffm"
+        with open(path, "w") as f:
+            for _ in range(n):
+                toks = [str(int(rng.random() > 0.5))] + [
+                    f"{c}:{int(rng.integers(0, 60))}:{rng.integers(1, 10**6) / 10**6:.6f}"
+                    for c in range(7) if rng.random() < 0.9]
+                f.write(" ".join(toks) + "\n")
+        paths.append(str(path))
+    return dict(train_data=paths[0], eval_data=paths[1], model_type="FFM", n_fields=7,
+                n_factors=16, n_feats=60, batch_size=16, n_epochs=2, w_alpha=0.05, w_l1=0.15,
+                w_l2=1.0, device="cuda")
+
+
+def _counted():
+    return {fn.__name__: fn.launches for fn in (
+        ffm_fused_logits, ffm_fused_logits_grads, ftrl_update, za_scatter, closed_form_pass)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    {"device_cache": "on"},
+    {"device_cache": "on", "online": False},
+    {"device_cache": "off"},
+    {"device_cache": "off", "feed_workers": 2},
+    {"device_cache": "on", "update_mode": "inplace"},
+    {"device_cache": "on", "table_dtype": "bfloat16", "acc_dtype": "bfloat16"},
+    {"device_cache": "on", "model_type": "LR"},
+    {"device_cache": "on", "model_type": "FM"},
+    {"device_cache": "off", "model_type": "FM", "update_mode": "inplace"},
+], ids=["resident", "shuffled", "streamed", "streamed-2-workers", "inplace", "bf16", "lr",
+        "fm", "fm-inplace-streamed"])
+def test_graph_groups_match_eager_bit_for_bit(tmp_path, kw):
+    """steps_per_call=3 on the card (the first group of each kind eager,
+    then one capture, then replays) against the eager S=1 run from one
+    init: histories and tables bit for bit, and the launches counted
+    across the replays: ceil(7/3)*3 = 9 train steps an epoch, 3 eval
+    batches a pass."""
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    _card()
+    base = {**_graph_files(tmp_path), **kw}
+    one = Trainer(Config(**base))
+    grouped = Trainer(Config(**base, steps_per_call=3),
+                      state=type(one.state)(*(None if t is None else t.clone()
+                                              for t in one.state)))
+    h1 = one.train()
+    before = _counted()
+    h3 = grouped.train()
+    after = _counted()
+    launched = {k: after[k] - before[k] for k in after}
+    assert h1 == h3
+    for a, b in zip(one.logical_state, grouped.logical_state):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert grouped.group_dispatch == {"eager": 2, "captures": 2, "replays": 5 + 1}
+    model, inplace = base["model_type"], kw.get("update_mode") == "inplace"
+    if model == "FFM":
+        assert launched["ffm_fused_logits_grads"] == 18 and launched["ffm_fused_logits"] == 6
+    if inplace:
+        assert launched["za_scatter"] == launched["closed_form_pass"] == 18
+    assert launched["ftrl_update"] == (0 if inplace and model == "FFM" else 18)
+
+
+@pytest.mark.cuda
+def test_graph_recaptures_after_a_state_swap(tmp_path):
+    """A captured group keys on the state's tensors: a swapped state
+    (init_from_weights) runs its next group eagerly and captures again,
+    and the epoch equals an eager S=1 epoch from the same weights; the
+    update kernel's launches count 9 an epoch through eager, captured and
+    replayed groups alike."""
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    dev = _card()
+    base = {**_graph_files(tmp_path), "eval_data": "", "device_cache": "on"}
+    tr = Trainer(Config(**base, steps_per_call=3))
+    for want in ({"eager": 1, "captures": 1, "replays": 2},
+                 {"eager": 1, "captures": 1, "replays": 5}):
+        n0 = ftrl_update.launches
+        tr.train_epoch()
+        assert ftrl_update.launches - n0 == 9 and tr.group_dispatch == want
+    key = tr._graphs["train"].key
+    tr.state = tr.model.init_from_weights(*tr.model.materialize_weights(tr.logical_state),
+                                          device=dev)
+    twin = Trainer(Config(**base), state=type(tr.state)(*(t.clone() for t in tr.state)))
+    n0 = ftrl_update.launches
+    loss = tr.train_epoch()
+    assert ftrl_update.launches - n0 == 9
+    assert tr.group_dispatch == {"eager": 2, "captures": 2, "replays": 7}
+    assert tr._graphs["train"].key != key
+    assert loss == twin.train_epoch()
+    for a, b in zip(tr.state, twin.state):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(tmp_path):
+    """A group whose capture fails (here a host sync inside it) raises:
+    no group after its key's first falls back to eager steps."""
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    dev = _card()
+    tr = Trainer(Config(**{**_graph_files(tmp_path), "steps_per_call": 2}))
+
+    def syncs(x):
+        y = x * 2
+        float(y.sum())  # a readback: not allowed while capturing
+        return (y,)
+
+    x = torch.ones(4, device=dev)
+    (y,) = tr._run_group("probe", syncs, (x,))
+    assert torch.equal(y, 2 * x) and tr.group_dispatch["eager"] == 1
+    with pytest.raises(RuntimeError):
+        tr._run_group("probe", syncs, (x,))
+    assert tr.group_dispatch["replays"] == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cli_steps_per_call_on_the_card(tmp_path, capsys):
+    """`python -m ftrl_ffm_tpu_torch --steps_per_call 4` trains and
+    evaluates on the card (streamed through the feeder, then resident)
+    and prints the S=1 run's epoch lines."""
+    from ftrl_ffm_tpu_torch.cli import main
+
+    _card()
+    cfg = _graph_files(tmp_path)
+    argv = ["--train_data", cfg["train_data"], "--eval_data", cfg["eval_data"],
+            "--model_type", "FFM", "--n_fields", "7", "--n_feats", "60", "--n_factors", "16",
+            "--batch_size", "16", "--n_epochs", "2", "--feed_workers", "2"]
+    lines = []
+    for extra in ([], ["--steps_per_call", "4"], ["--device_cache", "off"],
+                  ["--device_cache", "off", "--steps_per_call", "4"]):
+        assert main(argv + extra) == 0
+        out = capsys.readouterr().out
+        lines.append([ln.split("s, ", 1)[1] for ln in out.splitlines() if ln.startswith("epoch")])
+    assert len(lines[0]) == 4 and all(ln == lines[0] for ln in lines)

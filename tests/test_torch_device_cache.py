@@ -11,8 +11,10 @@ are round-tripped directly at n_feats >= 2^24 (no Trainer: its tables
 would take GBs), and the DEC6 decode is checked over all 2^24 keys.
 
 Not here: the mesh and shard-layout tests (ROADMAP.md Queue 1 item 8),
-steps_per_call grouping and the unrolled replay (item 5), which the port
-does not serve yet.  save_every from a resident epoch is
+which the port does not serve yet, and the unrolled replay
+(FTRL_IOTA_UNROLL), which it does not port.  steps_per_call grouping over
+the resident data is tests/test_torch_steps_per_call.py; save_every from
+a resident epoch is
 tests/test_torch_checkpoint_write.py::test_cached_save_every_fires."""
 
 import sys

@@ -225,7 +225,7 @@ def test_cli_requires_a_model_to_serve(capsys):
     [
         ({"mesh_model": 2}, "Queue 1 item 8"),
         ({"mesh_data": 0}, "Queue 1 item 8"),
-        ({"steps_per_call": 4}, "Queue 1 item 5"),
+        ({"steps_per_call": 4, "auc_mode": "exact"}, "auc_mode=exact"),
         ({"use_pallas": "off"}, "no counterpart"),
     ],
 )
