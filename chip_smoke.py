@@ -202,6 +202,21 @@ Phases, each printing its own lines:
                      run with --profile_dir, whose trace names kernel #2
                      and the update kernel
 
+  11. mesh        -> last: bench.py's FFM-100k model through the CLI's
+                     three multi-process flags (--mesh_data 0: a world-size-1
+                     NCCL group), 2 epochs from phase 7's file with the
+                     replicate-layout resident dataset and eval, a
+                     checkpoint and predict_file, in a process of its own:
+                     the history, the checkpoint's tables and the
+                     predictions bit for bit the one-card Trainer's from the
+                     same init; launches (kernel #2 and #1 on c40_k16, the
+                     update kernel on "rows") and collectives (one
+                     all_reduce a step and an eval batch) counted; examples/s
+                     beside the one-card Trainer's; where more than one card
+                     is visible, (N, 1), (1, N) route in place and (2, 2)
+                     meshes of N NCCL ranks against the one-card run, with
+                     epoch 1's device idle share and NCCL kernel time
+
 Each phase prints its seconds ("phase <name>: <s> s") as the next starts.
 
 Every kernel's record carries its bound: the larger of the bytes it must
@@ -1641,6 +1656,266 @@ def tools_phase(bench_100k: str, train_100k: str, tmp: str, where: str) -> dict:
           f"({len(body)} bytes), kernel names in it {named}; {time.perf_counter() - t0:.1f} s")
     require(rc == 0 and all(named.values()), "the --profile_dir trace misses the kernels")
     return out
+
+
+# Phase 11's process (python -c, the repository on sys.path): the port's
+# CLI with the given flags, Trainer.train wrapped to record what the run
+# did (nothing it computes changes): each train_epoch's seconds, the
+# history, the launch counts set to 0 just before train() and read just
+# after (and again after the CLI's predict pass), the collectives issued,
+# and epoch 1's torch.profiler trace read back: the device's busy union,
+# NCCL's kernels.  The resident datasets are built before train(), so the
+# epochs (and the trace) hold the steps alone.  Mode "one" first runs the
+# one-card Trainer (no mesh) from the same seeded init on the same file.
+MESH_RUN = r"""
+import glob, json, os, sys, time
+import torch
+import ftrl_ffm_tpu_torch.train as T
+from ftrl_ffm_tpu_torch import bench
+from ftrl_ffm_tpu_torch.cli import main
+from ftrl_ffm_tpu_torch.parallel import dist
+from ftrl_ffm_tpu_torch.tools import read_launch_counts, reset_launch_counts
+
+mode, out, data, argv = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4:]
+rec = {"epochs": []}
+train, train_epoch = T.Trainer.train, T.Trainer.train_epoch
+
+
+def timed_epoch(self, *a, **k):
+    t0 = time.perf_counter()
+    loss = train_epoch(self, *a, **k)  # its loss readback waits for the steps
+    rec["epochs"].append(time.perf_counter() - t0)
+    return loss
+
+
+def device_busy(trace_dir):
+    # over the traced epoch's steady state (from its second train step's
+    # kernel #2 to its last device event: the profiler's own start-up
+    # slows the first step), the union of the device's kernel, copy and
+    # fill intervals, the window, and NCCL's kernels alone (ms)
+    (path,) = [p for p in glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+               if f"_{os.getpid()}." in os.path.basename(p)]
+    evs = [e for e in json.load(open(path))["traceEvents"]
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    start = sorted(e["ts"] for e in evs if "ffm_fused" in e["name"])[1]
+    evs = [e for e in evs if e["ts"] >= start]
+    spans, busy, end = sorted((e["ts"], e["ts"] + e["dur"]) for e in evs), 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    nccl = sum(e["dur"] for e in evs if e.get("cat") == "kernel" and "nccl" in e["name"].lower())
+    window = spans[-1][1] - spans[0][0] if spans else 0.0
+    return busy / 1e3, window / 1e3, nccl / 1e3
+
+
+def recorded(self, *a, **k):
+    self._ensure_device_cache("train")
+    self._ensure_device_cache("eval")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    dist.counts.update(dict.fromkeys(dist.counts, 0))
+    h = train(self, *a, **k)
+    rec["history"] = h
+    rec["launches"] = read_launch_counts()
+    rec["collectives"] = dict(dist.counts)
+    rec["world"] = self._proc_n
+    rec["mesh"] = None if self._mesh is None else [self._mesh.data, self._mesh.model]
+    rec["form"] = None if self._sharded is None else [self._sharded.mode, self._sharded.form]
+    rec["device_cache"] = {r: (e.layout if e is not None else "streamed")
+                           for r, e in self._dev_cache.items()}
+    if k.get("profile_dir"):
+        rec["busy_ms"], rec["window_ms"], rec["nccl_ms"] = device_busy(k["profile_dir"])
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return h
+
+
+if mode == "one":
+    # the one-card Trainer: bench.py's config, 2 epochs, the resident
+    # dataset (replicate layout), eval of the same file, a checkpoint and
+    # predict_file
+    cfg = bench.make_config(data, "cuda", n_epochs=2, eval_data=data, device_cache="on")
+    T.Trainer.train_epoch = timed_epoch
+    tr = T.Trainer(cfg)
+    tr._ensure_device_cache("train")
+    tr._ensure_device_cache("eval")
+    one = {"history": tr.train()}
+    one["epochs"], rec["epochs"] = rec["epochs"], []
+    tr.save_checkpoint(out + ".one.ckpt")
+    tr.predict_file(data, out + ".one.txt")
+    rec["one"] = one
+    del tr
+    torch.cuda.empty_cache()
+T.Trainer.train = recorded
+T.Trainer.train_epoch = timed_epoch
+dist.counts.update(dict.fromkeys(dist.counts, 0))
+code = main(argv)
+rec["after_predict"] = read_launch_counts()
+rec["collectives_all"] = dict(dist.counts)
+json.dump(rec, open(out, "w"))
+sys.exit(code)
+"""
+
+
+def mesh_runs(data: str, tmp: str, n: int, mode: str, flags: list, timeout: int = 300) -> list:
+    """Phase 11: the CLI on n processes, one card each (NCCL over the three
+    multi-process flags), each recording its run (MESH_RUN); their records,
+    rank by rank.  A process that fails, or outlasts `timeout`, fails the
+    smoke run; every process is ended before this returns."""
+    import socket
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coord = f"localhost:{sock.getsockname()[1]}"
+    outs = [os.path.join(tmp, f"mesh_{mode}_{n}_{p}.json") for p in range(n)]
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", MESH_RUN, mode, outs[p], data,
+             "--coordinator_address", coord, "--num_processes", str(n), "--process_id", str(p),
+             *flags],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for p in range(n)
+    ]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        if p.returncode:
+            print(log[-6000:], file=sys.stderr)
+        require(p.returncode == 0, f"a mesh process exited {p.returncode}")
+    for line in logs[0].splitlines():
+        print(f"mesh {mode} x{n}: {line}")
+    return [json.load(open(o)) for o in outs]
+
+
+def mesh_phase(bench_100k: str, tmp: str, where: str) -> dict:
+    """Phase 11, the mesh (item 8): bench.py's FFM-100k model (39 fields,
+    K=16, 640-float rows, B=16,384) on phase 7's 400,000-row file through
+    the CLI's three multi-process flags, 2 epochs from the replicate-layout
+    resident dataset with eval of the same file, a checkpoint (--model_path)
+    and predict_file, in its own process: a world-size-1 NCCL group
+    (--mesh_data 0) against the one-card Trainer from the same seeded init,
+    run first in the same process; losses, eval, the checkpoint's tables
+    and the predictions bit for bit (at D = M = 1 the sharded step runs the
+    one-device update on the one shard, and its sums' all_reduce over a
+    group of one keeps their bits).  Where more than one card is visible,
+    N ranks on (N, 1) replicate, (1, N) route with update_mode=inplace and
+    (2, 2) where N >= 4, each against the one-card run (losses rtol 1e-5,
+    the tables after 50 chained steps at the suite's chained-step bound).
+    Prints examples/s (the second epoch, its steps only) beside the
+    one-card Trainer's, the collectives, each kernel's launches by
+    instance, and for the N-rank meshes epoch 1's device idle share and
+    NCCL kernel time from torch.profiler (--profile_dir)."""
+    from ftrl_ffm_tpu_torch.io.checkpoint import load_checkpoint, state_from_jax_arrays
+
+    def tables(path):
+        return state_from_jax_arrays(load_checkpoint(path)[0], "cpu")
+
+    t_phase = time.perf_counter()
+    base = ["--train_data", bench_100k, "--eval_data", bench_100k, "--model_type", "FFM",
+            "--n_fields", str(N_FIELDS), "--n_feats", str(TRAIN_FEATS), "--n_factors",
+            str(N_FACTORS), "--batch_size", str(BATCH), "--max_nnz", str(N_FIELDS),
+            "--n_threads", "3", "--n_epochs", "2", "--device_cache", "on",
+            "--device_cache_layout", "replicate"]
+    steps = math.ceil(BENCH_ROWS / BATCH)
+    out = {}
+
+    def report(label, rec, ref_epochs):
+        eps = BENCH_ROWS / rec["epochs"][1]
+        one_eps = BENCH_ROWS / ref_epochs[1]
+        traced, idle = "epoch 1 not traced", None
+        if "busy_ms" in rec:
+            idle = 1 - rec["busy_ms"] / rec["window_ms"]
+            traced = (f"epoch 1 traced, steps 2-{steps}: device busy {rec['busy_ms']:.2f} of "
+                      f"{rec['window_ms']:.2f} ms (idle share {idle:.4f}), NCCL kernels "
+                      f"{rec['nccl_ms']:.3f} ms")
+        print(f"mesh {label}: examples/s {eps:.0f} (one-card Trainer {one_eps:.0f}); epochs "
+              f"{rec['epochs']} s; {traced}; collectives in train() {rec['collectives']}, with "
+              f"the rest of the run {rec['collectives_all']}; launches "
+              f"{json.dumps(rec['launches'])}; form {rec['form']}; peak "
+              f"{rec['peak_gb']:.2f} GB [{where}]")
+        return {"examples_per_s": eps, "one_card_examples_per_s": one_eps, "idle_share": idle,
+                "nccl_ms": rec.get("nccl_ms"), "collectives": rec["collectives"],
+                "launches": rec["launches"], "epochs": rec["epochs"]}
+
+    # ---- one card: a world-size-1 NCCL group against the one-card Trainer
+    # (untraced: its only collectives are the sums' all_reduce)
+    ckpt = os.path.join(tmp, "mesh1.ckpt")
+    pred = os.path.join(tmp, "mesh1.txt")
+    (rec,) = mesh_runs(bench_100k, tmp, 1, "one", [*base, "--mesh_data", "0", "--model_path",
+                                                   ckpt, "--predict_data", bench_100k,
+                                                   "--predict_output", pred])
+    one = rec["one"]
+    one_path = os.path.join(tmp, "mesh_one_1_0.json")
+    require(rec["world"] == 1 and rec["mesh"] == [1, 1], f"world-size-1 mesh: {rec['mesh']}")
+    require(rec["device_cache"] == {"train": "replicate", "eval": "replicate"},
+            f"mesh resident layout {rec['device_cache']}")
+    same_hist = rec["history"] == one["history"]
+    a, b = tables(ckpt), tables(one_path + ".one.ckpt")
+    same_tables = all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+    same_pred = open(pred, "rb").read() == open(one_path + ".one.txt", "rb").read()
+    print(f"mesh x1: NCCL world size 1, mesh (1, 1), lookup/update {rec['form']}: history "
+          f"bit-identical to the one-card Trainer's={same_hist} ({rec['history']}), "
+          f"checkpoint tables bit-identical={same_tables}, predictions byte-identical="
+          f"{same_pred} ({BENCH_ROWS} lines)")
+    require(same_hist and same_tables and same_pred, "the world-size-1 mesh differs from one card")
+    l = rec["launches"]
+    require(l["ffm_fused_logits_grads"] == 2 * steps
+            and l["fused_by_instance"] == {"c40_k16": 2 * steps}, f"mesh kernel #2: {l}")
+    require(l["ffm_fused_logits"] == 2 * steps and l["logits_by_instance"] == {"c40_k16": 2 * steps},
+            f"mesh kernel #1: {l}")
+    require(l["ftrl_update"] == 2 * steps and l["update_by_instance"] == {"rows": 2 * steps},
+            f"mesh update kernel: {l}")
+    require(rec["after_predict"]["ffm_fused_logits"] == 3 * steps, "mesh predict_file's kernel #1")
+    require(rec["collectives"] == {"all_reduce": 4 * steps, "all_gather": 0, "all_to_all": 0},
+            f"collectives {rec['collectives']}")
+    out["x1"] = report("x1", rec, one["epochs"])
+    out["x1"]["after_predict"] = rec["after_predict"]
+
+    # ---- more than one card: N NCCL ranks, each against the one-card run
+    n = torch.cuda.device_count()
+    shapes = []
+    if n > 1:
+        shapes = [((n, 1), []), ((1, n), ["--lookup_mode", "route", "--update_mode", "inplace"])]
+        if n >= 4:
+            shapes.append(((2, 2), ["--lookup_mode", "route"]))
+    ref_state = b
+    for (d, m), extra in shapes:
+        label = f"{d}x{m}"
+        path = os.path.join(tmp, f"mesh{label}.ckpt")
+        recs = mesh_runs(bench_100k, tmp, d * m, label, [
+            *base, "--mesh_data", str(d), "--mesh_model", str(m), *extra, "--model_path", path,
+            "--profile_dir", os.path.join(tmp, f"mesh_prof_{label}")])
+        r0 = recs[0]
+        require(r0["mesh"] == [d, m], f"mesh {r0['mesh']}")
+        for r in recs:
+            require(r["history"]["train_loss"] == r0["history"]["train_loss"],
+                    "ranks disagree on the losses")
+            for key in ("train_loss", "eval_loss"):
+                require(np.allclose(r["history"][key], one["history"][key], rtol=1e-5, atol=0),
+                        f"{label} {key} {r['history'][key]} vs {one['history'][key]}")
+            require(np.allclose(r["history"]["eval_auc"], one["history"]["eval_auc"], rtol=1e-4),
+                    f"{label} eval auc")
+        ok, worst = states_close(tables(path), ref_state, ("lin_z", "lin_n", "vec_z", "vec_n"))
+        print(f"mesh {label}: losses {r0['history']} vs one card {one['history']}; tables "
+              f"within rtol {CHAIN_RTOL}, atol {CHAIN_ATOL}: {ok} (worst {worst})")
+        require(ok, f"{label} tables differ from the one-card run's")
+        out[label] = report(label, r0, one["epochs"])
+    if not shapes:
+        print(f"mesh: one card visible ({n}): the N-rank NCCL meshes need more than one")
+    print(f"mesh: phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
 
 
 def main() -> int:
@@ -3551,6 +3826,9 @@ def main() -> int:
         phase_done("9")
         # ---- 9. the measurement tools, each through its entry point ----
         tools_phase(bench_p[TRAIN_FEATS], train_p, tmp, where)
+        phase_done("11")
+        # ---- 11. the mesh: the CLI's three flags, NCCL ----
+        mesh = mesh_phase(bench_p[TRAIN_FEATS], tmp, where)
         phase_done("end")
 
     records = [
@@ -3798,6 +4076,16 @@ def main() -> int:
         (rec,) = [r for r in records if r["name"] == name]
         rec["replayed_launches"] = multi[cell][part][counter].get(key, 0)
         require(rec["replayed_launches"] > 0, f"{name} was launched no time in phase 10")
+    # the launches of phase 11's world-size-1 mesh run (2 epochs with eval,
+    # then predict_file), by the record of the kernel form they ran
+    for name, counter, key in (
+        ("ffm_logits", "logits_by_instance", "c40_k16"),
+        ("ffm_fused", "fused_by_instance", "c40_k16"),
+        ("ftrl_update", "update_by_dtype", "f32/f32"),
+    ):
+        (rec,) = [r for r in records if r["name"] == name]
+        rec["mesh_launches"] = mesh["x1"]["after_predict"][counter].get(key, 0)
+        require(rec["mesh_launches"] > 0, f"{name} was launched no time in phase 11")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-"""Command-line interface: the single-device subset of ftrl_ffm_tpu/cli.py.
+"""Command-line interface: the port of ftrl_ffm_tpu/cli.py.
 
 The same flags as the JAX CLI (reference: src/main.cpp:13-34,
 src/include/utils/cmd_option.h:7-27) plus `--device`.  The port trains and
@@ -14,6 +14,13 @@ two export flags write them.  The per-epoch lines, the eval line, the
 prediction file and the files written are the JAX CLI's.  Flags of
 capabilities a later slice brings raise NotImplementedError naming it.
 
+On a mesh (`--mesh_data`/`--mesh_model`) one process drives one device:
+start one process a device, each with `--coordinator_address host:port
+--num_processes N --process_id i` (the JAX CLI's three flags; NCCL on the
+card, gloo with `--device cpu`).  Every process trains; the coordinator
+(process 0) alone prints the epoch lines and writes the checkpoint, the
+predictions and the exports.
+
 Usage:
     python -m ftrl_ffm_tpu_torch --train_data train.ffm --eval_data eval.ffm \
         --model_type FFM --n_fields 39 --n_feats 100000 --n_epochs 2 ...
@@ -28,7 +35,7 @@ import os
 import sys
 import time
 
-from ftrl_ffm_tpu_torch.config import Config, not_ported
+from ftrl_ffm_tpu_torch.config import Config
 
 
 def _str2bool(v: str) -> bool:
@@ -48,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
         description=(
             "FTRL-Proximal LR / FM / FFM on libsvm / libffm data: the "
             "PyTorch/CUDA port of ftrl_ffm_tpu (trains and serves all three "
-            "models on one device)."
+            "models on one device or a mesh of them)."
         ),
     )
     # ---- reference flags (src/include/utils/cmd_option.h:49-63 defaults) ----
@@ -129,8 +136,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device_cache_layout", default="auto",
                    choices=("auto", "replicate", "shard"),
                    help="cached-dataset layout on a device mesh; on one device "
-                        "every value holds the whole dataset (meshes arrive "
-                        "with ROADMAP.md Queue 1 item 8)")
+                        "every value holds the whole dataset (on a mesh the "
+                        "shard layout is ROADMAP.md Queue 1 item 8's rest)")
     p.add_argument("--device_cache_compact", default="auto",
                    choices=("auto", "on", "off"),
                    help="store the cached dataset compactly in device memory "
@@ -176,11 +183,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "('-': stdout)")
     # ---- multi-host (SPMD over DCN; one process per host) ----
     p.add_argument("--coordinator_address", default="",
-                   help="jax.distributed coordinator host:port (multi-host)")
+                   help="torch.distributed rendezvous host:port (one process "
+                        "a device; process 0's address)")
     p.add_argument("--num_processes", type=int, default=0,
-                   help="total process count for jax.distributed")
+                   help="total process count of the run")
     p.add_argument("--process_id", type=int, default=-1,
-                   help="this process's id for jax.distributed")
+                   help="this process's rank, 0 .. num_processes - 1")
     # ---- the port's own ----
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (CUDA kernels) or cpu (their "
@@ -206,24 +214,38 @@ _NON_CONFIG_FLAGS = (
 
 
 def _refuse_unported(args) -> None:
-    """Raise for a flag whose capability a later slice of the port brings."""
-    later = (
-        (
-            args.coordinator_address or args.num_processes
-            or args.process_id >= 0,
-            "multi-host runs (--coordinator_address / --num_processes / "
-            "--process_id)",
-            8,
-        ),
-    )
-    for given, what, item in later:
-        if given:
-            raise not_ported(what, item)
+    """Raise for flags the port cannot serve as given.  The multi-process
+    flags come as a set of three: torch.distributed has no cluster to ask
+    for a missing count or rank (the JAX CLI lets jax.distributed find
+    them).  What ROADMAP.md Queue 1 item 8 still refuses on a mesh
+    (--steps_per_call > 1, --device_cache_layout shard with a device
+    cache) raises in config.py::check_ported, as NotImplementedError
+    naming the item."""
+    given = (bool(args.coordinator_address), args.num_processes > 0, args.process_id >= 0)
+    if any(given) and not all(given):
+        raise ValueError(
+            "multi-process runs need all of --coordinator_address, "
+            "--num_processes and --process_id"
+        )
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
+    from ftrl_ffm_tpu_torch.parallel import dist
+
+    if args.coordinator_address:
+        # one process a device, over the rendezvous at the coordinator
+        dist.initialize(args.coordinator_address, args.num_processes, args.process_id,
+                        args.device)
+    try:
+        return _main(args)
+    finally:
+        # the run's group (the one joined here, or a mesh's group of one)
+        dist.destroy()
+
+
+def _main(args) -> int:
     cfg = Config(
         **{k: v for k, v in vars(args).items() if k not in _NON_CONFIG_FLAGS}
     )
@@ -285,6 +307,8 @@ def main(argv: list[str] | None = None) -> int:
     # go to stderr or it corrupts the one-probability-per-line contract.
     preds_on_stdout = bool(args.predict_data) and args.predict_output == "-"
     info = functools.partial(print, file=sys.stderr) if preds_on_stdout else print
+    if args.process_id > 0:
+        info = lambda *a, **k: None  # noqa: E731  (the coordinator reports)
     trainer_out = (
         contextlib.redirect_stdout(sys.stderr)
         if preds_on_stdout
@@ -292,9 +316,8 @@ def main(argv: list[str] | None = None) -> int:
     )
 
     from ftrl_ffm_tpu_torch.io import checkpoint as ckpt
-    from ftrl_ffm_tpu_torch.train import Trainer, resolve_device
+    from ftrl_ffm_tpu_torch.train import Trainer
 
-    device = resolve_device(cfg.device)
     state = None
     load_from = args.load_model
     if not load_from and args.auto_resume and cfg.model_path and os.path.exists(cfg.model_path):
@@ -305,7 +328,8 @@ def main(argv: list[str] | None = None) -> int:
         # table_dtype/field_pad...) before shapes can silently reinterpret
         ckpt.validate_header_compat(cfg, extra, load_from)
         info(f"resumed from {load_from} (step {int(host_state.step)})")
-        state = ckpt.state_from_jax_arrays(host_state, device)
+        # on the host: the Trainer moves it to the device, or shards it
+        state = ckpt.state_from_jax_arrays(host_state, "cpu")
 
     t0 = time.perf_counter()
     if not cfg.max_nnz and serve_only and args.predict_data and not cfg.eval_data:
@@ -322,14 +346,16 @@ def main(argv: list[str] | None = None) -> int:
         read = (ckpt.import_reference_model if args.import_reference_model
                 else ckpt.import_reference_text_model)
         weights = read(src, cfg.n_feats, cfg.ref_row_width)
-        trainer.state = trainer.model.init_from_weights(*weights, device=device)
+        trainer.load_state(trainer.model.init_from_weights(*weights, device=trainer.device))
         info(f"imported reference model from {src}")
     with trainer_out:
         if training:
             trainer.train(profile_dir=args.profile_dir or None)
         elif cfg.eval_data:
             eval_loss, eval_auc = trainer.evaluate()
-            if cfg.eval_auc:
+            if args.process_id > 0:
+                pass
+            elif cfg.eval_auc:
                 print(f"eval loss: {eval_loss:.4f}, eval auc: {eval_auc:.4f}")
             else:
                 print(f"eval loss: {eval_loss:.4f}")
@@ -343,7 +369,11 @@ def main(argv: list[str] | None = None) -> int:
         n = trainer.predict_file(args.predict_data, args.predict_output)
         info(f"wrote {n} predictions to {args.predict_output}")
     if args.export_reference_model or args.export_reference_text_model:
-        bias, lin_w, vec_w = trainer.model.materialize_weights(trainer.logical_state)
+        # logical_state gathers on every process; the coordinator writes
+        state = trainer.logical_state
+        if args.process_id > 0:
+            return 0
+        bias, lin_w, vec_w = trainer.model.materialize_weights(state)
         if args.export_reference_model:
             ckpt.export_reference_model(
                 args.export_reference_model, float(bias), lin_w, vec_w,

@@ -335,11 +335,22 @@ def not_ported(what: str, item: int) -> NotImplementedError:
     )
 
 
+def uses_mesh(cfg: Config) -> bool:
+    """Does the config ask for a device mesh (mesh_data 0 means every
+    device left over on the data axis)?"""
+    return cfg.mesh_data != 1 or cfg.mesh_model != 1
+
+
 def check_ported(cfg: Config) -> None:
-    """Raise for config values the port does not serve: a device mesh
-    (item 8), and use_pallas=off, which has no counterpart here.  Every
-    model_type (LR, FM and FFM: item 4 brought LR and FM) trains and
-    serves.
+    """Raise for config values the port does not serve: use_pallas=off,
+    which has no counterpart here, and on a mesh what item 8 has still to
+    bring: steps_per_call > 1 (CUDA-graph capture of the collectives) and
+    device_cache_layout="shard" with a device cache (where auto's choice
+    would be "shard", the Trainer streams and says so).  The transfer
+    tiers' dtypes are refused where a batch meets the step (item 5,
+    models/base.py::widen_batch).  Every model_type (LR, FM and FFM: item
+    4 brought LR and FM) trains and serves, on one device and on a mesh
+    (item 8: parallel/, one process a device).
 
     steps_per_call > 1 groups S steps a dispatch (CUDA-graph replays on
     the card) and feed_workers sets the feeder's threads (item 5): both
@@ -352,11 +363,11 @@ def check_ported(cfg: Config) -> None:
     device_cache, device_cache_compact and device_cache_layout value
     (item 6; on one device the shard layout holds the whole dataset, as
     the replicate one does) train on one device."""
-    if cfg.mesh_data != 1 or cfg.mesh_model != 1:
-        raise not_ported(
-            f"a device mesh (mesh_data={cfg.mesh_data}, "
-            f"mesh_model={cfg.mesh_model})", 8,
-        )
+    if uses_mesh(cfg):
+        if cfg.steps_per_call > 1:
+            raise not_ported(f"steps_per_call={cfg.steps_per_call} on a device mesh", 8)
+        if cfg.device_cache != "off" and cfg.device_cache_layout == "shard":
+            raise not_ported("device_cache_layout=shard on a device mesh", 8)
     if cfg.use_pallas == "off":
         # the port has no user switch between kernel and plain version: the
         # tensor's device picks (ops/ffm_cuda.py::ffm_fused_logits)

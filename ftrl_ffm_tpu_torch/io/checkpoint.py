@@ -126,13 +126,58 @@ def _host_slabs(t: torch.Tensor, staging, timer: dict):
         yield dst.numpy()
 
 
+_TABLES = ("lin_n", "lin_z", "lin_w", "vec_n", "vec_z", "vec_w")
+
+
+def _logical_row_chunks(t: torch.Tensor, mesh, n_feats: int, staging, timer: dict):
+    """The bytes of a row-sharded table in logical row order, chunk by
+    chunk (ftrl_ffm_tpu/io/checkpoint.py::_logical_row_chunks): each chunk
+    of at most CHUNK_BYTES is all-gathered over the model group (a whole
+    number of rows from every model rank: logical rows a.. a+M*c are local
+    rows a/M.. a/M+c of each rank, interleaved), and rank 0 pulls it to the
+    host, where it yields it; the other ranks yield None.  No rank holds a
+    whole table on the host."""
+    from ftrl_ffm_tpu_torch.parallel import dist
+
+    m = mesh.model
+    row_bytes = t.element_size() * (t.numel() // max(t.shape[0], 1))
+    step = max(m, _chunk_rows((n_feats, *t.shape[1:]), t.element_size()) // m * m)
+    for a in range(0, n_feats, step):
+        b = min(n_feats, a + step)
+        lo, cnt = a // m, -(-b // m) - a // m
+        part = t[lo : lo + cnt].contiguous().view(torch.uint8).reshape(cnt, row_bytes)
+        if m > 1:
+            part = dist.all_gather(part, mesh.model_group)
+            part = part.reshape(m, cnt, row_bytes).transpose(0, 1).reshape(m * cnt, row_bytes)
+        if mesh.rank != 0:
+            yield None
+            continue
+        part = part[: b - a].reshape(-1)
+        if part.device.type == "cpu":
+            yield part.contiguous().numpy()
+            continue
+        t0 = time.perf_counter()
+        dst = staging[: part.numel()]
+        dst.copy_(part, non_blocking=True)
+        torch.cuda.current_stream(part.device).synchronize()
+        timer["pull_s"] += time.perf_counter() - t0
+        yield dst.numpy()
+
+
 def save_checkpoint(path: str, state: ModelState, level: int = 3,
-                    extra: dict | None = None) -> dict:
+                    extra: dict | None = None, mesh=None, n_feats: int = 0) -> dict:
     """Stream a full-state checkpoint to zstd at `level`
-    (ftrl_ffm_tpu/io/checkpoint.py::save_checkpoint, one device).  The
-    tables may lie on the card or the CPU.  Returns the write's seconds
-    (pull_s: off the card; compress_s: compression and the file writes;
-    fsync_s) and its raw and file bytes."""
+    (ftrl_ffm_tpu/io/checkpoint.py::save_checkpoint).  The tables may lie
+    on the card or the CPU.  With `mesh` (parallel/mesh.py::Mesh), `state`
+    is this rank's shard: the tables' n_feats logical rows are gathered to
+    rank 0 a chunk at a time (_logical_row_chunks) and rank 0 writes the
+    file, the bytes a one-device save of the logical state writes; the
+    ranks of rank 0's model group join the gathers, the others return at
+    once.  Returns the write's seconds (pull_s: off the card; compress_s:
+    compression and the file writes; fsync_s) and its raw and file bytes
+    (an empty dict on the ranks that do not write)."""
+    if mesh is not None and mesh.data_index != 0:
+        return {}
     meta = {"fields": [], "extra": extra or {}}
     tables = []
     for name, val in state._asdict().items():
@@ -144,17 +189,30 @@ def save_checkpoint(path: str, state: ModelState, level: int = 3,
                 f"state field {name} is {val.dtype}: checkpoints hold float32 "
                 f"and bfloat16 tables and an int32 step"
             )
-        meta["fields"].append(
-            {"name": name, "dtype": _DTYPE_NAMES[val.dtype], "shape": list(val.shape)}
-        )
-        tables.append(val)
+        shape = list(val.shape)
+        if mesh is not None and name in _TABLES:
+            shape[0] = n_feats
+        meta["fields"].append({"name": name, "dtype": _DTYPE_NAMES[val.dtype], "shape": shape})
+        tables.append((name, val, int(np.prod(shape)) * val.element_size()))
     header = json.dumps(meta).encode()
     staging = None
-    if any(t.device.type == "cuda" for t in tables):
-        big = max(t.numel() * t.element_size() for t in tables)
+    if any(t.device.type == "cuda" for _, t, _ in tables):
+        big = max(nbytes for _, _, nbytes in tables)
         staging = torch.empty(min(big, CHUNK_BYTES), dtype=torch.uint8, pin_memory=True)
     stats = {"pull_s": 0.0, "compress_s": 0.0, "fsync_s": 0.0,
-             "raw_bytes": 12 + len(header) + sum(t.numel() * t.element_size() for t in tables)}
+             "raw_bytes": 12 + len(header) + sum(nbytes for _, _, nbytes in tables)}
+    if mesh is not None and mesh.rank != 0:
+        # join the gathers of rank 0's model group; rank 0 writes
+        for name, t, _ in tables:
+            if name in _TABLES:
+                for _ in _logical_row_chunks(t, mesh, n_feats, staging, stats):
+                    pass
+        return {}
+
+    def slabs(name, t):
+        if mesh is not None and name in _TABLES:
+            return _logical_row_chunks(t, mesh, n_feats, staging, stats)
+        return _host_slabs(t, staging, stats)
     # crash-atomic: compress into a sibling temp file, fsync, then rename —
     # a crash mid-write leaves the previous checkpoint intact (at worst a
     # stray .tmp file), never a truncated checkpoint at `path`
@@ -163,8 +221,8 @@ def save_checkpoint(path: str, state: ModelState, level: int = 3,
         with open(tmp, "wb") as f:
             with zstd.Compressor(f, level) as zf:
                 zf.write(MAGIC + struct.pack("<I", len(header)) + header)
-                for t in tables:
-                    for slab in _host_slabs(t, staging, stats):
+                for name, t, _ in tables:
+                    for slab in slabs(name, t):
                         t0 = time.perf_counter()
                         zf.write(slab)
                         stats["compress_s"] += time.perf_counter() - t0

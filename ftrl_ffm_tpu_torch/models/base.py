@@ -381,7 +381,6 @@ class Model:
         )
         logits, gs, payload, lane = self._train_grads(state, batch, split, payload_dtype)
         bias_n, bias_z = bias_update(state.bias_n, state.bias_z, gs, p)
-        ids = batch.feats.reshape(-1)
         # the linear tables take their own [nnz, 2] payload when no dead
         # lane carries their gradient through the factor update; the
         # in-place form with a maintained mirror skips them (they ride
@@ -393,22 +392,7 @@ class Model:
             # 66-77)
             g_lin = (gs[:, None] * batch.vals).reshape(-1)
             gg2_lin = torch.stack([g_lin, g_lin * g_lin], dim=-1)
-        # JAX gives the linear tables' own payload a kind of its own, dense
-        # or sparse; on a 1-D table both give the same bits, which
-        # ftrl_update_linear's one step gives
-        lin_tables = (state.lin_n, state.lin_z, state.lin_w)
-        if payload is None:
-            ftrl_update_linear(*lin_tables, ids, gg2_lin, p)
-        elif split:
-            # the factor tables' in-place step, then the linear tables' own,
-            # from one sort of the ids
-            _inplace_step(state.vec_n, state.vec_z, state.vec_w, ids, *payload, p,
-                          lin_tables if lin_own else None, gg2_lin)
-        else:
-            ftrl_update(
-                state.vec_n, state.vec_z, state.vec_w, *lin_tables,
-                ids, payload[0], lane, p, gg2_lin, sparse=kind == "sparse2",
-            )
+        self.apply_update(state, batch.feats.reshape(-1), payload, lane, gg2_lin, kind)
         state.bias_n.copy_(bias_n)
         state.bias_z.copy_(bias_z)
         count = torch.sum(batch.sample_w)
@@ -418,6 +402,32 @@ class Model:
         return TrainOut(
             state=state, logits=logits, loss_sum=torch.sum(per_loss), count=count
         )
+
+    def apply_update(self, state: ModelState, ids: torch.Tensor, payload, lane: int,
+                     gg2_lin, kind) -> None:
+        """The table update of one step, in place: `payload` (train_step's,
+        or None for LR) on the rows `ids` (ids outside [0, R) drop) by the
+        factor tables' `kind`, and the linear tables from their own [N, 2]
+        `gg2_lin` where it is given, else from the payload's lane `lane` (or
+        not at all: the in-place form's stale tables).  The sharded step
+        (parallel/sharded.py) runs it on a shard's rows."""
+        p = self.params
+        # JAX gives the linear tables' own payload a kind of its own, dense
+        # or sparse; on a 1-D table both give the same bits, which
+        # ftrl_update_linear's one step gives
+        lin_tables = (state.lin_n, state.lin_z, state.lin_w)
+        if payload is None:
+            ftrl_update_linear(*lin_tables, ids, gg2_lin, p)
+        elif kind == "inplace":
+            # the factor tables' in-place step, then the linear tables' own,
+            # from one sort of the ids
+            _inplace_step(state.vec_n, state.vec_z, state.vec_w, ids, *payload, p,
+                          None if gg2_lin is None else lin_tables, gg2_lin)
+        else:
+            ftrl_update(
+                state.vec_n, state.vec_z, state.vec_w, *lin_tables,
+                ids, payload[0], lane, p, gg2_lin, sparse=kind == "sparse2",
+            )
 
     def eval_step(self, state: ModelState, batch: Batch):
         """Masked log-loss sum, count and logits for one eval batch

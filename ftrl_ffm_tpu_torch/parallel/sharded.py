@@ -1,0 +1,449 @@
+"""The sharded FTRL train/eval step over a ("data", "model") mesh of
+ranks (ftrl_ffm_tpu/parallel/sharded.py, whose shard_map body runs here on
+each rank's own device).
+
+Feature tables are row-sharded over "model" with modulo-interleaved
+placement (parallel/mesh.py::interleave_ids); every rank feeds its own
+slice of each global batch.  Two lookup modes (Config.lookup_mode):
+
+**replicate**: the batch is split over "data" only, so the ranks of one
+model group hold the same slice.  Each rank gathers its own rows of the
+slice's ids (others read 0) and an all_reduce over "model" assembles whole
+rows on every rank.
+
+**route**: the batch is split over both axes.  Each rank buckets its
+physical ids by owner into K slots a peer (route_slots), by UNIQUE id, so
+that id skew cannot overflow the buckets; an all_to_all over "model"
+delivers the requests, owners gather their rows, a second all_to_all
+returns them, and the update routes the payloads to the owners through
+the same slots.  Occurrences beyond K distinct ids a peer are dropped,
+counted (route_overflow) and, under route_overflow_policy="error", raised.
+
+The table updates (one deterministic update per row and step):
+- replicate on one data rank (D = 1): the one-device update on the rank's
+  rows (Model.apply_update: the touched-rows kernel, or the in-place form
+  under update_mode=inplace, whose linear tables ride stale on the mirror
+  lane as on one device);
+- replicate on D > 1 (replicate_update_form): the accumulator form
+  (za_scatter into zeroed [rows_local, E] sums, an all_reduce over "data",
+  z += G, then kernel #3, closed_form_pass) or the sparse form (an
+  all_gather of the (ids, payload) stream over "data", then the
+  touched-rows kernel on the local rows);
+- route: the payloads summed into their send slots (za_scatter), an
+  all_to_all, then on (1, N) meshes the in-place form (za_scatter into z,
+  kernel #3) and on D > 1 the accumulator form.
+
+The routing and the lookups are plain PyTorch, as the JAX package's are
+XLA.  FFM trains through kernel #2 (ops/ffm_cuda.py::ffm_fused_logits_grads,
+the dead-lane linear mirror kept by its aug_lane) and evaluates through
+kernel #1; FM and LR through ops/interactions.py, as on one device.  The
+payload is f32 on a mesh, as the JAX package's sharded step makes it
+(acc_dtype narrows only the one-device "dense2" payload).
+
+A collective over a group of one is skipped where it would copy a table-
+or batch-sized tensor (the row all_reduce at M = 1, the accumulator's at
+D = 1); the step's one small all_reduce of its sums always runs.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import NamedTuple, Optional
+
+import torch
+
+from ftrl_ffm_tpu_torch.config import Config
+from ftrl_ffm_tpu_torch.ftrl import FtrlParams, ftrl_accumulate, ftrl_weights, select_update_kind
+from ftrl_ffm_tpu_torch.models.base import (
+    Batch,
+    Model,
+    ModelState,
+    binary_logloss,
+    loss_grad,
+    widen_batch,
+)
+from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits, ffm_fused_logits_grads
+from ftrl_ffm_tpu_torch.ops.ftrl_cuda import closed_form_pass, ftrl_update_inplace, za_scatter
+from ftrl_ffm_tpu_torch.ops.interactions import fm_logits_and_grads, linear_logits
+from ftrl_ffm_tpu_torch.parallel import dist
+from ftrl_ffm_tpu_torch.parallel.mesh import Mesh, interleave_ids
+
+
+class Routing(NamedTuple):
+    """A step's id routing (route mode), shared by lookup and update."""
+
+    slot: torch.Tensor      # [n] int32 send slot of each occurrence (M*K = dropped);
+                            # the occurrences of one id share a slot
+    valid: torch.Tensor     # [n] bool: routed
+    recv: torch.Tensor      # [M*K] int32 local rows requested of this rank (rl = none)
+    overflow: torch.Tensor  # 0-dim: occurrences dropped by capacity
+
+
+class StepOut(NamedTuple):
+    """A sharded train step's outputs (the JAX package's TrainOut)."""
+
+    state: ModelState
+    logits: torch.Tensor     # [b_local] this rank's pre-update logits
+    loss_sum: torch.Tensor   # global masked log-loss sum
+    count: torch.Tensor      # global real samples
+    route_overflow: Optional[torch.Tensor]  # global drops (route mode), else None
+
+
+def _resolve_lookup_mode(cfg: Config, mesh: Mesh) -> str:
+    m = mesh.model
+    if m == 1 or cfg.lookup_mode == "replicate":
+        return "replicate"
+    n_dev = mesh.data * m
+    if cfg.lookup_mode == "route":
+        if cfg.batch_size % n_dev:
+            raise ValueError(
+                f"lookup_mode=route needs batch_size divisible by "
+                f"{n_dev} devices, got {cfg.batch_size}"
+            )
+        return "route"
+    return "route" if cfg.batch_size % n_dev == 0 else "replicate"
+
+
+def route_slots(cfg: Config, n_shards: int, mesh_data: int) -> int:
+    """K: route-mode slots a (rank, peer) pair (sharded.py::route_slots,
+    shared with train.py::estimate_hbm_bytes)."""
+    n_local = cfg.batch_size // (mesh_data * n_shards) * max(1, cfg.max_nnz)
+    k = int(n_local / n_shards * cfg.route_capacity)
+    return max(8, min(n_local, -(-k // 8) * 8))
+
+
+def resolves_to_route(cfg: Config) -> bool:
+    """Whether the config's mesh runs routed lookups (the config twin of
+    _resolve_lookup_mode)."""
+    m = max(1, cfg.mesh_model)
+    if m == 1 or cfg.lookup_mode == "replicate":
+        return False
+    n_dev = max(1, cfg.mesh_data) * m
+    return cfg.lookup_mode == "route" or cfg.batch_size % n_dev == 0
+
+
+def replicate_update_form(rows_local: int, row_width: int, global_nnz: int, mode: str,
+                          mesh_data: int) -> str:
+    """The replicate-mode table update of a shard (the rule of the JAX
+    package's select_ftrl_update2(rows_local, row_width, global_nnz,
+    update_mode)).
+
+    On one data rank the shard's sums need no combining, so its update is
+    the one-device kind, ftrl.py::select_update_kind's ("dense2",
+    "sparse2" or "inplace"), with the port's auto: the touched-rows kernel
+    holds no table-sized accumulator.  Where data replicas share the shard
+    (D > 1) their sums must be combined, and that reason for the port's
+    moved threshold no longer holds; there the rule is JAX's: "accumulator"
+    (a [rows_local, 2E] sum all_reduced over "data") under
+    update_mode=dense or inplace, and under auto while the shard holds at
+    most 4x the global nnz and the accumulator at most 2 GB; "sparse" (the
+    (ids, payload) stream all_gathered over "data") under update_mode=
+    sparse and beyond those bounds."""
+    if mesh_data == 1:
+        return select_update_kind(rows_local, row_width, global_nnz, mode)
+    if mode == "sparse":
+        return "sparse"
+    if mode in ("dense", "inplace"):
+        return "accumulator"
+    d = max(1, row_width)
+    if rows_local <= 4 * global_nnz and 2 * rows_local * d * 4 <= (2 << 30):
+        return "accumulator"
+    return "sparse"
+
+
+def _col(mask: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
+    """A per-row mask shaped to broadcast over rows of `tab`."""
+    return mask.reshape(-1, *([1] * (tab.dim() - 1)))
+
+
+class ShardedStep:
+    """The train and eval steps of one model config on one mesh, on this
+    rank's shard of the state (parallel/mesh.py::shard_state).  Each call
+    issues its collectives in a fixed order, the same on every rank."""
+
+    def __init__(self, cfg: Config, mesh: Mesh, model: Model, state: ModelState):
+        self.cfg = cfg
+        self.mesh = mesh
+        self.model = model
+        self.params = FtrlParams(cfg.w_alpha, cfg.w_beta, cfg.w_l1, cfg.w_l2)
+        self.n_feats = cfg.n_feats
+        self.n_shards = mesh.model
+        self.rows_local = state.lin_n.shape[0]
+        self.mode = _resolve_lookup_mode(cfg, mesh)
+        if self.mode == "route":
+            # the batch axes are both: the whole group
+            self.batch_group = None
+            self.batch_shards = mesh.data * mesh.model
+            self.shard_index = mesh.rank
+            self.route_k = route_slots(cfg, self.n_shards, mesh.data)
+        else:
+            self.batch_group = mesh.data_group
+            self.batch_shards = mesh.data
+            self.shard_index = mesh.data_index
+            self.route_k = 0
+        if cfg.batch_size % self.batch_shards:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} not divisible by {self.batch_shards} "
+                f"batch shards of the {mesh.data} x {mesh.model} mesh"
+            )
+        self.local_batch = cfg.batch_size // self.batch_shards
+        width = cfg.row_width
+        global_nnz = cfg.batch_size * max(1, cfg.max_nnz)
+        self.form = (
+            "routed" if self.mode == "route"
+            else replicate_update_form(self.rows_local, width, global_nnz, cfg.update_mode,
+                                       mesh.data)
+        )
+        if mesh.data > 1:
+            acc_bytes = 2 * self.rows_local * max(1, width) * 4
+            if acc_bytes > (256 << 20):
+                warnings.warn(
+                    f"mesh_data={mesh.data} replicates each table shard and "
+                    f"all-reduces a {acc_bytes / 1e9:.1f} GB dense accumulator "
+                    f"over the data axis EVERY step: an O(rows/mesh_model) "
+                    f"leg that dominates at this table size.  Scale with "
+                    f"mesh_data=1, mesh_model=N, lookup_mode=route instead "
+                    f"(no O(table) collectives)."
+                )
+
+    # ---- ids and lookups ----
+    def _phys_ids(self, feats: torch.Tensor) -> torch.Tensor:
+        """Flat physical row ids of the local batch (sentinel M * rl)."""
+        return interleave_ids(feats.reshape(-1), self.n_shards, self.rows_local, self.n_feats)
+
+    def _local_ids(self, ids_phys: torch.Tensor) -> torch.Tensor:
+        """This rank's local row of each physical id; rows_local (dropped by
+        every update) for ids of other shards and the sentinel."""
+        rl = self.rows_local
+        lid = ids_phys - self.mesh.model_index * rl
+        return torch.where((lid >= 0) & (lid < rl), lid, rl).to(torch.int32)
+
+    def _lookup(self, tab: torch.Tensor, ids_phys: torch.Tensor) -> torch.Tensor:
+        """Rows of `tab` for every id (replicate mode), in the table's dtype:
+        this rank's rows, 0 for the others', then an all_reduce over
+        "model" (exact, also in bf16: each row has one owner).  On one model
+        rank the gather clamps as on one device, the sentinel reading the
+        last row, which its zero value makes inert."""
+        rl = self.rows_local
+        if self.n_shards == 1:
+            return tab.index_select(0, ids_phys.clamp(max=rl - 1))
+        lid = self._local_ids(ids_phys)
+        rows = tab.index_select(0, lid.clamp(max=rl - 1))
+        rows = torch.where(_col(lid < rl, tab), rows, 0)
+        return dist.all_reduce(rows, self.mesh.model_group)
+
+    def _route(self, ids_phys: torch.Tensor) -> Routing:
+        """Bucket this rank's physical ids by owner, by unique id, and
+        exchange the requests over "model" (sharded.py::_route): the rank
+        of an id among its owner's distinct ids, from one stable sort."""
+        m, rl, k = self.n_shards, self.rows_local, self.route_k
+        ids = ids_phys.to(torch.int64)
+        owner = torch.div(ids, rl, rounding_mode="floor")  # the sentinel's is m
+        local = (ids % rl).to(torch.int32)
+        sid, order = torch.sort(ids, stable=True)  # id-sorted, so owner-sorted too
+        sowner = owner.index_select(0, order)
+        id_start = torch.ones_like(sid, dtype=torch.bool)
+        id_start[1:] = sid[1:] != sid[:-1]
+        owner_start = torch.ones_like(sid, dtype=torch.bool)
+        owner_start[1:] = sowner[1:] != sowner[:-1]
+        uniq = torch.cumsum(id_start.to(torch.int64), 0)  # 1-based
+        # the distinct ids before this owner's first run, carried forward
+        base = torch.cummax(torch.where(owner_start, uniq - 1, 0), 0).values
+        rank_sorted = uniq - 1 - base
+        valid_sorted = (sowner < m) & (rank_sorted < k)
+        slot_sorted = torch.where(valid_sorted, sowner * k + rank_sorted, m * k)
+        slot = torch.empty_like(slot_sorted).index_copy_(0, order, slot_sorted)
+        # one spare entry takes the dropped occurrences' writes; the
+        # occurrences of an id all write the same local row
+        send = torch.full((m * k + 1,), rl, dtype=torch.int32, device=ids.device)
+        send[slot] = local
+        recv = dist.all_to_all(send[: m * k], self.mesh.model_group)
+        overflow = ((sowner < m) & ~valid_sorted).sum()
+        return Routing(slot=slot.to(torch.int32), valid=slot < m * k, recv=recv,
+                       overflow=overflow)
+
+    def _routed_rows(self, tab: torch.Tensor, rt: Routing) -> torch.Tensor:
+        """Rows of the sharded table for this rank's occurrences, in the
+        table's dtype: the owners' gather and an all_to_all back."""
+        mk, rl = self.n_shards * self.route_k, self.rows_local
+        rows = tab.index_select(0, rt.recv.clamp(max=rl - 1))
+        back = dist.all_to_all(torch.where(_col(rt.recv < rl, tab), rows, 0),
+                               self.mesh.model_group)
+        out = back.index_select(0, rt.slot.clamp(max=mk - 1))
+        return torch.where(_col(rt.valid, tab), out, 0)
+
+    def _rows(self, tab, ids_phys, rt, widen: bool = True):
+        rows = self._lookup(tab, ids_phys) if rt is None else self._routed_rows(tab, rt)
+        return rows.to(torch.float32) if widen else rows
+
+    @property
+    def _lin_lane(self) -> int:
+        """The dead lane of the padded FFM row that mirrors the linear
+        table (models/ffm.py::FFM._lin_lane), or -1."""
+        lane = getattr(self.model, "_lin_lane", None)
+        return -1 if lane is None else lane()
+
+    def _w_lin(self, state, v, rt, ids_phys, shape):
+        """[b_local, F] linear weights: the mirror lane of the gathered rows
+        where kept (f32 tables), else the linear table's own lookup."""
+        lane = self._lin_lane
+        if lane >= 0 and v is not None and self.cfg.table_dtype == "float32":
+            return v[:, lane].to(torch.float32).reshape(shape)
+        return self._rows(state.lin_w, ids_phys, rt).reshape(shape)
+
+    # ---- logits and payloads ----
+    def _logits_payload(self, batch: Batch, lin, v, train: bool, split: bool):
+        """(logits, payload or None): the payload combined ((gg2,)) or, with
+        split, (g, g2), already scaled by dL/dlogit."""
+        cfg = self.cfg
+        if cfg.model_type == "LR":
+            return lin, None
+        if cfg.model_type == "FFM":
+            if not train:
+                return ffm_fused_logits(v, batch.fields, batch.vals, lin, cfg.field_pad,
+                                        cfg.n_factors), None
+            logits, *payload = ffm_fused_logits_grads(
+                v, batch.fields, batch.vals, lin, batch.y, batch.sample_w,
+                cfg.field_pad, cfg.n_factors, aug_lane=self._lin_lane, combined_out=not split,
+            )
+            return logits, tuple(payload)
+        b, f = batch.feats.shape
+        logits, dv = fm_logits_and_grads(v.to(torch.float32).reshape(b, f, -1), batch.vals,
+                                         lin, compute_grads=train)
+        if not train:
+            return logits, None
+        g = (loss_grad(logits, batch)[:, None, None] * dv).reshape(b * f, -1)
+        g2 = g * g
+        return logits, ((g, g2) if split else (torch.cat([g, g2], dim=-1),))
+
+    # ---- table updates ----
+    def _accumulate_pass(self, tables, ids, g, g2) -> None:
+        """The accumulator form on (n, z, w) [rows_local, E] tables: g and
+        g^2 summed into zeroed sums by row (za_scatter), the sums
+        all_reduced over "data", z += G, then kernel #3."""
+        n, z, w = tables
+        acc = torch.zeros((2, *n.shape), dtype=torch.float32, device=n.device)
+        za_scatter(acc[0], acc[1], ids, g, g2)
+        dist.all_reduce(acc, self.mesh.data_group)
+        z.add_(acc[0])
+        closed_form_pass(n, z, w, acc[1], self.params)
+
+    def _update_routed(self, tables, rt: Routing, g, g2) -> None:
+        """Route (g, g^2) to the owners (sharded.py::_table_update_routed):
+        summed into the send slots by za_scatter, an all_to_all each; then
+        the in-place form on a (1, N) mesh (no replica to combine with:
+        za_scatter into z itself, kernel #3; where JAX's dense form would
+        run there, z + G of zeroed sums G is z + the row sum, the same
+        bits), else the accumulator form."""
+        mk, e = self.n_shards * self.route_k, g.shape[-1]
+        send = torch.zeros((2, mk, e), dtype=torch.float32, device=g.device)
+        za_scatter(send[0], send[1], rt.slot, g, g2)
+        pay_g = dist.all_to_all(send[0], self.mesh.model_group)
+        pay_g2 = dist.all_to_all(send[1], self.mesh.model_group)
+        if self.mesh.data == 1:
+            ftrl_update_inplace(*tables, rt.recv, pay_g, pay_g2, self.params)
+        else:
+            self._accumulate_pass(tables, rt.recv, pay_g, pay_g2)
+
+    def _update(self, state: ModelState, ids_phys, rt, payload, g_lin) -> None:
+        """This step's update of the shard's tables (the module docstring's
+        forms): the factor tables from `payload`, the linear ones from
+        their own (g_lin, g_lin^2)."""
+        lin2 = tuple(t.view(-1, 1) for t in (state.lin_n, state.lin_z, state.lin_w))
+        vec = None if payload is None else (state.vec_n, state.vec_z, state.vec_w)
+        g_lin = g_lin.reshape(-1, 1)
+        g2_lin = g_lin * g_lin
+        if self.form == "routed":
+            if vec is not None:
+                self._update_routed(vec, rt, *payload)
+            self._update_routed(lin2, rt, g_lin, g2_lin)
+            return
+        lid = self._local_ids(ids_phys)
+        if self.form == "accumulator":
+            if vec is not None:
+                self._accumulate_pass(vec, lid, *payload)
+            self._accumulate_pass(lin2, lid, g_lin, g2_lin)
+            return
+        gg2_lin = torch.cat([g_lin, g2_lin], dim=-1)
+        if self.form == "sparse":
+            group = self.mesh.data_group
+            lid = dist.all_gather(lid, group)
+            gg2_lin = dist.all_gather(gg2_lin, group)
+            if payload is not None:
+                payload = (dist.all_gather(payload[0], group),)
+            self.model.apply_update(state, lid, payload, -1, gg2_lin, "sparse2")
+            return
+        # one data rank: the one-device update of this kind on the shard's
+        # rows, the linear tables as there (riding stale on the in-place
+        # form's mirror: Trainer.logical_state reconciles them)
+        lane = self._lin_lane
+        if payload is None or lane < 0 or (
+            self.form == "inplace" and not self.model._lin_mirror_maintained()
+        ):
+            self.model.apply_update(state, lid, payload, -1, gg2_lin, self.form)
+        else:
+            self.model.apply_update(state, lid, payload, lane, None, self.form)
+
+    # ---- steps ----
+    def _lookups(self, state: ModelState, batch: Batch, train: bool):
+        ids_phys = self._phys_ids(batch.feats)
+        rt = self._route(ids_phys) if self.mode == "route" else None
+        v = None
+        if state.vec_w is not None:
+            # the training kernel reads f32 rows; the eval kernel widens a
+            # bf16 table's rows itself
+            v = self._rows(state.vec_w, ids_phys, rt, widen=train or self.cfg.model_type != "FFM")
+        w_lin = self._w_lin(state, v, rt, ids_phys, batch.feats.shape)
+        bias_w = ftrl_weights(state.bias_n, state.bias_z, self.params)
+        return ids_phys, rt, v, linear_logits(w_lin, batch.vals, bias_w), bias_w
+
+    def train_step(self, state: ModelState, batch: Batch) -> StepOut:
+        """One step on this rank's slice of the global batch; the tables of
+        the shard are updated in place (state is returned)."""
+        p = self.params
+        batch = widen_batch(batch)
+        ids_phys, rt, v, lin, bias_w = self._lookups(state, batch, train=True)
+        # (g, g^2) apart for the scatter's forms, combined for the
+        # touched-rows kernel's
+        split = self.form in ("routed", "accumulator", "inplace")
+        logits, payload = self._logits_payload(batch, lin, v, True, split)
+        gs = loss_grad(logits, batch)
+        per_loss = binary_logloss(logits, batch.y) * batch.sample_w
+        # the bias's sums, the loss and the count, summed over the batch
+        # axes in one all_reduce (and the route drops)
+        parts = [gs.sum(), (gs * gs).sum(), per_loss.sum(), batch.sample_w.sum()]
+        if rt is not None:
+            parts.append(rt.overflow.to(torch.float32))
+        sums = dist.all_reduce(torch.stack(parts), self.batch_group)
+        bias_n, bias_z = ftrl_accumulate(state.bias_n, state.bias_z, bias_w, sums[0], sums[1], p)
+        self._update(state, ids_phys, rt, payload, gs[:, None] * batch.vals)
+        state.bias_n.copy_(bias_n)
+        state.bias_z.copy_(bias_z)
+        count = sums[3]
+        # inert (fully padded) global batches do not count as steps
+        state.step.add_((count > 0).to(torch.int32))
+        overflow = sums[4] if rt is not None else None
+        return StepOut(state, logits, sums[2], count, overflow)
+
+    def eval_step(self, state: ModelState, batch: Batch, bins: int = 0):
+        """(loss_sum, count, local logits, route drops or None, pos, neg)
+        of one eval slice, the sums over the batch axes in one all_reduce:
+        with bins > 0 the AUC histograms (metrics.py::StreamingAUC.
+        bucket_counts) too, else pos and neg are None."""
+        from ftrl_ffm_tpu_torch.metrics import StreamingAUC
+
+        batch = widen_batch(batch)
+        _, rt, v, lin, _ = self._lookups(state, batch, train=False)
+        logits, _ = self._logits_payload(batch, lin, v, False, False)
+        per_loss = binary_logloss(logits, batch.y) * batch.sample_w
+        parts = [per_loss.sum()[None], batch.sample_w.sum()[None]]
+        if rt is not None:
+            parts.append(rt.overflow.to(torch.float32)[None])
+        if bins:
+            parts += list(StreamingAUC.bucket_counts(logits, batch.y, batch.sample_w, bins))
+        sums = dist.all_reduce(torch.cat(parts), self.batch_group)
+        k = 3 if rt is not None else 2
+        pos = neg = None
+        if bins:
+            pos, neg = sums[k : k + bins], sums[k + bins :]
+        return sums[0], sums[1], logits, (sums[2] if rt is not None else None), pos, neg

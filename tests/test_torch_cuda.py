@@ -1747,3 +1747,110 @@ def test_cli_steps_per_call_on_the_card(tmp_path, capsys):
         out = capsys.readouterr().out
         lines.append([ln.split("s, ", 1)[1] for ln in out.splitlines() if ln.startswith("epoch")])
     assert len(lines[0]) == 4 and all(ln == lines[0] for ln in lines)
+
+
+# ---- meshes (parallel/): one process a card, NCCL ----
+
+
+def _launches_by_instance():
+    from ftrl_ffm_tpu_torch.tools import read_launch_counts
+
+    c = read_launch_counts()
+    return {k: c[k] for k in ("fused_by_instance", "logits_by_instance", "update_by_instance",
+                              "scatter_by_instance", "pass_by_dtype")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    {"device_cache": "on"},
+    {"device_cache": "off"},
+    {"device_cache": "on", "update_mode": "inplace"},
+    {"device_cache": "on", "table_dtype": "bfloat16"},
+    {"device_cache": "on", "model_type": "FM"},
+    {"device_cache": "on", "model_type": "LR"},
+], ids=["resident", "streamed", "inplace", "bf16", "fm", "lr"])
+def test_world_size_one_nccl_mesh_matches_one_card(tmp_path, kw):
+    """--mesh_data 0 in one process: the sharded step over a world-size-1
+    NCCL group, against the one-card Trainer from the same init: the
+    histories and the logical tables bit for bit, and the kernels launched
+    by the same instances the same number of times (the in-place form's
+    linear tables ride stale on the mirror lane in both)."""
+    import torch.distributed as tdist
+
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.parallel import dist
+    from ftrl_ffm_tpu_torch.tools import reset_launch_counts
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    _card()
+    base = {**_graph_files(tmp_path), **kw}
+    one = Trainer(Config(**base))
+    mesh = Trainer(Config(**base, mesh_data=0),
+                   state=type(one.state)(*(None if t is None else t.clone() for t in one.state)))
+    assert tdist.get_backend() == "nccl" and dist.world() == (0, 1)
+    assert mesh._mesh.shape == {"data": 1, "model": 1}
+    reset_launch_counts()
+    h1 = one.train()
+    want = _launches_by_instance()
+    reset_launch_counts()
+    dist.counts.update(dict.fromkeys(dist.counts, 0))
+    h2 = mesh.train()
+    assert _launches_by_instance() == want
+    assert dist.counts["all_reduce"] > 0 and dist.counts["all_to_all"] == 0
+    assert h1 == h2
+    for a, b in zip(one.logical_state, mesh.logical_state):
+        assert (a is None and b is None) or torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_flags", [["--mesh_data", "0"],
+                                        ["--mesh_model", "2", "--lookup_mode", "route"]],
+                         ids=["replicate", "route"])
+def test_n_rank_nccl_mesh_matches_one_card(tmp_path, mesh_flags):
+    """Two NCCL ranks, one card each, through the CLI's three flags, on a
+    file of one global batch a step: the epoch lines the one-card run's
+    (a flip of the last printed digit at most) and the saved tables within
+    the suite's chained-step bound."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from ftrl_ffm_tpu_torch.io.checkpoint import load_checkpoint
+
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("the N-rank NCCL mesh needs more than one card")
+    rng = np.random.default_rng(3)
+    data = tmp_path / "d.ffm"
+    with open(data, "w") as f:
+        for _ in range(256):
+            f.write(" ".join([str(int(rng.random() > 0.5))] + [
+                f"{c}:{int(rng.integers(10, 60)):02d}:1" for c in range(7)]) + "\n")
+    flags = ["--train_data", str(data), "--eval_data", str(data), "--model_type", "FFM",
+             "--n_fields", "7", "--n_feats", "60", "--n_factors", "16", "--batch_size", "256",
+             "--n_epochs", "2", "--device_cache", "on", "--device_cache_layout", "replicate"]
+    one = str(tmp_path / "one.ckpt")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-m", "ftrl_ffm_tpu_torch", *flags, "--model_path", one],
+                         cwd=root, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"localhost:{s.getsockname()[1]}"
+    mesh = str(tmp_path / "mesh.ckpt")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "ftrl_ffm_tpu_torch", *flags, *mesh_flags, "--model_path", mesh,
+         "--coordinator_address", coord, "--num_processes", "2", "--process_id", str(p)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for p in range(2)]
+    logs = [p.communicate(timeout=300) for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs
+    lines = [[ln.split("s, ", 1)[1] for ln in text.splitlines() if ln.startswith("epoch")]
+             for text in (out.stdout, logs[0][0])]
+    assert len(lines[1]) == 4
+    for a, b in zip(*lines):
+        for x, y in zip(a.split(", "), b.split(", ")):
+            assert abs(float(x.split(": ")[1]) - float(y.split(": ")[1])) <= 1.01e-4
+    a, b = load_checkpoint(one)[0], load_checkpoint(mesh)[0]
+    for name in ("lin_z", "lin_n", "vec_z", "vec_n"):
+        np.testing.assert_allclose(getattr(b, name), getattr(a, name), rtol=2e-3, atol=5e-5)

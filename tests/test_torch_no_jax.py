@@ -47,6 +47,10 @@ _MODULES = (
     "ftrl_ffm_tpu_torch.tools.profile_step",
     "ftrl_ffm_tpu_torch.tools.bench_matrix",
     "ftrl_ffm_tpu_torch.tools.micro_scatter",
+    "ftrl_ffm_tpu_torch.parallel",
+    "ftrl_ffm_tpu_torch.parallel.dist",
+    "ftrl_ffm_tpu_torch.parallel.mesh",
+    "ftrl_ffm_tpu_torch.parallel.sharded",
 )
 
 

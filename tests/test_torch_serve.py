@@ -155,7 +155,8 @@ def test_train_raises_naming_roadmap(served, tmp_path):
         (["--export_reference_model", "m.zst"], 3),
         (["--import_reference_model", "m.zst"], 3),
         (["--profile_dir", "prof"], 9),
-        (["--coordinator_address", "localhost:1234"], 8),
+        # item 8 brought meshes; its rest refuses steps_per_call > 1 there
+        (["--train_data", "TRAIN", "--mesh_data", "0", "--steps_per_call", "2"], 8),
         (["--save_every", "10"], 3),
     ],
 )
@@ -223,8 +224,10 @@ def test_cli_requires_a_model_to_serve(capsys):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        ({"mesh_model": 2}, "Queue 1 item 8"),
-        ({"mesh_data": 0}, "Queue 1 item 8"),
+        # item 8 brought meshes; its rest refuses these on one
+        ({"mesh_model": 2, "steps_per_call": 2}, "Queue 1 item 8"),
+        ({"mesh_data": 0, "device_cache": "on", "device_cache_layout": "shard"},
+         "Queue 1 item 8"),
         ({"steps_per_call": 4, "auc_mode": "exact"}, "auc_mode=exact"),
         ({"use_pallas": "off"}, "no counterpart"),
     ],
