@@ -212,10 +212,18 @@ Phases, each printing its own lines:
                      same init; launches (kernel #2 and #1 on c40_k16, the
                      update kernel on "rows") and collectives (one
                      all_reduce a step and an eval batch) counted; examples/s
-                     beside the one-card Trainer's; where more than one card
-                     is visible, (N, 1), (1, N) route in place and (2, 2)
-                     meshes of N NCCL ranks against the one-card run, with
-                     epoch 1's device idle share and NCCL kernel time
+                     beside the one-card Trainer's; the same at
+                     --steps_per_call 5 (x1's bits, the groups captured
+                     with their NCCL all_reduce and replayed, collectives
+                     and launches counted per replay) and from the shard
+                     layout built by hand (the replicate run's bits);
+                     profile_step's sharded phase beside its cuda phase and
+                     bench_multichip on the 1x1 mesh; where more than one
+                     card is visible, (N, 1), (1, N) route in place and
+                     (2, 2) meshes of N NCCL ranks from the shard layout
+                     against the streamed run of the same shape, bit for
+                     bit, with epoch 1's device idle share and NCCL kernel
+                     time
 
 Each phase prints its seconds ("phase <name>: <s> s") as the next starts.
 
@@ -238,6 +246,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1666,7 +1675,9 @@ def tools_phase(bench_100k: str, train_100k: str, tmp: str, where: str) -> dict:
 # and epoch 1's torch.profiler trace read back: the device's busy union,
 # NCCL's kernels.  The resident datasets are built before train(), so the
 # epochs (and the trace) hold the steps alone.  Mode "one" first runs the
-# one-card Trainer (no mesh) from the same seeded init on the same file.
+# one-card Trainer (no mesh) from the same seeded init on the same file;
+# mode "shard" builds the shard layout by hand (Trainer._build_device_cache
+# with layout "shard": on one process a single slice and one inert row).
 MESH_RUN = r"""
 import glob, json, os, sys, time
 import torch
@@ -1711,8 +1722,12 @@ def device_busy(trace_dir):
 
 
 def recorded(self, *a, **k):
-    self._ensure_device_cache("train")
-    self._ensure_device_cache("eval")
+    for role in ("train", "eval"):
+        if mode == "shard":
+            self._dev_cache[role] = self._build_device_cache(self._dataset(role), "shard", None)
+            delattr(self, f"_{role}_ds")
+        else:
+            self._ensure_device_cache(role)
     torch.cuda.synchronize()
     reset_launch_counts()
     dist.counts.update(dict.fromkeys(dist.counts, 0))
@@ -1725,6 +1740,8 @@ def recorded(self, *a, **k):
     rec["form"] = None if self._sharded is None else [self._sharded.mode, self._sharded.form]
     rec["device_cache"] = {r: (e.layout if e is not None else "streamed")
                            for r, e in self._dev_cache.items()}
+    rec["rows_loc"] = {r: e.rows_loc for r, e in self._dev_cache.items() if e is not None}
+    rec["dispatch"] = dict(self.group_dispatch)
     if k.get("profile_dir"):
         rec["busy_ms"], rec["window_ms"], rec["nccl_ms"] = device_busy(k["profile_dir"])
     rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1801,36 +1818,45 @@ def mesh_runs(data: str, tmp: str, n: int, mode: str, flags: list, timeout: int 
 def mesh_phase(bench_100k: str, tmp: str, where: str) -> dict:
     """Phase 11, the mesh (item 8): bench.py's FFM-100k model (39 fields,
     K=16, 640-float rows, B=16,384) on phase 7's 400,000-row file through
-    the CLI's three multi-process flags, 2 epochs from the replicate-layout
-    resident dataset with eval of the same file, a checkpoint (--model_path)
-    and predict_file, in its own process: a world-size-1 NCCL group
-    (--mesh_data 0) against the one-card Trainer from the same seeded init,
-    run first in the same process; losses, eval, the checkpoint's tables
-    and the predictions bit for bit (at D = M = 1 the sharded step runs the
-    one-device update on the one shard, and its sums' all_reduce over a
-    group of one keeps their bits).  Where more than one card is visible,
-    N ranks on (N, 1) replicate, (1, N) route with update_mode=inplace and
-    (2, 2) where N >= 4, each against the one-card run (losses rtol 1e-5,
-    the tables after 50 chained steps at the suite's chained-step bound).
-    Prints examples/s (the second epoch, its steps only) beside the
-    one-card Trainer's, the collectives, each kernel's launches by
-    instance, and for the N-rank meshes epoch 1's device idle share and
-    NCCL kernel time from torch.profiler (--profile_dir)."""
+    the CLI's three multi-process flags, 2 epochs from the resident dataset
+    with eval of the same file, each run in its own process:
+    - x1: a world-size-1 NCCL group (--mesh_data 0), the replicate layout,
+      a checkpoint (--model_path) and predict_file, against the one-card
+      Trainer from the same seeded init, run first in the same process;
+      losses, eval, the checkpoint's tables and the predictions bit for
+      bit (at D = M = 1 the sharded step runs the one-device update on the
+      one shard, and its sums' all_reduce over a group of one keeps their
+      bits);
+    - x1 at --steps_per_call 5 (25 steps an epoch: no inert step): x1's
+      bits, the groups captured with their NCCL all_reduce and replayed,
+      the collectives and launches counted per replay as x1's;
+    - x1 on the shard layout, built by hand (Trainer._build_device_cache):
+      a single slice and one inert row, the replicate run's bits;
+    - profile_step's sharded phase beside its cuda phase, and
+      bench_multichip on the 1x1 mesh, at this model's width.
+    Where more than one card is visible, N ranks on (N, 1) replicate,
+    (1, N) route with update_mode=inplace and (2, 2) route where N >= 4,
+    each from the shard layout against the N-rank streamed run of the same
+    shape: the ranks agree, losses, eval and the checkpoint's tables bit
+    for bit.  Prints examples/s (the second epoch, its steps only) beside
+    a reference run's, the collectives, each kernel's launches by instance,
+    and for the N-rank meshes epoch 1's device idle share and NCCL kernel
+    time from torch.profiler (--profile_dir)."""
     from ftrl_ffm_tpu_torch.io.checkpoint import load_checkpoint, state_from_jax_arrays
 
     def tables(path):
         return state_from_jax_arrays(load_checkpoint(path)[0], "cpu")
 
     t_phase = time.perf_counter()
-    base = ["--train_data", bench_100k, "--eval_data", bench_100k, "--model_type", "FFM",
-            "--n_fields", str(N_FIELDS), "--n_feats", str(TRAIN_FEATS), "--n_factors",
-            str(N_FACTORS), "--batch_size", str(BATCH), "--max_nnz", str(N_FIELDS),
-            "--n_threads", "3", "--n_epochs", "2", "--device_cache", "on",
-            "--device_cache_layout", "replicate"]
+    model = ["--train_data", bench_100k, "--eval_data", bench_100k, "--model_type", "FFM",
+             "--n_fields", str(N_FIELDS), "--n_feats", str(TRAIN_FEATS), "--n_factors",
+             str(N_FACTORS), "--batch_size", str(BATCH), "--max_nnz", str(N_FIELDS),
+             "--n_threads", "3", "--n_epochs", "2"]
+    base = [*model, "--device_cache", "on", "--device_cache_layout", "replicate"]
     steps = math.ceil(BENCH_ROWS / BATCH)
     out = {}
 
-    def report(label, rec, ref_epochs):
+    def report(label, rec, ref_epochs, ref_label="one-card Trainer"):
         eps = BENCH_ROWS / rec["epochs"][1]
         one_eps = BENCH_ROWS / ref_epochs[1]
         traced, idle = "epoch 1 not traced", None
@@ -1839,14 +1865,15 @@ def mesh_phase(bench_100k: str, tmp: str, where: str) -> dict:
             traced = (f"epoch 1 traced, steps 2-{steps}: device busy {rec['busy_ms']:.2f} of "
                       f"{rec['window_ms']:.2f} ms (idle share {idle:.4f}), NCCL kernels "
                       f"{rec['nccl_ms']:.3f} ms")
-        print(f"mesh {label}: examples/s {eps:.0f} (one-card Trainer {one_eps:.0f}); epochs "
+        print(f"mesh {label}: examples/s {eps:.0f} ({ref_label} {one_eps:.0f}); epochs "
               f"{rec['epochs']} s; {traced}; collectives in train() {rec['collectives']}, with "
               f"the rest of the run {rec['collectives_all']}; launches "
               f"{json.dumps(rec['launches'])}; form {rec['form']}; peak "
               f"{rec['peak_gb']:.2f} GB [{where}]")
-        return {"examples_per_s": eps, "one_card_examples_per_s": one_eps, "idle_share": idle,
-                "nccl_ms": rec.get("nccl_ms"), "collectives": rec["collectives"],
-                "launches": rec["launches"], "epochs": rec["epochs"]}
+        return {"examples_per_s": eps, "reference_examples_per_s": one_eps,
+                "idle_share": idle, "nccl_ms": rec.get("nccl_ms"),
+                "collectives": rec["collectives"], "launches": rec["launches"],
+                "epochs": rec["epochs"], "dispatch": rec["dispatch"]}
 
     # ---- one card: a world-size-1 NCCL group against the one-card Trainer
     # (untraced: its only collectives are the sums' all_reduce)
@@ -1882,35 +1909,77 @@ def mesh_phase(bench_100k: str, tmp: str, where: str) -> dict:
     out["x1"] = report("x1", rec, one["epochs"])
     out["x1"]["after_predict"] = rec["after_predict"]
 
-    # ---- more than one card: N NCCL ranks, each against the one-card run
+    # ---- x1 at steps_per_call 5: the groups captured with their NCCL
+    # all_reduce; x1's bits, collectives and launches, counted per replay
+    (rec5,) = mesh_runs(bench_100k, tmp, 1, "s5", [*base, "--mesh_data", "0",
+                                                   "--steps_per_call", "5"])
+    d5 = rec5["dispatch"]
+    print(f"mesh x1 S=5: history bit-identical to x1 S=1's={rec5['history'] == rec['history']}; "
+          f"groups {d5}; collectives {rec5['collectives']} (S=1 {rec['collectives']}); "
+          f"launches equal S=1's={rec5['launches'] == rec['launches']}")
+    require(rec5["history"] == rec["history"], "x1 at S=5 differs from S=1")
+    require(d5["captures"] >= 1 and d5["replays"] >= 1, f"x1 S=5 dispatch {d5}")
+    require(rec5["collectives"] == rec["collectives"], "x1 S=5's collectives, counted per replay")
+    require(rec5["launches"] == rec["launches"], f"x1 S=5 launches {rec5['launches']}")
+    out["x1_s5"] = report("x1 S=5", rec5, rec["epochs"], "x1 S=1")
+
+    # ---- x1 on the shard layout: a single slice and one inert row
+    (rec_sh,) = mesh_runs(bench_100k, tmp, 1, "shard", [*model, "--mesh_data", "0"])
+    print(f"mesh x1 shard layout: {rec_sh['device_cache']}, rows_loc {rec_sh['rows_loc']}; "
+          f"history bit-identical to the replicate run's={rec_sh['history'] == rec['history']}")
+    require(rec_sh["device_cache"] == {"train": "shard", "eval": "shard"}
+            and rec_sh["rows_loc"] == {"train": BENCH_ROWS + 1, "eval": BENCH_ROWS + 1},
+            f"x1 shard layout {rec_sh['device_cache']} {rec_sh['rows_loc']}")
+    require(rec_sh["history"] == rec["history"], "the shard layout differs from the replicate")
+    out["x1_shard"] = report("x1 shard", rec_sh, rec["epochs"], "x1 replicate")
+
+    # ---- the mesh tools at this model's width: the sharded step beside
+    # the one-card step, and the multi-card harness on the 1x1 mesh
+    prof, _ = run_tool("profile_step sharded", ["ftrl_ffm_tpu_torch.tools.profile_step",
+                                                "cuda", "sharded"], {}, 300)
+    ms = {m_.group(1): float(m_.group(2)) for m_ in
+          re.finditer(r"^(cuda|sharded): ([0-9.]+) ms/step", prof, re.M)}
+    require(set(ms) == {"cuda", "sharded"}, f"profile_step phases {ms}")
+    bm, _ = run_tool("bench_multichip", [
+        "ftrl_ffm_tpu_torch.tools.bench_multichip", "--meshes", "1x1", "--fields",
+        str(N_FIELDS), "--factors", str(N_FACTORS), "--max_nnz", str(N_FIELDS), "--b_dev",
+        str(BATCH), "--rows", str(TRAIN_FEATS), "--steps", "20"], {}, 300)
+    (row,) = json_lines(bm)[-1]["meshes"]
+    require(row["mesh"] == "1x1" and row["device"] == card() and row["ex_s"] > 0,
+            f"bench_multichip 1x1 {row}")
+    out["tools"] = {"profile_step_ms": ms, "bench_multichip": row}
+    print(f"mesh tools: profile_step cuda {ms['cuda']:.3f} ms, sharded {ms['sharded']:.3f} ms a "
+          f"step (B=8,192); bench_multichip 1x1 {row['step_ms']} ms a step, {row['ex_s']} ex/s, "
+          f"model {row['model_ms']:.3f} ms [{where}]")
+
+    # ---- more than one card: N NCCL ranks from the shard layout, each
+    # against the N-rank streamed run of the same shape
     n = torch.cuda.device_count()
     shapes = []
     if n > 1:
         shapes = [((n, 1), []), ((1, n), ["--lookup_mode", "route", "--update_mode", "inplace"])]
         if n >= 4:
             shapes.append(((2, 2), ["--lookup_mode", "route"]))
-    ref_state = b
     for (d, m), extra in shapes:
         label = f"{d}x{m}"
-        path = os.path.join(tmp, f"mesh{label}.ckpt")
+        flags = [*model, "--mesh_data", str(d), "--mesh_model", str(m), *extra]
+        path, path_s = (os.path.join(tmp, f"mesh{label}{x}.ckpt") for x in ("", "s"))
         recs = mesh_runs(bench_100k, tmp, d * m, label, [
-            *base, "--mesh_data", str(d), "--mesh_model", str(m), *extra, "--model_path", path,
-            "--profile_dir", os.path.join(tmp, f"mesh_prof_{label}")])
-        r0 = recs[0]
-        require(r0["mesh"] == [d, m], f"mesh {r0['mesh']}")
-        for r in recs:
-            require(r["history"]["train_loss"] == r0["history"]["train_loss"],
-                    "ranks disagree on the losses")
-            for key in ("train_loss", "eval_loss"):
-                require(np.allclose(r["history"][key], one["history"][key], rtol=1e-5, atol=0),
-                        f"{label} {key} {r['history'][key]} vs {one['history'][key]}")
-            require(np.allclose(r["history"]["eval_auc"], one["history"]["eval_auc"], rtol=1e-4),
-                    f"{label} eval auc")
-        ok, worst = states_close(tables(path), ref_state, ("lin_z", "lin_n", "vec_z", "vec_n"))
-        print(f"mesh {label}: losses {r0['history']} vs one card {one['history']}; tables "
-              f"within rtol {CHAIN_RTOL}, atol {CHAIN_ATOL}: {ok} (worst {worst})")
-        require(ok, f"{label} tables differ from the one-card run's")
-        out[label] = report(label, r0, one["epochs"])
+            *flags, "--device_cache", "on", "--device_cache_layout", "shard", "--model_path",
+            path, "--profile_dir", os.path.join(tmp, f"mesh_prof_{label}")])
+        streamed = mesh_runs(bench_100k, tmp, d * m, label + "s", [
+            *flags, "--device_cache", "off", "--model_path", path_s])
+        r0, s0 = recs[0], streamed[0]
+        require(r0["mesh"] == [d, m] and r0["device_cache"] == {"train": "shard", "eval": "shard"},
+                f"mesh {r0['mesh']} {r0['device_cache']}")
+        for r in (*recs, *streamed):
+            require(r["history"] == r0["history"], f"{label}: the ranks or the paths disagree")
+        a, b = tables(path), tables(path_s)
+        same = all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+        print(f"mesh {label}: shard layout {r0['history']}; bit-identical to the streamed "
+              f"run's history and checkpoint tables: {same}")
+        require(same, f"{label} tables differ from the streamed run's")
+        out[label] = report(label, r0, s0["epochs"], "streamed")
     if not shapes:
         print(f"mesh: one card visible ({n}): the N-rank NCCL meshes need more than one")
     print(f"mesh: phase 11 took {time.perf_counter() - t_phase:.1f} s")
@@ -3677,9 +3746,8 @@ def main() -> int:
 
                 def row_upload_epoch(trn, epoch_rng):
                     cache = trn._fresh_cache("train")
-                    order = np.arange(cache.n)
-                    epoch_rng.shuffle(order)
-                    idx = trn._cached_idx(cache.n, order)
+                    idx = trn._cached_idx(trn._cached_order(cache, epoch_rng),
+                                          *trn._cache_steps(cache))
                     return trn._epoch_loss(trn._train_steps(
                         trn._take_cached(cache, trn._upload(row)) for row in idx))
 
@@ -4076,8 +4144,9 @@ def main() -> int:
         (rec,) = [r for r in records if r["name"] == name]
         rec["replayed_launches"] = multi[cell][part][counter].get(key, 0)
         require(rec["replayed_launches"] > 0, f"{name} was launched no time in phase 10")
-    # the launches of phase 11's world-size-1 mesh run (2 epochs with eval,
-    # then predict_file), by the record of the kernel form they ran
+    # the launches of phase 11's world-size-1 mesh runs (2 epochs with eval,
+    # then predict_file; and at steps_per_call 5), by the record of the
+    # kernel form they ran
     for name, counter, key in (
         ("ffm_logits", "logits_by_instance", "c40_k16"),
         ("ffm_fused", "fused_by_instance", "c40_k16"),
@@ -4086,6 +4155,10 @@ def main() -> int:
         (rec,) = [r for r in records if r["name"] == name]
         rec["mesh_launches"] = mesh["x1"]["after_predict"][counter].get(key, 0)
         require(rec["mesh_launches"] > 0, f"{name} was launched no time in phase 11")
+        # and of its S = 5 run (train() alone: the groups' replays counted)
+        rec["mesh_group_launches"] = mesh["x1_s5"]["launches"][counter].get(key, 0)
+        require(rec["mesh_group_launches"] > 0,
+                f"{name} was launched no time in phase 11's S = 5 run")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))

@@ -7,13 +7,16 @@ package ftrl_ffm_tpu is the reference the port is tested against; the port
 never imports it, nor jax.
 
 The port grows in slices (ROADMAP.md Queue 1).  It trains and serves LR,
-FM and FFM on one device today: FTRL-Proximal epochs with FFM's fused
+FM and FFM on one device and on meshes of one process a card (parallel/:
+NCCL, or gloo on the CPU), streamed or from device-resident datasets, one
+step a dispatch or S as a CUDA graph: FTRL-Proximal epochs with FFM's fused
 logits-and-gradient kernel (ops/ffm_cuda.py) and, for every model, the
 deterministic table-update kernels (ops/ftrl_cuda.py), eval and scoring
 with FFM's logits kernel (LR and FM's logits are plain PyTorch, as the JAX
 package's are XLA), from a fresh init or a checkpoint of the JAX package.
-tools/ holds the TPU probes of the repo's tools/micro_*.py, ported to the
-card with their own kernels.
+tools/ holds the measurement tools (the twins of the repo's tools/) and
+its TPU probes (tools/micro_*.py), ported to the card with their own
+kernels.
 """
 
 from ftrl_ffm_tpu_torch.config import Config

@@ -135,9 +135,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "stdin training always streams")
     p.add_argument("--device_cache_layout", default="auto",
                    choices=("auto", "replicate", "shard"),
-                   help="cached-dataset layout on a device mesh; on one device "
-                        "every value holds the whole dataset (on a mesh the "
-                        "shard layout is ROADMAP.md Queue 1 item 8's rest)")
+                   help="cached-dataset layout on a device mesh: shard = each "
+                        "process its byte-range slice; replicate = the whole "
+                        "dataset, on one process only (more stream); auto = "
+                        "shard on more than one process; on one process "
+                        "every value holds the whole dataset")
     p.add_argument("--device_cache_compact", default="auto",
                    choices=("auto", "on", "off"),
                    help="store the cached dataset compactly in device memory "
@@ -217,10 +219,8 @@ def _refuse_unported(args) -> None:
     """Raise for flags the port cannot serve as given.  The multi-process
     flags come as a set of three: torch.distributed has no cluster to ask
     for a missing count or rank (the JAX CLI lets jax.distributed find
-    them).  What ROADMAP.md Queue 1 item 8 still refuses on a mesh
-    (--steps_per_call > 1, --device_cache_layout shard with a device
-    cache) raises in config.py::check_ported, as NotImplementedError
-    naming the item."""
+    them).  What the port does not serve raises in config.py::
+    check_ported."""
     given = (bool(args.coordinator_address), args.num_processes > 0, args.process_id >= 0)
     if any(given) and not all(given):
         raise ValueError(

@@ -126,8 +126,8 @@ class Config:
     # spread-out scores, honest about clustered ones); "exact" = rank
     # statistic over ALL eval scores collected host-side (the eval set's
     # scores must fit host memory; needs steps_per_call=1, a single
-    # process, and — if the eval set is device-cached on a mesh — the
-    # replicate layout).
+    # process and a device_cache_layout other than "shard", as in the JAX
+    # package).
     auc_mode: str = "binned"         # "binned" | "exact"
     shuffle: bool = True             # offline mode epoch shuffle
     # Device-resident datasets: upload the parsed dataset to HBM once, then
@@ -153,21 +153,20 @@ class Config:
     # would never be amortized; "on" forces it (OOM risk accepted, engages
     # even for one epoch); "off" disables.
     device_cache: str = "auto"       # "auto" | "on" | "off"
-    # How the cached dataset is laid out across a sharded mesh:
-    #   "replicate" — every device holds the full dataset; batches keep the
-    #     streamed path's GLOBAL shuffle semantics (bit-matching batches).
-    #   "shard" — each device holds a 1/D slice (D = batch-axis device
-    #     count) next to one inert pad row, with 1/D the HBM footprint.
-    #     OFFLINE: contiguous slices, each shuffled locally per epoch — the
-    #     cached twin of the multi-host streamed semantics (each process
-    #     owns a byte-range slice; train.py::_byte_range).  ONLINE train:
-    #     slices are stored stream-interleaved (device j holds rows
-    #     t*B + j*b_dev .. of the stream) so the file-order replay's global
-    #     batch composition equals the streamed sharded feed exactly.
-    #     Steps per epoch become ceil(max_slice/b_local), like multi-host
-    #     lockstep.
-    #   "auto" — replicate when the full dataset fits next to the state,
-    #     else shard when a slice fits, else stream.
+    # How the cached dataset is laid out on a mesh (one process a device):
+    #   "replicate" — every device holds the full dataset, which only a
+    #     mesh of one process can: on more than one process each rank
+    #     reads its byte range, so this layout streams there (as in the
+    #     JAX package).
+    #   "shard" — each rank holds its own byte-range slice (train.py::
+    #     _byte_range), padded with inert rows to the largest slice + 1:
+    #     offline epochs shuffle the slice, online ones replay its file
+    #     order, so the batches are the streamed multi-process run's bit
+    #     for bit.  Steps per epoch are ceil(max_slice / b_local), the
+    #     multi-process lockstep count.  On one process it holds the
+    #     whole dataset, as "replicate" does.
+    #   "auto" — "shard" on more than one process, "replicate" on one,
+    #     where the rows fit; else stream.
     device_cache_layout: str = "auto"  # "auto" | "replicate" | "shard"
     # Compact in-HBM storage for the cached dataset (single-device runs):
     # the same lossless transfer tiers (split feats, DEC6 vals, bit-packed
@@ -343,31 +342,25 @@ def uses_mesh(cfg: Config) -> bool:
 
 def check_ported(cfg: Config) -> None:
     """Raise for config values the port does not serve: use_pallas=off,
-    which has no counterpart here, and on a mesh what item 8 has still to
-    bring: steps_per_call > 1 (CUDA-graph capture of the collectives) and
-    device_cache_layout="shard" with a device cache (where auto's choice
-    would be "shard", the Trainer streams and says so).  The transfer
-    tiers' dtypes are refused where a batch meets the step (item 5,
-    models/base.py::widen_batch).  Every model_type (LR, FM and FFM: item
-    4 brought LR and FM) trains and serves, on one device and on a mesh
-    (item 8: parallel/, one process a device).
+    which has no counterpart here.  The transfer tiers' dtypes are refused
+    where a batch meets the step (item 5, models/base.py::widen_batch).
+    Every model_type (LR, FM and FFM: item 4 brought LR and FM) trains and
+    serves, on one device and on a mesh (item 8: parallel/, one process a
+    device), with every steps_per_call and device_cache_layout.
 
     steps_per_call > 1 groups S steps a dispatch (CUDA-graph replays on
-    the card) and feed_workers sets the feeder's threads (item 5): both
-    give the S = 1, one-thread run's bits.  compact_transfer names the
+    the card; on a mesh the graphs hold the steps' NCCL collectives) and
+    feed_workers sets the feeder's threads (item 5): both give the S = 1,
+    one-thread run's bits.  compact_transfer names the
     JAX package's transfer tiers, which the port does not use (it uploads
     the parsed arrays as they are), so it changes nothing and passes;
     model_path, save_every, async_checkpoint and compress_level write
     checkpoints as in the JAX package (item 3).  Every table-update kind
     (update_mode), both dtypes of table_dtype and acc_dtype, and every
     device_cache, device_cache_compact and device_cache_layout value
-    (item 6; on one device the shard layout holds the whole dataset, as
-    the replicate one does) train on one device."""
-    if uses_mesh(cfg):
-        if cfg.steps_per_call > 1:
-            raise not_ported(f"steps_per_call={cfg.steps_per_call} on a device mesh", 8)
-        if cfg.device_cache != "off" and cfg.device_cache_layout == "shard":
-            raise not_ported("device_cache_layout=shard on a device mesh", 8)
+    (item 6; on one process the shard layout holds the whole dataset, as
+    the replicate one does; on more than one, each rank's slice: item 8)
+    train."""
     if cfg.use_pallas == "off":
         # the port has no user switch between kernel and plain version: the
         # tensor's device picks (ops/ffm_cuda.py::ffm_fused_logits)

@@ -24,8 +24,9 @@ phases (default: cuda infer):
     tiny     a trivial op on the device (liveness probe)
     xla      raises: the port has no switch to its plain versions on the
              card (config.py::check_ported's use_pallas=off error)
-    sharded  raises: the sharded step arrives with ROADMAP.md Queue 1
-             item 8
+    sharded  the train step through ShardedStep on a 1x1 mesh over a
+             process group of one (NCCL on the card, gloo on the CPU): the
+             mesh path's own cost beside the cuda phase's
 Env: BATCH (8192), N_FEATS (100000), UPDATE_MODE (auto), ACC_DTYPE
 (float32), TABLE_DTYPE (float32), and the port's own MODEL (FFM; FM or LR
 time those models' steps on the same batch).  The JAX tool's BLOCK_B pins
@@ -115,20 +116,25 @@ def _chained_ms(run) -> float:
     return (t2 - t1) / 12 * 1e3
 
 
-def time_train(cfg, model, state, batch) -> float:
-    """ms per chained train step (the state's tables change in place)."""
-    device = state.lin_z.device
+def _train_steps_ms(step, device) -> float:
+    """ms per chained call of step() -> a train step's output (the
+    state's tables change in place)."""
 
     def run(n: int) -> float:
         t0 = time.perf_counter()
         out = None
         for _ in range(n):
-            out = model.train_step(state, batch)
+            out = step()
         out.loss_sum.item()  # one chained read-back
         synchronize(device)
         return time.perf_counter() - t0
 
     return _chained_ms(run)
+
+
+def time_train(cfg, model, state, batch) -> float:
+    """ms per chained train step."""
+    return _train_steps_ms(lambda: model.train_step(state, batch), state.lin_z.device)
 
 
 def time_infer(cfg, model, state, batch) -> float:
@@ -147,6 +153,18 @@ def time_infer(cfg, model, state, batch) -> float:
         return time.perf_counter() - t0
 
     return _chained_ms(run)
+
+
+def time_sharded(cfg, model, state, batch) -> float:
+    """ms per chained train step of parallel/sharded.py::ShardedStep on a
+    1x1 mesh (tools/profile_step.py::time_sharded), over the run's
+    process group or a group of one (parallel/dist.py::ensure_group)."""
+    from ftrl_ffm_tpu_torch.parallel import ShardedStep, make_mesh, shard_state
+
+    mesh = make_mesh(1, 1, cfg.device)
+    sstate = shard_state(state, mesh)
+    step = ShardedStep(cfg, mesh, model, sstate)
+    return _train_steps_ms(lambda: step.train_step(sstate, batch), sstate.lin_z.device)
 
 
 def trace_step(cfg, model, state, batch, steps: int = 5) -> list[tuple[str, float]]:
@@ -181,10 +199,8 @@ def trace_step(cfg, model, state, batch, steps: int = 5) -> list[tuple[str, floa
 
 def main(argv: Optional[list[str]] = None, device: str = "cuda") -> dict:
     """Run the phases; returns {phase: result}: for a timed phase its ms,
-    and for a train phase also the update kind, the roofline floor and the
-    share; for trace its rows."""
-    from ftrl_ffm_tpu_torch.config import not_ported
-
+    and for a train phase (sharded too) also the update kind, the roofline
+    floor and the share; for trace its rows."""
     phases = list(argv or ["cuda", "infer"])
     for phase in phases:
         if phase not in PHASES:
@@ -198,8 +214,6 @@ def main(argv: Optional[list[str]] = None, device: str = "cuda") -> dict:
             print(f"tiny: ok in {time.time() - t0:.1f}s", flush=True)
             results[phase] = time.time() - t0
             continue
-        if phase == "sharded":
-            raise not_ported("profile_step's sharded phase (ShardedStep on a mesh)", 8)
         n_feats = 1_000_000 if phase == "huge" else 100_000
         use_pallas = "off" if phase == "xla" else "auto"
         cfg, model, state, batch = build(use_pallas, device=device, n_feats=n_feats)
@@ -212,7 +226,7 @@ def main(argv: Optional[list[str]] = None, device: str = "cuda") -> dict:
             print(f"{phase}: {ms:.2f} ms/step -> {cfg.batch_size / ms * 1e3:,.0f} ex/s",
                   flush=True)
             continue
-        ms = time_train(cfg, model, state, batch)
+        ms = (time_sharded if phase == "sharded" else time_train)(cfg, model, state, batch)
         kind, floor = update_kind(cfg), roofline_ms(cfg)
         results[phase] = {"ms": ms, "update_kind": kind, "floor_ms": floor,
                           "share": floor / ms if dev.type == "cuda" else None}
@@ -226,5 +240,10 @@ def main(argv: Optional[list[str]] = None, device: str = "cuda") -> dict:
 
 
 if __name__ == "__main__":
+    from ftrl_ffm_tpu_torch.parallel import dist as _dist
+
     _device, _argv = split_device(sys.argv[1:])
-    main(_argv, _device)
+    try:
+        main(_argv, _device)
+    finally:
+        _dist.destroy()

@@ -32,8 +32,10 @@ main thread.
 
 Meshes (Config.mesh_data x mesh_model, or more than one process: the
 JAX package's mesh branches): one process drives one device, and the
-sharded step (parallel/sharded.py) runs on this rank's shard of the state.
-See Trainer for which rows each rank reads.
+sharded step (parallel/sharded.py) runs on this rank's shard of the state,
+one step a dispatch or S a group, from the stream or from the rank's
+resident slice (the shard layout).  See Trainer for which rows each rank
+reads.
 """
 
 from __future__ import annotations
@@ -88,19 +90,25 @@ def _pack_bitplanes(a: np.ndarray, k: int) -> np.ndarray:
 
 
 class _DevCache(NamedTuple):
-    """A device-resident dataset (Config.device_cache; the single-device
-    fields of ftrl_ffm_tpu/train.py::_DevCache).
+    """A device-resident dataset (Config.device_cache;
+    ftrl_ffm_tpu/train.py::_DevCache, one device a process).
 
-    layout: "replicate" (the whole dataset on the device, global indices).
-    ds: (fields, feats, vals, y) on the device, n real rows plus one inert
-    pad row, fields and vals possibly zero-size markers (models/base.py::
-    take_cached).  src_stat: (size, mtime_ns) of the file before the parse
-    that built it, for online roles (Trainer._fresh_cache).  compact: the
-    arrays hold the compact encodings (_compact_cache_arrays)."""
+    layout: "replicate" (the whole dataset on the device, global indices)
+    or "shard" (this rank's byte-range slice of the file, local indices).
+    ds: (fields, feats, vals, y) on the device, rows_loc rows: the n real
+    ones then inert pad rows, fields and vals possibly zero-size markers
+    (models/base.py::take_cached).  n: the real rows held here (JAX's
+    n_loc for "shard": one device a process).  rows_loc: n + 1 for
+    "replicate"; for "shard" the largest slice of the mesh plus one inert
+    row, agreed by an all-gather, so every rank runs the same steps.
+    src_stat: (size, mtime_ns) of the file before the parse that built
+    it, for online roles (Trainer._fresh_cache).  compact: the arrays
+    hold the compact encodings (_compact_cache_arrays)."""
 
     layout: str
     ds: tuple
     n: int
+    rows_loc: int
     src_stat: Optional[tuple] = None
     compact: bool = False
 
@@ -195,6 +203,19 @@ def _decode_cached_batch(b: Batch, cfg: Config) -> Batch:
     if fields.dtype == torch.uint8 and fields.dim() == feats.dim():
         fields = _unpack_bitplanes(fields.to(torch.int32), fields.shape[-1] // ((f + 7) // 8), f)
     return b._replace(fields=fields, feats=feats, vals=vals)
+
+
+# The JAX package's refusals of auc_mode=exact (ftrl_ffm_tpu/train.py:
+# 389-400, 2707-2712, 2740-2745), word for word.
+EXACT_AUC_MULTIPROCESS = (
+    "auc_mode=exact collects all scores on one host — use auc_mode=binned on "
+    "multi-process runs"
+)
+EXACT_AUC_SHARD = (
+    "auc_mode=exact needs per-example scores; the shard-layout device cache "
+    "reduces to histograms inside shard_map — use --device_cache_layout "
+    "replicate or --auc_mode binned"
+)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -340,9 +361,11 @@ def _tensor_key(tensors) -> tuple:
 class _GroupGraph:
     """One role's S-step group on the card (steps_per_call > 1): the CUDA
     graph that replays it, its static input and output buffers, and the
-    launch counts its capture recorded.  `key` names what the graph baked
-    in: the state's and the resident dataset's tensors and the group's
-    shapes and kinds; another key needs another capture."""
+    kernel launches and collectives its capture recorded.  `key` names
+    what the graph baked in: the state's and the resident dataset's
+    tensors and the group's shapes and kinds; another key needs another
+    capture.  On a mesh the graph holds the steps' NCCL collectives, which
+    every rank captures and replays in the same order."""
 
     def __init__(self, key: tuple):
         self.key = key
@@ -351,15 +374,21 @@ class _GroupGraph:
         self.inputs: tuple = ()
         self.outputs: tuple = ()
         self.counts: dict = {}
+        self.collectives: dict = {}
+        self.trace: list = []
 
     def capture(self, fn, inputs: tuple) -> None:
         """Record fn over static copies of `inputs`; nothing runs.  The
-        wrappers count their launches while they are recorded: those
-        counts are taken back here and added again at each replay.  Other
-        threads (the feeder, a checkpoint writer) keep using the card:
-        thread_local lets their calls through."""
+        wrappers count their launches, and parallel/dist.py its
+        collectives (and their bytes where it traces), while they are
+        recorded: those are taken back here and added again at each
+        replay.  Other threads (the feeder, a checkpoint writer, NCCL's
+        watchdog) keep using the card: thread_local lets their calls
+        through."""
         self.inputs = tuple(t.clone() for t in inputs)
         before = launch_counts()
+        coll_before = dict(pdist.counts)
+        trace_at = None if pdist.trace is None else len(pdist.trace)
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
@@ -368,16 +397,26 @@ class _GroupGraph:
             after = launch_counts()
             self.counts = {k: n - before[k] for k, n in after.items() if n != before[k]}
             add_launch_counts({k: -n for k, n in self.counts.items()})
+            self.collectives = {k: n - coll_before[k] for k, n in pdist.counts.items()}
+            for k, n in self.collectives.items():
+                pdist.counts[k] -= n
+            if trace_at is not None:
+                self.trace = pdist.trace[trace_at:]
+                del pdist.trace[trace_at:]
         self.graph = graph
 
     def replay(self, inputs: tuple) -> tuple:
         """Copy `inputs` into the static buffers, replay, count the
-        launches, and return copies of the outputs (on the device, no
-        readback), which the next replay would overwrite."""
+        launches and collectives, and return copies of the outputs (on the
+        device, no readback), which the next replay would overwrite."""
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
         self.graph.replay()
         add_launch_counts(self.counts)
+        for k, n in self.collectives.items():
+            pdist.counts[k] += n
+        if pdist.trace is not None:
+            pdist.trace.extend(self.trace)
         return tuple(t.clone() for t in self.outputs)
 
 
@@ -395,9 +434,17 @@ class Trainer:
     multi-process composition, which is the one-device batch t where the
     file is one global batch.  Every rank runs the same number of steps:
     the local counts are all-gathered (_global_steps) and short ranks pad
-    with inert batches.  A resident pass (the replicate layout, every rank
-    holding the whole dataset) takes slice s of the one-device global batch
-    t, the JAX package's single-process mesh composition."""
+    with inert batches.  A resident pass reads the same rows: on more
+    than one process the shard layout holds slice s on its rank and runs
+    the largest slice's step count, in file order or in the permutation
+    of the slice that the streamed pass draws, so it gives the streamed
+    run's bits; the replicate layout (the whole dataset on every rank)
+    streams there, as in the JAX package, and engages only on a mesh of
+    one rank, whose one slice is the whole file.
+
+    steps_per_call = S > 1 on a mesh groups S sharded steps a dispatch,
+    streamed or resident, with the same bits as S = 1; on the card the
+    graph of a group holds the steps' NCCL collectives."""
 
     def __init__(self, cfg: Config, state: Optional[ModelState] = None):
         """A trainer on cfg.device: a fresh seeded init, or `state` moved to
@@ -425,6 +472,13 @@ class Trainer:
             )
         # ---- multi-process: one process a device, a mesh over all of them
         self._proc_id, self._proc_n = pdist.world()
+        # auc_mode=exact conflicts known now fail now, not at the first
+        # evaluate() after a training epoch (evaluate keeps a backstop)
+        if cfg.eval_auc and cfg.auc_mode == "exact":
+            if self._proc_n > 1:
+                raise ValueError(EXACT_AUC_MULTIPROCESS)
+            if cfg.device_cache_layout == "shard":
+                raise ValueError(EXACT_AUC_SHARD)
         if self._proc_n > 1:
             if cfg.cmd:
                 raise ValueError("--cmd stdin streaming is single-process only")
@@ -550,18 +604,17 @@ class Trainer:
         """Upload one host batch (fields, feats, vals, y, sample_w)."""
         return Batch(*(self._upload(a) for a in arrays))
 
-    def _dataset(self, role: str, whole: bool = False):
+    def _dataset(self, role: str):
         """The offline in-memory dataset of `role` ("train" or "eval"),
         loaded once (reference: src/task/ftrl_offline.cpp:21-42): this
-        rank's byte range of the file (_byte_range), or with whole=True the
-        whole file (a resident replicate-layout build)."""
+        rank's byte range of the file (_byte_range)."""
         attr = f"_{role}_ds"
         if not hasattr(self, attr):
             cfg = self.cfg
             path = cfg.train_data if role == "train" else cfg.eval_data
             setattr(self, attr, load_file(
                 path, cfg.file_type, cfg.max_nnz, cfg.n_feats, cfg.n_fields,
-                n_workers=cfg.n_threads, byte_range=None if whole else self._byte_range(path),
+                n_workers=cfg.n_threads, byte_range=self._byte_range(path),
             ))
         return getattr(self, attr)
 
@@ -616,24 +669,30 @@ class Trainer:
         return estimate_hbm_bytes(self.cfg)["total"] + ds_bytes <= 0.8 * limit
 
     def _resolve_cache_layout(self, n: int) -> Optional[str]:
-        """The resident layout for an n-row dataset, or None to stream.  On
-        one device, and on a mesh of one rank, every layout holds the whole
-        dataset, so "shard" degenerates to "replicate" (as in the JAX
-        package); the raw form first, else (off a mesh) the compact form
-        where only that fits (unless device_cache_compact=off).  On more
-        than one rank every rank would hold the whole dataset: under
-        device_cache_layout=replicate where it fits; where the JAX
-        package's auto picks "shard" (its multi-process layout; the port's
-        shard layout is ROADMAP.md Queue 1 item 8's rest) the role streams,
-        and says so."""
-        if self._mesh is not None and self._proc_n > 1:
-            if self.cfg.device_cache_layout == "replicate" and self._device_cache_fits(n):
-                return "replicate"
-            if self._proc_id == 0:
-                print("device cache: the shard layout (each rank 1/D of the rows) is not in "
-                      "the PyTorch port yet (ROADMAP.md Queue 1 item 8): streaming",
-                      file=sys.stderr)
-            return None
+        """The resident layout for this rank's n-row slice, or None to
+        stream (ftrl_ffm_tpu/train.py::_resolve_cache_layout, one device a
+        process).  On more than one process each rank has read only its
+        byte range: the shard layout (that slice resident on the rank)
+        under auto and shard where it fits, and under replicate, which
+        would need the whole dataset on every rank, the role streams (and
+        says so), as in the JAX package.  On one process, a mesh of one
+        rank included, the shard layout degenerates to the replicate one
+        on its one batch device: the raw form first, else (off a mesh) the
+        compact form where only that fits (unless device_cache_compact=
+        off).  Every rank of a mesh calls this in the same order, and
+        the ranks agree on the shard layout (an all-gather of whether each
+        slice fits): a resident and a streamed pass issue different
+        collectives."""
+        if self._proc_n > 1:
+            if self.cfg.device_cache_layout == "replicate":
+                if self._proc_id == 0:
+                    print(f"device cache: the replicate layout needs the whole dataset on "
+                          f"every rank, but each of the {self._proc_n} processes reads only "
+                          f"its byte range: streaming, as the JAX package does",
+                          file=sys.stderr)
+                return None
+            fits = pdist.process_allgather(np.array([self._device_cache_fits(n)]), self.device)
+            return "shard" if fits.all() else None
         if self._device_cache_fits(n):
             return "replicate"
         if self._mesh is not None:
@@ -678,22 +737,21 @@ class Trainer:
             pre_stat = None
             if cfg.online:
                 # online passes never load the file: a parse-free line count
-                # (blank lines overcount: conservative) declines first
-                if self._resolve_cache_layout(max(count_lines(path), 1)) is None:
+                # of this rank's range (blank lines overcount: conservative)
+                # declines first
+                n_lines = count_lines(path, self._byte_range(path))
+                if self._resolve_cache_layout(max(n_lines, 1)) is None:
                     self._dev_cache[role] = None
                     return None
                 # the file's identity BEFORE the parse: a write landing
                 # during the parse shows as stale at the next pass
                 st = os.stat(path)
                 pre_stat = (st.st_size, st.st_mtime_ns)
-            # a mesh's replicate layout holds the whole dataset on every rank
-            ds = self._dataset(role, whole=self._mesh is not None)
+            ds = self._dataset(role)
             self._dev_cache[role] = None
-            layout = self._resolve_cache_layout(ds.n) if ds.n > 0 else None
-            if layout is None and self._mesh is not None:
-                # a streamed pass reads this rank's byte range: not the
-                # whole file parsed here
-                delattr(self, f"_{role}_ds")
+            # on a mesh every rank resolves, an empty slice too (it holds
+            # inert rows only): the ranks decide together
+            layout = self._resolve_cache_layout(ds.n) if ds.n > 0 or self._proc_n > 1 else None
             if layout is not None:
                 entry = self._build_device_cache(ds, layout, pre_stat)
                 self._dev_cache[role] = entry
@@ -733,76 +791,94 @@ class Trainer:
 
     def _build_device_cache(self, ds, layout: str, pre_stat) -> _DevCache:
         """Upload a parsed dataset once (ftrl_ffm_tpu/train.py::
-        _build_device_cache, its single-device branch): one inert pad row
-        (field 0, feat id n_feats, value 0, y 0) after the n real rows, and
-        the dataset-level markers where fields or vals carry no
-        information (fields 0..F-1 on every row, every value 1.0).  The
-        markers hold for every model: LR and FM never read the fields, and
-        a libsvm file's (all 0) never match the iota test."""
+        _build_device_cache, one device a process): the n real rows, then
+        inert pad rows (field 0, feat id n_feats, value 0, y 0), and the
+        dataset-level markers where fields or vals carry no information
+        (fields 0..F-1 on every row, every value 1.0).  The markers hold
+        for every model: LR and FM never read the fields, and a libsvm
+        file's (all 0) never match the iota test.
+
+        "replicate": one pad row.  "shard": `ds` is this rank's slice (its
+        byte range: online in file order, offline the contiguous slice its
+        epochs shuffle), padded to rows_loc rows, the largest slice of the
+        mesh plus one inert row, agreed by an all-gather; on one process a
+        single slice and one inert row."""
         cfg = self.cfg
         f = cfg.max_nnz
-        if (ds.fields == np.arange(f, dtype=np.int32)).all():
-            fields_h = np.zeros((0, f), np.int32)
-        else:
-            fields_h = np.concatenate([ds.fields, np.zeros((1, f), np.int32)])
-        if (ds.vals == 1.0).all():
-            vals_h = np.zeros((0, f), np.float32)
-        else:
-            vals_h = np.concatenate([ds.vals, np.zeros((1, f), np.float32)])
-        ds_host = (
-            fields_h,
-            np.concatenate([ds.feats, np.full((1, f), cfg.n_feats, np.int32)]),
-            vals_h,
-            np.concatenate([ds.y, np.zeros(1, np.float32)]),
-        )
+        max_loc = ds.n
+        if layout == "shard" and self._proc_n > 1:
+            max_loc = int(pdist.process_allgather(np.array([ds.n], np.int64), self.device).max())
+        rows_loc = max_loc + 1
+
+        def padded(a, pad_value):
+            pad = np.full((rows_loc - ds.n, *a.shape[1:]), pad_value, a.dtype)
+            return np.concatenate([a, pad])
+
+        fields_h = (np.zeros((0, f), np.int32) if (ds.fields == np.arange(f, dtype=np.int32)).all()
+                    else padded(ds.fields, 0))
+        vals_h = np.zeros((0, f), np.float32) if (ds.vals == 1.0).all() else padded(ds.vals, 0)
+        ds_host = (fields_h, padded(ds.feats, cfg.n_feats), vals_h, padded(ds.y, 0))
         compact = self._cache_compact_mode(ds.n)
         if compact:
             ds_host = _compact_cache_arrays(ds_host, cfg)
         ds_dev = tuple(torch.from_numpy(a).to(self.device) for a in ds_host)
-        return _DevCache(layout, ds_dev, ds.n, pre_stat, compact)
+        return _DevCache(layout, ds_dev, ds.n, rows_loc, pre_stat, compact)
 
     def _take_cached(self, cache: _DevCache, ix: torch.Tensor) -> Batch:
-        """One batch gathered from a resident dataset by a [B] index row of
-        the one-device pass (on a mesh, this rank's slice of it), decoded
-        where it is stored compact."""
-        if self._sharded is not None:
-            s = self._sharded.shard_index * self._local_bs
-            ix = ix[s : s + self._local_bs]
+        """One batch gathered from a resident dataset by a [b] index row of
+        this rank's rows, decoded where it is stored compact."""
         b = take_cached(cache.ds, ix, cache.n)
         return _decode_cached_batch(b, self.cfg) if cache.compact else b
 
-    def _iota_rows(self, step: int, n_real: int) -> torch.Tensor:
-        """[B] index row of step `step` in file order, made on the device:
-        step * B + 0..B-1, the tail clamped to the pad row n_real (no
-        upload)."""
-        bs = self.cfg.batch_size
-        ix = torch.arange(step * bs, (step + 1) * bs, dtype=torch.int32, device=self.device)
-        return ix.clamp_(max=n_real)
+    def _cache_steps(self, cache: _DevCache) -> tuple[int, int]:
+        """(steps of one pass over a resident dataset, the pad row's index
+        that padded index rows point at): ceil((rows_loc - 1) / b) and
+        rows_loc - 1, which for "shard" is the largest slice's count, run
+        by every rank in lockstep (ftrl_ffm_tpu/train.py::
+        _cached_idx_shard), and for "replicate" ceil(n / b) and n."""
+        pad = cache.rows_loc - 1
+        return -(-pad // self._local_bs), pad
 
-    def _cached_idx(self, n: int, order: np.ndarray) -> np.ndarray:
-        """[n_steps, B] int32 index rows over a permutation, the tail padded
-        with the pad row's index n."""
-        bs = self.cfg.batch_size
-        n_steps = -(-n // bs)
-        order = np.concatenate([order, np.full(n_steps * bs - n, n, order.dtype)])
-        return order.reshape(n_steps, bs).astype(np.int32)
+    def _iota_rows(self, step: int, pad: int) -> torch.Tensor:
+        """[b] index row of step `step` in file order, made on the device:
+        step * b + 0..b-1, clamped to the pad row's index `pad` (no
+        upload).  Every index past the real rows is an inert row."""
+        lb = self._local_bs
+        ix = torch.arange(step * lb, (step + 1) * lb, dtype=torch.int32, device=self.device)
+        return ix.clamp_(max=pad)
+
+    def _cached_idx(self, order: np.ndarray, n_steps: int, pad: int) -> np.ndarray:
+        """[n_steps, b] int32 index rows over a permutation, the tail padded
+        with the pad row's index."""
+        lb = self._local_bs
+        order = np.concatenate([order, np.full(n_steps * lb - order.shape[0], pad, order.dtype)])
+        return order.reshape(n_steps, lb).astype(np.int32)
+
+    def _cached_order(self, cache: _DevCache, epoch_rng) -> Optional[np.ndarray]:
+        """This pass's permutation of the n real rows: None (file order)
+        without epoch_rng, else the one epoch_rng.shuffle draws, the call
+        batch_iterator makes, so the resident and streamed paths see the
+        same permutation (on a mesh: of this rank's slice, as its streamed
+        pass shuffles its byte range)."""
+        if epoch_rng is None:
+            return None
+        order = np.arange(cache.n)
+        epoch_rng.shuffle(order)
+        return order
 
     def _cached_batches(self, cache: _DevCache, epoch_rng=None):
         """The batches of one pass over a resident dataset (those of
-        ftrl_ffm_tpu/train.py::_train_epoch_cached's single-device branches
-        and of evaluate's resident branch): in file order (online epochs,
-        eval, offline without shuffle; epoch_rng None) or in the
-        permutation epoch_rng.shuffle draws, the call batch_iterator makes,
-        so both paths see the same permutation.  A shuffled pass
-        uploads its [S, B] index table once (non-blocking, from pinned
-        memory); each step reads a row of it, a view."""
-        n = cache.n
-        if epoch_rng is None:
-            rows = (self._iota_rows(s, n) for s in range(-(-n // self.cfg.batch_size)))
+        ftrl_ffm_tpu/train.py::_train_epoch_cached and of evaluate's
+        resident branch): in file order (online epochs, eval, offline
+        without shuffle; epoch_rng None) or in _cached_order's permutation.
+        A shuffled pass uploads its [S, b] index table once (non-blocking,
+        from pinned memory); each step reads a row of it, a view."""
+        n_steps, pad = self._cache_steps(cache)
+        order = self._cached_order(cache, epoch_rng)
+        if order is None:
+            rows = (self._iota_rows(s, pad) for s in range(n_steps))
         else:
-            order = np.arange(n)
-            epoch_rng.shuffle(order)
-            rows = self._upload(self._cached_idx(n, order))
+            rows = self._upload(self._cached_idx(order, n_steps, pad))
         for ix in rows:
             yield self._take_cached(cache, ix)
 
@@ -1050,22 +1126,21 @@ class Trainer:
         if group:
             yield stack(group), len(group)
 
-    def _cached_idx_chunks(self, n: int, order: Optional[np.ndarray]):
-        """([S, B] int32 index rows on the device, real steps) of one pass
+    def _cached_idx_chunks(self, cache: _DevCache, order: Optional[np.ndarray]):
+        """([S, b] int32 index rows on the device, real steps) of one pass
         over a resident dataset, S = steps_per_call: the file order made on
         the device (order None; _iota_rows' rows), or the permutation
         `order` uploaded once (_cached_idx's rows).  The last group is
-        padded with rows of the pad row's index n: inert steps."""
-        bs, s = self.cfg.batch_size, self.cfg.steps_per_call
-        n_steps = -(-n // bs)
+        padded with rows of the pad row's index: inert steps."""
+        lb, s = self._local_bs, self.cfg.steps_per_call
+        n_steps, pad = self._cache_steps(cache)
         n_groups = -(-n_steps // s)
         if order is None:
-            idx = torch.arange(n_groups * s * bs, dtype=torch.int32, device=self.device)
-            idx = idx.clamp_(max=n).view(n_groups, s, bs)
+            idx = torch.arange(n_groups * s * lb, dtype=torch.int32, device=self.device)
+            idx = idx.clamp_(max=pad).view(n_groups, s, lb)
         else:
-            rows = self._cached_idx(n, order)
-            pad = np.full((n_groups * s - n_steps, bs), n, np.int32)
-            idx = self._upload(np.concatenate([rows, pad]).reshape(n_groups, s, bs))
+            rows = self._cached_idx(order, n_groups * s, pad)
+            idx = self._upload(rows.reshape(n_groups, s, lb))
         for g in range(n_groups):
             yield idx[g], min(s, n_steps - g * s)
 
@@ -1080,10 +1155,19 @@ class Trainer:
         return self._train_chain(self._take_cached(cache, ix) for ix in idx)
 
     def _train_chain(self, batches) -> tuple:
-        """Train on each batch in turn: ([k, 2] per-step (loss sum, count),)."""
-        sums = [torch.stack([out.loss_sum, out.count])
-                for out in (self.model.train_step(self.state, b) for b in batches)]
-        return (torch.stack(sums),)
+        """Train on each batch in turn: ([k, 2] per-step (loss sum, count),)
+        or on a mesh ([k, 3] with the route drops, _step_sums)."""
+        return (torch.stack([self._train_one(b) for b in batches]),)
+
+    def _train_one(self, batch: Batch) -> torch.Tensor:
+        """One train step: its [2] (loss sum, count), or on a mesh its [3]
+        (loss sum, count, route drops) over the batch axes."""
+        if self._sharded is None:
+            out = self.model.train_step(self.state, batch)
+            return torch.stack([out.loss_sum, out.count])
+        out = self._sharded.train_step(self.state, batch)
+        of = out.route_overflow
+        return torch.stack([out.loss_sum, out.count, out.count.new_zeros(()) if of is None else of])
 
     def _multi_eval_impl(self, *args) -> tuple:
         """S eval batches of a stacked group, chained into the running
@@ -1099,18 +1183,32 @@ class Trainer:
         the running sums, as _multi_eval_impl."""
         return self._eval_chain((self._take_cached(cache, ix) for ix in idx), real, acc)
 
+    def _eval_part(self, batch: Batch, bins: int) -> tuple:
+        """One eval batch's sums: (loss sum, count, pos, neg histograms)
+        with bins > 0, else (loss sum, count, logits); on a mesh summed
+        over the batch axes, with the route drops after the count in
+        route mode (ShardedStep.eval_step)."""
+        if self._sharded is None:
+            ls, ct, logits = self.model.eval_step(self.state, batch)
+            if not bins:
+                return ls[None], ct[None], logits
+            return (ls[None], ct[None],
+                    *StreamingAUC.bucket_counts(logits, batch.y, batch.sample_w, bins))
+        ls, ct, logits, of, pos, neg = self._sharded.eval_step(self.state, batch, bins)
+        head = (ls[None], ct[None]) if of is None else (ls[None], ct[None], of[None])
+        return (*head, pos, neg) if bins else (*head, logits)
+
     def _eval_chain(self, batches, real: torch.Tensor, acc: torch.Tensor) -> tuple:
-        """Each real batch's (loss sum, count, pos and neg histograms),
-        one row of P = 2 + 2 * AUC_BINS, Kahan-added into the running sums
-        acc[0] with compensations acc[1]: the S = 1 pass's chain, step by
-        step, so the totals keep its bits.  An inert step's add is
-        discarded (torch.where on the mask), since adding zeros would
-        still fold the compensation in."""
+        """Each real batch's sums (_eval_part: loss sum, count, [route
+        drops,] pos and neg histograms), one row of P, Kahan-added into
+        the running sums acc[0] with compensations acc[1]: the S = 1
+        pass's chain, step by step, so the totals keep its bits (the drop
+        counts are integers, which the chain adds exactly).  An inert
+        step's add is discarded (torch.where on the mask), since adding
+        zeros would still fold the compensation in."""
         tot, comp = acc[0], acc[1]
         for k, b in enumerate(batches):
-            ls, ct, logits = self.model.eval_step(self.state, b)
-            pos, neg = StreamingAUC.bucket_counts(logits, b.y, b.sample_w, AUC_BINS)
-            part = torch.cat([ls[None], ct[None], pos, neg])
+            part = torch.cat(self._eval_part(b, AUC_BINS))
             (t2,), (c2,) = kahan_add((tot,), (comp,), (part,))
             tot, comp = torch.where(real[k], t2, tot), torch.where(real[k], c2, comp)
         return (torch.stack([tot, comp]),)
@@ -1238,13 +1336,10 @@ class Trainer:
         permutation epoch_rng.shuffle draws (_cached_batches' order): the
         gather's key names the dataset's tensors and row count, which the
         captured gather reads."""
-        order = None
-        if epoch_rng is not None:
-            order = np.arange(cache.n)
-            epoch_rng.shuffle(order)
+        order = self._cached_order(cache, epoch_rng)
         key = ("gather", _tensor_key(cache.ds), cache.n, cache.compact)
         fn = functools.partial(self._gather_train_impl, cache)
-        for idx, real in self._cached_idx_chunks(cache.n, order):
+        for idx, real in self._cached_idx_chunks(cache, order):
             yield key, fn, (idx,), real
 
     def _maybe_save(self, step_now: int, step_prev: int) -> None:
@@ -1262,14 +1357,7 @@ class Trainer:
         streamed and resident epochs alike."""
         sums = []
         for batch in batches:
-            if self._sharded is None:
-                out = self.model.train_step(self.state, batch)
-                sums.append(torch.stack([out.loss_sum, out.count]))
-            else:
-                out = self._sharded.train_step(self.state, batch)
-                of = out.route_overflow
-                sums.append(torch.stack([out.loss_sum, out.count,
-                                         out.count.new_zeros(()) if of is None else of]))
+            sums.append(self._train_one(batch))
             done = self._steps_done + len(sums)
             self._maybe_save(done, done - 1)
         self._steps_done += len(sums)
@@ -1507,56 +1595,60 @@ class Trainer:
         engages, else streamed through the feeder; one batch a dispatch,
         or S (steps_per_call) a group.  Per-batch sums chain on the device
         with Kahan compensation; one readback at the end."""
+        exact = self.cfg.eval_auc and self.cfg.auc_mode == "exact"
+        if exact and self._proc_n > 1:
+            raise ValueError(EXACT_AUC_MULTIPROCESS)
         if self.cfg.steps_per_call > 1:
             return self._evaluate_grouped()
-        exact = self.cfg.eval_auc and self.cfg.auc_mode == "exact"
-        acc = LossAccumulator()
-        auc = StreamingAUC(AUC_BINS)
-        score_rows: list = []
-        tot = None
         cache = self._fresh_cache("eval")
+        if exact and cache is not None and cache.layout == "shard":
+            # the runtime backstop where a shard cache was built without
+            # the config naming it (Trainer.__init__ refuses the rest)
+            raise ValueError(EXACT_AUC_SHARD)
         if cache is not None:
             batches = self._cached_batches(cache)
         else:
             batches = self._device_feed(self._eval_batches())
-        overflow = None
+        score_rows: list = []
+        tot = None
         for batch in batches:
-            if self._sharded is not None:
-                # the sums (and the histograms) over the batch axes
-                ls, ct, logits, of, pos, neg = self._sharded.eval_step(
-                    self.state, batch, 0 if exact else AUC_BINS)
-                if of is not None:
-                    overflow = of if overflow is None else overflow + of
-            else:
-                ls, ct, logits = self.model.eval_step(self.state, batch)
-                if not exact:
-                    pos, neg = StreamingAUC.bucket_counts(
-                        logits, batch.y, batch.sample_w, AUC_BINS
-                    )
+            part = self._eval_part(batch, 0 if exact else AUC_BINS)
             if exact:
                 # logits rank like sigmoid scores: the host ranks them
+                *part, logits = part
                 score_rows.append((logits, batch.y, batch.sample_w))
-                part = (ls, ct)
-            else:
-                part = (ls, ct, pos, neg)
+            part = torch.cat(part)
             if tot is None:
-                tot = (part, tuple(torch.zeros_like(p) for p in part))
+                tot = (part, torch.zeros_like(part))
             else:
-                tot = kahan_add(tot[0], tot[1], part)
-        self._flush_eval_overflow(overflow, "eval")
+                (t,), (c,) = kahan_add((tot[0],), (tot[1],), (part,))
+                tot = (t, c)
         if tot is None:
             return float("nan"), float("nan")
-        sums = [t.cpu().numpy() for t in tot[0]]
-        acc.update(sums[0], sums[1])
+        loss, auc = self._close_eval(tot[0])
         if exact:
-            lg, yy, ww = (
-                self._gather_slices(torch.cat([r[i] for r in score_rows]).cpu().numpy())
-                for i in range(3)
-            )
+            # one process: every score is this rank's
+            lg, yy, ww = (torch.cat([r[i] for r in score_rows]).cpu().numpy() for i in range(3))
             m = ww > 0  # drop padding rows
-            return acc.mean, exact_auc(lg[m], yy[m] > 0)
-        auc.update(sums[2], sums[3])
-        return acc.mean, auc.result()
+            return loss, exact_auc(lg[m], yy[m] > 0)
+        return loss, auc
+
+    def _close_eval(self, sums: torch.Tensor) -> tuple[float, float]:
+        """(mean log-loss, binned AUC) of a pass from its summed row
+        (_eval_part's parts: loss sum, count, [route drops,] and the pos
+        and neg histograms where they were counted, else AUC nan): one
+        readback; the route drops reported (_flush_eval_overflow)."""
+        sums = sums.cpu().numpy()
+        head = 3 if self._sharded is not None and self._sharded.mode == "route" else 2
+        if head == 3:
+            self._flush_eval_overflow(sums[2], "eval")
+        loss = LossAccumulator()
+        loss.update(sums[0], sums[1])
+        if sums.shape[0] == head:
+            return loss.mean, float("nan")
+        auc = StreamingAUC(AUC_BINS)
+        auc.update(sums[head : head + AUC_BINS], sums[head + AUC_BINS :])
+        return loss.mean, auc.result()
 
     def _flush_eval_overflow(self, overflow, where: str) -> None:
         """Warn (on the coordinator) and, under route_overflow_policy=
@@ -1573,45 +1665,32 @@ class Trainer:
             if self.cfg.route_overflow_policy == "error":
                 raise RuntimeError(msg)
 
-    def _gather_slices(self, local: np.ndarray) -> np.ndarray:
-        """A per-row host array of this rank's batch slices -> the rows of
-        every slice, slice by slice (one rank each: the model groups of
-        replicate mode hold copies); as it is off a mesh."""
-        if self._sharded is None:
-            return local
-        rows = pdist.process_allgather(local, self.device)
-        m = 1 if self._sharded.mode == "route" else self._mesh.model
-        return rows[::m].reshape(-1)
-
     def _evaluate_grouped(self) -> tuple[float, float]:
         """evaluate() for steps_per_call > 1: each group's batches chained
         into the running [2, P] sums and compensations (_eval_chain), one
-        dispatch a group (_run_group), one readback at the end."""
+        dispatch a group (_run_group), one readback at the end
+        (_close_eval)."""
         s = self.cfg.steps_per_call
         cache = self._fresh_cache("eval")
         if cache is not None:
             key = ("gather", _tensor_key(cache.ds), cache.n, cache.compact)
             fn = functools.partial(self._gather_eval_impl, cache)
-            groups = (((idx,), real) for idx, real in self._cached_idx_chunks(cache.n, None))
+            groups = (((idx,), real) for idx, real in self._cached_idx_chunks(cache, None))
         else:
             key, fn = ("multi",), self._multi_eval_impl
             groups = ((tuple(b), real) for b, real in
                       self._device_feed_multi(self._grouped(self._eval_batches(), s)))
+        head = 3 if self._sharded is not None and self._sharded.mode == "route" else 2
         acc = None
         for inputs, real in groups:
             if acc is None:
-                acc = torch.zeros((2, 2 + 2 * AUC_BINS), dtype=torch.float32,
+                acc = torch.zeros((2, head + 2 * AUC_BINS), dtype=torch.float32,
                                   device=self.device)
             mask = torch.arange(s, device=self.device) < real  # the real steps
             (acc,) = self._run_group("eval", fn, (*inputs, mask, acc), key)
         if acc is None:
             return float("nan"), float("nan")
-        sums = acc[0].cpu().numpy()
-        loss = LossAccumulator()
-        loss.update(sums[0], sums[1])
-        auc = StreamingAUC(AUC_BINS)
-        auc.update(sums[2 : 2 + AUC_BINS], sums[2 + AUC_BINS :])
-        return loss.mean, auc.result()
+        return self._close_eval(acc[0])
 
     def predict_file(self, data_path: str, out_path: str) -> int:
         """Score a libsvm/libffm file: one sigmoid probability per line,

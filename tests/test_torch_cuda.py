@@ -1803,6 +1803,46 @@ def test_world_size_one_nccl_mesh_matches_one_card(tmp_path, kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    {"device_cache": "on"},
+    {"device_cache": "on", "online": False},
+    {"device_cache": "off"},
+], ids=["resident", "shuffled", "streamed"])
+def test_world_size_one_nccl_mesh_groups_capture_the_collectives(tmp_path, kw):
+    """steps_per_call=3 on a world-size-1 NCCL mesh: after the first group
+    of each kind, the groups are CUDA graphs that hold the steps' NCCL
+    all_reduce; against S=1 on the same mesh from the same init, the
+    histories and tables bit for bit, and the collectives and launches
+    counted per replay: 9 train steps an epoch (7 and 2 inert) and 3 eval
+    batches a pass, one all_reduce each."""
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.parallel import dist
+    from ftrl_ffm_tpu_torch.tools import reset_launch_counts
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    _card()
+    base = {**_graph_files(tmp_path), **kw, "mesh_data": 0}
+    one = Trainer(Config(**base))
+    grouped = Trainer(Config(**base, steps_per_call=3), state=one.logical_state)
+    runs = []
+    for tr in (one, grouped):
+        reset_launch_counts()
+        dist.counts.update(dict.fromkeys(dist.counts, 0))
+        runs.append((tr.train(), _launches_by_instance(), dict(dist.counts)))
+    (h1, l1, c1), (h3, l3, c3) = runs
+    assert h1 == h3
+    for a, b in zip(one.logical_state, grouped.logical_state):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert grouped.group_dispatch == {"eager": 2, "captures": 2, "replays": 5 + 1}
+    # (a streamed pass all-gathers its step count once a role)
+    assert c1["all_reduce"] == 2 * 7 + 2 * 3 and c3["all_reduce"] == 2 * 9 + 2 * 3
+    assert c1["all_gather"] == c3["all_gather"] and c1["all_to_all"] == c3["all_to_all"] == 0
+    assert sum(l1["fused_by_instance"].values()) == 14
+    assert sum(l3["fused_by_instance"].values()) == 18
+    assert sum(l3["logits_by_instance"].values()) == sum(l1["logits_by_instance"].values()) == 6
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mesh_flags", [["--mesh_data", "0"],
                                         ["--mesh_model", "2", "--lookup_mode", "route"]],
                          ids=["replicate", "route"])

@@ -10,9 +10,9 @@ tests/test_torch_train.py (rtol 2e-3, atol 5e-5).  The compact encodings
 are round-tripped directly at n_feats >= 2^24 (no Trainer: its tables
 would take GBs), and the DEC6 decode is checked over all 2^24 keys.
 
-Not here: the mesh and shard-layout tests (ROADMAP.md Queue 1 item 8),
-which the port does not serve yet, and the unrolled replay
-(FTRL_IOTA_UNROLL), which it does not port.  steps_per_call grouping over
+Not here: the mesh and shard-layout tests, in
+tests/test_torch_mesh_cache.py and tests/test_torch_mesh_groups.py, and
+the unrolled replay (FTRL_IOTA_UNROLL), which is not ported.  steps_per_call grouping over
 the resident data is tests/test_torch_steps_per_call.py; save_every from
 a resident epoch is
 tests/test_torch_checkpoint_write.py::test_cached_save_every_fires."""

@@ -278,24 +278,27 @@ def test_four_process_route_inplace_matches_single(tmp_path):
 
 
 def test_two_process_replicate_cache_matches_streamed(tmp_path):
-    """The replicate-layout device cache on two processes (every rank holds
-    the whole dataset and takes its slice of each global batch) equals the
-    streamed two-process run and the one-process one; under auto, which
-    the JAX package resolves to its multi-process shard layout, the port
-    streams and says so."""
+    """The resident dataset on two processes through the CLI: under auto,
+    as in the JAX package, each rank holds its byte-range slice (the shard
+    layout), which equals the streamed two-process run bit for bit and the
+    one-process runs (tests/test_multihost.py:396); under replicate, which
+    would need the whole dataset on every rank, the run streams as the JAX
+    package's does and rank 0 says so (its bits: the streamed run's)."""
     data = _write_fixed_width_ffm(tmp_path / "train.ffm")
     jh, th, _, init = _one_process(data, online=False, shuffle=False, device_cache="off")
     base = ["--train_data", data, "--eval_data", data, *MODEL, "--n_epochs", "2", *init,
             "--online", "false", "--shuffle", "false"]
-    cached, _ = _cli(tmp_path, 2, [*base, "--device_cache", "on",
-                                   "--device_cache_layout", "replicate"])
-    streamed, logs = _cli(tmp_path, 2, [*base, "--device_cache", "on"])
-    assert "shard layout" in logs[0] and "not in the PyTorch port yet" in logs[0]
-    for c, s in zip(cached, streamed):
-        assert c["device_cache"] == {"train": "replicate", "eval": "replicate"}
-        assert s["device_cache"] == {"train": "streamed", "eval": "streamed"}
+    cached, _ = _cli(tmp_path, 2, [*base, "--device_cache", "on"])
+    streamed, _ = _cli(tmp_path, 2, [*base, "--device_cache", "off"])
+    replicate, logs = _cli(tmp_path, 2, [*base, "--device_cache", "on",
+                                         "--device_cache_layout", "replicate"])
+    assert "replicate layout needs the whole dataset" in logs[0]
+    assert "not in the PyTorch port yet" not in logs[0]
+    for c, s, r in zip(cached, streamed, replicate):
+        assert c["device_cache"] == {"train": "shard", "eval": "shard"}
+        assert r["device_cache"] == {"train": "streamed", "eval": "streamed"}
         for key in ("train_loss", "eval_loss", "eval_auc"):
-            np.testing.assert_allclose(c[key], s[key], rtol=2e-5)
+            assert c[key] == s[key] == r[key]
         _assert_matches(c, jh)
         _assert_matches(c, th)
 

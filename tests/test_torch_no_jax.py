@@ -47,6 +47,8 @@ _MODULES = (
     "ftrl_ffm_tpu_torch.tools.profile_step",
     "ftrl_ffm_tpu_torch.tools.bench_matrix",
     "ftrl_ffm_tpu_torch.tools.micro_scatter",
+    "ftrl_ffm_tpu_torch.tools.scaling_model",
+    "ftrl_ffm_tpu_torch.tools.bench_multichip",
     "ftrl_ffm_tpu_torch.parallel",
     "ftrl_ffm_tpu_torch.parallel.dist",
     "ftrl_ffm_tpu_torch.parallel.mesh",

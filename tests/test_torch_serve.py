@@ -155,16 +155,17 @@ def test_train_raises_naming_roadmap(served, tmp_path):
         (["--export_reference_model", "m.zst"], 3),
         (["--import_reference_model", "m.zst"], 3),
         (["--profile_dir", "prof"], 9),
-        # item 8 brought meshes; its rest refuses steps_per_call > 1 there
+        # item 8 has arrived: steps_per_call > 1 on a mesh (here a group
+        # of one) trains, as one device does
         (["--train_data", "TRAIN", "--mesh_data", "0", "--steps_per_call", "2"], 8),
         (["--save_every", "10"], 3),
     ],
 )
 def test_cli_training_flags_raise(served, flags, item, monkeypatch, capsys, tmp_path):
     """A flag whose capability a later slice brings raises, naming its
-    ROADMAP item; the training flags train, the checkpoint and
-    reference-model flags write (or read) their file, and --profile_dir
-    (item 9) writes epoch 1's trace."""
+    ROADMAP item; the training flags train (item 8's on a mesh too), the
+    checkpoint and reference-model flags write (or read) their file, and
+    --profile_dir (item 9) writes epoch 1's trace."""
     train = served[0] / "train.ffm"
     argv = [str(train) if a == "TRAIN" else a for a in flags]
     argv += [*MODEL_FLAGS, "--file_type", "libffm", "--max_nnz", "7", "--device", "cpu"]
@@ -174,6 +175,10 @@ def test_cli_training_flags_raise(served, flags, item, monkeypatch, capsys, tmp_
         assert torch_main([*argv, "--train_data", str(train)]) == 0
         assert "epoch 1 train time: " in capsys.readouterr().out
         assert len(list(prof.glob("*.pt.trace.json"))) == 1
+        return
+    if item == 8:
+        assert torch_main(argv) == 0
+        assert "epoch 1 train time: " in capsys.readouterr().out
         return
     if item == 2:
         with open(train) as f:
@@ -224,23 +229,33 @@ def test_cli_requires_a_model_to_serve(capsys):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        # item 8 brought meshes; its rest refuses these on one
-        ({"mesh_model": 2, "steps_per_call": 2}, "Queue 1 item 8"),
-        ({"mesh_data": 0, "device_cache": "on", "device_cache_layout": "shard"},
-         "Queue 1 item 8"),
+        # item 8 has arrived: these serve on a mesh (a group of one), and
+        # evaluate as one device does (match None)
+        ({"mesh_data": 0, "steps_per_call": 2}, None),
+        ({"mesh_data": 0, "device_cache": "on", "device_cache_layout": "shard"}, None),
         ({"steps_per_call": 4, "auc_mode": "exact"}, "auc_mode=exact"),
         ({"use_pallas": "off"}, "no counterpart"),
     ],
 )
 def test_unported_config_raises(served, kw, match):
+    """A config the port does not serve raises; those item 8 brought
+    (match None) evaluate the served state as one device does, bit for
+    bit."""
     _, ckpt, evald, _ = served
     tstate, _ = load_checkpoint(ckpt)
-    with pytest.raises((NotImplementedError, ValueError), match=match):
-        Trainer(
+
+    def make(**extra):
+        return Trainer(
             TConfig(eval_data=evald, device="cpu", file_type="libffm", max_nnz=7,
-                    **{**SHAPE, **kw}),
+                    **{**SHAPE, **extra}),
             state=state_from_jax_arrays(tstate, "cpu"),
         )
+
+    if match is None:
+        assert make(**kw).evaluate() == make().evaluate()
+        return
+    with pytest.raises((NotImplementedError, ValueError), match=match):
+        make(**kw)
 
 
 @pytest.mark.parametrize(

@@ -218,8 +218,18 @@ def _base_cases(tmp, mesh_shape):
 
 
 def _mesh_cases(tmp, mesh_shape):
-    cases = _base_cases(tmp, mesh_shape)
     rng = np.random.default_rng
+    if mesh_shape == (4, 2):
+        # tests/test_sharded.py:498's config: 39 fields padded to 40, K=16
+        # (E = 640), the dense regime's accumulator form on D = 4
+        b = rng(2)
+        cfg = dict(model_type="FFM", n_feats=512, n_fields=39, n_factors=16, batch_size=64,
+                   max_nnz=4, lookup_mode="replicate", update_mode="dense")
+        arrays = (b.integers(0, 39, (64, 4)).astype(np.int32),
+                  b.integers(0, 512, (64, 4)).astype(np.int32), np.ones((64, 4), np.float32),
+                  (b.random(64) > 0.5).astype(np.float32), np.ones(64, np.float32))
+        return [{**_case(tmp, "accumulator", cfg, arrays), "steps": 1}]
+    cases = _base_cases(tmp, mesh_shape)
     if mesh_shape == (2, 2):
         for mt in ("LR", "FFM"):
             cases.append(_case(tmp, f"sparse_{mt}", _kw(mt, update_mode="sparse",
@@ -521,3 +531,25 @@ def test_route_mesh_has_no_table_sized_collective(runs):
     mk = 4 * k
     assert sum(n for kind, n in trace if kind == "all_to_all") == mk * 4 * (1 + 1 + e + 2 + 2 * e)
     assert [kind for kind, _ in trace if kind != "all_to_all"] == ["all_reduce"]
+
+
+def test_hybrid_mesh_accumulator_allreduce_matches_scaling_model(runs):
+    """tests/test_sharded.py::
+    test_hybrid_mesh_accumulator_allreduce_matches_scaling_model: on a
+    (4, 2) mesh in the dense regime the step all_reduces the accumulator
+    over "data" (parallel/sharded.py::_accumulate_pass), exactly r_loc *
+    2E * 4 bytes by dist.trace, which is the scaling twin's psum_acc
+    volume (ftrl_ffm_tpu_torch/tools/scaling_model.py::model_step); every
+    other all_reduce of the step is smaller."""
+    from ftrl_ffm_tpu_torch.tools.scaling_model import model_step
+
+    _, outs = runs((4, 2))
+    d, m = 4, 2
+    r_loc, e = 512 // m, 40 * 16
+    model = model_step(d, m, 64 // (d * m), 39, 16, 512)
+    assert model["psum_acc_bytes"] == r_loc * 2 * e * 4
+    for o in outs["accumulator"]:
+        assert str(o["form"]) == "accumulator" and str(o["mode"]) == "replicate"
+        sizes = sorted(int(n) for kind, n in o["trace"] if str(kind) == "all_reduce")
+        assert sizes[-1] == model["psum_acc_bytes"]
+        assert sizes.count(sizes[-1]) == 1

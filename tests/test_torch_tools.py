@@ -4,7 +4,7 @@ CPU at small sizes.
 
 profile_step's batch equals the JAX tool's bit for bit; its timers return
 finite positive numbers on the CPU (a check that they run, not a device
-time); the phases the port does not serve raise.  roofline counts the
+time); the phase the port does not serve (xla) raises.  roofline counts the
 JAX model's bytes for each pass both designs share, and for "dense2"
 differs from it by exactly the [R, 2E] accumulator's traffic at the
 factor and linear widths, less the port's id sort.  micro_scatter runs
@@ -85,11 +85,19 @@ def test_profile_step_phases_on_cpu(small_step, monkeypatch, capsys):
     assert res["trace"] and all(ms >= 0 for _, ms in res["trace"])
 
 
-def test_profile_step_refuses_xla_and_sharded(small_step):
+def test_profile_step_refuses_xla_and_sharded(small_step, capsys):
+    """xla has no counterpart and raises; sharded, once refused (item 8),
+    times ShardedStep on a 1x1 mesh over a gloo group of one and prints
+    its line beside the cuda phase's, with the same update kind and
+    roofline floor."""
     with pytest.raises(ValueError, match="no counterpart in the PyTorch port"):
         tprofile.main(["xla"], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tprofile.main(["sharded"], device="cpu")
+    res = tprofile.main(["cuda", "sharded"], device="cpu")
+    out = capsys.readouterr().out
+    assert "sharded: " in out and "cuda: " in out
+    assert math.isfinite(res["sharded"]["ms"])
+    for key in ("update_kind", "floor_ms"):
+        assert res["sharded"][key] == res["cuda"][key]
 
 
 # (batch, nnz per sample, fields, factors, table rows, model): FFM at 40
