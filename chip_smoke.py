@@ -174,11 +174,19 @@ Phases, each printing its own lines:
                      its kind a replay, peak memory above the state; the
                      bench twin's run protocol (examples/s, S=1 beside);
                      streamed FFM-100k epochs through the feeder
-                     (feed_workers 1, 2, and 2 at S=4) bit-identical to the
-                     resident one; a state swap captured again and equal
-                     to an eager run; one replayed epoch under
+                     (feed_workers 1 with the transfer tiers on and off,
+                     2, and 2 at S=4, whose second epoch captures nothing
+                     new) bit-identical to the resident one, with their
+                     bytes a batch and tiers; a state swap captured again
+                     and equal to an eager run; one replayed epoch under
                      set_sync_debug_mode("error"); then a traced epoch
                      each (idle share; the streamed ones' H2D ms a batch)
+  10b. tiers      -> the transfer tiers phase 10's file does not reach
+                     (split ids, DEC6 values, packed fields) on a small
+                     streamed file at bench.py's width: an epoch, eval and
+                     predict_file with the tiers on and off bit for bit,
+                     each batch's tiers counted; the DEC6 probe passes on
+                     the card; widen_batch's device time a batch
   6. profiles     -> after every timed phase (a profiler run may slow the
                      host's side for the rest of the process): the
                      torch.profiler breakdown by kernel of the train steps
@@ -198,9 +206,14 @@ Phases, each printing its own lines:
                      and dense; profile_step cuda, infer, huge and trace
                      (huge under both kinds, beside its roofline floor);
                      roofline of the 100k "dense2" and 1M "inplace" steps;
-                     micro_scatter at its defaults; then one CLI training
-                     run with --profile_dir, whose trace names kernel #2
-                     and the update kernel
+                     micro_scatter at its defaults; the matrix's numeric
+                     and noncanon files timed and traced here with the
+                     transfer tiers on and off (examples/s, idle share,
+                     bytes and H2D ms a batch, the same bits); the
+                     pandas-free data generator on a csv, and FFM on its
+                     output (DEC6 values, the same bits on and off); then
+                     one CLI training run with --profile_dir, whose trace
+                     names kernel #2 and the update kernel
 
   11. mesh        -> last: bench.py's FFM-100k model through the CLI's
                      three multi-process flags (--mesh_data 0: a world-size-1
@@ -1335,6 +1348,36 @@ def release_graphs(trainers) -> None:
     torch.cuda.empty_cache()
 
 
+def record_uploads(trn) -> list:
+    """Record (bytes, tiers, host ms) of each upload form trn's feeder and
+    predict_file take (Trainer._compact, wrapped and timed: the forms go
+    on as they are; transfer.py::describe_upload names the tiers)."""
+    from ftrl_ffm_tpu_torch.transfer import describe_upload
+
+    log = []
+    compact = trn._compact
+
+    def rec(arrays, role="train"):
+        t0 = time.perf_counter()
+        up = compact(arrays, role)
+        ms = (time.perf_counter() - t0) * 1e3
+        tiers, size = describe_upload(up)
+        log.append((size, tiers, ms))
+        return up
+
+    trn._compact = rec
+    return log
+
+
+def tier_counts(log) -> dict:
+    """Batches of an upload log by tier."""
+    counts: dict = {}
+    for _, tiers, _ in log:
+        for t in tiers:
+            counts[t] = counts.get(t, 0) + 1
+    return dict(sorted(counts.items()))
+
+
 def multi_step_phase(device, where: str, r_trainers: dict, lrfm_r: dict) -> dict:
     """Phase 10: steps_per_call = S > 1, one CUDA-graph replay a group, on
     phase 7's resident datasets (400,000 rows, bench.py's config through
@@ -1349,7 +1392,8 @@ def multi_step_phase(device, where: str, r_trainers: dict, lrfm_r: dict) -> dict
     last, one traced epoch each (idle share).  Also: streamed FFM-100k
     epochs through the feeder (feed_workers 1 and 2, and 2 at S=4)
     bit-identical to the resident epoch, with the profiler's H2D copy ms
-    a batch; a state swap (init_from_weights) that forces a new capture,
+    a batch, the S=4 run's graph pool beside the resident S=4 run's, and
+    _compact's host ms split into the native pass and the rest; a state swap (init_from_weights) that forces a new capture,
     then equal to an eager twin; one replayed epoch under
     set_sync_debug_mode("error").  Returns the S runs' launch counts by
     cell (train and eval), for the kernels' record."""
@@ -1402,6 +1446,7 @@ def multi_step_phase(device, where: str, r_trainers: dict, lrfm_r: dict) -> dict
             losses.append(trn.train_epoch())
             counts = read_launch_counts()
             train_dispatch = dict(trn.group_dispatch)
+            train_pools = graph_pool_bytes()  # the train graphs alone
             reset_launch_counts()
             metrics = trn.evaluate()
             eval_counts = read_launch_counts()
@@ -1412,6 +1457,7 @@ def multi_step_phase(device, where: str, r_trainers: dict, lrfm_r: dict) -> dict
                        "dispatch": dict(trn.group_dispatch),
                        "peak_above_state_gb": (torch.cuda.max_memory_allocated() - base) / gb,
                        "reserved_growth_gb": (torch.cuda.memory_reserved() - reserved0) / gb,
+                       "train_graph_pools_gb": train_pools / gb,
                        "graph_pools_gb": graph_pool_bytes() / gb}
         one = runs[1]
         for s in s_values:
@@ -1455,29 +1501,98 @@ def multi_step_phase(device, where: str, r_trainers: dict, lrfm_r: dict) -> dict
         print(f"multi-step {label}: {json.dumps(rec)}")
         s = s_values[0]
         multi_counts[label] = {"train": runs[s]["counts"], "eval": runs[s]["eval_counts"]}
+        if label == "ffm-100k":
+            resident_pools = {k: runs[4][k] for k in ("train_graph_pools_gb", "graph_pools_gb")}
         kept[label] = trainers
         release_graphs(trainers.values())  # captured again when traced
 
     # streamed FFM-100k through the feeder: one epoch from the 100k init,
-    # the resident S=1 epoch's bits; feed_workers 1 and 2, and 2 at S=4
+    # the resident S=1 epoch's bits; feed_workers 1 with the transfer
+    # tiers on (the default) and off, 2, and 2 at S=4, whose second epoch
+    # captures nothing new (the full groups' key and the padded last
+    # group's, whose tiers differ, were both captured in epoch 1)
     ffm = kept["ffm-100k"]
     path = ffm[1].cfg.train_data
     init = make_model(ffm[1].cfg).init(torch.Generator(device=device).manual_seed(SEED))
     streamed = {}
-    for workers, s in ((1, 1), (2, 1), (2, 4)):
+    for workers, s, compact in ((1, 1, True), (1, 1, False), (2, 1, True), (2, 4, True)):
         trn = Trainer(bench.make_config(path, "cuda", device_cache="off", feed_workers=workers,
-                                        steps_per_call=s), state=clone_state(init))
+                                        steps_per_call=s, compact_transfer=compact),
+                      state=clone_state(init))
+        log = record_uploads(trn)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = trn.train_epoch()
         wall = time.perf_counter() - t0
         require(same(trn.state, epoch1[0]) and loss == epoch1[1] and "train" not in trn._dev_cache,
-                f"streamed feed_workers={workers} S={s}: differs from the resident epoch")
+                f"streamed feed_workers={workers} S={s} compact_transfer={compact}: differs "
+                f"from the resident epoch")
+        key = f"feed_workers={workers} S={s}" + ("" if compact else " compact_transfer=false")
+        rec = {"trainer": trn, "examples_per_s": BENCH_ROWS / wall,
+               "bytes_a_batch": sum(b for b, _, _ in log) / (len(log) * s),
+               "compact_ms": sum(ms for _, _, ms in log) / (len(log) * s),
+               "tiers": tier_counts(log)}
+        if s > 1:
+            first = dict(trn.group_dispatch)
+            trn.train_epoch()
+            rec["dispatch"] = [first, dict(trn.group_dispatch)]
+            # two keys' graphs in one shared pool
+            rec["graph_pools_gb"] = graph_pool_bytes() / gb
+            require(first["captures"] == 2 and trn.group_dispatch["captures"] == 2
+                    and trn.group_dispatch["eager"] == 2, f"streamed S={s}: groups dispatched "
+                    f"{first} in epoch 1, {trn.group_dispatch} after epoch 2")
         release_graphs([trn])
-        streamed[f"feed_workers={workers} S={s}"] = {"trainer": trn, "examples_per_s": BENCH_ROWS / wall}
+        streamed[key] = rec
+    on, off = streamed["feed_workers=1 S=1"], streamed["feed_workers=1 S=1 compact_transfer=false"]
+    require({"delta", "ones", "iota"} <= set(on["tiers"]) and set(off["tiers"]) == {"off"},
+            f"streamed tiers {on['tiers']} / {off['tiers']}")
+    from ftrl_ffm_tpu_torch import native
+
     print(f"multi-step streamed ffm-100k: one epoch bit-identical to the resident one at "
-          + ", ".join(f"{k} ({v['examples_per_s']:.0f} examples/s)" for k, v in streamed.items())
-          + f"; host os.cpu_count()={os.cpu_count()} [{where}]")
+          + ", ".join(f"{k} ({v['examples_per_s']:.0f} examples/s, {v['bytes_a_batch']:.0f} "
+                      f"bytes a batch, _compact {v['compact_ms']:.3f} host ms a batch, tiers "
+                      f"{v['tiers']})" for k, v in streamed.items())
+          + f"; the native compaction pass {'built' if native.lib() else 'absent (numpy)'}"
+          + f"; S=4 groups dispatched {streamed['feed_workers=2 S=4']['dispatch']} after "
+            f"epochs 1 and 2, their graphs' pool "
+            f"{streamed['feed_workers=2 S=4']['graph_pools_gb']:.6f} GB against the resident "
+            f"S=4 run's {resident_pools['train_graph_pools_gb']:.6f} GB (train graph) and "
+            f"{resident_pools['graph_pools_gb']:.6f} GB (train and eval graphs); host "
+            f"os.cpu_count()={os.cpu_count()} [{where}]")
+
+    # where _compact's host time goes on the file's full batches: the
+    # native pass (at 1 thread, as _compact calls it, and at 4), the whole
+    # call, and the whole call on the numpy path; the four interleaved,
+    # 3 rounds, the best round of each
+    trn = on["trainer"]
+    batches = [a for _, a in zip(range(8), trn._train_batches(np.random.default_rng(0)))]
+    f_dim = batches[0][1].shape[-1]
+    real = native.compact_batch
+
+    def numpy_path(arrays):
+        native.compact_batch = lambda *a, **k: None
+        try:
+            Trainer._compact(trn, arrays, "train")
+        finally:
+            native.compact_batch = real
+
+    ways = {
+        "native pass 1 thread": lambda a: real(a[1], a[2], a[0], trn.cfg.n_feats, True, 1),
+        "native pass 4 threads": lambda a: real(a[1], a[2], a[0], trn.cfg.n_feats, True, 4),
+        "_compact": lambda a: Trainer._compact(trn, a, "train"),
+        "_compact numpy path": numpy_path,
+    }
+    split = {k: math.inf for k in ways}
+    for _ in range(3):
+        for k, way in ways.items():
+            t0 = time.perf_counter()
+            for arrays in batches:
+                way(arrays)
+            split[k] = min(split[k], (time.perf_counter() - t0) * 1e3 / len(batches))
+    print(f"multi-step streamed ffm-100k: _compact host ms a batch of {BATCH}x{f_dim} "
+          f"(the mean over {len(batches)} batches, best of 3 interleaved rounds) "
+          f"{json.dumps(split)} [{where}]")
+    del batches
 
     # a state swap between epochs: new tensors, so a new capture; the next
     # epoch equals an eager run from the same weights
@@ -1544,10 +1659,190 @@ def multi_step_phase(device, where: str, r_trainers: dict, lrfm_r: dict) -> dict
         release_graphs([rec["trainer"]])
         h2d = sum(ms for name, ms in rows if "HtoD" in name) / steps
         print(f"profile: multi-step streamed ffm-100k {key}: idle share {share:.4f}; H2D copies "
-              f"{h2d:.4f} ms a batch against the resident epoch's {device_step['ffm-100k', 1]:.4f} "
-              f"device ms a step [{where}]")
+              f"{h2d:.4f} ms a batch of {rec['bytes_a_batch']:.0f} bytes against the resident "
+              f"epoch's {device_step['ffm-100k', 1]:.4f} device ms a step [{where}]")
     print(f"multi-step: phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return multi_counts
+
+
+def transfer_phase(bench_100k: str, tmp: str, where: str) -> dict:
+    """Phase 10b: the transfer tiers that phase 10's file (one feature a
+    field in slot order, per-field ids, values 1: delta ids, the all-ones
+    and iota markers) does not reach, on a small streamed file at bench.py's
+    width (FFM-100k, B=16,384, 39 fields): 2 full batches and a padded
+    third, every row's ids drawn over the whole table (delta fails: the
+    split tier), its fields in a shuffled order (the packed planes) and its
+    values 6-decimal (DEC6).  One training epoch, an eval pass and
+    predict_file with the tiers on and off: the losses, tables and
+    prediction bytes bit for bit, and each batch's tiers counted.  The
+    DEC6 probe must pass on the card.  Then the decode's device time:
+    widen_batch on one uploaded batch of each form (this file's, and phase
+    10's first full batch), 50 calls replayed from a CUDA graph, beside
+    the same batch uploaded as parsed.  Returns the counts and times."""
+    from ftrl_ffm_tpu_torch import bench
+    from ftrl_ffm_tpu_torch.data.stream import StreamReader
+    from ftrl_ffm_tpu_torch.models.base import widen_batch
+    from ftrl_ffm_tpu_torch.tools import graph_ms
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    n = 2 * BATCH + 3000
+    rng = np.random.default_rng(11)
+    ids = rng.integers(0, TRAIN_FEATS, (n, N_FIELDS))
+    keys = rng.integers(0, 10**6, (n, N_FIELDS))
+    order = np.argsort(rng.random((n, N_FIELDS)), axis=1)
+    y = rng.integers(0, 2, n)
+    path = os.path.join(tmp, "tiers.ffm")
+    with open(path, "w") as f:
+        for i in range(n):
+            f.write(" ".join([str(y[i])] + [f"{c}:{ids[i, c]}:{keys[i, c] / 1e6:.6f}"
+                                             for c in order[i]]) + "\n")
+    runs = {}
+    for compact in (True, False):
+        trn = Trainer(bench.make_config(path, "cuda", eval_data=path, device_cache="off",
+                                        compact_transfer=compact))
+        log = record_uploads(trn)
+        loss = trn.train_epoch()
+        metrics = trn.evaluate()
+        out = os.path.join(tmp, f"tiers_{compact}.txt")
+        trn.predict_file(path, out)
+        with open(out, "rb") as fh:
+            runs[compact] = {"trainer": trn, "loss": loss, "eval": metrics, "pred": fh.read(),
+                             "tiers": tier_counts(log),
+                             "bytes_a_batch": sum(b for b, _, _ in log) / len(log),
+                             "compact_ms": sum(ms for _, _, ms in log) / len(log)}
+    on, off = runs[True], runs[False]
+    require(on["loss"] == off["loss"] and on["eval"] == off["eval"] and on["pred"] == off["pred"]
+            and all(torch.equal(a, b) for a, b in zip(on["trainer"].state, off["trainer"].state)
+                    if a is not None),
+            f"the tiers on and off differ: {on['loss']} {on['eval']} / {off['loss']} {off['eval']}")
+    # 3 batches a pass: train, eval, predict
+    require(all(on["tiers"].get(t) == 9 for t in ("split", "dec6", "packed"))
+            and off["tiers"] == {"off": 9}, f"tiers taken: {on['tiers']} / {off['tiers']}")
+    dec6_ok = on["trainer"]._dec6_device_ok()
+    require(dec6_ok, "the DEC6 probe fails on the card")
+    print(f"transfer tiers: a streamed epoch, eval ({on['eval']}) and predict_file bit for bit "
+          f"with compact_transfer on and off (loss {on['loss']}); batches by tier on "
+          f"{json.dumps(on['tiers'])}, off {json.dumps(off['tiers'])}; bytes a batch "
+          f"{on['bytes_a_batch']:.0f} against {off['bytes_a_batch']:.0f}; _compact "
+          f"{on['compact_ms']:.3f} host ms a batch; DEC6 probe on the card: {dec6_ok} [{where}]")
+
+    decode = {}
+    for label, src in (("split dec6 packed", path), ("delta ones iota", bench_100k)):
+        arrays = next(iter(StreamReader(src, "libffm", BATCH, N_FIELDS, TRAIN_FEATS, N_FIELDS,
+                                        log_every=0).batches()))
+        for compact in (True, False):
+            trn = runs[compact]["trainer"]
+            trn._delta_ok = trn._dec6_ok = True  # each file's batch its own tiers
+            up = trn._compact(arrays, "eval")
+            batch = trn._place_batch(up)
+            want = widen_batch(trn._place_batch(arrays))
+            got = widen_batch(batch)
+            require(all(torch.equal(a, b) for a, b in zip(got[:5], want[:5])),
+                    f"the decode of {label} differs from the parsed batch")
+            decode[f"{label} {'on' if compact else 'off'}"] = graph_ms(
+                lambda b=batch: widen_batch(b), 50)
+    print(f"transfer tiers: widen_batch device ms a batch (B={BATCH}, 50 calls replayed from a "
+          f"CUDA graph) {json.dumps(decode)} [{where}]")
+    del runs
+    print(f"transfer tiers: phase 10b took {time.perf_counter() - t0:.1f} s")
+    return {"decode_ms": decode}
+
+
+def matrix_transfer(tmp: str, where: str) -> None:
+    """Phase 9, after the matrix: its streamed numeric and noncanon rows'
+    files (ROWS_SAMPLES=65,536 under TMPDIR), the row's config, with the
+    tiers on and off in this process: a warm-up epoch, a timed one
+    (examples/s; this process ran phase 6's profiler, so the host's side
+    may be slower than in the matrix's own process, alike on and off) and
+    a traced one (the idle share, H2D copy ms a batch), bytes a batch and
+    the tiers each batch took; the epochs' bits on against off."""
+    import glob
+
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.tools import profile_ms
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    for row in ("numeric", "noncanon"):
+        (path,) = glob.glob(os.path.join(tmp, f"ftrl_ffm_tpu_bench_65536_100000_{row}.txt"))
+        out = {}
+        for compact in (True, False):
+            # bench_matrix.row_config's row, streamed
+            trn = Trainer(Config(train_data=path, model_type="FFM", n_fields=N_FIELDS,
+                                 n_feats=TRAIN_FEATS, n_factors=N_FACTORS, online=True,
+                                 n_epochs=1, batch_size=8192, max_nnz=N_FIELDS, n_threads=3,
+                                 file_type="libffm", compact_transfer=compact, device="cuda"))
+            log = record_uploads(trn)
+            walls, losses = [], []
+
+            def epoch():
+                t0 = time.perf_counter()
+                losses.append(trn.train_epoch())
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+
+            epoch()  # warm-up (the profile's warm-up epoch is the timed one)
+            rows = profile_ms(epoch, 1)
+            steps = len(log) // 3
+            out[compact] = {
+                "examples_per_s": 65536 / walls[1] * 1e3,
+                "idle": 1 - sum(ms for _, ms in rows) / walls[-1],
+                "h2d_ms": sum(ms for name, ms in rows if "HtoD" in name) / steps,
+                "bytes_a_batch": sum(b for b, _, _ in log) / len(log),
+                "compact_ms": sum(ms for _, _, ms in log) / len(log),
+                "tiers": tier_counts(log[-steps:]), "losses": losses, "state": trn.state}
+        on, off = out[True], out[False]
+        require(on["losses"] == off["losses"] and all(
+            torch.equal(a, b) for a, b in zip(on["state"], off["state"]) if a is not None),
+            f"matrix {row}: the tiers on and off differ")
+        print(f"transfer matrix {row}: " + "; ".join(
+            f"compact_transfer {'on' if c else 'off'}: {r['examples_per_s']:.0f} examples/s, "
+            f"idle share {r['idle']:.4f}, H2D {r['h2d_ms']:.4f} ms a batch of "
+            f"{r['bytes_a_batch']:.0f} bytes, _compact {r['compact_ms']:.3f} host ms a batch, "
+            f"tiers {json.dumps(r['tiers'])}"
+            for c, r in out.items()) + f" [{where}]")
+
+
+def generator_phase(tmp: str, where: str) -> None:
+    """Phase 9: the pandas-free data generator (ftrl_ffm_tpu_torch/tools/
+    generate_data.py) in a process of its own on a csv with a header,
+    integer and string categoricals and two numeric columns (MinMax
+    normalized, printed with 4 decimals), then an epoch and an eval pass of
+    FFM on its libffm output with the tiers on and off: the same bits, and
+    its values on the DEC6 tier."""
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    rng = np.random.default_rng(5)
+    n = 40_000
+    csv_path = os.path.join(tmp, "ratings.csv")
+    with open(csv_path, "w") as f:
+        f.write("rating,user,item,city,age,price\n")
+        for i in range(n):
+            f.write(f"{int(rng.integers(0, 6))},{int(rng.integers(1, 5000))},"
+                    f"i{int(rng.integers(0, 3000))},c{int(rng.integers(0, 40))},"
+                    f"{int(rng.integers(18, 90))},{rng.random() * 500:.2f}\n")
+    train, evald = os.path.join(tmp, "gen_train.ffm"), os.path.join(tmp, "gen_eval.ffm")
+    text, secs = run_tool("generate_data", [
+        "ftrl_ffm_tpu_torch.tools.generate_data", "--data_path", csv_path,
+        "--train_output_path", train, "--eval_output_path", evald, "--cat_cols", "1,2,3",
+        "--num_cols", "4,5", "--normalize", "true", "--ffm", "true", "--threshold", "2"],
+        {"TMPDIR": tmp}, 120)
+    require(f"Output train size: {int(n * 0.8)}" in text, f"generate_data printed {text!r}")
+    runs = {}
+    for compact in (True, False):
+        trn = Trainer(Config(train_data=train, eval_data=evald, model_type="FFM", n_fields=5,
+                             n_feats=TRAIN_FEATS, n_factors=N_FACTORS, batch_size=4096,
+                             device_cache="off", compact_transfer=compact, device="cuda"))
+        log = record_uploads(trn)
+        runs[compact] = (trn.train_epoch(), trn.evaluate(), trn.state, tier_counts(log))
+    (l_on, e_on, s_on, t_on), (l_off, e_off, s_off, _) = runs[True], runs[False]
+    require(l_on == l_off and e_on == e_off and math.isfinite(l_on) and all(
+        torch.equal(a, b) for a, b in zip(s_on, s_off) if a is not None) and t_on.get("dec6"),
+        f"generated data: tiers on {l_on} {e_on} {t_on}, off {l_off} {e_off}")
+    print(f"tools generate_data: {n} csv rows in {secs:.1f} s; FFM on its output: train loss "
+          f"{l_on:.6f}, eval {e_on}, the tiers on and off bit for bit, batches by tier "
+          f"{json.dumps(t_on)} [{where}]")
 
 
 def run_tool(label: str, args: list, env: dict, timeout: int) -> tuple[str, float]:
@@ -1607,6 +1902,10 @@ def tools_phase(bench_100k: str, train_100k: str, tmp: str, where: str) -> dict:
     text, _ = run_tool("bench_matrix", ["ftrl_ffm_tpu_torch.tools.bench_matrix", *others],
                        matrix_env, 600)
     rows += json_lines(text)
+    # the streamed rows whose data reaches the value tiers, with the tiers
+    # on and off in this process
+    matrix_transfer(tmp, where)
+    generator_phase(tmp, where)
     for mode, kind in (("inplace", "inplace"), ("dense", "dense2")):
         text, _ = run_tool(f"bench_matrix ffm1m {mode}",
                            ["ftrl_ffm_tpu_torch.tools.bench_matrix", "ffm1m"],
@@ -3810,6 +4109,9 @@ def main() -> int:
         phase_done("10")
         # ---- 10. steps_per_call > 1: CUDA-graph groups, the feeder ----
         multi = multi_step_phase(device, where, r_trainers, lrfm_r_trainers)
+        phase_done("10b")
+        # ---- 10b. the transfer tiers phase 10's file does not reach ----
+        transfer_phase(bench_p[TRAIN_FEATS], tmp, where)
         if "100k-bf16" in r_trainers:
             del r_trainers["100k-bf16"]  # phase 6 traces the f32 cells
         torch.cuda.empty_cache()

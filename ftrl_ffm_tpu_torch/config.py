@@ -59,13 +59,14 @@ class Config:
     # gather/scatter HBM traffic; weights round to 8 mantissa bits.
     table_dtype: str = "float32"     # "float32" | "bfloat16"
     use_pallas: str = "auto"         # "auto" (TPU only) | "on" | "off"
-    # Compact host->device transfer (lossless): fields int8/int16, feature
-    # ids per-column uint16 deltas off an int32 base row, values int8 when
-    # integral / bfloat16 when exactly representable / f32 otherwise,
-    # labels + integral sample weights int8 — widened on device
-    # (models/base.py::widen_batch).  Every narrowing is verified exact on
-    # host per batch, so numerics never change; CTR batches shrink ~2x
-    # (1.29 MB per 8192 samples at 39 fields, was 2.36).
+    # Compact host->device transfer of streamed batches (lossless; the
+    # transfer tiers, transfer.py): fields int8/int16, bit-packed or an
+    # iota marker, feature ids per-column uint16 deltas off an int32 base
+    # row or split into uint16 low halves and high bitplanes, values an
+    # all-ones marker, int8, bfloat16 or 6-decimal DEC6 where exact, else
+    # f32, labels and integral sample weights int8 -- widened on the
+    # device (models/base.py::widen_batch).  Every narrowing is verified
+    # exact on the host per batch, so no bit of a run changes.
     compact_transfer: bool = True
     # FTRL table update strategy: "dense" scatter-adds the combined (g, g^2)
     # payload into a table-shaped accumulator + one fused full-table pass
@@ -342,25 +343,23 @@ def uses_mesh(cfg: Config) -> bool:
 
 def check_ported(cfg: Config) -> None:
     """Raise for config values the port does not serve: use_pallas=off,
-    which has no counterpart here.  The transfer tiers' dtypes are refused
-    where a batch meets the step (item 5, models/base.py::widen_batch).
-    Every model_type (LR, FM and FFM: item 4 brought LR and FM) trains and
-    serves, on one device and on a mesh (item 8: parallel/, one process a
-    device), with every steps_per_call and device_cache_layout.
+    which has no counterpart here.  Every model_type (LR, FM and FFM: item
+    4 brought LR and FM) trains and serves, on one device and on a mesh
+    (item 8: parallel/, one process a device), with every steps_per_call
+    and device_cache_layout.
 
     steps_per_call > 1 groups S steps a dispatch (CUDA-graph replays on
     the card; on a mesh the graphs hold the steps' NCCL collectives) and
     feed_workers sets the feeder's threads (item 5): both give the S = 1,
-    one-thread run's bits.  compact_transfer names the
-    JAX package's transfer tiers, which the port does not use (it uploads
-    the parsed arrays as they are), so it changes nothing and passes;
-    model_path, save_every, async_checkpoint and compress_level write
-    checkpoints as in the JAX package (item 3).  Every table-update kind
-    (update_mode), both dtypes of table_dtype and acc_dtype, and every
-    device_cache, device_cache_compact and device_cache_layout value
-    (item 6; on one process the shard layout holds the whole dataset, as
-    the replicate one does; on more than one, each rank's slice: item 8)
-    train."""
+    one-thread run's bits.  compact_transfer (item 5's transfer tiers,
+    transfer.py) narrows the streamed uploads losslessly, on one device
+    and on a mesh, with the bits of compact_transfer=false; model_path,
+    save_every, async_checkpoint and compress_level write checkpoints as
+    in the JAX package (item 3).  Every table-update kind (update_mode),
+    both dtypes of table_dtype and acc_dtype, and every device_cache,
+    device_cache_compact and device_cache_layout value (item 6; on one
+    process the shard layout holds the whole dataset, as the replicate
+    one does; on more than one, each rank's slice: item 8) train."""
     if cfg.use_pallas == "off":
         # the port has no user switch between kernel and plain version: the
         # tensor's device picks (ops/ffm_cuda.py::ffm_fused_logits)

@@ -19,7 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ftrl_ffm_tpu_torch.config import Config, not_ported
+from ftrl_ffm_tpu_torch.config import Config
 from ftrl_ffm_tpu_torch.ftrl import (
     UNTOUCHED_N,
     FtrlParams,
@@ -33,6 +33,7 @@ from ftrl_ffm_tpu_torch.ops.ftrl_cuda import (
     ftrl_update,
     ftrl_update_linear,
 )
+from ftrl_ffm_tpu_torch.transfer import unpack_bitplanes
 
 
 class Batch(NamedTuple):
@@ -41,14 +42,22 @@ class Batch(NamedTuple):
     Padding convention (ftrl_ffm_tpu/models/base.py::Batch): padded
     occurrences have value 0.0, field 0 and feature id == n_feats (a drop
     sentinel for scatters; gathers clip).  Padded samples have sample_w 0.
-    Two zero-size markers are understood by widen_batch: fields [0, F]
-    (every row's fields are 0..F-1) and vals [B, 0] (all values 1.0)."""
+    A streamed batch arrives in the transfer tiers' upload form
+    (transfer.py; Config.compact_transfer), which widen_batch decodes:
+    narrowed dtypes, uint16 feats read against feats_base (deltas off an
+    int32 [F+1] base row, or the split tier's low halves under uint8 high
+    bitplanes), DEC6 values, bit-packed fields, and the zero-size markers:
+    fields [0, F] (every row's fields are 0..F-1), fields [B, 0] (LR and
+    FM, which never read them) and vals [B, 0] (all values 1.0)."""
 
-    fields: torch.Tensor    # [B, F] int32
-    feats: torch.Tensor     # [B, F] int32
-    vals: torch.Tensor      # [B, F] float32
-    y: torch.Tensor         # [B] float32 in {0, 1}
-    sample_w: torch.Tensor  # [B] float32
+    fields: torch.Tensor    # [B, F] int32 (int8/int16, packed, or a marker)
+    feats: torch.Tensor     # [B, F] int32 (or uint16, see feats_base)
+    vals: torch.Tensor      # [B, F] float32 (int8/bf16, [B, 3F] uint8 DEC6,
+                            # or the marker)
+    y: torch.Tensor         # [B] float32 in {0, 1} (or int8)
+    sample_w: torch.Tensor  # [B] float32 (or int8 when integral)
+    feats_base: Optional[torch.Tensor] = None  # [F+1] int32 bases and the
+                            # sentinel, or [B, k, ceil(F/8)] uint8 high planes
 
 
 class ModelState(NamedTuple):
@@ -74,28 +83,38 @@ class TrainOut(NamedTuple):
     count: torch.Tensor     # scalar: number of real samples
 
 
-# dtypes of the JAX package's transfer tiers (uint16 delta/split feature
-# ids, DEC6 uint8 values, bit-packed uint8 fields), which the port does not
-# upload: ROADMAP.md Queue 1 item 5 ports them only if a cell proves bound
-# by the host-to-device copy
-_TIER_DTYPES = (torch.uint16, torch.uint8)
-
-
 def widen_batch(b: Batch) -> Batch:
-    """Cast a batch to canonical dtypes and expand the zero-size markers
-    (ftrl_ffm_tpu/models/base.py::widen_batch): [..., 0, F] fields become
-    the iota 0..F-1 along the last axis, [..., B, 0] vals become ones.
-    Narrowed plain dtypes (int8/int16 fields, int8/bf16 values, int8
-    labels and weights) are widened by a cast."""
-    for name, t in (("fields", b.fields), ("feats", b.feats), ("vals", b.vals)):
-        if t.dtype in _TIER_DTYPES:
-            raise not_ported(f"a {t.dtype} {name} transfer tier", 5)
+    """Decode a batch's upload form to canonical dtypes on its device
+    (ftrl_ffm_tpu/models/base.py::widen_batch, keyed off dtype and rank as
+    it is): uint16 feats are deltas off feats_base[..., :F] (65535 the
+    sentinel feats_base[..., F]) or, under a uint8 feats_base, the split
+    tier's low halves; [..., 3F] uint8 vals are DEC6 keys; fields with one
+    axis more than feats are bit-packed planes; [..., 0, F] fields become
+    the iota 0..F-1 along the last axis and [..., B, 0] vals ones; other
+    narrowed dtypes are cast.  A canonical batch passes through."""
     feats = b.feats.to(torch.int32)
+    fb = b.feats_base
+    if fb is not None and b.feats.dtype == torch.uint16:
+        if fb.dtype == torch.uint8:
+            # split tier: feats = id & 0xFFFF, fb holds bit 16+i of each id
+            if fb.shape[-2]:
+                feats = feats | (unpack_bitplanes(fb, feats.shape[-1]) << 16)
+        else:
+            base, sent = fb[..., :-1], fb[..., -1:]
+            feats = torch.where(feats == 65535, sent, base + feats)
     if b.vals.shape[-1] == 0 and feats.shape[-1] != 0:
         vals = torch.ones(feats.shape, dtype=torch.float32, device=feats.device)
+    elif b.vals.dtype == torch.uint8:
+        # DEC6: k = 3 little-endian bytes a value, v = k / 1e6 correctly
+        # rounded: the host checked that this gives its f32 values
+        u = b.vals.to(torch.int32)
+        vals = dec6_decode(u[..., 0::3] | (u[..., 1::3] << 8) | (u[..., 2::3] << 16))
     else:
         vals = b.vals.to(torch.float32)
-    if b.fields.dim() >= 2 and b.fields.shape[-2] == 0 and feats.shape[-1]:
+    if b.fields.dim() == feats.dim() + 1 and b.fields.dtype == torch.uint8:
+        # bit-packed fields: plane i = bit i of the field id
+        fields = unpack_bitplanes(b.fields, feats.shape[-1])
+    elif b.fields.dim() >= 2 and b.fields.shape[-2] == 0 and feats.shape[-1]:
         iota = torch.arange(feats.shape[-1], dtype=torch.int32, device=feats.device)
         fields = iota.expand(feats.shape).contiguous()
     else:
@@ -111,8 +130,8 @@ def widen_batch(b: Batch) -> Batch:
 
 def dec6_decode(k: torch.Tensor) -> torch.Tensor:
     """The correctly rounded f32 k / 1e6 of integer keys k < 2^24: the
-    DEC6 value encoding of the compact device-resident dataset
-    (ftrl_ffm_tpu/models/base.py::dec6_decode).  The JAX package needs a
+    DEC6 value encoding of the transfer tier and of the compact
+    device-resident dataset (ftrl_ffm_tpu/models/base.py::dec6_decode).  The JAX package needs a
     Veltkamp two-product there because the TPU divides by a reciprocal;
     here ftrl.py::_div divides correctly rounded on every device."""
     return _div(k.to(torch.float32), 1e6)

@@ -26,12 +26,13 @@ Each prints one JSON line with the JAX tool's keys ("row",
 "examples_per_s", "train_loss" or "eval_loss", "device_cache", and for the
 non-uniform variants "dedup_ratio", "delta_hit_rate", "vals_upload",
 "feats_upload") plus "device" (the card's name and power limit, as
-nvidia-smi prints them) and "update_kind" (the factor tables' kind: None
-for LR).  "vals_upload" / "feats_upload" report what the port uploads: a
-streamed batch's host arrays (f32 values, int32 ids), or the resident
-dataset's stored form ("ones-marker" for values that are all 1, uint8
-under the compact form).  The JAX tool's transfer tiers (`_compact`) are
-not ported (ROADMAP.md Queue 1 item 5).
+nvidia-smi prints them), "update_kind" (the factor tables' kind: None
+for LR) and, beside the two upload keys, "upload_bytes".  The three report
+what the port uploads: a streamed row's first batch in its transfer-tier
+form (Trainer._compact, as the JAX tool reports it: "ones-marker", int8,
+bfloat16, uint8 for DEC6 values; uint16 ids), or the resident dataset's
+stored form ("ones-marker" for values that are all 1, uint8 under the
+compact form) and its bytes a row.
 
 Env: ROWS_SAMPLES (400000), ACC_DTYPE, TABLE_DTYPE, DEVICE_CACHE,
 DEVICE_CACHE_COMPACT and FEED_WORKERS forwarded to Config as in the JAX
@@ -181,16 +182,24 @@ def row_config(row: str, device: str = "cuda"):
     return Config(**kw), variant
 
 
-def _uploads(trainer) -> tuple[str, str]:
-    """(vals_upload, feats_upload): the forms the port moves to the card."""
+def _uploads(trainer) -> tuple[str, str, int]:
+    """(vals_upload, feats_upload, upload_bytes): the forms the port moves
+    to the card, and their bytes (a streamed batch's, or a resident row's)."""
+    from ftrl_ffm_tpu_torch.transfer import describe_upload, nbytes
+
     cache = trainer._dev_cache.get("train")
     if cache is not None:
         vals, feats = cache.ds[2], cache.ds[1]
         marker = vals.shape[0] == 0
+        rows = feats.shape[0]
         return ("ones-marker" if marker else str(vals.dtype).removeprefix("torch."),
-                str(feats.dtype).removeprefix("torch."))
+                str(feats.dtype).removeprefix("torch."),
+                nbytes(t for t in cache.ds if t.shape[0]) // rows)
     arrays = next(iter(trainer._train_batches(np.random.default_rng(0))))
-    return str(arrays[2].dtype), str(arrays[1].dtype)
+    up = trainer._compact(arrays, "train")
+    tiers, size = describe_upload(up)
+    return ("ones-marker" if "ones" in tiers else str(up[2].dtype).removeprefix("torch."),
+            str(up[1].dtype), size)
 
 
 def run_row(row: str, device: str = "cuda") -> dict:
@@ -237,7 +246,7 @@ def run_row(row: str, device: str = "cuda") -> dict:
     }
     if variant != "uniform":
         out.update(data_stats(path))
-        out["vals_upload"], out["feats_upload"] = _uploads(trainer)
+        out["vals_upload"], out["feats_upload"], out["upload_bytes"] = _uploads(trainer)
     out.update(extra)
     return out
 

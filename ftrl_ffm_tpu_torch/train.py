@@ -77,16 +77,7 @@ from ftrl_ffm_tpu_torch.models import Batch, ModelState, make_model
 from ftrl_ffm_tpu_torch.models.base import dec6_decode, take_cached
 from ftrl_ffm_tpu_torch.ops import add_launch_counts, launch_counts
 from ftrl_ffm_tpu_torch.parallel import dist as pdist
-
-
-def _pack_bitplanes(a: np.ndarray, k: int) -> np.ndarray:
-    """[..., F] small ints -> [..., k, ceil(F/8)] uint8: plane i holds bit i
-    of each value, MSB-first-packed along F (np.packbits bit order;
-    _decode_cached_batch mirrors it).  k = 0 yields the zero-plane shape."""
-    if k == 0:
-        return np.zeros((*a.shape[:-1], 0, (a.shape[-1] + 7) // 8), np.uint8)
-    planes = np.stack([(a >> i) & 1 for i in range(k)], axis=-2)
-    return np.packbits(planes, axis=-1)
+from ftrl_ffm_tpu_torch.transfer import TransferTiers, pack_bitplanes, unpack_bitplanes
 
 
 class _DevCache(NamedTuple):
@@ -149,7 +140,7 @@ def _compact_cache_arrays(ds_host: tuple, cfg: Config) -> tuple:
         lo8 = np.empty((feats_h.shape[0], 2 * f), np.uint8)
         lo8[:, 0::2] = lo & 0xFF
         lo8[:, 1::2] = lo >> 8
-        hi = _pack_bitplanes((feats_h >> 16).astype(np.uint8), k)
+        hi = pack_bitplanes((feats_h >> 16).astype(np.uint8), k)
         feats_h = np.concatenate([lo8, hi.reshape(feats_h.shape[0], k * pb)], axis=1)
     if vals_h.shape[0] and vals_h.dtype == np.float32:
         kv = np.rint(vals_h.astype(np.float64) * 1e6)
@@ -167,20 +158,10 @@ def _compact_cache_arrays(ds_host: tuple, cfg: Config) -> tuple:
     if fields_h.shape[0] and fields_h.shape[-1]:
         w = int(max(cfg.n_fields - 1, 1)).bit_length()
         if w <= 8 and w * pb < f:
-            fields_h = _pack_bitplanes(fields_h.astype(np.uint8), w).reshape(
+            fields_h = pack_bitplanes(fields_h.astype(np.uint8), w).reshape(
                 fields_h.shape[0], w * pb
             )
     return (fields_h, feats_h, vals_h, y_h)
-
-
-def _unpack_bitplanes(u: torch.Tensor, k: int, f: int) -> torch.Tensor:
-    """[..., k·Pb] int32 bitplanes (_pack_bitplanes' layout) -> [..., F]
-    int32 values."""
-    j = torch.arange(f, dtype=torch.int32, device=u.device)
-    planes = u.reshape(*u.shape[:-1], k, (f + 7) // 8)
-    bits = (planes.index_select(-1, j // 8) >> (7 - j % 8)) & 1
-    shift = torch.arange(k, dtype=torch.int32, device=u.device)[:, None]
-    return (bits << shift).sum(-2, dtype=torch.int32)
 
 
 def _decode_cached_batch(b: Batch, cfg: Config) -> Batch:
@@ -195,13 +176,15 @@ def _decode_cached_batch(b: Batch, cfg: Config) -> Batch:
         out = u[..., 0 : 2 * f : 2] | (u[..., 1 : 2 * f : 2] << 8)
         k = max(0, int(cfg.n_feats).bit_length() - 16)
         if k:
-            out = out | (_unpack_bitplanes(u[..., 2 * f :], k, f) << 16)
+            hi = u[..., 2 * f :].reshape(*u.shape[:-1], k, (f + 7) // 8)
+            out = out | (unpack_bitplanes(hi, f) << 16)
         feats = out
     if vals.dtype == torch.uint8:
         u = vals.to(torch.int32)
         vals = dec6_decode(u[..., 0::3] | (u[..., 1::3] << 8) | (u[..., 2::3] << 16))
     if fields.dtype == torch.uint8 and fields.dim() == feats.dim():
-        fields = _unpack_bitplanes(fields.to(torch.int32), fields.shape[-1] // ((f + 7) // 8), f)
+        pb = (f + 7) // 8
+        fields = unpack_bitplanes(fields.reshape(*fields.shape[:-1], -1, pb), f)
     return b._replace(fields=fields, feats=feats, vals=vals)
 
 
@@ -358,18 +341,29 @@ def _tensor_key(tensors) -> tuple:
     )
 
 
+def _host_tensor(a) -> torch.Tensor:
+    """A host array of an upload as a CPU tensor, sharing its memory (a
+    bfloat16 leaf of the transfer tiers is one already)."""
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
+
+
+# Captured groups kept a role (Trainer._run_group): a streamed run's
+# full groups and its padded last group upload different tiers, and a
+# multi-process run changes its dtypes once the ranks agree.
+_GRAPH_KEYS = 4
+
+
 class _GroupGraph:
     """One role's S-step group on the card (steps_per_call > 1): the CUDA
     graph that replays it, its static input and output buffers, and the
-    kernel launches and collectives its capture recorded.  `key` names
-    what the graph baked in: the state's and the resident dataset's
-    tensors and the group's shapes and kinds; another key needs another
-    capture.  On a mesh the graph holds the steps' NCCL collectives, which
-    every rank captures and replays in the same order."""
+    kernel launches and collectives its capture recorded, kept under its
+    key (Trainer._group_key: what the graph baked in, the state's and the
+    resident dataset's tensors and the group's shapes and kinds; another
+    key needs another capture).  On a mesh the graph holds the steps' NCCL collectives, which
+    every rank captures and replays in the same order.  An absent input
+    (a batch without feats_base) stays None."""
 
-    def __init__(self, key: tuple):
-        self.key = key
-        self.warm = False  # the key's first group ran eagerly
+    def __init__(self):
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.inputs: tuple = ()
         self.outputs: tuple = ()
@@ -377,21 +371,22 @@ class _GroupGraph:
         self.collectives: dict = {}
         self.trace: list = []
 
-    def capture(self, fn, inputs: tuple) -> None:
-        """Record fn over static copies of `inputs`; nothing runs.  The
+    def capture(self, fn, inputs: tuple, pool) -> None:
+        """Record fn over static copies of `inputs` into the memory pool
+        `pool` (torch.cuda.graph_pool_handle); nothing runs.  The
         wrappers count their launches, and parallel/dist.py its
         collectives (and their bytes where it traces), while they are
         recorded: those are taken back here and added again at each
         replay.  Other threads (the feeder, a checkpoint writer, NCCL's
         watchdog) keep using the card: thread_local lets their calls
         through."""
-        self.inputs = tuple(t.clone() for t in inputs)
+        self.inputs = tuple(None if t is None else t.clone() for t in inputs)
         before = launch_counts()
         coll_before = dict(pdist.counts)
         trace_at = None if pdist.trace is None else len(pdist.trace)
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
                 self.outputs = fn(*self.inputs)
         finally:
             after = launch_counts()
@@ -410,7 +405,8 @@ class _GroupGraph:
         launches and collectives, and return copies of the outputs (on the
         device, no readback), which the next replay would overwrite."""
         for dst, src in zip(self.inputs, inputs):
-            dst.copy_(src)
+            if dst is not None:
+                dst.copy_(src)
         self.graph.replay()
         add_launch_counts(self.counts)
         for k, n in self.collectives.items():
@@ -420,7 +416,7 @@ class _GroupGraph:
         return tuple(t.clone() for t in self.outputs)
 
 
-class Trainer:
+class Trainer(TransferTiers):
     """Training and serving of one config (ftrl_ffm_tpu/train.py::Trainer).
 
     On a mesh every rank feeds its own slice of each global batch of
@@ -444,7 +440,10 @@ class Trainer:
 
     steps_per_call = S > 1 on a mesh groups S sharded steps a dispatch,
     streamed or resident, with the same bits as S = 1; on the card the
-    graph of a group holds the steps' NCCL collectives."""
+    graph of a group holds the steps' NCCL collectives.
+
+    Streamed batches (training, eval, predict_file) go up in the transfer
+    tiers' form (transfer.py::TransferTiers._compact; compact_transfer)."""
 
     def __init__(self, cfg: Config, state: Optional[ModelState] = None):
         """A trainer on cfg.device: a fresh seeded init, or `state` moved to
@@ -517,10 +516,20 @@ class Trainer:
         # ("sync", "device_copy", "inline"), the stall on the training
         # thread and the writer's seconds and bytes (save_checkpoint's)
         self.checkpoint_log: list = []
-        # steps_per_call > 1 on the card: the captured group of each role
-        # ("train", "eval"), and how the groups were dispatched: the first
-        # group of a key eagerly, then a capture, then replays
+        # the transfer tiers' state (transfer.py): the delta and DEC6
+        # hysteresis (one batch that breaks a tier turns it off for the
+        # run) and, on more than one process, each stream's first-pass
+        # observations and the narrowings the ranks agreed
+        self._delta_ok = True
+        self._dec6_ok = True
+        self._dyn_obs: dict = {}
+        self._dyn_agreed: dict = {}
+        # steps_per_call > 1 on the card: each role's ("train", "eval")
+        # captured groups by key, oldest first, and how the groups were
+        # dispatched: a key's first group eagerly and then captured, every
+        # later one replayed; a role's graphs share one memory pool
         self._graphs: dict = {}
+        self._graph_pools: dict = {}
         self.group_dispatch = {"eager": 0, "captures": 0, "replays": 0}
         # routed-lookup drops of the last training epoch (route mode)
         self._epoch_route_overflow = 0
@@ -601,8 +610,14 @@ class Trainer:
 
     # ---- batch plumbing ----
     def _place_batch(self, arrays) -> Batch:
-        """Upload one host batch (fields, feats, vals, y, sample_w)."""
-        return Batch(*(self._upload(a) for a in arrays))
+        """Upload one host batch as it is: (fields, feats, vals, y,
+        sample_w[, feats_base]), a None leaf staying None."""
+        return Batch(*(None if a is None else self._upload(a) for a in arrays))
+
+    def _device_batch(self, arrays, role: str) -> Batch:
+        """Upload one host batch in its transfer-tier form
+        (ftrl_ffm_tpu/train.py::_device_batch), on this thread."""
+        return self._place_batch(self._compact(arrays, role))
 
     def _dataset(self, role: str):
         """The offline in-memory dataset of `role` ("train" or "eval"),
@@ -882,11 +897,11 @@ class Trainer:
         for ix in rows:
             yield self._take_cached(cache, ix)
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the run's device; on the card through pinned
-        host memory with a non-blocking copy, which overlaps the kernels
-        still queued and waits for nothing."""
-        t = torch.from_numpy(a)
+    def _upload(self, a) -> torch.Tensor:
+        """A host array (or CPU tensor) on the run's device; on the card
+        through pinned host memory with a non-blocking copy, which overlaps
+        the kernels still queued and waits for nothing."""
+        t = _host_tensor(a)
         if self.device.type == "cuda":
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t
@@ -1050,18 +1065,22 @@ class Trainer:
         if err:
             raise err[0]
 
-    def _place_async(self, arrays) -> tuple:
+    def _place_async(self, arrays, role: str) -> tuple:
         """(Batch, ready event or None) of one host batch ([B, ...] or
-        [S, B, ...]), on a feeder thread.  On the card: copied into pinned
-        memory and to the device with non-blocking copies on a stream from
-        PyTorch's pool, the event recorded behind them.  The caching host
-        allocator keeps each pinned buffer until its copy has run.  On the
-        CPU: torch.from_numpy, nothing to wait for."""
+        [S, B, ...]) of `role`, on a feeder thread: first its transfer-tier
+        form (_compact, as ftrl_ffm_tpu/train.py::_device_batch), then on
+        the card copied into pinned memory and to the device with
+        non-blocking copies on a stream from PyTorch's pool, the event
+        recorded behind them.  The caching host allocator keeps each pinned
+        buffer until its copy has run.  On the CPU: the host arrays as
+        tensors, nothing to wait for.  An absent feats_base stays None."""
+        arrays = self._compact(arrays, role)
         if self.device.type != "cuda":
-            return Batch(*(torch.from_numpy(a) for a in arrays)), None
+            return Batch(*(None if a is None else _host_tensor(a) for a in arrays)), None
         stream = torch.cuda.Stream(self.device)
         with torch.cuda.stream(stream):
-            batch = Batch(*(torch.from_numpy(a).pin_memory().to(self.device, non_blocking=True)
+            batch = Batch(*(None if a is None else
+                            _host_tensor(a).pin_memory().to(self.device, non_blocking=True)
                             for a in arrays))
             ready = torch.cuda.Event()
             ready.record(stream)
@@ -1077,19 +1096,21 @@ class Trainer:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(ready)
             for t in batch:
-                t.record_stream(stream)
+                if t is not None:
+                    t.record_stream(stream)
         return batch
 
-    def _device_feed(self, arrays_iter):
-        """Host batches as device batches, placed on the feeder
+    def _device_feed(self, arrays_iter, role: str = "train"):
+        """Host batches of `role` as device batches, placed on the feeder
         (ftrl_ffm_tpu/train.py::_device_feed)."""
-        for batch, ready in self._feed(arrays_iter, self._place_async):
+        place = lambda a: self._place_async(a, role)  # noqa: E731
+        for batch, ready in self._feed(arrays_iter, place):
             yield self._adopt(batch, ready)
 
-    def _device_feed_multi(self, groups_iter):
+    def _device_feed_multi(self, groups_iter, role: str = "train"):
         """Like _device_feed, for (stacked [S, B, ...] group, real steps)
         items (_grouped)."""
-        place = lambda gr: (self._place_async(gr[0]), gr[1])  # noqa: E731
+        place = lambda gr: (self._place_async(gr[0], role), gr[1])  # noqa: E731
         for (batch, ready), real in self._feed(groups_iter, place):
             yield self._adopt(batch, ready), real
 
@@ -1144,10 +1165,17 @@ class Trainer:
         for g in range(n_groups):
             yield idx[g], min(s, n_steps - g * s)
 
+    @staticmethod
+    def _unstack(leaves) -> list:
+        """The S batches of a stacked [S, B, ...] group's leaves (an absent
+        feats_base stays None)."""
+        return [Batch(*(None if t is None else t[k] for t in leaves))
+                for k in range(leaves[0].shape[0])]
+
     def _multi_train_impl(self, *leaves) -> tuple:
         """S train steps on a stacked [S, B, ...] group: ([S, 2] per-step
         (loss sum, count),)."""
-        return self._train_chain(Batch(*(t[k] for t in leaves)) for k in range(leaves[0].shape[0]))
+        return self._train_chain(self._unstack(leaves))
 
     def _gather_train_impl(self, cache: _DevCache, idx: torch.Tensor) -> tuple:
         """S train steps on batches gathered from a resident dataset by
@@ -1174,8 +1202,7 @@ class Trainer:
         sums: args = the group's leaves, the [S] real-step mask, the
         [2, P] running (sums, compensations); returns the new [2, P]."""
         *leaves, real, acc = args
-        batches = (Batch(*(t[k] for t in leaves)) for k in range(leaves[0].shape[0]))
-        return self._eval_chain(batches, real, acc)
+        return self._eval_chain(self._unstack(leaves), real, acc)
 
     def _gather_eval_impl(self, cache: _DevCache, idx: torch.Tensor, real: torch.Tensor,
                           acc: torch.Tensor) -> tuple:
@@ -1220,33 +1247,45 @@ class Trainer:
         the state's memory, so a swapped tensor (init_from_weights, the
         in-place form's linear-table reconcile, an assigned state) changes
         the key."""
-        return key, tuple((tuple(t.shape), t.dtype) for t in inputs), _tensor_key(self.state)
+        shapes = tuple(None if t is None else (tuple(t.shape), t.dtype) for t in inputs)
+        return key, shapes, _tensor_key(self.state)
 
     def _run_group(self, role: str, fn, inputs: tuple, key: tuple = ()) -> tuple:
         """Dispatch one S-step group: fn(*inputs) -> a tuple of tensors.
-        On the CPU fn runs eagerly.  On the card the first group of a
-        key (_group_key) runs eagerly (real work, and every kernel's
-        first-use setup before any capture), the next one is captured and
-        replayed, and every later one replays; a capture or replay that
-        fails raises, and no group falls back to eager steps after its
-        key's first."""
+        On the CPU fn runs eagerly.  On the card the first group of a key
+        (_group_key) runs eagerly (real work, and every kernel's first-use
+        setup) and is then captured, and every later group of the key
+        replays.  A role keeps the graphs of up to _GRAPH_KEYS keys, so the
+        keys of a streamed run (its full groups and the padded last one,
+        whose tiers differ) are captured in its first epoch and replayed
+        after; a key of another state (a swapped tensor) drops the old
+        state's graphs and their memory first.  A role's graphs share one
+        memory pool: they replay one at a time on one stream and their
+        outputs are copied out, so the pool holds about one group's
+        scratch whatever the number of keys.  A capture or replay that
+        fails raises: no key falls back to eager steps."""
         if self.device.type != "cuda":
             return fn(*inputs)
         key = self._group_key(key, inputs)
-        entry = self._graphs.get(role)
-        if entry is None or entry.key != key:
-            # the old graph's private memory pool goes before a new capture
-            self._graphs.pop(role, None)
-            entry = self._graphs[role] = _GroupGraph(key)
-        if not entry.warm:
-            entry.warm = True
-            self.group_dispatch["eager"] += 1
-            return fn(*inputs)
-        if entry.graph is None:
-            entry.capture(fn, inputs)
-            self.group_dispatch["captures"] += 1
-        out = entry.replay(inputs)
-        self.group_dispatch["replays"] += 1
+        graphs = self._graphs.setdefault(role, {})
+        entry = graphs.get(key)
+        if entry is not None:
+            graphs[key] = graphs.pop(key)  # the most recently used last
+            out = entry.replay(inputs)
+            self.group_dispatch["replays"] += 1
+            return out
+        for k in [k for k in graphs if k[-1] != key[-1]]:
+            del graphs[k]
+        while len(graphs) >= _GRAPH_KEYS:
+            del graphs[next(iter(graphs))]
+        if not graphs:  # a pool no live graph uses is not shared again
+            self._graph_pools[role] = torch.cuda.graph_pool_handle()
+        out = fn(*inputs)
+        self.group_dispatch["eager"] += 1
+        entry = _GroupGraph()
+        entry.capture(fn, inputs, self._graph_pools[role])
+        graphs[key] = entry
+        self.group_dispatch["captures"] += 1
         return out
 
     def _train_batches(self, epoch_rng: np.random.Generator):
@@ -1318,13 +1357,18 @@ class Trainer:
                 sums = self._train_groups(self._cached_groups(cache, rng))
             else:
                 sums = self._train_steps(self._cached_batches(cache, rng))
-        elif grouped:
-            groups = self._grouped(self._train_batches(epoch_rng), self.cfg.steps_per_call)
-            sums = self._train_groups(
-                (("multi",), self._multi_train_impl, tuple(b), real)
-                for b, real in self._device_feed_multi(groups))
         else:
-            sums = self._train_steps(self._device_feed(self._train_batches(epoch_rng)))
+            if grouped:
+                groups = self._grouped(self._train_batches(epoch_rng), self.cfg.steps_per_call)
+                sums = self._train_groups(
+                    (("multi",), self._multi_train_impl, tuple(b), real)
+                    for b, real in self._device_feed_multi(groups))
+            else:
+                sums = self._train_steps(self._device_feed(self._train_batches(epoch_rng)))
+            # the first streamed pass observed the whole stream: the ranks
+            # agree its narrowings now (one all-gather; a no-op on one
+            # process and once agreed)
+            self._agree_dyn("train")
         # a checkpoint due within the epoch is durable once the epoch
         # returns (async writes joined; the atomic rename already landed)
         self._join_pending_checkpoint()
@@ -1608,7 +1652,7 @@ class Trainer:
         if cache is not None:
             batches = self._cached_batches(cache)
         else:
-            batches = self._device_feed(self._eval_batches())
+            batches = self._device_feed(self._eval_batches(), "eval")
         score_rows: list = []
         tot = None
         for batch in batches:
@@ -1623,6 +1667,7 @@ class Trainer:
             else:
                 (t,), (c,) = kahan_add((tot[0],), (tot[1],), (part,))
                 tot = (t, c)
+        self._agree_dyn("eval")
         if tot is None:
             return float("nan"), float("nan")
         loss, auc = self._close_eval(tot[0])
@@ -1679,7 +1724,7 @@ class Trainer:
         else:
             key, fn = ("multi",), self._multi_eval_impl
             groups = ((tuple(b), real) for b, real in
-                      self._device_feed_multi(self._grouped(self._eval_batches(), s)))
+                      self._device_feed_multi(self._grouped(self._eval_batches(), s), "eval"))
         head = 3 if self._sharded is not None and self._sharded.mode == "route" else 2
         acc = None
         for inputs, real in groups:
@@ -1688,6 +1733,7 @@ class Trainer:
                                   device=self.device)
             mask = torch.arange(s, device=self.device) < real  # the real steps
             (acc,) = self._run_group("eval", fn, (*inputs, mask, acc), key)
+        self._agree_dyn("eval")
         if acc is None:
             return float("nan"), float("nan")
         return self._close_eval(acc[0])
@@ -1724,7 +1770,7 @@ class Trainer:
         )
         with out_cm as f:
             for arrays in reader.batches():
-                batch = self._place_batch(arrays)
+                batch = self._device_batch(arrays, "predict")
                 if self._sharded is not None:
                     logits = self._sharded.eval_step(self.state, batch)[2]
                 else:
@@ -1774,8 +1820,8 @@ class Trainer:
         overflow = None
         try:
             for b_idx, arrays in enumerate(self._pad_to_steps(reader.batches(), n_steps)):
-                _, _, logits, of, _, _ = self._sharded.eval_step(self.state,
-                                                                 self._place_batch(arrays))
+                _, _, logits, of, _, _ = self._sharded.eval_step(
+                    self.state, self._device_batch(arrays, "predict"))
                 if of is not None:
                     overflow = of if overflow is None else overflow + of
                 gathered = pdist.process_allgather(torch.sigmoid(logits), self.device)[::m]

@@ -600,7 +600,7 @@ def test_inplace_train_step_is_bit_deterministic():
         st = type(init)(*(t.to(dev) for t in init))
         counts = [f.launches for f in (ffm_fused_logits_grads, za_scatter, closed_form_pass)]
         for b in batches:
-            model.train_step(st, Batch(*(t.to(dev) for t in b)))
+            model.train_step(st, Batch(*(None if t is None else t.to(dev) for t in b)))
         torch.cuda.synchronize()
         after = [f.launches for f in (ffm_fused_logits_grads, za_scatter, closed_form_pass)]
         assert [y - x for x, y in zip(counts, after)] == [3, 3, 3]
@@ -950,7 +950,7 @@ def test_lr_fm_train_steps_launch_and_repeat(model_type, kw, kind):
         counts = [f.launches for f in fns]
         by_dtype = dict(ftrl_update.launches_by_dtype)
         for b in batches:
-            model.train_step(st, Batch(*(t.to(dev) for t in b)))
+            model.train_step(st, Batch(*(None if t is None else t.to(dev) for t in b)))
         torch.cuda.synchronize()
         assert [f.launches - c for f, c in zip(fns, counts)] == expect
         # the payload is f32 in every kind; the linear-only update's
@@ -1153,7 +1153,7 @@ def test_bf16_train_steps_launch_and_repeat(kw, kind):
         counts = [f.launches for f in fns]
         by_inst = dict(ffm_fused_logits_grads.launches_by_instance)
         for b in batches:
-            model.train_step(st, Batch(*(t.to(dev) for t in b)))
+            model.train_step(st, Batch(*(None if t is None else t.to(dev) for t in b)))
         torch.cuda.synchronize()
         assert [f.launches - c for f, c in zip(fns, counts)] == expect
         assert ffm_fused_logits_grads.launches_by_instance[instance] == by_inst[instance] + 3
@@ -1675,10 +1675,10 @@ def test_graph_groups_match_eager_bit_for_bit(tmp_path, kw):
 @pytest.mark.cuda
 def test_graph_recaptures_after_a_state_swap(tmp_path):
     """A captured group keys on the state's tensors: a swapped state
-    (init_from_weights) runs its next group eagerly and captures again,
-    and the epoch equals an eager S=1 epoch from the same weights; the
-    update kernel's launches count 9 an epoch through eager, captured and
-    replayed groups alike."""
+    (init_from_weights) runs its next group eagerly and captures again
+    (the old state's graph dropped), and the epoch equals an eager S=1
+    epoch from the same weights; the update kernel's launches count 9 an
+    epoch through eager, captured and replayed groups alike."""
     from ftrl_ffm_tpu_torch.config import Config
     from ftrl_ffm_tpu_torch.train import Trainer
 
@@ -1690,7 +1690,7 @@ def test_graph_recaptures_after_a_state_swap(tmp_path):
         n0 = ftrl_update.launches
         tr.train_epoch()
         assert ftrl_update.launches - n0 == 9 and tr.group_dispatch == want
-    key = tr._graphs["train"].key
+    (key,) = tr._graphs["train"]
     tr.state = tr.model.init_from_weights(*tr.model.materialize_weights(tr.logical_state),
                                           device=dev)
     twin = Trainer(Config(**base), state=type(tr.state)(*(t.clone() for t in tr.state)))
@@ -1698,7 +1698,7 @@ def test_graph_recaptures_after_a_state_swap(tmp_path):
     loss = tr.train_epoch()
     assert ftrl_update.launches - n0 == 9
     assert tr.group_dispatch == {"eager": 2, "captures": 2, "replays": 7}
-    assert tr._graphs["train"].key != key
+    assert list(tr._graphs["train"]) != [key] and len(tr._graphs["train"]) == 1
     assert loss == twin.train_epoch()
     for a, b in zip(tr.state, twin.state):
         assert torch.equal(a, b)
@@ -1706,8 +1706,9 @@ def test_graph_recaptures_after_a_state_swap(tmp_path):
 
 @pytest.mark.cuda
 def test_failed_capture_raises(tmp_path):
-    """A group whose capture fails (here a host sync inside it) raises:
-    no group after its key's first falls back to eager steps."""
+    """A group whose capture fails (here a host sync inside it) raises
+    where its key's first group, run eagerly, is captured: no group falls
+    back to eager steps."""
     from ftrl_ffm_tpu_torch.config import Config
     from ftrl_ffm_tpu_torch.train import Trainer
 
@@ -1720,11 +1721,9 @@ def test_failed_capture_raises(tmp_path):
         return (y,)
 
     x = torch.ones(4, device=dev)
-    (y,) = tr._run_group("probe", syncs, (x,))
-    assert torch.equal(y, 2 * x) and tr.group_dispatch["eager"] == 1
     with pytest.raises(RuntimeError):
         tr._run_group("probe", syncs, (x,))
-    assert tr.group_dispatch["replays"] == 0
+    assert tr.group_dispatch == {"eager": 1, "captures": 0, "replays": 0}
     torch.cuda.synchronize()
 
 
@@ -1894,3 +1893,101 @@ def test_n_rank_nccl_mesh_matches_one_card(tmp_path, mesh_flags):
     a, b = load_checkpoint(one)[0], load_checkpoint(mesh)[0]
     for name in ("lin_z", "lin_n", "vec_z", "vec_n"):
         np.testing.assert_allclose(getattr(b, name), getattr(a, name), rtol=2e-3, atol=5e-5)
+
+
+# ---- the transfer tiers (transfer.py, models/base.py::widen_batch) ----
+
+
+def _tier_files(tmp_path, n_feats, ids, fields, vals):
+    """96 train and 40 eval rows over 7 fields: ids per-field clustered or
+    spread over the table, fields in slot order or shuffled, values ones,
+    6-decimal or random; the eval file's last batch padded."""
+    rng = np.random.default_rng(3)
+    paths = []
+    for name, n in (("train", 96), ("eval", 40)):
+        path = tmp_path / f"{name}.ffm"
+        with open(path, "w") as f:
+            for _ in range(n):
+                order = rng.permutation(7) if fields == "shuffled" else range(7)
+                toks = [str(int(rng.random() > 0.5))]
+                for c in order:
+                    block = n_feats // 7
+                    feat = (int(rng.integers(0, n_feats)) if ids == "spread"
+                            else c * block + int(rng.integers(0, min(block, 50))))
+                    v = {"ones": "1", "dec6": f"{int(rng.integers(0, 10**6)) / 1e6:.6f}",
+                         "f32": f"{rng.random() * 3:.9f}"}[vals]
+                    toks.append(f"{c}:{feat}:{v}")
+                f.write(" ".join(toks) + "\n")
+        paths.append(str(path))
+    return dict(train_data=paths[0], eval_data=paths[1], model_type="FFM", n_fields=7,
+                n_factors=16, n_feats=n_feats, batch_size=16, n_epochs=2, w_alpha=0.05,
+                w_l1=0.15, w_l2=1.0, device_cache="off", device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (60, "clustered", "canonical", "ones"),
+    (100_000, "spread", "canonical", "f32"),
+    (1 << 20, "spread", "shuffled", "dec6"),
+    (60, "clustered", "shuffled", "dec6"),
+], ids=["delta-markers", "split-100k", "split-2^20-packed-dec6", "packed-dec6"])
+def test_tiers_on_the_card_give_the_untiered_bits(tmp_path, shape):
+    """Streamed training with eval and predict_file on the card, the tiers
+    on against off, and S=4 against S=1 (tiers on): histories, tables and
+    prediction bytes bit for bit; each upload decodes on the card to the
+    CPU decode's bits; the DEC6 probe passes on the card."""
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.models.base import Batch, widen_batch
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    _card()
+    kw = _tier_files(tmp_path, *shape)
+    runs = []
+    for over in ({}, {"compact_transfer": False}, {"steps_per_call": 4}):
+        tr = Trainer(Config(**kw, **over))
+        ups = []
+        compact = tr._compact
+        tr._compact = lambda a, role="train", c=compact, u=ups: u.append(c(a, role)) or u[-1]
+        hist = tr.train()
+        out = tmp_path / f"p{len(runs)}.txt"
+        tr.predict_file(kw["eval_data"], str(out))
+        runs.append((hist, tr.logical_state, out.read_bytes(), ups, tr))
+    (h, st, p, ups, tr), *others = runs
+    for h2, st2, p2, _, _ in others:
+        assert h2 == h and p2 == p
+        for a, b in zip(st, st2):
+            assert (a is None and b is None) or torch.equal(a, b)
+    assert tr._dec6_device_ok()
+    for up in ups:
+        host = [None if a is None else (a if isinstance(a, torch.Tensor) else torch.from_numpy(a))
+                for a in up]
+        on_card = widen_batch(Batch(*(None if t is None else t.cuda() for t in host)))
+        on_cpu = widen_batch(Batch(*host))
+        for g, w in zip(on_card[:5], on_cpu[:5]):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_streamed_groups_capture_nothing_after_the_first_epoch(tmp_path):
+    """S=4 streamed with the tiers on: the full groups (all-ones marker,
+    iota fields) and the padded last one (int8 values) are two keys, both
+    captured in epoch 1 into the role's one memory pool; epoch 2 replays
+    them all."""
+    from ftrl_ffm_tpu_torch.config import Config
+    from ftrl_ffm_tpu_torch.train import Trainer
+
+    def pools():
+        return {tuple(seg["segment_pool_id"]) for seg in torch.cuda.memory_snapshot()
+                if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)}
+
+    _card()
+    kw = _tier_files(tmp_path, 60, "clustered", "canonical", "ones")
+    tr = Trainer(Config(**{**kw, "eval_data": ""}, steps_per_call=4))
+    before = pools()
+    tr.train_epoch()
+    # 96 rows at B=16: 6 steps, groups of 4 and of 2 (+2 inert)
+    assert tr.group_dispatch == {"eager": 2, "captures": 2, "replays": 0}
+    assert len(tr._graphs["train"]) == 2
+    assert pools() - before == {tuple(tr._graph_pools["train"])}
+    tr.train_epoch()
+    assert tr.group_dispatch == {"eager": 2, "captures": 2, "replays": 2}

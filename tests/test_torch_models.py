@@ -103,16 +103,25 @@ def test_widen_batch_matches_jax(marker):
 
 
 def test_widen_batch_refuses_transfer_tiers():
+    """No tier dtype is refused any more (the transfer tiers are ported:
+    tests/test_torch_transfer.py holds each against the JAX package): a
+    uint16 feats tensor without feats_base widens as the JAX package's
+    does, by a cast, and a uint16 delta batch decodes against its base."""
     b, f = 4, 3
-    batch = TBatch(
-        torch.zeros((b, f), dtype=torch.int32),
-        torch.zeros((b, f), dtype=torch.uint16),
-        torch.ones((b, f)),
-        torch.zeros(b),
-        torch.ones(b),
-    )
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        t_widen(batch)
+    feats = np.arange(b * f, dtype=np.uint16).reshape(b, f)
+    feats[0, 0] = 65535
+    base = np.array([100, 200, 300, 7], np.int32)
+    arrays = (np.zeros((b, f), np.int32), feats, np.ones((b, f), np.float32),
+              np.zeros(b, np.float32), np.ones(b, np.float32))
+    for fb in (None, base):
+        ref = j_widen(JBatch(*(jnp.asarray(a) for a in arrays),
+                             feats_base=None if fb is None else jnp.asarray(fb)))
+        got = t_widen(TBatch(*(torch.from_numpy(a) for a in arrays),
+                             feats_base=None if fb is None else torch.from_numpy(fb)))
+        for r, g in zip(ref[:5], got[:5]):
+            assert g.dtype in (torch.int32, torch.float32)
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    assert got.feats[0, 0] == 7 and got.feats[1, 0] == 100 + 3
 
 
 def test_logloss_matches_jax():

@@ -17,6 +17,7 @@ PORT = os.path.join(REPO, "ftrl_ffm_tpu_torch")
 _MODULES = (
     "ftrl_ffm_tpu_torch",
     "ftrl_ffm_tpu_torch.train",
+    "ftrl_ffm_tpu_torch.transfer",
     "ftrl_ffm_tpu_torch.cli",
     "ftrl_ffm_tpu_torch.ops",
     "ftrl_ffm_tpu_torch.ops.ffm_cuda",
@@ -49,6 +50,7 @@ _MODULES = (
     "ftrl_ffm_tpu_torch.tools.micro_scatter",
     "ftrl_ffm_tpu_torch.tools.scaling_model",
     "ftrl_ffm_tpu_torch.tools.bench_multichip",
+    "ftrl_ffm_tpu_torch.tools.generate_data",
     "ftrl_ffm_tpu_torch.parallel",
     "ftrl_ffm_tpu_torch.parallel.dist",
     "ftrl_ffm_tpu_torch.parallel.mesh",

@@ -55,6 +55,9 @@ def test_profile_step_build_matches_jax(monkeypatch, small_step):
                  "update_mode", "acc_dtype", "table_dtype"):
         assert getattr(cfg, name) == getattr(jcfg, name), name
     for name, got, want in zip(batch._fields, batch, jbatch):
+        if want is None:  # feats_base: no id tier in the built batch
+            assert got is None, name
+            continue
         assert np.array_equal(got.numpy(), np.asarray(want)), name
         assert got.numpy().dtype == np.asarray(want).dtype, name
     assert state.vec_w.shape == (3900, 640)
