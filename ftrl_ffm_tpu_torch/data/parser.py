@@ -23,10 +23,13 @@ Parity notes (reference behaviors preserved):
 
 from __future__ import annotations
 
+import time
 import warnings
 from typing import NamedTuple
 
 import numpy as np
+
+from ftrl_ffm_tpu_torch import tracing
 
 
 class ParsedChunk(NamedTuple):
@@ -81,16 +84,23 @@ def parse_text(
     go straight to it, no decode, and n_threads > 1 parses newline-aligned
     sub-ranges concurrently inside the library (GIL released); the
     vectorized-numpy implementation below is the always-available fallback
-    and numerical ground truth (tests assert both agree)."""
+    and numerical ground truth (tests assert both agree).  The rows and
+    seconds of each chunk count under the parser that took it
+    (tracing: parse.rows.native / .numpy, parse.s.native / .numpy)."""
+    t0 = time.perf_counter()
+    out, path = None, "native"
     if use_native:
         out = parse_text_native(
             text, file_type, max_nnz, n_feats, n_fields, n_threads
         )
-        if out is not None:
-            return out
-    if isinstance(text, bytes):
-        text = text.decode()
-    return parse_text_numpy(text, file_type, max_nnz, n_feats, n_fields)
+    if out is None:
+        path = "numpy"
+        if isinstance(text, bytes):
+            text = text.decode()
+        out = parse_text_numpy(text, file_type, max_nnz, n_feats, n_fields)
+    tracing.count("parse.rows." + path, out.y.shape[0])
+    tracing.count("parse.s." + path, time.perf_counter() - t0)
+    return out
 
 
 def parse_text_native(

@@ -21,10 +21,12 @@ import os
 import queue
 import sys
 import threading
+import time
 from typing import IO, Iterator, Optional
 
 import numpy as np
 
+from ftrl_ffm_tpu_torch import tracing
 from ftrl_ffm_tpu_torch.data.parser import parse_lines, parse_text
 
 CHUNK_LINES = 20000  # reference: src/include/concurrent/pc_task.h:34
@@ -113,7 +115,9 @@ class StreamReader:
                 yield blk
 
     def batches(self) -> Iterator[tuple]:
-        """One epoch of (fields, feats, vals, y, sample_w) batches."""
+        """One epoch of (fields, feats, vals, y, sample_w) batches.  Counts
+        stream.batches and stream.parse_s, the seconds of its chunk parses
+        on the parse pool (tracing)."""
         # Producer thread reads chunks and submits them to a parse pool;
         # chunk futures are queued in order so batch order == file order (the
         # reference's "each example seen once per epoch, in stream order").
@@ -124,7 +128,8 @@ class StreamReader:
         )
 
         def parse(lines):
-            return parse_lines(
+            t0 = time.perf_counter()
+            out = parse_lines(
                 lines, self.file_type, self.max_nnz, self.n_feats,
                 self.n_fields,
                 # the line path (stdin/--cmd) shares the 1-worker pool when
@@ -132,12 +137,17 @@ class StreamReader:
                 # in-library threads, like the block path
                 n_threads=self.n_parse_threads if self._native_mt else 1,
             )
+            tracing.count("stream.parse_s", time.perf_counter() - t0)
+            return out
 
         def parse_block(blk: bytes):
-            return parse_text(
+            t0 = time.perf_counter()
+            out = parse_text(
                 blk, self.file_type, self.max_nnz, self.n_feats, self.n_fields,
                 n_threads=self.n_parse_threads if self._native_mt else 1,
             )
+            tracing.count("stream.parse_s", time.perf_counter() - t0)
+            return out
 
         def log_progress(seen, prev):
             # threshold-crossing check: fires for any chunk size, not only
@@ -220,6 +230,7 @@ class StreamReader:
                     fields, feats, vals, y = (
                         a[s : s + self.batch_size] for a in arrays
                     )
+                    tracing.count("stream.batches")
                     yield fields, feats, vals, y, np.ones(
                         self.batch_size, np.float32
                     )
@@ -246,6 +257,7 @@ class StreamReader:
             b = y.shape[0]
             pad = self.batch_size - b
             fmax = fields.shape[1]
+            tracing.count("stream.batches")
             yield (
                 np.concatenate([fields, np.zeros((pad, fmax), np.int32)]),
                 np.concatenate(

@@ -16,6 +16,8 @@ import os
 import subprocess
 import threading
 
+from ftrl_ffm_tpu_torch import tracing
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "parser.cpp")
 
@@ -53,6 +55,7 @@ def _build(so: str) -> bool:
                 timeout=120,
             )
             os.replace(tmp, so)  # atomic: concurrent builders race safely
+            tracing.count("native.builds")
             return True
         except (OSError, subprocess.SubprocessError):
             continue

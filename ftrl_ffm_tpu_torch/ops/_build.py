@@ -25,6 +25,8 @@ import subprocess
 import threading
 import time
 
+from ftrl_ffm_tpu_torch import tracing
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -104,8 +106,51 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cuda_error_string.restype = ctypes.c_char_p
 
 
+def _compile(sources: list[str], so: str) -> str:
+    """Compile and link `sources` into `so` (atomically); nvcc's output."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.tmp{os.getpid()}"
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    procs: list[subprocess.Popen] = []
+    try:
+        for src, obj in zip(sources, objs):
+            procs.append(subprocess.Popen(
+                [_nvcc(), *FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        logs = [proc.communicate(timeout=600)[0] for proc in procs]
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}) building "
+                    f"{os.path.basename(src)}:\n{log}"
+                )
+        link = subprocess.run(
+            [_nvcc(), *ARCH, "-shared", "-o", tmp, *objs],
+            capture_output=True, text=True, timeout=600,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({link.returncode}) linking "
+                f"{', '.join(map(os.path.basename, sources))}:\n"
+                f"{link.stdout}{link.stderr}"
+            )
+    finally:
+        for proc in procs:  # none outlives a failed build
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    os.replace(tmp, so)  # atomic: concurrent builders race safely
+    return "".join(logs) + link.stdout + link.stderr
+
+
 def lib() -> ctypes.CDLL:
-    """The kernel library, built on first call; raises if it cannot be."""
+    """The kernel library, built on first call; raises if it cannot be.
+    A build runs in the span "kernels.build" and counts kernels.builds
+    and kernels.build_s (tracing)."""
     global _lib, build_log, build_seconds
     if _lib is not None:
         return _lib
@@ -115,45 +160,13 @@ def lib() -> ctypes.CDLL:
         sources = _sources()
         so = _so_path(sources)
         if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.tmp{os.getpid()}"
             t0 = time.perf_counter()
-            objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
-            procs: list[subprocess.Popen] = []
-            try:
-                for src, obj in zip(sources, objs):
-                    procs.append(subprocess.Popen(
-                        [_nvcc(), *FLAGS, "-c", "-o", obj, src],
-                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                    ))
-                logs = [proc.communicate(timeout=600)[0] for proc in procs]
-                for src, proc, log in zip(sources, procs, logs):
-                    if proc.returncode != 0:
-                        raise RuntimeError(
-                            f"nvcc failed ({proc.returncode}) building "
-                            f"{os.path.basename(src)}:\n{log}"
-                        )
-                link = subprocess.run(
-                    [_nvcc(), *ARCH, "-shared", "-o", tmp, *objs],
-                    capture_output=True, text=True, timeout=600,
-                )
-                if link.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({link.returncode}) linking "
-                        f"{', '.join(map(os.path.basename, sources))}:\n"
-                        f"{link.stdout}{link.stderr}"
-                    )
-            finally:
-                for proc in procs:  # none outlives a failed build
-                    if proc.poll() is None:
-                        proc.kill()
-                        proc.wait()
-                for obj in objs:
-                    if os.path.exists(obj):
-                        os.remove(obj)
-            os.replace(tmp, so)  # atomic: concurrent builders race safely
+            with tracing.span("kernels.build"):
+                log = _compile(sources, so)
             build_seconds = time.perf_counter() - t0
-            build_log = "".join(logs) + link.stdout + link.stderr
+            build_log = log
+            tracing.count("kernels.builds")
+            tracing.count("kernels.build_s", build_seconds)
         cdll = ctypes.CDLL(so)
         _declare(cdll)
         _lib = cdll

@@ -51,6 +51,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ftrl_ffm_tpu_torch import tracing
 from ftrl_ffm_tpu_torch.config import (
     Config,
     check_ported,
@@ -77,6 +78,7 @@ from ftrl_ffm_tpu_torch.models import Batch, ModelState, make_model
 from ftrl_ffm_tpu_torch.models.base import dec6_decode, take_cached
 from ftrl_ffm_tpu_torch.ops import add_launch_counts, launch_counts
 from ftrl_ffm_tpu_torch.parallel import dist as pdist
+from ftrl_ffm_tpu_torch.tracing import span, spanned
 from ftrl_ffm_tpu_torch.transfer import TransferTiers, pack_bitplanes, unpack_bitplanes
 
 
@@ -609,15 +611,15 @@ class Trainer(TransferTiers):
             self.state = self.model.sync_lin_from_mirror(self.state)
 
     # ---- batch plumbing ----
-    def _place_batch(self, arrays) -> Batch:
-        """Upload one host batch as it is: (fields, feats, vals, y,
-        sample_w[, feats_base]), a None leaf staying None."""
-        return Batch(*(None if a is None else self._upload(a) for a in arrays))
+    def _place_batch(self, arrays, role: str = "train") -> Batch:
+        """Upload one host batch of `role` as it is: (fields, feats, vals,
+        y, sample_w[, feats_base]), a None leaf staying None."""
+        return Batch(*(None if a is None else self._upload(a, role) for a in arrays))
 
     def _device_batch(self, arrays, role: str) -> Batch:
         """Upload one host batch in its transfer-tier form
         (ftrl_ffm_tpu/train.py::_device_batch), on this thread."""
-        return self._place_batch(self._compact(arrays, role))
+        return self._place_batch(self._compact(arrays, role), role)
 
     def _dataset(self, role: str):
         """The offline in-memory dataset of `role` ("train" or "eval"),
@@ -762,13 +764,15 @@ class Trainer(TransferTiers):
                 # during the parse shows as stale at the next pass
                 st = os.stat(path)
                 pre_stat = (st.st_size, st.st_mtime_ns)
-            ds = self._dataset(role)
+            with span("data.parse"):
+                ds = self._dataset(role)
             self._dev_cache[role] = None
             # on a mesh every rank resolves, an empty slice too (it holds
             # inert rows only): the ranks decide together
             layout = self._resolve_cache_layout(ds.n) if ds.n > 0 or self._proc_n > 1 else None
             if layout is not None:
-                entry = self._build_device_cache(ds, layout, pre_stat)
+                with span("data.upload"):
+                    entry = self._build_device_cache(ds, layout, pre_stat)
                 self._dev_cache[role] = entry
                 # the parsed host copy is dead once the rows live on the device
                 delattr(self, f"_{role}_ds")
@@ -862,6 +866,7 @@ class Trainer(TransferTiers):
         ix = torch.arange(step * lb, (step + 1) * lb, dtype=torch.int32, device=self.device)
         return ix.clamp_(max=pad)
 
+    @spanned("index")
     def _cached_idx(self, order: np.ndarray, n_steps: int, pad: int) -> np.ndarray:
         """[n_steps, b] int32 index rows over a permutation, the tail padded
         with the pad row's index."""
@@ -877,31 +882,37 @@ class Trainer(TransferTiers):
         pass shuffles its byte range)."""
         if epoch_rng is None:
             return None
-        order = np.arange(cache.n)
-        epoch_rng.shuffle(order)
+        with span("train.order"):
+            order = np.arange(cache.n)
+            epoch_rng.shuffle(order)
         return order
 
-    def _cached_batches(self, cache: _DevCache, epoch_rng=None):
+    def _cached_batches(self, cache: _DevCache, epoch_rng=None, role: str = "train"):
         """The batches of one pass over a resident dataset (those of
         ftrl_ffm_tpu/train.py::_train_epoch_cached and of evaluate's
         resident branch): in file order (online epochs, eval, offline
         without shuffle; epoch_rng None) or in _cached_order's permutation.
         A shuffled pass uploads its [S, b] index table once (non-blocking,
-        from pinned memory); each step reads a row of it, a view."""
+        from pinned memory); each step reads a row of it, a view.  Each
+        batch's index row and gather run in the span "<role>.gather"."""
         n_steps, pad = self._cache_steps(cache)
         order = self._cached_order(cache, epoch_rng)
-        if order is None:
-            rows = (self._iota_rows(s, pad) for s in range(n_steps))
-        else:
-            rows = self._upload(self._cached_idx(order, n_steps, pad))
-        for ix in rows:
-            yield self._take_cached(cache, ix)
+        if order is not None:
+            idx = self._upload(self._cached_idx(order, n_steps, pad), role)
+        for s in range(n_steps):
+            with span(role + ".gather"):
+                batch = self._take_cached(cache, self._iota_rows(s, pad) if order is None
+                                          else idx[s])
+            yield batch
 
-    def _upload(self, a) -> torch.Tensor:
-        """A host array (or CPU tensor) on the run's device; on the card
-        through pinned host memory with a non-blocking copy, which overlaps
-        the kernels still queued and waits for nothing."""
+    @spanned("upload")
+    def _upload(self, a, role: str = "train") -> torch.Tensor:
+        """A host array (or CPU tensor) of `role` on the run's device; on
+        the card through pinned host memory with a non-blocking copy, which
+        overlaps the kernels still queued and waits for nothing.  Its bytes
+        count under upload.bytes.<role>."""
         t = _host_tensor(a)
+        tracing.count("upload.bytes." + role, t.numel() * t.element_size())
         if self.device.type == "cuda":
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t
@@ -956,7 +967,8 @@ class Trainer(TransferTiers):
         t.start()
         try:
             while True:
-                b = q.get()
+                with span("feed.wait"):
+                    b = q.get()
                 if b is None:
                     break
                 yield b
@@ -1041,12 +1053,13 @@ class Trainer(TransferTiers):
         try:
             while True:
                 with cond:
-                    while (
-                        next_out[0] not in buf
-                        and not err
-                        and (total[0] is None or next_out[0] < total[0])
-                    ):
-                        cond.wait(0.2)
+                    with span("feed.wait"):
+                        while (
+                            next_out[0] not in buf
+                            and not err
+                            and (total[0] is None or next_out[0] < total[0])
+                        ):
+                            cond.wait(0.2)
                     if err or next_out[0] not in buf:
                         break
                     b = buf.pop(next_out[0])
@@ -1073,17 +1086,29 @@ class Trainer(TransferTiers):
         non-blocking copies on a stream from PyTorch's pool, the event
         recorded behind them.  The caching host allocator keeps each pinned
         buffer until its copy has run.  On the CPU: the host arrays as
-        tensors, nothing to wait for.  An absent feats_base stays None."""
+        tensors, nothing to wait for.  An absent feats_base stays None.
+        Counts feed.batches, feed.place_s (the whole call), feed.compact_s
+        (its _compact) and upload.bytes.<role>: the feeder's threads are
+        not spanned (tracing)."""
+        t0 = time.perf_counter()
         arrays = self._compact(arrays, role)
+        t1 = time.perf_counter()
+        host = [None if a is None else _host_tensor(a) for a in arrays]
         if self.device.type != "cuda":
-            return Batch(*(None if a is None else _host_tensor(a) for a in arrays)), None
-        stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(stream):
-            batch = Batch(*(None if a is None else
-                            _host_tensor(a).pin_memory().to(self.device, non_blocking=True)
-                            for a in arrays))
-            ready = torch.cuda.Event()
-            ready.record(stream)
+            batch, ready = Batch(*host), None
+        else:
+            stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(stream):
+                batch = Batch(*(None if t is None else
+                                t.pin_memory().to(self.device, non_blocking=True)
+                                for t in host))
+                ready = torch.cuda.Event()
+                ready.record(stream)
+        tracing.count("upload.bytes." + role,
+                      sum(t.numel() * t.element_size() for t in host if t is not None))
+        tracing.count("feed.batches")
+        tracing.count("feed.compact_s", t1 - t0)
+        tracing.count("feed.place_s", time.perf_counter() - t0)
         return batch, ready
 
     def _adopt(self, batch: Batch, ready) -> Batch:
@@ -1157,8 +1182,9 @@ class Trainer(TransferTiers):
         n_steps, pad = self._cache_steps(cache)
         n_groups = -(-n_steps // s)
         if order is None:
-            idx = torch.arange(n_groups * s * lb, dtype=torch.int32, device=self.device)
-            idx = idx.clamp_(max=pad).view(n_groups, s, lb)
+            with span("index"):
+                idx = torch.arange(n_groups * s * lb, dtype=torch.int32, device=self.device)
+                idx = idx.clamp_(max=pad).view(n_groups, s, lb)
         else:
             rows = self._cached_idx(order, n_groups * s, pad)
             idx = self._upload(rows.reshape(n_groups, s, lb))
@@ -1283,7 +1309,8 @@ class Trainer(TransferTiers):
         out = fn(*inputs)
         self.group_dispatch["eager"] += 1
         entry = _GroupGraph()
-        entry.capture(fn, inputs, self._graph_pools[role])
+        with span("graph.capture"):
+            entry.capture(fn, inputs, self._graph_pools[role])
         graphs[key] = entry
         self.group_dispatch["captures"] += 1
         return out
@@ -1332,6 +1359,7 @@ class Trainer(TransferTiers):
         return self._pad_to_steps(it, self._global_steps("eval"))
 
     # ---- training ----
+    @spanned("train.epoch")
     def train_epoch(self, epoch_rng: Optional[np.random.Generator] = None) -> float:
         """One pass over the training data; returns its mean log-loss
         (ftrl_ffm_tpu/train.py::Trainer.train_epoch): from the
@@ -1401,7 +1429,8 @@ class Trainer(TransferTiers):
         streamed and resident epochs alike."""
         sums = []
         for batch in batches:
-            sums.append(self._train_one(batch))
+            with span("train.step"):
+                sums.append(self._train_one(batch))
             done = self._steps_done + len(sums)
             self._maybe_save(done, done - 1)
         self._steps_done += len(sums)
@@ -1415,13 +1444,15 @@ class Trainer(TransferTiers):
         of save_every (JAX's maybe_save(step_now, step_prev))."""
         sums = []
         for key, fn, inputs, real in groups:
-            (out,) = self._run_group("train", fn, inputs, key)
-            sums.append(out[:real])
+            with span("train.group"):
+                (out,) = self._run_group("train", fn, inputs, key)
+                sums.append(out[:real])
             prev = self._steps_done
             self._steps_done += real
             self._maybe_save(self._steps_done, prev)
         return sums
 
+    @spanned("train.loss_close")
     def _epoch_loss(self, sums: list) -> float:
         """The epoch's mean log-loss from its per-step sums ([2] a step, or
         [k, 2] a group; on a mesh [3], the route drops third, whose total
@@ -1538,7 +1569,8 @@ class Trainer(TransferTiers):
         t = self._ckpt_thread
         if t is not None:
             t0 = time.perf_counter()
-            t.join()
+            with span("train.checkpoint"):
+                t.join()
             self._ckpt_thread = None
             self.checkpoint_log[-1]["join_wait_s"] = time.perf_counter() - t0
         exc = self._ckpt_exc
@@ -1546,6 +1578,7 @@ class Trainer(TransferTiers):
             self._ckpt_exc = None
             raise RuntimeError("background checkpoint write failed") from exc
 
+    @spanned("train.checkpoint")
     def _save_mid_checkpoint(self, step: int) -> None:
         """A periodic full-state checkpoint at `step` (header
         "mid_training_step").  Synchronous unless cfg.async_checkpoint (and
@@ -1633,6 +1666,7 @@ class Trainer(TransferTiers):
         return need <= 0.8 * total and copy_b <= free
 
     # ---- serving ----
+    @spanned("eval.pass")
     def evaluate(self) -> tuple[float, float]:
         """(mean log-loss, AUC) over eval_data (ftrl_ffm_tpu/train.py::
         evaluate): from the device-resident dataset in file order where one
@@ -1650,23 +1684,24 @@ class Trainer(TransferTiers):
             # the config naming it (Trainer.__init__ refuses the rest)
             raise ValueError(EXACT_AUC_SHARD)
         if cache is not None:
-            batches = self._cached_batches(cache)
+            batches = self._cached_batches(cache, role="eval")
         else:
             batches = self._device_feed(self._eval_batches(), "eval")
         score_rows: list = []
         tot = None
         for batch in batches:
-            part = self._eval_part(batch, 0 if exact else AUC_BINS)
-            if exact:
-                # logits rank like sigmoid scores: the host ranks them
-                *part, logits = part
-                score_rows.append((logits, batch.y, batch.sample_w))
-            part = torch.cat(part)
-            if tot is None:
-                tot = (part, torch.zeros_like(part))
-            else:
-                (t,), (c,) = kahan_add((tot[0],), (tot[1],), (part,))
-                tot = (t, c)
+            with span("eval.step"):
+                part = self._eval_part(batch, 0 if exact else AUC_BINS)
+                if exact:
+                    # logits rank like sigmoid scores: the host ranks them
+                    *part, logits = part
+                    score_rows.append((logits, batch.y, batch.sample_w))
+                part = torch.cat(part)
+                if tot is None:
+                    tot = (part, torch.zeros_like(part))
+                else:
+                    (t,), (c,) = kahan_add((tot[0],), (tot[1],), (part,))
+                    tot = (t, c)
         self._agree_dyn("eval")
         if tot is None:
             return float("nan"), float("nan")
@@ -1678,6 +1713,7 @@ class Trainer(TransferTiers):
             return loss, exact_auc(lg[m], yy[m] > 0)
         return loss, auc
 
+    @spanned("eval.close")
     def _close_eval(self, sums: torch.Tensor) -> tuple[float, float]:
         """(mean log-loss, binned AUC) of a pass from its summed row
         (_eval_part's parts: loss sum, count, [route drops,] and the pos
@@ -1728,11 +1764,12 @@ class Trainer(TransferTiers):
         head = 3 if self._sharded is not None and self._sharded.mode == "route" else 2
         acc = None
         for inputs, real in groups:
-            if acc is None:
-                acc = torch.zeros((2, head + 2 * AUC_BINS), dtype=torch.float32,
-                                  device=self.device)
-            mask = torch.arange(s, device=self.device) < real  # the real steps
-            (acc,) = self._run_group("eval", fn, (*inputs, mask, acc), key)
+            with span("eval.group"):
+                if acc is None:
+                    acc = torch.zeros((2, head + 2 * AUC_BINS), dtype=torch.float32,
+                                      device=self.device)
+                mask = torch.arange(s, device=self.device) < real  # the real steps
+                (acc,) = self._run_group("eval", fn, (*inputs, mask, acc), key)
         self._agree_dyn("eval")
         if acc is None:
             return float("nan"), float("nan")
