@@ -2313,7 +2313,7 @@ def main() -> int:
         za_scatter_plain,
     )
     from ftrl_ffm_tpu_torch.ops.interactions import linear_logits
-    from ftrl_ffm_tpu_torch.train import Trainer
+    from ftrl_ffm_tpu_torch.train import Trainer, _draw_rows
 
     device = torch.device("cuda", torch.cuda.current_device())
     device_name = torch.cuda.get_device_name(device)
@@ -4045,8 +4045,8 @@ def main() -> int:
 
                 def row_upload_epoch(trn, epoch_rng):
                     cache = trn._fresh_cache("train")
-                    idx = trn._cached_idx(trn._cached_order(cache, epoch_rng),
-                                          *trn._cache_steps(cache))
+                    idx, _ = _draw_rows(epoch_rng, cache.n, *trn._cache_steps(cache),
+                                        trn._local_bs)
                     return trn._epoch_loss(trn._train_steps(
                         trn._take_cached(cache, trn._upload(row)) for row in idx))
 

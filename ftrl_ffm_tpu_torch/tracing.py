@@ -36,6 +36,9 @@ Counters (seconds are the host's perf_counter):
   feed.compact_s                        seconds in the transfer tiers
   stream.batches, stream.parse_s        batches of the stream reader, and
                                         seconds of its chunk parses
+  order.prefetch.hit, .miss             shuffled resident passes that took
+                                        the permutation drawn ahead, and
+                                        those that drew it (train.py)
 """
 
 from __future__ import annotations

@@ -46,6 +46,7 @@ import os
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -104,6 +105,52 @@ class _DevCache(NamedTuple):
     rows_loc: int
     src_stat: Optional[tuple] = None
     compact: bool = False
+
+
+class _OrderJob(NamedTuple):
+    """The next resident pass's index rows, made ahead on the trainer's
+    order thread (Trainer._prefetch_order): the epoch rng they were drawn
+    for, the state its copy started from, the pass's key (the dataset's
+    id and row count, the steps, the pad row's index) and the future of
+    _draw_ahead's (index rows, end state)."""
+
+    rng: np.random.Generator
+    state: dict
+    key: tuple
+    future: object
+
+
+def _draw_rows(gen: np.random.Generator, n: int, n_steps: int, pad: int, lb: int) -> tuple:
+    """([n_steps, lb] int32 index rows, gen's state after them): the
+    permutation of 0..n-1 that gen.shuffle draws, the call batch_iterator
+    makes, then the pad row's index.  The shuffle's draws depend on n
+    alone, so shuffling int32 in place gives batch_iterator's int64
+    permutation.  numpy alone: it runs on the order thread too, where the
+    shuffle releases the GIL."""
+    rows = np.full(n_steps * lb, pad, np.int32)
+    order = rows[:n]
+    order[:] = np.arange(n, dtype=np.int32)
+    gen.shuffle(order)
+    return rows.reshape(n_steps, lb), gen.bit_generator.state
+
+
+def _draw_ahead(kind: type, state: dict, *shape) -> tuple:
+    """_draw_rows(gen, *shape) on a fresh generator of bit-generator type
+    `kind` set to `state`: the order thread's job, on its own copy of the
+    rng."""
+    bg = kind()
+    bg.state = state
+    return _draw_rows(np.random.Generator(bg), *shape)
+
+
+def _same_state(a, b) -> bool:
+    """Two bit-generator states are equal (some hold numpy arrays)."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_state(a[k], b[k]) for k in a)
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return bool(np.array_equal(a, b))
+    return a == b
 
 
 def _compact_cache_row_bytes(cfg: Config) -> int:
@@ -535,6 +582,10 @@ class Trainer(TransferTiers):
         self.group_dispatch = {"eager": 0, "captures": 0, "replays": 0}
         # routed-lookup drops of the last training epoch (route mode)
         self._epoch_route_overflow = 0
+        # the next resident pass's index rows, made ahead (_cached_order)
+        # on one thread, started at the first shuffled resident pass
+        self._order_pool = ThreadPoolExecutor(1, thread_name_prefix="ftrl-order")
+        self._order_job: Optional[_OrderJob] = None
 
     def load_state(self, state: ModelState) -> None:
         """Make `state` (a logical state: id row order, n_feats rows) the
@@ -866,26 +917,57 @@ class Trainer(TransferTiers):
         ix = torch.arange(step * lb, (step + 1) * lb, dtype=torch.int32, device=self.device)
         return ix.clamp_(max=pad)
 
-    @spanned("index")
-    def _cached_idx(self, order: np.ndarray, n_steps: int, pad: int) -> np.ndarray:
-        """[n_steps, b] int32 index rows over a permutation, the tail padded
-        with the pad row's index."""
-        lb = self._local_bs
-        order = np.concatenate([order, np.full(n_steps * lb - order.shape[0], pad, order.dtype)])
-        return order.reshape(n_steps, lb).astype(np.int32)
+    def _cached_order(self, cache: _DevCache, epoch_rng, n_steps: int,
+                      pad: int) -> Optional[torch.Tensor]:
+        """This pass's permutation of the n real rows as [n_steps, b] int32
+        index rows on the device, the tail padded with the pad row's index:
+        None (file order) without epoch_rng, else the one epoch_rng.shuffle
+        draws, the call batch_iterator makes, so the resident and streamed
+        paths see the same permutation (on a mesh: of this rank's slice, as
+        its streamed pass shuffles its byte range).
 
-    def _cached_order(self, cache: _DevCache, epoch_rng) -> Optional[np.ndarray]:
-        """This pass's permutation of the n real rows: None (file order)
-        without epoch_rng, else the one epoch_rng.shuffle draws, the call
-        batch_iterator makes, so the resident and streamed paths see the
-        same permutation (on a mesh: of this rank's slice, as its streamed
-        pass shuffles its byte range)."""
+        The next pass's rows are made ahead, while this pass runs
+        (_prefetch_order); that pass takes them where they still apply
+        (_take_order: a hit), else draws here (a miss), with the same bits
+        either way and epoch_rng left where this draw leaves it."""
         if epoch_rng is None:
             return None
+        key = (id(cache), cache.n, n_steps, pad)
         with span("train.order"):
-            order = np.arange(cache.n)
-            epoch_rng.shuffle(order)
-        return order
+            rows = self._take_order(key, epoch_rng)
+            tracing.count("order.prefetch.miss" if rows is None else "order.prefetch.hit")
+            if rows is None:
+                rows, _ = _draw_rows(epoch_rng, cache.n, n_steps, pad, self._local_bs)
+        # upload before the next draw starts: on an H100's host a 4 MB copy
+        # into pinned memory took 0.3 ms alone, 5.8 ms beside a shuffle
+        idx = self._upload(rows)
+        self._prefetch_order(key, epoch_rng)
+        return idx
+
+    def _take_order(self, key: tuple, rng) -> Optional[np.ndarray]:
+        """The index rows made ahead, where they were drawn for this rng
+        object in the state it still holds and for this pass's key: rng is
+        then moved to the state the draw left its copy in.  Else None, and
+        the job is dropped (it works on its own copy)."""
+        job, self._order_job = self._order_job, None
+        if (job is None or job.rng is not rng or job.key != key
+                or not _same_state(rng.bit_generator.state, job.state)):
+            return None
+        try:
+            rows, end = job.future.result()
+        except Exception:  # noqa: BLE001 - the synchronous draw redoes the work and raises
+            return None
+        rng.bit_generator.state = end
+        return rows
+
+    def _prefetch_order(self, key: tuple, rng) -> None:
+        """Start making the index rows that the next pass of this key
+        (dataset id, n, n_steps, pad) would draw from `rng` as it stands,
+        from a copy of its state, on the trainer's order thread."""
+        state = rng.bit_generator.state
+        job = self._order_pool.submit(_draw_ahead, type(rng.bit_generator), state, *key[1:],
+                                      self._local_bs)
+        self._order_job = _OrderJob(rng, state, key, job)
 
     def _cached_batches(self, cache: _DevCache, epoch_rng=None, role: str = "train"):
         """The batches of one pass over a resident dataset (those of
@@ -896,12 +978,10 @@ class Trainer(TransferTiers):
         from pinned memory); each step reads a row of it, a view.  Each
         batch's index row and gather run in the span "<role>.gather"."""
         n_steps, pad = self._cache_steps(cache)
-        order = self._cached_order(cache, epoch_rng)
-        if order is not None:
-            idx = self._upload(self._cached_idx(order, n_steps, pad), role)
+        idx = self._cached_order(cache, epoch_rng, n_steps, pad)
         for s in range(n_steps):
             with span(role + ".gather"):
-                batch = self._take_cached(cache, self._iota_rows(s, pad) if order is None
+                batch = self._take_cached(cache, self._iota_rows(s, pad) if idx is None
                                           else idx[s])
             yield batch
 
@@ -1172,22 +1252,21 @@ class Trainer(TransferTiers):
         if group:
             yield stack(group), len(group)
 
-    def _cached_idx_chunks(self, cache: _DevCache, order: Optional[np.ndarray]):
+    def _cached_idx_chunks(self, cache: _DevCache, epoch_rng=None):
         """([S, b] int32 index rows on the device, real steps) of one pass
         over a resident dataset, S = steps_per_call: the file order made on
-        the device (order None; _iota_rows' rows), or the permutation
-        `order` uploaded once (_cached_idx's rows).  The last group is
-        padded with rows of the pad row's index: inert steps."""
+        the device (epoch_rng None; _iota_rows' rows), or _cached_order's
+        rows uploaded once.  The last group is padded with rows of the pad
+        row's index: inert steps."""
         lb, s = self._local_bs, self.cfg.steps_per_call
         n_steps, pad = self._cache_steps(cache)
         n_groups = -(-n_steps // s)
-        if order is None:
+        idx = self._cached_order(cache, epoch_rng, n_groups * s, pad)
+        if idx is None:
             with span("index"):
                 idx = torch.arange(n_groups * s * lb, dtype=torch.int32, device=self.device)
-                idx = idx.clamp_(max=pad).view(n_groups, s, lb)
-        else:
-            rows = self._cached_idx(order, n_groups * s, pad)
-            idx = self._upload(rows.reshape(n_groups, s, lb))
+                idx = idx.clamp_(max=pad)
+        idx = idx.view(n_groups, s, lb)
         for g in range(n_groups):
             yield idx[g], min(s, n_steps - g * s)
 
@@ -1408,10 +1487,9 @@ class Trainer(TransferTiers):
         permutation epoch_rng.shuffle draws (_cached_batches' order): the
         gather's key names the dataset's tensors and row count, which the
         captured gather reads."""
-        order = self._cached_order(cache, epoch_rng)
         key = ("gather", _tensor_key(cache.ds), cache.n, cache.compact)
         fn = functools.partial(self._gather_train_impl, cache)
-        for idx, real in self._cached_idx_chunks(cache, order):
+        for idx, real in self._cached_idx_chunks(cache, epoch_rng):
             yield key, fn, (idx,), real
 
     def _maybe_save(self, step_now: int, step_prev: int) -> None:
