@@ -16,11 +16,17 @@ Variants:
              1 where the model produces it;
   unchanged  a planted fault: every train step computes on a copy of the
              state and returns the state as it was (it reads 1 by the
-             change's measure; kept for the tests at small sizes).
+             change's measure; kept for the tests at small sizes);
+  unexchanged  a planted fault on a mesh: the exchange between the cards
+             is left out, every all_to_all of the program (the route's
+             requests, rows and payloads) returning what the rank sent.
 
 Each run is a whole run of the cell (benchmark/run.py's run_cell) with a
-window of --seconds (default 0: one train epoch and eval pass).  One
-JSON line a run: the variant, the seed and each compared number.
+window of --seconds (default 0: one train epoch and eval pass); a cell
+on more than one card runs through benchmark/ranks.py's launcher, one
+process a rank, as the benchmark's own runs do, its faults planted in
+every rank's sharded step.  One JSON line a run: the variant, the seed
+and each compared number.
 """
 
 from __future__ import annotations
@@ -32,42 +38,58 @@ import time
 
 import torch
 
-from benchmark import compare, run, spec
+from benchmark import ranks, run, spec
 
 CONTROL = {"table_dtype": "bfloat16", "acc_dtype": "bfloat16"}
 
 
+def _stepper(trainer):
+    """What runs the Trainer's steps: its model, or on a mesh its sharded
+    step (the same train_step and eval_step calls)."""
+    return trainer.model if trainer._sharded is None else trainer._sharded
+
+
 def plant_half(trainer) -> None:
-    step = trainer.model.train_step
+    owner = _stepper(trainer)
+    step = owner.train_step
 
     def half(state, batch):
         sw = batch.sample_w.clone()
         sw[..., sw.shape[-1] // 2:] = 0
         return step(state, batch._replace(sample_w=sw))
 
-    trainer.model.train_step = half
+    owner.train_step = half
 
 
 def plant_altered(trainer) -> None:
-    step = trainer.model.eval_step
+    owner = _stepper(trainer)
+    step = owner.eval_step
 
-    def altered(state, batch):
-        ls, ct, logits = step(state, batch)
+    def altered(state, batch, *rest):
+        ls, ct, logits, *more = step(state, batch, *rest)
         logits = logits.clone()
         logits[0] += 1.0
-        return ls, ct, logits
+        return (ls, ct, logits, *more)
 
-    trainer.model.eval_step = altered
+    owner.eval_step = altered
 
 
 def plant_unchanged(trainer) -> None:
-    step = trainer.model.train_step
+    owner = _stepper(trainer)
+    step = owner.train_step
 
     def unchanged(state, batch):
         copy = type(state)(*(None if t is None else t.clone() for t in state))
         return step(copy, batch)._replace(state=state)
 
-    trainer.model.train_step = unchanged
+    owner.train_step = unchanged
+
+
+def plant_unexchanged(trainer) -> None:
+    # the module of the program's counted collectives, as the sharded step
+    # reads it at each call
+    comm = sys.modules[type(trainer._sharded).__module__].dist
+    comm.all_to_all = lambda t, group=None: t.clone()
 
 
 VARIANTS = {
@@ -76,17 +98,24 @@ VARIANTS = {
     "half": (None, plant_half),
     "altered": (None, plant_altered),
     "unchanged": (None, plant_unchanged),
+    "unexchanged": (None, plant_unexchanged),
 }
 
 
 def reading(cell: spec.Cell, variant: str, seed: int, seconds: float, device) -> dict:
     """One run's compared numbers, `correct`, its end-to-end metrics and
     its set-up's phases."""
-    over, plant = VARIANTS[variant]
-    line = run.run_cell(cell, seed, seconds, False, device, variant=over, plant=plant,
-                        t_start=time.perf_counter())
+    if cell.chips > 1:
+        code, line = ranks.launch(cell, seed, seconds, False, variant=variant,
+                                  device=device.type)
+        if line is None:
+            raise RuntimeError(f"{variant} run on seed {seed} failed (exit {code})")
+    else:
+        over, plant = VARIANTS[variant]
+        line = run.run_cell(cell, seed, seconds, False, device, variant=over, plant=plant,
+                            t_start=time.perf_counter())
     return {"variant": variant, "seed": seed, "correct": line["correct"],
-            **{k: line["checks"][k]["value"] for k in compare.NAMES},
+            **{k: c["value"] for k, c in line["checks"].items()},
             **{k: m["value"] for k, m in line["metrics"].items()},
             "setup_phases": line["setup_phases"]}
 
@@ -98,10 +127,10 @@ def main(argv: list | None = None) -> int:
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--seconds", type=float, default=0.0)
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("error: no CUDA card", file=sys.stderr)
-        return 3
     cell = spec.cell(args.workload)
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
+        print(f"error: the cell needs {cell.chips} CUDA card(s)", file=sys.stderr)
+        return 3
     device = torch.device("cuda", 0)
     for variant in args.variant.split(","):
         for seed in (int(s) for s in args.seeds.split(",")):

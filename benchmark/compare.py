@@ -25,6 +25,15 @@ Compared, each against its own limit (benchmark/limits/<cell>.json):
              initial weight on one side and not on the other, which moves
              the few logits that read it by far more than rounding.
 
+On a mesh the program's norms are summed over its ranks (each rank's
+sums of squares all-reduced before the square root, the bias counted
+once), its logits gathered to rank 0 and placed at their rows, and one
+more number is compared, exactly:
+
+  route_drops  the occurrences that the route's buckets dropped over the
+             checked steps (the steps' own counts); the reference drops
+             none, so any drop is a different result.
+
 A leaf's gap is | |prog| - |ref| | over the larger of the reference's
 norm of that leaf and the median leaf's.  Leaves: the gradient's "vec"
 (the factor table's live slots), "lin" and "bias"; the change's vec_n,
@@ -33,7 +42,10 @@ whose table's reference gradient is under a thousandth of the median
 gradient leaf's moves by rounding alone and is left out.
 
 Norms are taken over logical tables (`Tables`): FFM's factor slots as
-[rows, n_fields, k], FM's as [rows, k], whatever layout holds them.
+[rows, n_fields, k], FM's as [rows, k], whatever layout holds them, over
+the rows a side holds: a rank's share of the program's table, the rows
+the reference touched.  Rows a side leaves out are S0's rows, which add
+nothing to a norm of the gradient or of the change.
 """
 
 from __future__ import annotations
@@ -44,11 +56,11 @@ from typing import Iterator, Protocol
 import numpy as np
 import torch
 
-from benchmark import state as s0
-
 GRAD_LEAVES = ("vec", "lin", "bias")
 CHANGE_LEAVES = ("vec_n", "vec_z", "vec_w", "lin_n", "lin_z", "lin_w", "bias_n", "bias_z")
 NAMES = ("loss", "grad", "change", "eval_loss", "auc", "logit")
+# compared exactly where a run reports them: the route's drops on a mesh
+EXACT = ("route_drops",)
 # a change leaf is left out where its table's reference gradient is under
 # this share of the median gradient leaf's
 NOUGHT = 1e-3
@@ -56,8 +68,9 @@ NOUGHT = 1e-3
 
 class Tables(Protocol):
     def vec_blocks(self) -> Iterator[tuple]:
-        """(block, lo, hi, n, z, w): rows [lo, hi) of the factor tables,
-        float32, logical layout (S0's blocks)."""
+        """(n, z, w, w0): some rows of the factor tables, float32, logical
+        layout, with S0's weights of the same rows; every row the side
+        holds once, a block of S0 at a time."""
 
     def lin(self) -> tuple:
         """(n, z, w) of the linear tables, float32 [R]."""
@@ -79,32 +92,33 @@ def _sq(t: torch.Tensor) -> float:
     return float((t * t).sum(dtype=torch.float64))
 
 
-def grad_norms(tables: Tables, config: dict, seed: int) -> dict:
-    """Norms of the first step's gradient by leaf, from the state after one
-    step (n0 = z0 = 0 in S0): g = z1 + sqrt(n1) / alpha * w0."""
+def grad_squares(tables: Tables, config: dict) -> dict:
+    """Sums of squares of the first step's gradient by leaf, from the
+    state after one step (n0 = z0 = 0 in S0): g = z1 + sqrt(n1) / alpha *
+    w0."""
     alpha = config["ftrl"]["alpha"]
-    vec = 0.0
-    for b, lo, hi, n, z, _ in tables.vec_blocks():
-        w0 = s0.w0_block(config, seed, b, lo, hi, n.device)
-        vec += _sq(z + torch.sqrt(n) / alpha * w0)
+    vec = sum(_sq(z + torch.sqrt(n) / alpha * w0) for n, z, _, w0 in tables.vec_blocks())
     # the linear weights and the bias start at 0
     _, lz, _ = tables.lin()
     _, bz = tables.bias()
-    return {"vec": math.sqrt(vec), "lin": math.sqrt(_sq(lz)), "bias": math.sqrt(_sq(bz))}
+    return {"vec": float(vec), "lin": _sq(lz), "bias": _sq(bz)}
 
 
-def change_norms(tables: Tables, config: dict, seed: int) -> dict:
-    """Norms of (state - S0) by leaf."""
+def change_squares(tables: Tables) -> dict:
+    """Sums of squares of (state - S0) by leaf."""
     acc = {k: 0.0 for k in ("vec_n", "vec_z", "vec_w")}
-    for b, lo, hi, n, z, w in tables.vec_blocks():
-        w0 = s0.w0_block(config, seed, b, lo, hi, n.device)
+    for n, z, w, w0 in tables.vec_blocks():
         acc["vec_n"] += _sq(n)
         acc["vec_z"] += _sq(z)
         acc["vec_w"] += _sq(w.to(torch.float32) - w0)
     ln, lz, lw = tables.lin()
     bn, bz = tables.bias()
     acc.update(lin_n=_sq(ln), lin_z=_sq(lz), lin_w=_sq(lw), bias_n=_sq(bn), bias_z=_sq(bz))
-    return {k: math.sqrt(v) for k, v in acc.items()}
+    return acc
+
+
+def norms(squares: dict) -> dict:
+    return {k: math.sqrt(v) for k, v in squares.items()}
 
 
 def leaf_gap(prog: dict, ref: dict, leaves) -> float:
@@ -124,11 +138,13 @@ def counted_change_leaves(ref_grad: dict) -> list:
 def readings(prog: dict, ref: dict) -> dict:
     """The compared numbers.  prog and ref: "losses" (each checked step's
     mean loss), "grad" and "change" (norms by leaf), "eval_loss", "auc",
-    and "logits" on S0 (prog: the rows its eager eval calls returned,
-    first ones first; ref: every eval row)."""
+    and "logits" on S0 (prog: the rows its eager eval calls returned, at
+    the eval rows "logit_rows", or the first ones where it gives none;
+    ref: every eval row); prog's "route_drops" where it reports them."""
     losses = [abs(p - r) / abs(r) for p, r in zip(prog["losses"], ref["losses"], strict=True)]
     n = len(prog["logits"])
-    rl = np.asarray(ref["logits"][:n], np.float64)
+    rows = prog.get("logit_rows")
+    rl = np.asarray(ref["logits"][:n] if rows is None else ref["logits"][rows], np.float64)
     pl = np.asarray(prog["logits"], np.float64)
     rms = float(np.sqrt(np.mean(rl * rl))) if n else 0.0
     return {
@@ -138,12 +154,14 @@ def readings(prog: dict, ref: dict) -> dict:
         "eval_loss": abs(prog["eval_loss"] - ref["eval_loss"]) / abs(ref["eval_loss"]),
         "auc": abs(prog["auc"] - ref["auc"]),
         "logit": float(np.max(np.abs(pl - rl)) / rms) if n and rms > 0 else math.inf,
+        **{k: float(prog[k]) for k in EXACT if k in prog},
     }
 
 
 def judge(values: dict, limits: dict) -> tuple[bool, dict]:
     """(correct, {name: {"value", "limit"}}): every number finite and at
-    most its limit."""
+    most its limit (0 for the exact ones)."""
     checks = {k: {"value": values[k], "limit": limits[k]} for k in NAMES}
+    checks.update({k: {"value": values[k], "limit": 0} for k in EXACT if k in values})
     ok = all(math.isfinite(c["value"]) and c["value"] <= c["limit"] for c in checks.values())
     return ok, checks

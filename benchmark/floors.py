@@ -88,25 +88,20 @@ def eval_step_floor(config: dict, batch: int, u_rows: int) -> float:
     return _time(nbytes, forward_flops(config, batch))
 
 
-def unique_rows(ids, order, batch: int) -> np.ndarray:
-    """[steps] the distinct ids of each batch of a pass over the rows
-    ids [N, F] (a torch tensor, on the card or the CPU) in `order` (an
-    [N] permutation, or None for file order), batch rows a step: one sort
-    of (step, id) keys for the whole pass."""
+def unique_rows(ids, steps: np.ndarray) -> np.ndarray:
+    """[S] the distinct ids of each step of a pass over the rows ids
+    [N, F] (a torch tensor, on the card or the CPU), steps [S, W] the rows
+    of each step (-1 for none): one sort of (step, id) keys for the whole
+    pass."""
     import torch
 
-    n = ids.shape[0]
     dev = ids.device
-    rows = (torch.arange(n, device=dev) if order is None
-            else torch.as_tensor(np.asarray(order), device=dev))
-    step = (torch.arange(n, device=dev) // batch).repeat_interleave(ids.shape[1])
+    st = torch.as_tensor(np.asarray(steps), dtype=torch.int64, device=dev)
+    real = st >= 0
+    rows = st[real]
+    step = torch.arange(st.shape[0], device=dev)[:, None].expand_as(st)[real]
     width = int(ids.max()) + 1
-    keys = step * width + ids.index_select(0, rows).reshape(-1).to(torch.int64)
+    keys = (step.repeat_interleave(ids.shape[1]) * width
+            + ids.index_select(0, rows).reshape(-1).to(torch.int64))
     uniq = torch.unique(keys)
-    steps = -(-n // batch)
-    return torch.bincount(uniq // width, minlength=steps).cpu().numpy()
-
-
-def step_rows(n_rows: int, batch: int) -> list:
-    """The real rows of each step of a pass over n_rows rows."""
-    return [min(batch, n_rows - lo) for lo in range(0, n_rows, batch)]
+    return torch.bincount(uniq // width, minlength=st.shape[0]).cpu().numpy()

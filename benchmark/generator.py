@@ -182,6 +182,22 @@ def libffm_bytes(ids: np.ndarray, y: np.ndarray, ftok: np.ndarray, itok: np.ndar
     return buf[buf != 0].tobytes()
 
 
+def _ndigits(a: np.ndarray) -> np.ndarray:
+    """Decimal digits of each a >= 0 (0 has one)."""
+    a = np.asarray(a, np.int64)
+    n = np.ones(a.shape, np.int64)
+    for p in range(1, 19):
+        n += a >= 10 ** p
+    return n
+
+
+def line_bytes(ids: np.ndarray, config: dict) -> np.ndarray:
+    """[n] int64: the length in bytes of each row's libffm line as
+    write_libffm writes it: the label, " c:i:1" a field, the newline."""
+    fields = int((_ndigits(np.arange(config["n_fields"])) + 2).sum())
+    return 2 + fields + (_ndigits(ids) + 2).sum(axis=1)
+
+
 def write_libffm(path: str, ids: np.ndarray, y: np.ndarray, config: dict,
                  block: int = 1 << 14, threads: int = 4) -> int:
     """Write rows as libffm text to `path`, blocks of rows assembled on

@@ -8,8 +8,9 @@ steps, and for training the epoch's index; "traced" where it ran under
 the profiler); "setup_s" and "resident_build_s"; with --trace 1 also
 "trace" (benchmark/trace.py's read of the profiler), "launches_train"
 (the program's launch counters over the traced train epochs) and
-"unique_rows" (each step's distinct rows, for the floors).  A reader
-that finds nothing to read returns None and the metric is left out.
+"unique_rows" (the rows and distinct rows of each global step, for the
+floors); "cards", the cards of the run.  A reader that finds nothing
+to read returns None and the metric is left out.
 """
 
 from __future__ import annotations
@@ -52,16 +53,14 @@ def launches_per_train_step(rec: dict):
 
 def _steps(rec: dict, call: dict) -> list:
     """(rows, distinct rows) of each step of a timed call."""
-    cfg, u = rec["config"], rec["unique_rows"]
-    role = call["role"]
-    n = cfg["train_rows"] if role == "train" else cfg["eval_rows"]
-    key = ("train", call["epoch"]) if role == "train" else ("eval", 0)
-    return list(zip(floors.step_rows(n, cfg["batch_size"]), (int(x) for x in u[key])))
+    key = ("train", call["epoch"]) if call["role"] == "train" else ("eval", 0)
+    return rec["unique_rows"][key]
 
 
 def share(rec: dict, role: str, traced: bool, floor, seconds) -> float | None:
     """100 x the floors of the role's (traced or untraced) calls' steps
-    over `seconds` (a function of those calls)."""
+    over `seconds` (a function of those calls), a card's share: on N
+    cards each is held to 1/N of a global step's floor."""
     if rec.get("unique_rows") is None or (traced and rec.get("trace") is None):
         return None
     calls = [c for c in rec["calls"] if c["role"] == role and c["traced"] == traced]
@@ -71,7 +70,8 @@ def share(rec: dict, role: str, traced: bool, floor, seconds) -> float | None:
     if t <= 0:
         return None
     cfg = rec["config"]
-    return 100.0 * sum(floor(cfg, rows, u) for c in calls for rows, u in _steps(rec, c)) / t
+    total = sum(floor(cfg, rows, u) for c in calls for rows, u in _steps(rec, c))
+    return 100.0 * total / rec.get("cards", 1) / t
 
 
 def train_step_mfu(rec: dict):

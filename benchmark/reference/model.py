@@ -21,7 +21,8 @@ under keep_init semantics: a coordinate whose n' is still at most
 g = g_logit summed over the batch.
 
 The tables are logical: the factor weights [R, *factor_shape], the
-linear [R], the bias a 0-dim tensor.  Float32 throughout;
+linear [R], the bias a 0-dim tensor, over R rows of the model's table
+that the caller names (initial_state); ids index those R rows.  Float32 throughout;
 sums of losses in float64.
 """
 
@@ -50,18 +51,17 @@ class RefState:
     vec_w: torch.Tensor
 
 
-def initial_state(config: dict, seed: int, device: torch.device) -> RefState:
-    """S0 (benchmark/state.py), made again from the seed."""
+def initial_state(config: dict, seed: int, device: torch.device,
+                  ids: torch.Tensor) -> RefState:
+    """S0 (benchmark/state.py) of the rows `ids` (sorted, distinct), made
+    again from the seed: row i of the state is S0's row ids[i]."""
     from benchmark import state as s0
 
-    r = config["n_feats"]
-    shape = (r, *s0.factor_shape(config))
-    vec_w = torch.empty(shape, dtype=torch.float32, device=device)
-    for b, lo, hi in s0.blocks(config):
-        vec_w[lo:hi] = s0.w0_block(config, seed, b, lo, hi, device)
+    vec_w = s0.w0_rows(config, seed, ids, device)
+    r = ids.shape[0]
     zeros = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=device)  # noqa: E731
     return RefState(zeros(), zeros(), zeros(r), zeros(r), zeros(r),
-                    zeros(*shape), zeros(*shape), vec_w)
+                    zeros(*vec_w.shape), zeros(*vec_w.shape), vec_w)
 
 
 def ftrl_weight(n: torch.Tensor, z: torch.Tensor, p: dict) -> torch.Tensor:

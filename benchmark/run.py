@@ -9,25 +9,37 @@ traffic mix (benchmark/traffic/<name>.json); its limits are
 benchmark/limits/<cell>.json and each metric is read by
 benchmark/metrics/<metric>.py, all found by name.
 
+A cell on N > 1 cards runs as N processes, one a card (benchmark/ranks.py:
+the program's process group, a mesh from the configuration's mesh_data,
+mesh_model, lookup_mode and route_capacity); this process starts them and
+prints rank 0's line.  A cell on one card runs here, in one process with
+no process group.
+
 Set-up (timed from the top of this module, `setup_s`): the rows from the
 seed (benchmark/generator.py), written as libffm text to a temporary
-directory; a Trainer from S0 (benchmark/state.py); both datasets parsed
-and made resident (`resident_build_s`; the text is removed then); one
+directory (on a mesh by rank 0, for every rank); a Trainer from S0
+(benchmark/state.py; on a mesh each rank's own rows of it); both datasets
+parsed and made resident (`resident_build_s`; the text is removed then); one
 evaluate() on S0 and one warm-up train_epoch(), whose first steps the
 check watches (port.FirstSteps), with one evaluate() after them.  The window then
 alternates train_epoch() and evaluate(), each closed by a synchronize,
 until --seconds have passed; the call running at the deadline finishes.
+On a mesh each call ends with a barrier of every rank, so that its time is
+the slowest rank's, and rank 0's clock decides when the window ends.
 With --trace 1 the window's last two train epochs and eval passes run
-under torch.profiler.  After the window: the peak memory, the state
-freed, the plain reference's steps (benchmark/reference/), the
-comparison (benchmark/compare.py).
+under torch.profiler (on a mesh on every rank; the metrics read rank 0's
+trace and counters).  After the window: the peak memory (on a mesh the
+fullest rank's, and each rank's), the state freed, the plain reference's
+steps (benchmark/reference/; on a mesh on rank 0, once the other ranks
+have ended), the comparison (benchmark/compare.py).
 
 The last line of standard output is one JSON object: correct, attempted,
 failed, metrics (the cell's end-to-end metrics, or with --trace 1 its
 per-layer ones), device, with --trace 1 breakdown, then card (the card's
 name and power limit) and checks (each compared number and its limit),
-which also close standard error.  No card, too few cards, a cell on more
-than one card, or a module of JAX loaded: no line, and a non-zero exit.
+which also close standard error.  No card, too few cards, a rank that
+fails or outlasts its limit, or a module of JAX loaded (in any rank):
+no line, and a non-zero exit.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -59,10 +72,10 @@ import torch  # noqa: E402
 
 T_IMPORTED = time.perf_counter()
 
-from benchmark import compare, generator, port, spec  # noqa: E402
+from benchmark import compare, generator, port, ranks, spec  # noqa: E402
 from benchmark import trace as tracing  # noqa: E402
 from benchmark.floors import unique_rows  # noqa: E402
-from benchmark.reference.follow import epoch_orders, follow  # noqa: E402
+from benchmark.reference.follow import epoch_steps, follow, slice_counts  # noqa: E402
 
 # modules the process that prints the result may not hold (top-level
 # names compared whole: ftrl_ffm_tpu_torch is not ftrl_ffm_tpu)
@@ -87,21 +100,25 @@ def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
 
-def _timed(role: str, fn, device, rec: dict, examples: int, steps: int, **extra):
+def _timed(role: str, fn, device, rec: dict, examples: int, steps: int, group, **extra):
     t0 = time.perf_counter()
     with tracing.span(role):
         fn()
         port.synchronize(device)
+        if group is not None:
+            group.barrier()
     rec["calls"].append({"role": role, "seconds": time.perf_counter() - t0,
                          "examples": examples, "steps": steps, **extra})
 
 
-def window(trainer, cfg: dict, seconds: float, trace: bool, device, rec: dict) -> None:
+def window(trainer, cfg: dict, seconds: float, trace: bool, device, rec: dict,
+           group=None) -> None:
     """Alternate train_epoch() and evaluate() for `seconds`.  With trace,
     the last TRACED_PAIRS pairs run under the profiler, started once the
     time left would hold them at the pace of the pairs so far, and the
     window ends with them; the launch counts of their train epochs are
-    read."""
+    read.  On a mesh rank 0 decides both, and every rank follows."""
+    agree = (lambda flag: flag) if group is None else group.agree
     n_tr, n_ev, b = cfg["train_rows"], cfg["eval_rows"], cfg["batch_size"]
     steps_tr, steps_ev = -(-n_tr // b), -(-n_ev // b)
     reset, read = port.launch_counter()
@@ -110,26 +127,27 @@ def window(trainer, cfg: dict, seconds: float, trace: bool, device, rec: dict) -
     epoch, pairs, prof, traced = 1, 0, None, 0
     launches = 0
     while True:
-        if trace and prof is None and pairs and (
+        if trace and prof is None and pairs and agree(
                 time.perf_counter() + (TRACED_PAIRS + 0.5) * (time.perf_counter() - t0) / pairs
                 >= deadline):
             prof = tracing.start()
         epoch += 1
         if prof is not None:
             reset()
-        _timed("train", trainer.train_epoch, device, rec, n_tr, steps_tr, epoch=epoch,
+        _timed("train", trainer.train_epoch, device, rec, n_tr, steps_tr, group, epoch=epoch,
                traced=prof is not None)
         if prof is not None:
             launches += read()
-        _timed("eval", trainer.evaluate, device, rec, n_ev, steps_ev, traced=prof is not None)
+        _timed("eval", trainer.evaluate, device, rec, n_ev, steps_ev, group,
+               traced=prof is not None)
         pairs += 1
         if prof is not None:
             traced += 1
             if traced == TRACED_PAIRS:
-                rec["trace"] = tracing.stop(prof)
+                rec["trace"] = tracing.stop(prof, read=group is None or group.rank == 0)
                 prof = None
                 rec["launches_train"] = {"launches": launches, "steps": TRACED_PAIRS * steps_tr}
-        if ("trace" in rec) if trace else time.perf_counter() >= deadline:
+        if ("trace" in rec) if trace else agree(time.perf_counter() >= deadline):
             break
     rec["window_s"] = time.perf_counter() - t0
 
@@ -146,57 +164,91 @@ def load_metric(name: str):
 
 
 def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: torch.device,
-             variant: dict | None = None, plant=None, t_start: float | None = None) -> dict:
+             variant: dict | None = None, plant=None, t_start: float | None = None,
+             group=None, probe: dict | None = None) -> dict | None:
     """One run of `cell`: the result line's object.  `variant` overrides
     fields of the program's Config and `plant` is called with the Trainer
     before its first step (the control and the planted faults of
     benchmark/calibrate.py and the tests); a run of the benchmark passes
-    neither."""
+    neither.  On a mesh (`group`: benchmark/ranks.py) every rank calls
+    this on its own card, and rank 0 alone gets the line (the others
+    None).  `probe`, where given, receives what the tests read: the S0
+    that the build left in the program's factor weight table, the largest
+    tensor the build made (ranks.LargestTensor) and the program's
+    readings."""
     t_start = T_START if t_start is None else t_start
     cfg = cell.config
-    rec: dict = {"config": cfg, "calls": []}
+    lead = group is None or group.rank == 0
+    rec: dict = {"config": cfg, "calls": [], "cards": cell.chips}
     if device.type == "cuda":
         torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(device)
     phases = rec["setup_phases"] = {"imports": T_IMPORTED - T_START}
-    t = time.perf_counter()
-    data = generator.generate(cfg, cell.traffic, seed)
-    phases["generate"] = time.perf_counter() - t
-    tmp = tempfile.mkdtemp(prefix="bench-data-")
+    data = tmp = None
+    if lead:
+        t = time.perf_counter()
+        data = generator.generate(cfg, cell.traffic, seed)
+        phases["generate"] = time.perf_counter() - t
+        tmp = tempfile.mkdtemp(prefix="bench-data-")
     try:
+        paths = None
+        if lead:
+            t = time.perf_counter()
+            paths = [os.path.join(tmp, f"{role}.ffm") for role in ("train", "eval")]
+            generator.write_libffm(paths[0], data.train_ids, data.train_y, cfg)
+            generator.write_libffm(paths[1], data.eval_ids, data.eval_y, cfg)
+            phases["write"] = time.perf_counter() - t
+        if group is not None:
+            paths = group.share(paths)
         t = time.perf_counter()
-        paths = [os.path.join(tmp, f"{role}.ffm") for role in ("train", "eval")]
-        generator.write_libffm(paths[0], data.train_ids, data.train_y, cfg)
-        generator.write_libffm(paths[1], data.eval_ids, data.eval_y, cfg)
-        phases["write"] = time.perf_counter() - t
-        t = time.perf_counter()
-        trainer, rec["resident_build_s"] = port.build(cfg, cell.traffic, *paths, seed, device,
-                                                      variant)
+        reset_counters, read_counters = port.counters()
+        reset_counters()
+        with contextlib.nullcontext() if probe is None else ranks.LargestTensor() as watch:
+            trainer, rec["resident_build_s"] = port.build(cfg, cell.traffic, *paths, seed,
+                                                          device, variant, mesh=group is not None)
+        rec["counters_build"] = read_counters()
         phases["trainer_and_resident"] = time.perf_counter() - t
+        if group is not None:
+            group.barrier()
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    if probe is not None:
+        probe["s0_vec_w"] = trainer.state.vec_w.detach().cpu().clone()
+        probe["build_largest_bytes"] = watch.largest
     if plant is not None:
         plant(trainer)
-    first = port.FirstSteps(trainer, cfg, seed)
+    first = port.FirstSteps(trainer, cfg, seed, group)
     t = time.perf_counter()
     first.start_eval()
     trainer.train_epoch()
     port.synchronize(device)
+    if group is not None:
+        group.barrier()
     phases["warmup_epoch_and_eval"] = time.perf_counter() - t - first.check_s
     if not first.done:
         raise RuntimeError("the first epoch ended before the checked steps")
     rec["setup_s"] = time.perf_counter() - t_start - first.check_s
-    window(trainer, cfg, seconds, trace, device, rec)
+    window(trainer, cfg, seconds, trace, device, rec, group)
     memory_peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-    prog = first.readings()
+    rec["counters"] = read_counters()
+    offsets = _eval_offsets(cfg, data, cell.chips) if lead else None
+    prog = first.readings(offsets)
+    peaks = [memory_peak] if group is None else group.gather(memory_peak)
     del trainer, first
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    if group is not None:
+        port.leave()
+    if probe is not None:
+        probe["prog"] = prog
+    if not lead:
+        return None
     if trace:
         rec["unique_rows"] = _unique_rows(rec, data, cfg, cell.traffic["protocol"], seed,
-                                          device)
-    ref = follow(cfg, cell.traffic["protocol"], seed, data, device)
+                                          device, cell.chips)
+    ref = follow(cfg, cell.traffic["protocol"], seed, data, device, cell.chips)
     ok, checks = compare.judge(compare.readings(prog, ref), cell.limits)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
@@ -211,10 +263,12 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: to
         "device": {
             "platform": "gpu" if device.type == "cuda" else "cpu",
             "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-            "count": 1,
-            "memory_peak_bytes": memory_peak,
+            "count": cell.chips,
+            "memory_peak_bytes": max(peaks),
         },
     }
+    if group is not None:
+        line["device"]["memory_peak_bytes_by_rank"] = peaks
     if trace:
         busy, wall = tracing.busy_us(rec["trace"])
         line["device"].update(busy_s=busy * 1e-6, window_s=wall * 1e-6)
@@ -231,21 +285,53 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: to
     return line
 
 
-def _unique_rows(rec: dict, data, cfg: dict, protocol: dict, seed: int, device) -> dict:
-    """U of every step of the window's passes: {("train", epoch): [steps],
-    ("eval", 0): [steps]} (the eval pass runs in file order)."""
+def _eval_offsets(cfg: dict, data, chips: int) -> list:
+    """The first eval row of each slice of the eval file (benchmark/
+    reference/follow.py's partition)."""
+    counts = slice_counts(cfg, data.eval_ids, chips)
+    return [int(x) for x in np.concatenate([[0], np.cumsum(counts)[:-1]])]
+
+
+def _unique_rows(rec: dict, data, cfg: dict, protocol: dict, seed: int, device,
+                 chips: int) -> dict:
+    """(rows, distinct rows) of every global step of the window's passes,
+    keyed ("train", epoch) or ("eval", 0) (the eval pass runs in file
+    order)."""
     b = cfg["batch_size"]
+
+    def steps_of(ids, steps) -> list:
+        return list(zip((steps >= 0).sum(1).tolist(), unique_rows(ids, steps).tolist()))
+
     out = {}
     wanted = {c["epoch"] for c in rec["calls"] if c["role"] == "train"}
     ids = torch.as_tensor(data.train_ids, device=device)
-    orders = epoch_orders(protocol, seed, cfg["train_rows"], max(wanted))
-    for epoch, order in enumerate(orders, 1):
+    passes = epoch_steps(protocol, seed, slice_counts(cfg, data.train_ids, chips), b,
+                         max(wanted))
+    for epoch, steps in enumerate(passes, 1):
         if epoch in wanted:
-            out[("train", epoch)] = unique_rows(ids, order, b)
+            out[("train", epoch)] = steps_of(ids, steps)
     del ids
     ev = torch.as_tensor(data.eval_ids, device=device)
-    out[("eval", 0)] = unique_rows(ev, None, b)
+    (steps,) = epoch_steps({}, seed, slice_counts(cfg, data.eval_ids, chips), b, 1)
+    out[("eval", 0)] = steps_of(ev, steps)
     return out
+
+
+def emit(line: dict) -> int:
+    """Print a result: the set-up's phases, the window's calls and each
+    compared number beside its limit on standard error, then the line;
+    a non-zero exit, and no line, where a module of JAX is loaded."""
+    found = forbidden_modules()
+    if found:
+        print(f"error: modules of JAX or the JAX package loaded: {found}", file=sys.stderr)
+        return 4
+    print(f"setup phases (s): {json.dumps(line['setup_phases'])}", file=sys.stderr)
+    print(f"window calls (s): {json.dumps(line['window_calls'])}", file=sys.stderr)
+    for name, c in line["checks"].items():
+        print(f"check {name}: {c['value']!r} (limit {c['limit']!r})", file=sys.stderr)
+    sys.stderr.flush()
+    print(json.dumps(line, default=_plain), flush=True)
+    return 0
 
 
 def main(argv: list | None = None) -> int:
@@ -261,22 +347,13 @@ def main(argv: list | None = None) -> int:
               f"torch.cuda.is_available()={torch.cuda.is_available()}, "
               f"device_count()={torch.cuda.device_count()}", file=sys.stderr)
         return 3
-    if cell.chips != 1:
-        print(f"error: the harness runs one process on one card; {cell.name} asks for "
-              f"{cell.chips}", file=sys.stderr)
-        return 3
-    line = run_cell(cell, args.seed, args.seconds, bool(args.trace), torch.device("cuda", 0))
-    found = forbidden_modules()
-    if found:
-        print(f"error: modules of JAX or the JAX package loaded: {found}", file=sys.stderr)
-        return 4
-    print(f"setup phases (s): {json.dumps(line['setup_phases'])}", file=sys.stderr)
-    print(f"window calls (s): {json.dumps(line['window_calls'])}", file=sys.stderr)
-    for name, c in line["checks"].items():
-        print(f"check {name}: {c['value']!r} (limit {c['limit']!r})", file=sys.stderr)
-    sys.stderr.flush()
-    print(json.dumps(line, default=_plain), flush=True)
-    return 0
+    if cell.chips == 1:
+        line = run_cell(cell, args.seed, args.seconds, bool(args.trace), torch.device("cuda", 0))
+    else:
+        code, line = ranks.launch(cell, args.seed, args.seconds, bool(args.trace))
+        if line is None:
+            return code
+    return emit(line)
 
 
 def _plain(x):

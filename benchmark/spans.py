@@ -6,9 +6,11 @@ in the traced sub-window's host events (`rec["trace"]["host"]`: name,
 start, end in microseconds of the profiler's clock, the device's clock
 too).  A span belongs to a role where it starts inside one of the
 harness's spans of that role ("bench.train", "bench.eval").  The counters
-are the program's registry (`tracing.read()`): the record's
-"counters_build" where the harness stores one, else read from the
-program in this process, whose only parse is port.build's resident build.
+are the program's registry (`tracing.read()`), which the harness sets
+to 0 before port.build: the record's "counters_build" are its reading
+after the build (the resident datasets' parse), its "counters" the
+reading after the window (the whole run); where a record holds neither,
+the program in this process is read.
 Where the program has no such span or counter (a build without them),
 each reader returns None.
 """
@@ -59,10 +61,11 @@ def host_ms_per_step(rec: dict, role: str):
     return sum(durs) / steps * 1e-3
 
 
-def program_counters(rec: dict):
-    """The program's counters over the resident build, or None."""
-    if rec.get("counters_build") is not None:
-        return rec["counters_build"]
+def program_counters(rec: dict, key: str = "counters"):
+    """The program's counters of the record under `key` ("counters": the
+    whole run; "counters_build": the build), or None."""
+    if rec.get(key) is not None:
+        return rec[key]
     try:
         from ftrl_ffm_tpu_torch import tracing
     except ImportError:
@@ -71,8 +74,9 @@ def program_counters(rec: dict):
 
 
 def parse_numpy_share(rec: dict):
-    """100 x the rows that the numpy parser took over all rows parsed."""
-    c = program_counters(rec)
+    """100 x the rows that the numpy parser took over all rows parsed in
+    the build."""
+    c = program_counters(rec, "counters_build")
     if not c:
         return None
     native, numpy = c.get("parse.rows.native", 0), c.get("parse.rows.numpy", 0)

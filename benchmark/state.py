@@ -58,3 +58,38 @@ def w0_block(config: dict, seed: int, b: int, lo: int, hi: int,
     gen.manual_seed(_block_seed(seed, b))
     w = torch.randn((hi - lo, *factor_shape(config)), generator=gen, device=device)
     return w.mul_(config["init_stddev"]).add_(config["init_mean"])
+
+
+def w0_rows(config: dict, seed: int, rows: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The factor weights of S0's rows `rows` (sorted, distinct, int64),
+    float32, logical layout: each block made again and the rows taken
+    from it, so that no more than one block and the rows are held."""
+    out = torch.empty((rows.shape[0], *factor_shape(config)), dtype=torch.float32,
+                      device=device)
+    for b, lo, hi, i0, i1 in blocks_of(config, rows):
+        out[i0:i1] = w0_block(config, seed, b, lo, hi, device)[rows[i0:i1] - lo]
+    return out
+
+
+def blocks_of(config: dict, rows: torch.Tensor):
+    """(block, first row, end row, i0, i1) of each block that holds some
+    of `rows` (sorted): rows[i0:i1] lie in [lo, hi)."""
+    bounds = torch.tensor([lo for _, lo, _ in blocks(config)] + [config["n_feats"]],
+                          dtype=torch.int64, device=rows.device)
+    cut = torch.searchsorted(rows, bounds).tolist()
+    for b, lo, hi in blocks(config):
+        if cut[b + 1] > cut[b]:
+            yield b, lo, hi, cut[b], cut[b + 1]
+
+
+def rank_blocks(config: dict, shards: int, index: int):
+    """(block, first row, end row, first id, l0, l1) of each block, for the
+    rank that holds the ids i with i % shards == index at local row
+    i // shards (the program's interleaved placement): the block's ids of
+    that rank are first, first + shards, ... below the end row, and they
+    sit at the rank's local rows [l0, l1).  One rank (shards 1) holds
+    every row: first = lo, [l0, l1) = [lo, hi)."""
+    for b, lo, hi in blocks(config):
+        first = lo + (index - lo) % shards
+        if first < hi:
+            yield b, lo, hi, first, first // shards, (hi - 1 - index) // shards + 1

@@ -49,7 +49,3 @@ def test_compute_bound_shape():
     cfg = {"model_type": "FFM", "n_fields": 39, "n_factors": 16}
     assert floors.train_step_floor(cfg, 16384, 1) == pytest.approx(
         3 * 16384 * 741 * 32 / FL)
-
-
-def test_step_rows():
-    assert floors.step_rows(10, 4) == [4, 4, 2]

@@ -96,8 +96,8 @@ def _rec():
                    "epoch": 3, "traced": True}],
         "trace": {"ops": ops, "host": [], "spans": span},
         "launches_train": {"launches": 16, "steps": steps},
-        "unique_rows": {("train", 2): [100] * steps, ("train", 3): [90] * steps,
-                        ("eval", 0): [50] * 4},
+        "unique_rows": {("train", 2): [(64, 100)] * steps, ("train", 3): [(64, 90)] * steps,
+                        ("eval", 0): [(64, 50)] * 4},
     }
 
 

@@ -96,7 +96,10 @@ def test_text_parses_back(tmp_path):
 def test_unique_rows_matches_a_direct_count(shuffled):
     d = generator.generate(CFG, MIX, 8)
     order = np.random.default_rng(1).permutation(CFG["train_rows"]) if shuffled else None
-    got = floors.unique_rows(torch.as_tensor(d.train_ids), order, 256)
+    n = CFG["train_rows"]
+    steps = np.full(-(-n // 256) * 256, -1)
+    steps[:n] = np.arange(n) if order is None else order
+    got = floors.unique_rows(torch.as_tensor(d.train_ids), steps.reshape(-1, 256))
     rows = d.train_ids if order is None else d.train_ids[order]
     want = [np.unique(rows[lo:lo + 256]).size for lo in range(0, rows.shape[0], 256)]
     assert list(got) == want

@@ -43,10 +43,13 @@ def start() -> torch.profiler.profile:
     return prof
 
 
-def stop(prof: torch.profiler.profile) -> dict:
+def stop(prof: torch.profiler.profile, read: bool = True) -> dict:
     """Stop the profiler and read its trace (through a file in the
-    temporary directory, removed at once)."""
+    temporary directory, removed at once); without read, stop it alone
+    (a rank whose trace no metric reads)."""
     prof.stop()
+    if not read:
+        return {}
     fd, path = tempfile.mkstemp(suffix=".json", prefix="bench-trace-")
     os.close(fd)
     try:
