@@ -11,7 +11,14 @@ parallel/mesh.py builds the grid and places a state on it, and
 parallel/sharded.py runs the sharded train and eval steps.
 """
 
-from ftrl_ffm_tpu_torch.parallel.mesh import make_mesh, shard_state, unshard_state
+from ftrl_ffm_tpu_torch.parallel.mesh import (
+    init_shard,
+    make_mesh,
+    place_state,
+    shard_state,
+    unshard_state,
+)
 from ftrl_ffm_tpu_torch.parallel.sharded import ShardedStep
 
-__all__ = ["make_mesh", "shard_state", "unshard_state", "ShardedStep"]
+__all__ = ["init_shard", "make_mesh", "place_state", "shard_state", "unshard_state",
+           "ShardedStep"]

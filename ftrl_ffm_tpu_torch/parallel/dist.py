@@ -6,12 +6,14 @@ multihost_utils.process_allgather (ftrl_ffm_tpu/train.py:989-1002,
 One process drives one device.  On the card the backend is NCCL, on the
 CPU gloo, chosen by the device the run asks for; card tensors never ride
 gloo, and a mesh on the card without NCCL raises.  Every collective of the
-sharded step goes through the counted wrappers here (`counts`), so a run
-can show which collectives it issued.
+sharded step goes through the counted wrappers here (`counts`, and the
+counters of tracing.py's registry), so a run can show which collectives it
+issued and how many bytes it handed them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import socket
 from typing import Optional
 
@@ -19,16 +21,42 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ftrl_ffm_tpu_torch import tracing
+
 # Collectives issued since the counts were last set to 0, by kind.
 counts = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0}
 # When set to a list, each collective appends (kind, bytes it sends).
 trace: Optional[list] = None
+# The kind of sharded step ("train", "eval") issuing collectives, or None.
+_role: Optional[str] = None
 
 
 def _count(kind: str, t: torch.Tensor) -> None:
+    """Count a collective: `counts` and `trace`; in the registry
+    collectives.<kind> (calls) and collectives.bytes.<kind> (the bytes of
+    `t`, what this rank hands to it), and inside a step_role the bytes
+    under mesh.<role>.bytes too."""
+    nbytes = t.numel() * t.element_size()
     counts[kind] += 1
     if trace is not None:
-        trace.append((kind, t.numel() * t.element_size()))
+        trace.append((kind, nbytes))
+    tracing.count("collectives." + kind)
+    tracing.count("collectives.bytes." + kind, nbytes)
+    if _role is not None:
+        tracing.count(f"mesh.{_role}.bytes", nbytes)
+
+
+@contextlib.contextmanager
+def step_role(role: str):
+    """One sharded step of `role`: counted under mesh.<role>.steps, and
+    the bytes of the collectives issued inside under mesh.<role>.bytes."""
+    global _role
+    tracing.count(f"mesh.{role}.steps")
+    outer, _role = _role, role
+    try:
+        yield
+    finally:
+        _role = outer
 
 
 def backend_for(device_type: str) -> str:

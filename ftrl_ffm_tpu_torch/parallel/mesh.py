@@ -19,7 +19,8 @@ from typing import NamedTuple
 
 import torch
 
-from ftrl_ffm_tpu_torch.models.base import ModelState
+from ftrl_ffm_tpu_torch import tracing
+from ftrl_ffm_tpu_torch.models.base import Model, ModelState
 from ftrl_ffm_tpu_torch.parallel import dist
 
 _TABLES = ("lin_n", "lin_z", "lin_w", "vec_n", "vec_z", "vec_w")
@@ -155,6 +156,29 @@ def shard_state(state: ModelState, mesh: Mesh) -> ModelState:
         return x.to(mesh.device).contiguous()
 
     return ModelState(*(place(k, x) for k, x in state._asdict().items()))
+
+
+def init_shard(model: Model, mesh: Mesh, generator: torch.Generator) -> ModelState:
+    """This rank's part of a fresh init, drawn on the rank alone
+    (Model.init's shard): shard_state(model.init(generator), mesh) to the
+    bit, with no tensor of n_feats rows made.  Span "init.shard"; counter
+    init.rows, the rows the rank holds."""
+    with tracing.span("init.shard"):
+        state = model.init(generator, shard=(mesh.model_index, mesh.model))
+    tracing.count("init.rows", state.lin_n.shape[0])
+    return state
+
+
+def place_state(state: ModelState, mesh: Mesh, n_feats: int) -> ModelState:
+    """A state on this rank: a logical state (n_feats rows) through
+    shard_state, or one that already holds the rank's rows_local rows (on
+    more than one model shard: init_shard's, a rank's own) moved to its
+    device as it is."""
+    rl = rows_per_shard(n_feats, mesh.model)
+    if rl != n_feats and state.lin_n.shape[0] == rl:
+        return ModelState(*(None if x is None else x.to(mesh.device).contiguous()
+                            for x in state))
+    return shard_state(state, mesh)
 
 
 def unshard_state(state: ModelState, mesh: Mesh, n_feats: int) -> ModelState:

@@ -52,6 +52,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ftrl_ffm_tpu_torch import tracing
 from ftrl_ffm_tpu_torch.config import Config
 from ftrl_ffm_tpu_torch.ftrl import FtrlParams, ftrl_accumulate, ftrl_weights, select_update_kind
 from ftrl_ffm_tpu_torch.models.base import (
@@ -232,6 +233,7 @@ class ShardedStep:
         rows = torch.where(_col(lid < rl, tab), rows, 0)
         return dist.all_reduce(rows, self.mesh.model_group)
 
+    @tracing.spanned("route.ids")
     def _route(self, ids_phys: torch.Tensor) -> Routing:
         """Bucket this rank's physical ids by owner, by unique id, and
         exchange the requests over "model" (sharded.py::_route): the rank
@@ -262,6 +264,7 @@ class ShardedStep:
         return Routing(slot=slot.to(torch.int32), valid=slot < m * k, recv=recv,
                        overflow=overflow)
 
+    @tracing.spanned("route.rows")
     def _routed_rows(self, tab: torch.Tensor, rt: Routing) -> torch.Tensor:
         """Rows of the sharded table for this rank's occurrences, in the
         table's dtype: the owners' gather and an all_to_all back."""
@@ -328,6 +331,7 @@ class ShardedStep:
         z.add_(acc[0])
         closed_form_pass(n, z, w, acc[1], self.params)
 
+    @tracing.spanned("route.update")
     def _update_routed(self, tables, rt: Routing, g, g2) -> None:
         """Route (g, g^2) to the owners (sharded.py::_table_update_routed):
         summed into the send slots by za_scatter, an all_to_all each; then
@@ -399,7 +403,12 @@ class ShardedStep:
 
     def train_step(self, state: ModelState, batch: Batch) -> StepOut:
         """One step on this rank's slice of the global batch; the tables of
-        the shard are updated in place (state is returned)."""
+        the shard are updated in place (state is returned).  Its
+        collectives count under mesh.train (parallel/dist.py::step_role)."""
+        with dist.step_role("train"):
+            return self._train_step(state, batch)
+
+    def _train_step(self, state: ModelState, batch: Batch) -> StepOut:
         p = self.params
         batch = widen_batch(batch)
         ids_phys, rt, v, lin, bias_w = self._lookups(state, batch, train=True)
@@ -414,7 +423,8 @@ class ShardedStep:
         parts = [gs.sum(), (gs * gs).sum(), per_loss.sum(), batch.sample_w.sum()]
         if rt is not None:
             parts.append(rt.overflow.to(torch.float32))
-        sums = dist.all_reduce(torch.stack(parts), self.batch_group)
+        with tracing.span("mesh.sums"):
+            sums = dist.all_reduce(torch.stack(parts), self.batch_group)
         bias_n, bias_z = ftrl_accumulate(state.bias_n, state.bias_z, bias_w, sums[0], sums[1], p)
         self._update(state, ids_phys, rt, payload, gs[:, None] * batch.vals)
         state.bias_n.copy_(bias_n)
@@ -429,7 +439,12 @@ class ShardedStep:
         """(loss_sum, count, local logits, route drops or None, pos, neg)
         of one eval slice, the sums over the batch axes in one all_reduce:
         with bins > 0 the AUC histograms (metrics.py::StreamingAUC.
-        bucket_counts) too, else pos and neg are None."""
+        bucket_counts) too, else pos and neg are None.  Its collectives
+        count under mesh.eval (parallel/dist.py::step_role)."""
+        with dist.step_role("eval"):
+            return self._eval_step(state, batch, bins)
+
+    def _eval_step(self, state: ModelState, batch: Batch, bins: int):
         from ftrl_ffm_tpu_torch.metrics import StreamingAUC
 
         batch = widen_batch(batch)
@@ -441,7 +456,8 @@ class ShardedStep:
             parts.append(rt.overflow.to(torch.float32)[None])
         if bins:
             parts += list(StreamingAUC.bucket_counts(logits, batch.y, batch.sample_w, bins))
-        sums = dist.all_reduce(torch.cat(parts), self.batch_group)
+        with tracing.span("mesh.sums"):
+            sums = dist.all_reduce(torch.cat(parts), self.batch_group)
         k = 3 if rt is not None else 2
         pos = neg = None
         if bins:

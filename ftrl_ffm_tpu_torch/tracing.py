@@ -20,11 +20,12 @@ The profiler records no span opened on a Python thread of the program's
 own (the feeder, load_file's parse pool, the stream reader), so their work
 is counted instead: `count(name, n)` adds to one flat registry under a lock,
 always on (one add a chunk, a batch or a build, none a row).  `read()`
-returns the registry and, under their own names, the kernel wrappers'
-launch counters (`launches.<wrapper>[.<by_instance|by_dtype>.<key>]`, from
-ops.launch_counts) and the collectives issued (`collectives.<kind>`, from
-parallel/dist.py's counts); those stay stored where they are.  `reset()`
-clears the registry only.
+returns the registry, with every kind of collectives.<kind> (0 where none
+ran), and, under their own names, the kernel wrappers' launch counters
+(`launches.<wrapper>[.<by_instance|by_dtype>.<key>]`, from
+ops.launch_counts), which stay stored where they are.  `reset()` clears
+the registry only.  A captured CUDA graph takes back what its capture
+counted under CAPTURED and adds it again at each replay (train.py::_Graph).
 
 Counters (seconds are the host's perf_counter):
   parse.rows.native, parse.rows.numpy   rows parsed by each parser
@@ -39,6 +40,18 @@ Counters (seconds are the host's perf_counter):
   order.prefetch.hit, .miss             shuffled resident passes that took
                                         the permutation drawn ahead, and
                                         those that drew it (train.py)
+  collectives.<kind>                    collectives issued, by kind, and the
+  collectives.bytes.<kind>              bytes this rank handed them
+                                        (parallel/dist.py::_count)
+  mesh.<role>.steps, mesh.<role>.bytes  sharded train or eval steps, and
+                                        the bytes of their collectives
+                                        (parallel/dist.py::step_role)
+  init.rows                             rows of a rank's fresh init
+                                        (parallel/mesh.py::init_shard)
+
+Spans of the mesh (parallel/sharded.py, parallel/mesh.py): route.ids,
+route.rows, route.update (the route's exchange), mesh.sums (a step's
+all_reduce of its sums), init.shard (a rank's fresh init).
 """
 
 from __future__ import annotations
@@ -55,6 +68,9 @@ _NOOP = contextlib.nullcontext()
 _recording = torch._C._autograd._profiler_enabled
 _lock = threading.Lock()
 _counts: dict = {}
+# counters a captured CUDA graph replays: those counted on the capturing
+# thread while a step runs
+CAPTURED = ("collectives.", "mesh.")
 
 
 def span(name: str):
@@ -85,8 +101,14 @@ def count(name: str, n=1) -> None:
         _counts[name] = _counts.get(name, 0) + n
 
 
+def snapshot(prefixes: tuple = CAPTURED) -> dict:
+    """The registry's counters whose names start with one of `prefixes`."""
+    with _lock:
+        return {k: n for k, n in _counts.items() if k.startswith(prefixes)}
+
+
 def reset() -> None:
-    """Clear the registry (the launch and collective counters stay)."""
+    """Clear the registry (the launch counters stay)."""
     with _lock:
         _counts.clear()
 
@@ -104,6 +126,6 @@ def read() -> dict:
         if key[1] is not None:
             name += f".{key[1][len('launches_'):]}.{key[2]}"
         out[name] = n
-    for kind, n in dist.counts.items():
-        out["collectives." + kind] = n
+    for kind in dist.counts:
+        out.setdefault("collectives." + kind, 0)
     return out

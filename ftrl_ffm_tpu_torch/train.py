@@ -268,7 +268,9 @@ def resolve_device(name: str) -> torch.device:
 def _validate_state_shapes(cfg: Config, state: ModelState) -> None:
     """Table shapes and dtypes must be what this config's model reads
     (ftrl_ffm_tpu/train.py::_validate_state_shapes), with a named error
-    instead of a shape failure deep inside the first batch."""
+    instead of a shape failure deep inside the first batch.  On a mesh of
+    M > 1 model shards the tables may also hold one rank's
+    ceil(n_feats / M) rows (Trainer.load_state)."""
     for name, t in state._asdict().items():
         if t is not None and not isinstance(t, torch.Tensor):
             raise TypeError(
@@ -276,6 +278,9 @@ def _validate_state_shapes(cfg: Config, state: ModelState) -> None:
                 f"(io/checkpoint.py::state_from_jax_arrays converts arrays)"
             )
     r, w = cfg.n_feats, cfg.row_width
+    if uses_mesh(cfg) and cfg.mesh_model > 1 and tuple(state.lin_n.shape) == (
+            -(-r // cfg.mesh_model),):
+        r = state.lin_n.shape[0]
     issues = []
     if tuple(state.lin_n.shape) != (r,):
         issues.append(
@@ -292,7 +297,7 @@ def _validate_state_shapes(cfg: Config, state: ModelState) -> None:
             if tuple(state.vec_n.shape) != (r, w):
                 issues.append(
                     f"factor tables are {tuple(state.vec_n.shape)}, config "
-                    f"(model_type={cfg.model_type}, n_feats={r}, "
+                    f"(model_type={cfg.model_type}, n_feats={cfg.n_feats}, "
                     f"n_fields={cfg.n_fields}, field_pad={cfg.field_pad}, "
                     f"n_factors={cfg.n_factors}) expects ({r}, {w})"
                 )
@@ -418,20 +423,22 @@ class _GroupGraph:
         self.outputs: tuple = ()
         self.counts: dict = {}
         self.collectives: dict = {}
+        self.counters: dict = {}
         self.trace: list = []
 
     def capture(self, fn, inputs: tuple, pool) -> None:
         """Record fn over static copies of `inputs` into the memory pool
         `pool` (torch.cuda.graph_pool_handle); nothing runs.  The
         wrappers count their launches, and parallel/dist.py its
-        collectives (and their bytes where it traces), while they are
-        recorded: those are taken back here and added again at each
-        replay.  Other threads (the feeder, a checkpoint writer, NCCL's
+        collectives (and their bytes where it traces, and the registry's
+        counters of tracing.CAPTURED), while they are recorded: those are
+        taken back here and added again at each replay.  Other threads (the feeder, a checkpoint writer, NCCL's
         watchdog) keep using the card: thread_local lets their calls
         through."""
         self.inputs = tuple(None if t is None else t.clone() for t in inputs)
         before = launch_counts()
         coll_before = dict(pdist.counts)
+        reg_before = tracing.snapshot()
         trace_at = None if pdist.trace is None else len(pdist.trace)
         graph = torch.cuda.CUDAGraph()
         try:
@@ -444,6 +451,10 @@ class _GroupGraph:
             self.collectives = {k: n - coll_before[k] for k, n in pdist.counts.items()}
             for k, n in self.collectives.items():
                 pdist.counts[k] -= n
+            self.counters = {k: n - reg_before.get(k, 0) for k, n in tracing.snapshot().items()
+                             if n != reg_before.get(k, 0)}
+            for k, n in self.counters.items():
+                tracing.count(k, -n)
             if trace_at is not None:
                 self.trace = pdist.trace[trace_at:]
                 del pdist.trace[trace_at:]
@@ -460,6 +471,8 @@ class _GroupGraph:
         add_launch_counts(self.counts)
         for k, n in self.collectives.items():
             pdist.counts[k] += n
+        for k, n in self.counters.items():
+            tracing.count(k, n)
         if pdist.trace is not None:
             pdist.trace.extend(self.trace)
         return tuple(t.clone() for t in self.outputs)
@@ -495,8 +508,10 @@ class Trainer(TransferTiers):
     tiers' form (transfer.py::TransferTiers._compact; compact_transfer)."""
 
     def __init__(self, cfg: Config, state: Optional[ModelState] = None):
-        """A trainer on cfg.device: a fresh seeded init, or `state` moved to
-        the device (on a mesh: sharded, parallel/mesh.py::shard_state).
+        """A trainer on cfg.device: a fresh seeded init (on a mesh the
+        rank's own rows of it, parallel/mesh.py::init_shard), or `state`
+        moved to the device (on a mesh: sharded, parallel/mesh.py::
+        shard_state, or taken as it is where it holds the rank's rows).
         Training updates the state's tensors in place, so a state already
         on the device is trained as it is (clone it to keep it)."""
         # eval-/predict-only Trainers sniff format and nnz from eval_data
@@ -547,7 +562,12 @@ class Trainer(TransferTiers):
         if state is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(cfg.seed)
-            state = self.model.init(gen)
+            if self._mesh is None:
+                state = self.model.init(gen)
+            else:
+                from ftrl_ffm_tpu_torch.parallel import init_shard
+
+                state = init_shard(self.model, self._mesh, gen)
         else:
             _validate_state_shapes(cfg, state)
         self.load_state(state)
@@ -590,13 +610,15 @@ class Trainer(TransferTiers):
     def load_state(self, state: ModelState) -> None:
         """Make `state` (a logical state: id row order, n_feats rows) the
         trainer's: moved to the device, or sharded on a mesh, where the
-        sharded step is built for it."""
+        sharded step is built for it.  On a mesh of more than one model
+        shard a state of the rank's own rows_local rows is taken as it
+        is (parallel/mesh.py::place_state)."""
         if self._mesh is None:
             self.state = ModelState(*(None if t is None else t.to(self.device) for t in state))
             return
-        from ftrl_ffm_tpu_torch.parallel import ShardedStep, shard_state
+        from ftrl_ffm_tpu_torch.parallel import ShardedStep, place_state
 
-        self.state = shard_state(state, self._mesh)
+        self.state = place_state(state, self._mesh, self.cfg.n_feats)
         self._sharded = ShardedStep(self.cfg, self._mesh, self.model, self.state)
 
     def _warn_if_oversized(self) -> None:
