@@ -60,6 +60,14 @@ Phases, each printing its own lines:
                      its "linear" instance) at 100k (uniform, skewed) and
                      2^22 rows (uniform, Zipf) against the plain dense step,
                      bit for bit under ordered sums
+  3h. routed      -> a (1, N) route mesh's update under auto at the route
+                     cell's shapes (R=2^22, E=640, 319,488 received slots
+                     from 4 peers, ~80% empty): ftrl_update on the split
+                     payload, one "rows" launch and no pass, against its
+                     plain version on the touched rows and the in-place
+                     form (za_scatter, kernel #3) it replaces: touched
+                     rows rtol=1e-5, atol=1e-6, every other row keeps its
+                     bits, a repeat bit-identical; both forms' ms a step
   4. serving      -> Trainer.evaluate() and Trainer.predict_file() with the
                      launch counts set to 0 just before and read just after
                      (every batch on kernel #1's c40_k16 instance; a bf16
@@ -232,11 +240,13 @@ Phases, each printing its own lines:
                      layout built by hand (the replicate run's bits);
                      profile_step's sharded phase beside its cuda phase and
                      bench_multichip on the 1x1 mesh; where more than one
-                     card is visible, (N, 1), (1, N) route in place and
-                     (2, 2) meshes of N NCCL ranks from the shard layout
-                     against the streamed run of the same shape, bit for
-                     bit, with epoch 1's device idle share and NCCL kernel
-                     time
+                     card is visible (mesh_cards_phase), (N, 1), (1, N)
+                     route under auto and in place, and (2, 2) meshes of N
+                     NCCL ranks from the shard layout against the streamed
+                     run of the same shape, bit for bit, each routed
+                     update's form from its own launches and counters (auto:
+                     one "rows" update a step, no kernel #3), with epoch
+                     1's device idle share and NCCL kernel time
 
 Each phase prints its seconds ("phase <name>: <s> s") as the next starts.
 
@@ -541,6 +551,21 @@ def scatter_inputs(r, e, n, hi, gen, device):
     z = torch.randn((r, e), generator=gen, device=device)
     g = torch.randn((n, e), generator=gen, device=device) * 0.1
     return z, random_ids(n, hi, r, gen, device), g, g * g
+
+
+def recv_slots(rng, r: int, m: int, k: int, fill: float, hot) -> np.ndarray:
+    """A route's received slots [M*K] int32 as parallel/sharded.py::_route
+    lays them out: from each of M peers a block of K slots, its first
+    ~fill*K holding distinct local rows in ascending order (a peer sends
+    each id once), the rest r (empty).  Half of a peer's rows come from the
+    `hot` rows every peer draws from, so a row arrives from up to M peers."""
+    slots = np.full(m * k, r, np.int32)
+    for peer in range(m):
+        u = int(rng.binomial(k, fill))
+        rows = np.union1d(rng.choice(hot, u // 2, replace=False),
+                          rng.choice(r, u - u // 2, replace=False))
+        slots[peer * k: peer * k + rows.size] = rows
+    return slots
 
 
 def pass_inputs(r, e, gen, device, p):
@@ -1966,13 +1991,173 @@ def tools_phase(bench_100k: str, train_100k: str, tmp: str, where: str) -> dict:
     return out
 
 
+# The (1, N) route cell's owner-side update (ffm16m-criteo-route4): a
+# rank's 2^22-row shard of 640-lane rows, receiving from M = 4 peers
+# K = 79,872 slots each (route_capacity 2.0): 319,488 slots a step
+ROUTE_ROWS, ROUTE_PEERS, ROUTE_K = 1 << 22, 4, 79_872
+ROUTE_BLOCK = 1 << 18  # the shard's S0 is drawn, and checked, in blocks of rows
+ROUTE_HOT = 40_000  # the rows every peer draws half of its rows from
+
+
+def route_shard_block(b: int, e: int, p, device) -> list:
+    """Rows [b * ROUTE_BLOCK, (b + 1) * ROUTE_BLOCK) of the shard's six
+    tables at S0, from a generator of their own (the same bits at every
+    call): ftrl_tables, then w as kernel #3 with A = 0 leaves it (the CPU's
+    sqrt may differ by an ulp), so a pass over an untouched row keeps it."""
+    gen = torch.Generator(device=device).manual_seed(SEED * 1000 + b)
+    vec = ftrl_tables(gen, device, p, ROUTE_BLOCK, e)
+    lin = ftrl_tables(gen, device, p, ROUTE_BLOCK)
+    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import closed_form_pass
+
+    for tabs in (vec, [t.view(-1, 1) for t in lin]):
+        closed_form_pass(*tabs, torch.zeros_like(tabs[0]), p)
+    return vec + lin
+
+
+def routed_update_phase(device, where: str) -> dict:
+    """Phase 3h: the routed update of a (1, N) mesh at the route cell's
+    shapes (R = 2^22, E = 640, 319,488 received slots, ~80% empty, a row
+    from up to 4 peers; recv_slots), the split payload (g, g^2) and the
+    linear tables' [M*K, 2] stack as parallel/sharded.py::_update_routed
+    hands them to ftrl_update under auto: one launch of the "rows"
+    instance, no pass or scatter.  Held against
+    - itself: a second launch from the same S0 gives the same bits;
+    - ftrl_update_plain on the touched rows alone (the whole-shard plain
+      step would not fit beside the shard): rtol=1e-5, atol=1e-6;
+    - the in-place form it replaces (update_mode=inplace: za_scatter into
+      z and a zeroed A, kernel #3 over the shard, the linear tables the
+      same on [R, 1] views): touched rows rtol=1e-5, atol=1e-6;
+    and every row no slot names keeps S0's bits under both forms.  Then
+    both forms' milliseconds a step beside the touched form's bound."""
+    from ftrl_ffm_tpu_torch.ftrl import FtrlParams
+    from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update, ftrl_update_inplace, ftrl_update_plain
+
+    torch.cuda.empty_cache()
+    r, m, k, e, p = ROUTE_ROWS, ROUTE_PEERS, ROUTE_K, 40 * N_FACTORS, FtrlParams()
+    rng = np.random.default_rng(SEED)
+    ids = torch.from_numpy(recv_slots(rng, r, m, k, 0.2, rng.choice(r, ROUTE_HOT, replace=False)))
+    ids = ids.to(device)
+    empty = ids == r
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    # a slot holds a row's sums over its sender's occurrences: g, and g^2
+    # of 1-3 of them; the send slots of no id hold zeros
+    g = torch.randn((m * k, e), generator=gen, device=device) * 0.1
+    reps = torch.randint(1, 4, (m * k, 1), generator=gen, device=device).float()
+    g_lin = torch.randn((m * k, 1), generator=gen, device=device) * 0.1
+    g2, g2_lin = g * g * reps, g_lin * g_lin * reps
+    for t in (g, g2, g_lin, g2_lin):
+        t[empty] = 0
+    gg2_lin = torch.cat([g_lin, g2_lin], dim=-1)
+    touched = torch.zeros(r, dtype=torch.bool, device=device)
+    touched[ids[~empty].long()] = True
+    rows = touched.nonzero().squeeze(1)
+    n_real, n_rows = int((~empty).sum()), rows.numel()
+    longest = int(torch.bincount(ids[~empty].long()).max())
+
+    tables = ([torch.empty((r, e), device=device) for _ in range(3)]
+              + [torch.empty(r, device=device) for _ in range(3)])
+    blocks = [slice(b * ROUTE_BLOCK, (b + 1) * ROUTE_BLOCK) for b in range(r // ROUTE_BLOCK)]
+    for b, sl in enumerate(blocks):
+        for t, s in zip(tables, route_shard_block(b, e, p, device)):
+            t[sl] = s
+    at_s0 = [t[rows] for t in tables]
+
+    def untouched_kept() -> bool:
+        ok = True
+        for b, sl in enumerate(blocks):
+            keep = ~touched[sl]
+            for t, s in zip(tables, route_shard_block(b, e, p, device)):
+                ok &= torch.equal(t[sl][keep], s[keep])
+        return ok
+
+    def back_to_s0() -> None:  # only the touched rows moved
+        for t, s in zip(tables, at_s0):
+            t[rows] = s
+
+    def touched_form() -> None:
+        ftrl_update(*tables, ids, (g, g2), -1, p, gg2_lin)
+
+    def inplace_form() -> None:
+        ftrl_update_inplace(*tables[:3], ids, g, g2, p)
+        ftrl_update_inplace(*(t.view(-1, 1) for t in tables[3:]), ids, g_lin, g2_lin, p)
+
+    reset_counts()
+    touched_form()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    got = [t[rows] for t in tables]
+    kept = untouched_kept()
+    back_to_s0()
+    touched_form()
+    torch.cuda.synchronize()
+    same = all(torch.equal(t[rows], x) for t, x in zip(tables, got))
+    back_to_s0()
+    reset_counts()
+    inplace_form()
+    torch.cuda.synchronize()
+    inplace_counts = read_counts()
+    in_place = [t[rows] for t in tables]
+    kept_inplace = untouched_kept()
+    # the plain step on the touched rows alone: ids renumbered into them,
+    # the empty slots past the end
+    local = torch.where(empty, n_rows, torch.searchsorted(rows, ids.long())).to(torch.int32)
+    vec, lin = ftrl_update_plain(*at_s0, local, torch.cat([g, g2], dim=-1), -1, p, gg2_lin)
+    torch.cuda.synchronize()
+
+    def err_ok(a, b):
+        return (max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b)),
+                all(torch.allclose(x, y, rtol=UPD_RTOL, atol=UPD_ATOL) for x, y in zip(a, b)))
+
+    plain_err, plain_ok = err_ok(got, [*vec, *lin])
+    inplace_err, inplace_ok = err_ok(got, in_place)
+    same_as_inplace = all(torch.equal(x, y) for x, y in zip(got, in_place))
+    del at_s0, got, in_place, vec, lin, local
+    torch.cuda.empty_cache()
+    # milliseconds a step of each form (the tables drift: their values do
+    # not change the work); the touched form's bound: each filled slot's
+    # payload read, each touched row's six coordinates a lane read and
+    # written
+    touched_ms = cuda_ms(touched_form, 20)
+    inplace_ms = cuda_ms(inplace_form, 5)
+    floor_ms, _ = bound(n_real * 2 * e * 4 + n_rows * 6 * (e + 1) * 4, 0)
+    l, li = counts, inplace_counts
+    launches_ok = (l["ftrl_update"] == 1 and l["update_by_instance"] == {"rows": 1}
+                   and l["closed_form_pass"] == 0 and l["za_scatter"] == 0
+                   and li["ftrl_update"] == 0 and li["closed_form_pass"] == 2
+                   and li["za_scatter"] == 2)
+    print(f"kernel ftrl_update routed (1,{m}): R={r} E={e} slots={m * k} filled {n_real} "
+          f"({n_real / (m * k):.1%}), touched rows {n_rows}, longest segment {longest}; launches "
+          f"ftrl_update {l['ftrl_update']} {l['update_by_instance']}, closed_form_pass "
+          f"{l['closed_form_pass']}, za_scatter {l['za_scatter']} (in-place form: "
+          f"closed_form_pass {li['closed_form_pass']}, za_scatter {li['za_scatter']}); repeat "
+          f"bit-identical={same}; "
+          f"untouched rows kept: touched form {kept}, in-place form {kept_inplace}; against the "
+          f"plain step max_abs_err={plain_err:.3e} {'ok' if plain_ok else 'MISMATCH'}; against "
+          f"the in-place form max_abs_err={inplace_err:.3e} {'ok' if inplace_ok else 'MISMATCH'} "
+          f"(bit-identical={same_as_inplace}); a step: touched form {touched_ms:.4f} ms (bound "
+          f"{floor_ms:.4f}, {floor_ms / touched_ms:.1%}), in-place form {inplace_ms:.3f} ms "
+          f"[{where}]")
+    require(longest <= m, f"routed update: a row from {longest} slots, more than {m} peers")
+    require(launches_ok, f"routed update launches {l}, in-place form {li}")
+    require(same, "the routed update is not deterministic")
+    require(kept and kept_inplace, "a routed update changed a row no slot names")
+    require(plain_ok, "the routed update disagrees with the plain step")
+    require(inplace_ok, "the routed update disagrees with the in-place form")
+    del tables, ids, g, g2, g_lin, g2_lin, gg2_lin, touched, rows
+    torch.cuda.empty_cache()
+    return {"touched_ms": touched_ms, "inplace_ms": inplace_ms, "bound_ms": floor_ms,
+            "plain_err": plain_err, "inplace_err": inplace_err, "touched_rows": n_rows}
+
+
 # Phase 11's process (python -c, the repository on sys.path): the port's
 # CLI with the given flags, Trainer.train wrapped to record what the run
 # did (nothing it computes changes): each train_epoch's seconds, the
-# history, the launch counts set to 0 just before train() and read just
-# after (and again after the CLI's predict pass), the collectives issued,
-# and epoch 1's torch.profiler trace read back: the device's busy union,
-# NCCL's kernels.  The resident datasets are built before train(), so the
+# history, the launch counts and the tracing counters (the sharded train
+# steps, the routed update's form) set to 0 just before train() and read
+# just after (the launches again after the CLI's predict pass), the
+# sharded step's lookup, update and routed-update forms, the collectives
+# issued, and epoch 1's torch.profiler trace read back: the device's busy
+# union, NCCL's kernels.  The resident datasets are built before train(), so the
 # epochs (and the trace) hold the steps alone.  Mode "one" first runs the
 # one-card Trainer (no mesh) from the same seeded init on the same file;
 # mode "shard" builds the shard layout by hand (Trainer._build_device_cache
@@ -1981,7 +2166,7 @@ MESH_RUN = r"""
 import glob, json, os, sys, time
 import torch
 import ftrl_ffm_tpu_torch.train as T
-from ftrl_ffm_tpu_torch import bench
+from ftrl_ffm_tpu_torch import bench, tracing
 from ftrl_ffm_tpu_torch.cli import main
 from ftrl_ffm_tpu_torch.parallel import dist
 from ftrl_ffm_tpu_torch.tools import read_launch_counts, reset_launch_counts
@@ -2029,6 +2214,7 @@ def recorded(self, *a, **k):
             self._ensure_device_cache(role)
     torch.cuda.synchronize()
     reset_launch_counts()
+    tracing.reset()
     dist.counts.update(dict.fromkeys(dist.counts, 0))
     h = train(self, *a, **k)
     rec["history"] = h
@@ -2036,7 +2222,10 @@ def recorded(self, *a, **k):
     rec["collectives"] = dict(dist.counts)
     rec["world"] = self._proc_n
     rec["mesh"] = None if self._mesh is None else [self._mesh.data, self._mesh.model]
-    rec["form"] = None if self._sharded is None else [self._sharded.mode, self._sharded.form]
+    rec["form"] = None if self._sharded is None else [
+        self._sharded.mode, self._sharded.form, self._sharded.routed_form]
+    rec["counters"] = {n: c for n, c in tracing.read().items()
+                       if n.startswith(("mesh.train.", "route.update."))}
     rec["device_cache"] = {r: (e.layout if e is not None else "streamed")
                            for r, e in self._dev_cache.items()}
     rec["rows_loc"] = {r: e.rows_loc for r, e in self._dev_cache.items() if e is not None}
@@ -2114,6 +2303,47 @@ def mesh_runs(data: str, tmp: str, n: int, mode: str, flags: list, timeout: int 
     return [json.load(open(o)) for o in outs]
 
 
+def mesh_model(bench_100k: str) -> list:
+    """Phase 11's model flags: bench.py's FFM-100k model on phase 7's file,
+    2 epochs with eval of the same file."""
+    return ["--train_data", bench_100k, "--eval_data", bench_100k, "--model_type", "FFM",
+            "--n_fields", str(N_FIELDS), "--n_feats", str(TRAIN_FEATS), "--n_factors",
+            str(N_FACTORS), "--batch_size", str(BATCH), "--max_nnz", str(N_FIELDS),
+            "--n_threads", "3", "--n_epochs", "2"]
+
+
+def ckpt_tables(path: str):
+    """A checkpoint's tables, on the CPU."""
+    from ftrl_ffm_tpu_torch.io.checkpoint import load_checkpoint, state_from_jax_arrays
+
+    return state_from_jax_arrays(load_checkpoint(path)[0], "cpu")
+
+
+def mesh_report(label: str, rec: dict, ref_epochs: list, where: str,
+                ref_label: str = "one-card Trainer") -> dict:
+    """Print a phase 11 run's line (examples/s of its second epoch beside a
+    reference run's, epoch 1's trace, collectives, launches, forms, peak)
+    and return its figures."""
+    steps = math.ceil(BENCH_ROWS / BATCH)
+    eps = BENCH_ROWS / rec["epochs"][1]
+    one_eps = BENCH_ROWS / ref_epochs[1]
+    traced, idle = "epoch 1 not traced", None
+    if "busy_ms" in rec:
+        idle = 1 - rec["busy_ms"] / rec["window_ms"]
+        traced = (f"epoch 1 traced, steps 2-{steps}: device busy {rec['busy_ms']:.2f} of "
+                  f"{rec['window_ms']:.2f} ms (idle share {idle:.4f}), NCCL kernels "
+                  f"{rec['nccl_ms']:.3f} ms")
+    print(f"mesh {label}: examples/s {eps:.0f} ({ref_label} {one_eps:.0f}); epochs "
+          f"{rec['epochs']} s; {traced}; collectives in train() {rec['collectives']}, with "
+          f"the rest of the run {rec['collectives_all']}; launches "
+          f"{json.dumps(rec['launches'])}; counters {rec['counters']}; form {rec['form']}; "
+          f"peak {rec['peak_gb']:.2f} GB [{where}]")
+    return {"examples_per_s": eps, "reference_examples_per_s": one_eps,
+            "idle_share": idle, "nccl_ms": rec.get("nccl_ms"),
+            "collectives": rec["collectives"], "launches": rec["launches"],
+            "epochs": rec["epochs"], "dispatch": rec["dispatch"]}
+
+
 def mesh_phase(bench_100k: str, tmp: str, where: str) -> dict:
     """Phase 11, the mesh (item 8): bench.py's FFM-100k model (39 fields,
     K=16, 640-float rows, B=16,384) on phase 7's 400,000-row file through
@@ -2132,47 +2362,15 @@ def mesh_phase(bench_100k: str, tmp: str, where: str) -> dict:
     - x1 on the shard layout, built by hand (Trainer._build_device_cache):
       a single slice and one inert row, the replicate run's bits;
     - profile_step's sharded phase beside its cuda phase, and
-      bench_multichip on the 1x1 mesh, at this model's width.
-    Where more than one card is visible, N ranks on (N, 1) replicate,
-    (1, N) route with update_mode=inplace and (2, 2) route where N >= 4,
-    each from the shard layout against the N-rank streamed run of the same
-    shape: the ranks agree, losses, eval and the checkpoint's tables bit
-    for bit.  Prints examples/s (the second epoch, its steps only) beside
-    a reference run's, the collectives, each kernel's launches by instance,
-    and for the N-rank meshes epoch 1's device idle share and NCCL kernel
-    time from torch.profiler (--profile_dir)."""
-    from ftrl_ffm_tpu_torch.io.checkpoint import load_checkpoint, state_from_jax_arrays
-
-    def tables(path):
-        return state_from_jax_arrays(load_checkpoint(path)[0], "cpu")
-
+      bench_multichip on the 1x1 mesh, at this model's width;
+    - where more than one card is visible, mesh_cards_phase.
+    Prints examples/s (the second epoch, its steps only) beside a reference
+    run's, the collectives, each kernel's launches by instance."""
     t_phase = time.perf_counter()
-    model = ["--train_data", bench_100k, "--eval_data", bench_100k, "--model_type", "FFM",
-             "--n_fields", str(N_FIELDS), "--n_feats", str(TRAIN_FEATS), "--n_factors",
-             str(N_FACTORS), "--batch_size", str(BATCH), "--max_nnz", str(N_FIELDS),
-             "--n_threads", "3", "--n_epochs", "2"]
+    model = mesh_model(bench_100k)
     base = [*model, "--device_cache", "on", "--device_cache_layout", "replicate"]
     steps = math.ceil(BENCH_ROWS / BATCH)
     out = {}
-
-    def report(label, rec, ref_epochs, ref_label="one-card Trainer"):
-        eps = BENCH_ROWS / rec["epochs"][1]
-        one_eps = BENCH_ROWS / ref_epochs[1]
-        traced, idle = "epoch 1 not traced", None
-        if "busy_ms" in rec:
-            idle = 1 - rec["busy_ms"] / rec["window_ms"]
-            traced = (f"epoch 1 traced, steps 2-{steps}: device busy {rec['busy_ms']:.2f} of "
-                      f"{rec['window_ms']:.2f} ms (idle share {idle:.4f}), NCCL kernels "
-                      f"{rec['nccl_ms']:.3f} ms")
-        print(f"mesh {label}: examples/s {eps:.0f} ({ref_label} {one_eps:.0f}); epochs "
-              f"{rec['epochs']} s; {traced}; collectives in train() {rec['collectives']}, with "
-              f"the rest of the run {rec['collectives_all']}; launches "
-              f"{json.dumps(rec['launches'])}; form {rec['form']}; peak "
-              f"{rec['peak_gb']:.2f} GB [{where}]")
-        return {"examples_per_s": eps, "reference_examples_per_s": one_eps,
-                "idle_share": idle, "nccl_ms": rec.get("nccl_ms"),
-                "collectives": rec["collectives"], "launches": rec["launches"],
-                "epochs": rec["epochs"], "dispatch": rec["dispatch"]}
 
     # ---- one card: a world-size-1 NCCL group against the one-card Trainer
     # (untraced: its only collectives are the sums' all_reduce)
@@ -2187,7 +2385,7 @@ def mesh_phase(bench_100k: str, tmp: str, where: str) -> dict:
     require(rec["device_cache"] == {"train": "replicate", "eval": "replicate"},
             f"mesh resident layout {rec['device_cache']}")
     same_hist = rec["history"] == one["history"]
-    a, b = tables(ckpt), tables(one_path + ".one.ckpt")
+    a, b = ckpt_tables(ckpt), ckpt_tables(one_path + ".one.ckpt")
     same_tables = all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
     same_pred = open(pred, "rb").read() == open(one_path + ".one.txt", "rb").read()
     print(f"mesh x1: NCCL world size 1, mesh (1, 1), lookup/update {rec['form']}: history "
@@ -2205,7 +2403,7 @@ def mesh_phase(bench_100k: str, tmp: str, where: str) -> dict:
     require(rec["after_predict"]["ffm_fused_logits"] == 3 * steps, "mesh predict_file's kernel #1")
     require(rec["collectives"] == {"all_reduce": 4 * steps, "all_gather": 0, "all_to_all": 0},
             f"collectives {rec['collectives']}")
-    out["x1"] = report("x1", rec, one["epochs"])
+    out["x1"] = mesh_report("x1", rec, one["epochs"], where)
     out["x1"]["after_predict"] = rec["after_predict"]
 
     # ---- x1 at steps_per_call 5: the groups captured with their NCCL
@@ -2220,7 +2418,7 @@ def mesh_phase(bench_100k: str, tmp: str, where: str) -> dict:
     require(d5["captures"] >= 1 and d5["replays"] >= 1, f"x1 S=5 dispatch {d5}")
     require(rec5["collectives"] == rec["collectives"], "x1 S=5's collectives, counted per replay")
     require(rec5["launches"] == rec["launches"], f"x1 S=5 launches {rec5['launches']}")
-    out["x1_s5"] = report("x1 S=5", rec5, rec["epochs"], "x1 S=1")
+    out["x1_s5"] = mesh_report("x1 S=5", rec5, rec["epochs"], where, "x1 S=1")
 
     # ---- x1 on the shard layout: a single slice and one inert row
     (rec_sh,) = mesh_runs(bench_100k, tmp, 1, "shard", [*model, "--mesh_data", "0"])
@@ -2230,7 +2428,7 @@ def mesh_phase(bench_100k: str, tmp: str, where: str) -> dict:
             and rec_sh["rows_loc"] == {"train": BENCH_ROWS + 1, "eval": BENCH_ROWS + 1},
             f"x1 shard layout {rec_sh['device_cache']} {rec_sh['rows_loc']}")
     require(rec_sh["history"] == rec["history"], "the shard layout differs from the replicate")
-    out["x1_shard"] = report("x1 shard", rec_sh, rec["epochs"], "x1 replicate")
+    out["x1_shard"] = mesh_report("x1 shard", rec_sh, rec["epochs"], where, "x1 replicate")
 
     # ---- the mesh tools at this model's width: the sharded step beside
     # the one-card step, and the multi-card harness on the 1x1 mesh
@@ -2251,37 +2449,80 @@ def mesh_phase(bench_100k: str, tmp: str, where: str) -> dict:
           f"step (B=8,192); bench_multichip 1x1 {row['step_ms']} ms a step, {row['ex_s']} ex/s, "
           f"model {row['model_ms']:.3f} ms [{where}]")
 
-    # ---- more than one card: N NCCL ranks from the shard layout, each
-    # against the N-rank streamed run of the same shape
+    out.update(mesh_cards_phase(bench_100k, tmp, where))
+    print(f"mesh: phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def mesh_cards_phase(bench_100k: str, tmp: str, where: str) -> dict:
+    """Phase 11's meshes of N > 1 NCCL ranks, one card each (nothing where
+    one card is visible), from the shard layout, each against the N-rank
+    streamed run of the same shape: the ranks agree, and losses, eval and
+    the checkpoint's tables are bit for bit the streamed run's.  The
+    shapes: (N, 1) replicate; (1, N) route under auto (the owner's
+    touched-rows update on its received slots: one ftrl_update launch of
+    the "rows" instance a train step, route.update.touched counted once a
+    step, no kernel #3) and under update_mode=inplace (za_scatter into z
+    and kernel #3 over the shard, twice a step: the factor and the linear
+    tables; route.update.pass); (2, 2) route where N >= 4 (the accumulator
+    form: kernel #3 twice a step).  Launches and counters are each run's
+    own, set to 0 just before its train().  Prints each run's line with
+    epoch 1's device idle share and NCCL kernel time (--profile_dir), and
+    how far the (1, N) forms' tables lie apart."""
     n = torch.cuda.device_count()
-    shapes = []
-    if n > 1:
-        shapes = [((n, 1), []), ((1, n), ["--lookup_mode", "route", "--update_mode", "inplace"])]
-        if n >= 4:
-            shapes.append(((2, 2), ["--lookup_mode", "route"]))
-    for (d, m), extra in shapes:
-        label = f"{d}x{m}"
+    if n < 2:
+        print(f"mesh: one card visible ({n}): the N-rank NCCL meshes need more than one")
+        return {}
+    model = mesh_model(bench_100k)
+    route = ["--lookup_mode", "route"]
+    # (label, D, M, flags, the routed update's form)
+    shapes = [(f"{n}x1", n, 1, [], None), (f"1x{n}", 1, n, route, "touched"),
+              (f"1x{n} inplace", 1, n, [*route, "--update_mode", "inplace"], "inplace")]
+    if n >= 4:
+        shapes.append(("2x2", 2, 2, route, "accumulator"))
+    out, ckpts = {}, {}
+    for label, d, m, extra, routed in shapes:
+        tag = label.replace(" ", "_")
         flags = [*model, "--mesh_data", str(d), "--mesh_model", str(m), *extra]
-        path, path_s = (os.path.join(tmp, f"mesh{label}{x}.ckpt") for x in ("", "s"))
-        recs = mesh_runs(bench_100k, tmp, d * m, label, [
+        path, path_s = (os.path.join(tmp, f"mesh{tag}{x}.ckpt") for x in ("", "s"))
+        recs = mesh_runs(bench_100k, tmp, d * m, tag, [
             *flags, "--device_cache", "on", "--device_cache_layout", "shard", "--model_path",
-            path, "--profile_dir", os.path.join(tmp, f"mesh_prof_{label}")])
-        streamed = mesh_runs(bench_100k, tmp, d * m, label + "s", [
+            path, "--profile_dir", os.path.join(tmp, f"mesh_prof_{tag}")])
+        streamed = mesh_runs(bench_100k, tmp, d * m, tag + "s", [
             *flags, "--device_cache", "off", "--model_path", path_s])
         r0, s0 = recs[0], streamed[0]
         require(r0["mesh"] == [d, m] and r0["device_cache"] == {"train": "shard", "eval": "shard"},
                 f"mesh {r0['mesh']} {r0['device_cache']}")
         for r in (*recs, *streamed):
             require(r["history"] == r0["history"], f"{label}: the ranks or the paths disagree")
-        a, b = tables(path), tables(path_s)
+        a, b = ckpt_tables(path), ckpt_tables(path_s)
         same = all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
         print(f"mesh {label}: shard layout {r0['history']}; bit-identical to the streamed "
               f"run's history and checkpoint tables: {same}")
         require(same, f"{label} tables differ from the streamed run's")
-        out[label] = report(label, r0, s0["epochs"], "streamed")
-    if not shapes:
-        print(f"mesh: one card visible ({n}): the N-rank NCCL meshes need more than one")
-    print(f"mesh: phase 11 took {time.perf_counter() - t_phase:.1f} s")
+        for r in (*recs, *streamed):
+            steps, l, c = r["counters"].get("mesh.train.steps", 0), r["launches"], r["counters"]
+            touched, passes = c.get("route.update.touched", 0), c.get("route.update.pass", 0)
+            if routed == "touched":
+                ok = (r["form"][2] in ("dense2", "sparse2") and touched == steps and passes == 0
+                      and l["ftrl_update"] == steps and l["update_by_instance"] == {"rows": steps}
+                      and l["closed_form_pass"] == 0)
+            elif routed is not None:
+                ok = (r["form"][2] == ("inplace" if routed == "inplace" else "accumulator")
+                      and passes == steps and touched == 0 and l["ftrl_update"] == 0
+                      and l["closed_form_pass"] == 2 * steps)
+            else:
+                ok = r["form"][2] is None
+            require(steps > 0 and ok, f"{label}: the update's form or launches: {r['form']}, "
+                                      f"{steps} train steps, counters {c}, launches {l}")
+        ckpts[label] = a
+        out[label] = mesh_report(label, r0, s0["epochs"], where, "streamed")
+    touched_t, inplace_t = ckpts[f"1x{n}"], ckpts[f"1x{n} inplace"]
+    gap = max(((x.float() - y.float()).abs().max().item() for x, y in zip(touched_t, inplace_t)
+               if x is not None and x.numel()), default=0.0)
+    identical = all(x is None or torch.equal(x, y) for x, y in zip(touched_t, inplace_t))
+    print(f"mesh 1x{n}: the touched-rows and in-place forms' checkpoint tables after 2 epochs: "
+          f"bit-identical={identical}, max_abs_diff={gap:.3e}")
     return out
 
 
@@ -2754,6 +2995,10 @@ def main() -> int:
         require(same, f"ftrl_update_linear {label} is not deterministic")
         narrow_err[label] = err
         del lin, ids, gl, gg2_lin, runs, want, touched
+
+    phase_done("3h")
+    # ---- 3h. a (1, N) route mesh's update at the route cell's shapes ----
+    routed = routed_update_phase(device, where)
 
     phase_done("3d")
     # ---- 3d. the z/A scatter against its plain version ----
@@ -4279,6 +4524,23 @@ def main() -> int:
             "plain_ms": skew_plain_ms,
             "bound_ms": skew_bound[0],
             "bound_by": skew_bound[1],
+            "library_ms": None,
+        },
+        {
+            # the same wrapper on a (1, N) route mesh's received slots, the
+            # split payload at the route cell's shapes (3h); the in-place
+            # form it replaces beside it
+            "name": "ftrl_update_routed",
+            "route": "cuda",
+            "source": "ftrl_ffm_tpu_torch/csrc/ftrl_update.cu",
+            "replaces": "ftrl_ffm_tpu/ftrl.py:249",
+            "launches": 1,
+            "max_abs_err": routed["plain_err"],
+            "inplace_max_abs_err": routed["inplace_err"],
+            "ms": routed["touched_ms"],
+            "inplace_ms": routed["inplace_ms"],
+            "bound_ms": routed["bound_ms"],
+            "bound_by": "bytes",
             "library_ms": None,
         },
         {

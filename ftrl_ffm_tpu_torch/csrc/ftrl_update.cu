@@ -9,18 +9,31 @@
 //
 // Input: the payload's row ids sorted stably (sids, and perm: sorted slot ->
 // payload row), so the occurrences of one id form a segment in ascending
-// payload order.  For its row id, each coordinate sums gg2[perm[j]] over
-// the segment in sorted order, one add at a time from 0 (reading through
-// the permutation, no sorted copy of the payload), then applies the
+// payload order.  The payload comes in one of two layouts, a compile-time
+// parameter (Split) of every update kernel below:
+//
+// - combined (one device's "dense2" and "sparse2"): gg2 [N, 2E], g in a
+//   row's first E values and g^2 in its last E;
+// - split (the owner's update on a (1, N) route mesh,
+//   parallel/sharded.py::_update_routed): g and g^2 as the two all_to_all
+//   outputs [M*K, E] arrive, from two bases with one row stride, read in
+//   place (a concatenation would copy ~1.6 GB a step at k=16).
+//
+// The combined instances read gg2 and gg2 + E at a stride of 2E, as they did
+// before the split form existed, so they compile to the same code.  For
+// its row id, each coordinate sums the g and g^2 of payload rows perm[j]
+// over the segment in sorted order, one add at a time from 0 (reading
+// through the permutation, no sorted copy of the payload), then applies the
 // accumulator step and the closed form to vec_n/z/w[id] in place — reading
 // the row's pre-step w for sigma * w before writing it.  On the linear lane
 // (`lane` >= 0, the dead-lane mirror) the same sums also update
 // lin_n/z/w[id]; without one (lane = -1) the linear stats come from their
 // own [N, 2] payload gg2_lin, summed the same way.  Ids outside [0, R) —
-// the padding sentinel n_feats — are skipped.  Rows no id touches are not
-// read or written: the dense form leaves them as they are too (sigma = 0,
-// the same closed form).  The closed form rounds each operation on its own
-// (no contracted multiply-adds), as the plain PyTorch version does.  Every
+// the padding sentinel n_feats, a route's empty slots R — are skipped,
+// their payload never read.  Rows no id touches are not read or written:
+// the dense form and kernel #3's pass leave them as they are too (sigma =
+// 0, the same closed form).  The closed form rounds each operation on its
+// own (no contracted multiply-adds), as the plain PyTorch version does.  Every
 // coordinate keeps that order and those operations whichever kernel below
 // runs it, so all three give the same bits.
 //
@@ -260,6 +273,13 @@ struct Ftrl {
   float alpha, beta, l1, l2;
 };
 
+// Values between one payload row and the next: 2E in the combined layout
+// (g || g^2 in one row), the caller's stride in the split one.
+template <bool Split>
+__device__ __forceinline__ size_t row_stride(int E, size_t stride) {
+  return Split ? stride : 2 * static_cast<size_t>(E);
+}
+
 // One coordinate's accumulator step with the pre-step w, then the closed
 // form where the coordinate has been touched (ftrl.py::_closed_step), on
 // values.
@@ -288,15 +308,15 @@ __device__ __forceinline__ void ftrl_step(float* n_p, float* z_p, W* w_p, float 
   store(w_p, w);
 }
 
-template <typename P, typename W>
+template <typename P, typename W, bool Split>
 __global__ void __launch_bounds__(kThreads)
 ftrl_update_scalar(const int* __restrict__ sids, const long long* __restrict__ perm, int N,
-                   const P* __restrict__ gg2, const float* __restrict__ gg2_lin,
-                   float* vec_n, float* vec_z, W* vec_w, float* lin_n, float* lin_z,
-                   float* lin_w, int R, int E, int lane, Ftrl p) {
+                   const P* __restrict__ gg2, const P* __restrict__ g2s, size_t stride,
+                   const float* __restrict__ gg2_lin, float* vec_n, float* vec_z, W* vec_w,
+                   float* lin_n, float* lin_z, float* lin_w, int R, int E, int lane, Ftrl p) {
   const int ln = threadIdx.x & 31;
   const int warps = gridDim.x * kWarpsPerBlock;
-  const size_t w2 = 2 * static_cast<size_t>(E);
+  const size_t w2 = row_stride<Split>(E, stride);
   for (int j = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); j < N; j += warps) {
     const int id = sids[j];
     if ((j > 0 && sids[j - 1] == id) || id < 0 || id >= R) continue;
@@ -308,13 +328,14 @@ ftrl_update_scalar(const int* __restrict__ sids, const long long* __restrict__ p
 #pragma unroll
       for (int u = 0; u < kCols; ++u) g[u] = g2[u] = 0.f;
       for (int q = j; q < end; ++q) {
-        const P* src = gg2 + static_cast<size_t>(perm[q]) * w2;
+        const size_t at = static_cast<size_t>(perm[q]) * w2;
+        const P* src = gg2 + at;
 #pragma unroll
         for (int u = 0; u < kCols; ++u) {
           const int c = c0 + ln + 32 * u;
           if (c < E) {
             g[u] = accumulate(g[u], src[c]);
-            g2[u] = accumulate(g2[u], src[E + c]);
+            g2[u] = accumulate(g2[u], Split ? g2s[at + c] : src[E + c]);
           }
         }
       }
@@ -371,19 +392,20 @@ __host__ __device__ constexpr int update_blocks_per_sm() {
   return sizeof(P) == 4 ? 2 : 3;
 }
 
-template <typename P, typename W>
+template <typename P, typename W, bool Split>
 __global__ void __launch_bounds__(kThreads, update_blocks_per_sm<P>())
 ftrl_update_kernel(const int* __restrict__ sids, const long long* __restrict__ perm, int N,
-                   const P* __restrict__ gg2, const float* __restrict__ gg2_lin,
-                   float* vec_n, float* vec_z, W* vec_w, float* lin_n, float* lin_z,
-                   float* lin_w, int R, int E, int lane, Ftrl p, int* __restrict__ hot) {
+                   const P* __restrict__ gg2, const P* __restrict__ g2s, size_t stride,
+                   const float* __restrict__ gg2_lin, float* vec_n, float* vec_z, W* vec_w,
+                   float* lin_n, float* lin_z, float* lin_w, int R, int E, int lane, Ftrl p,
+                   int* __restrict__ hot) {
   const int ln = threadIdx.x & 31;
   const int quads = E / 4;
-  const size_t w2 = 2 * static_cast<size_t>(E);
+  const size_t w2 = row_stride<Split>(E, stride);
   // a persistent grid: each warp walks tiles of 32 sorted positions
-  const int stride = gridDim.x * kWarpsPerBlock * 32;
+  const int tiles = gridDim.x * kWarpsPerBlock * 32;
   for (int tile0 = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * 32; tile0 < N;
-       tile0 += stride) {
+       tile0 += tiles) {
     // the segment starts among this tile's 32 sorted positions
     const int j = tile0 + ln;
     const int id = j < N ? sids[j] : -1;
@@ -415,13 +437,15 @@ ftrl_update_kernel(const int* __restrict__ sids, const long long* __restrict__ p
           const int cnt = min(32, end - base);
           const long long mine = ln < cnt ? perm[base + ln] : 0;
           for (int r = 0; r < cnt; ++r) {
-            const P* src = gg2 + static_cast<size_t>(__shfl_sync(kFull, mine, r)) * w2;
+            const size_t at = static_cast<size_t>(__shfl_sync(kFull, mine, r)) * w2;
+            const P* src = gg2 + at;
+            const P* sq = Split ? g2s + at : src + E;
 #pragma unroll
             for (int u = 0; u < kQuadsPerLane; ++u) {
               const int qd = q0 + ln + 32 * u;
               if (qd < quads) {
                 add_quad(g + 4 * u, load_quad(src + 4 * qd));
-                add_quad(g2 + 4 * u, load_quad(src + E + 4 * qd));
+                add_quad(g2 + 4 * u, load_quad(sq + 4 * qd));
               }
             }
           }
@@ -469,12 +493,13 @@ constexpr size_t hot_bytes() {
   return kRingElems * sizeof(P) + static_cast<size_t>(kRing) * kChunkRows * 2 * 4;
 }
 
-template <typename P, typename W>
+template <typename P, typename W, bool Split>
 __global__ void __launch_bounds__(kThreads)
 ftrl_update_hot(const int* __restrict__ sids, const long long* __restrict__ perm, int N,
-                const P* __restrict__ gg2, const float* __restrict__ gg2_lin, float* vec_n,
-                float* vec_z, W* vec_w, float* lin_n, float* lin_z, float* lin_w, int E,
-                int lane, Ftrl p, const int* __restrict__ hot) {
+                const P* __restrict__ gg2, const P* __restrict__ g2s, size_t stride,
+                const float* __restrict__ gg2_lin, float* vec_n, float* vec_z, W* vec_w,
+                float* lin_n, float* lin_z, float* lin_w, int E, int lane, Ftrl p,
+                const int* __restrict__ hot) {
   extern __shared__ float smem[];
   __shared__ int seg_end;
   P* ring = reinterpret_cast<P*>(smem);
@@ -484,7 +509,7 @@ ftrl_update_hot(const int* __restrict__ sids, const long long* __restrict__ perm
   const int ln = threadIdx.x & 31;
   const int pr = threadIdx.x >> 2;   // the chunk row this thread copies
   const int part = threadIdx.x & 3;  // its quads: g 0-3, g 4-7, g^2 0-3, g^2 4-7
-  const size_t w2 = 2 * static_cast<size_t>(E);
+  const size_t w2 = row_stride<Split>(E, stride);
   for (int unit = blockIdx.x; unit < count * slices; unit += gridDim.x) {
     const int seg = unit / slices;
     const int slice = unit - seg * slices;
@@ -520,7 +545,8 @@ ftrl_update_hot(const int* __restrict__ sids, const long long* __restrict__ perm
         const size_t src = static_cast<size_t>(row);
         const int at = (ci % kRing) * kChunkRows + pr;
         if (E > 0) {
-          const P* from = gg2 + src * w2 + (part >= 2 ? E : 0) + col0;
+          const P* from = Split ? (part >= 2 ? g2s : gg2) + src * w2 + col0
+                                : gg2 + src * w2 + (part >= 2 ? E : 0) + col0;
           P* to = ring + at * 2 * kSlice + (part >= 2 ? kSlice : 0);
 #pragma unroll
           for (int h = 0; h < 4; ++h) {
@@ -633,22 +659,23 @@ __device__ __forceinline__ int tile_segments(const int* __restrict__ sids,
 // The update for rows of E <= kNarrowCols columns (E % 4 == 0, aligned as
 // ftrl_update_kernel needs; E = 0: the linear tables alone): groups of GS
 // lanes, one segment a group, one quad a lane.
-template <typename P, typename W, int GS>
+template <typename P, typename W, int GS, bool Split>
 __global__ void __launch_bounds__(kThreads)
 ftrl_update_narrow(const int* __restrict__ sids, const long long* __restrict__ perm, int N,
-                   const P* __restrict__ gg2, const float* __restrict__ gg2_lin,
-                   float* vec_n, float* vec_z, W* vec_w, float* lin_n, float* lin_z,
-                   float* lin_w, int R, int E, int lane, Ftrl p, int* __restrict__ hot) {
+                   const P* __restrict__ gg2, const P* __restrict__ g2s, size_t stride,
+                   const float* __restrict__ gg2_lin, float* vec_n, float* vec_z, W* vec_w,
+                   float* lin_n, float* lin_z, float* lin_w, int R, int E, int lane, Ftrl p,
+                   int* __restrict__ hot) {
   __shared__ TileSegs segs[kWarpsPerBlock];
   TileSegs& t = segs[threadIdx.x >> 5];
   const int ln = threadIdx.x & 31;
   const int qd = ln % GS;         // this lane's quad of the row
   const bool cols = qd < E / 4;   // none at E = 0
   const bool lin_sums = lane < 0 && qd == 0;
-  const size_t w2 = 2 * static_cast<size_t>(E);
-  const int stride = gridDim.x * kWarpsPerBlock * 32;
+  const size_t w2 = row_stride<Split>(E, stride);
+  const int tiles = gridDim.x * kWarpsPerBlock * 32;
   for (int tile0 = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * 32; tile0 < N;
-       tile0 += stride) {
+       tile0 += tiles) {
     const int m = tile_segments(sids, perm, N, R, tile0, ln, t, hot);
     for (int k = ln / GS; k < m; k += 32 / GS) {
       const int s = t.s[k], end = t.end[k], sid = t.id[k];
@@ -674,9 +701,10 @@ ftrl_update_narrow(const int* __restrict__ sids, const long long* __restrict__ p
           decltype(load_quad(gg2)) x[kBatchRows], x2[kBatchRows];
 #pragma unroll
           for (int u = 0; u < kBatchRows; ++u) {
-            const P* src = gg2 + static_cast<size_t>(rows[u]) * w2 + 4 * qd;
+            const size_t at = static_cast<size_t>(rows[u]) * w2;
+            const P* src = gg2 + at + 4 * qd;
             x[u] = load_quad(src);
-            x2[u] = load_quad(src + E);
+            x2[u] = load_quad(Split ? g2s + at + 4 * qd : src + E);
           }
 #pragma unroll
           for (int u = 0; u < kBatchRows; ++u) {
@@ -700,9 +728,10 @@ ftrl_update_narrow(const int* __restrict__ sids, const long long* __restrict__ p
       for (; q < end; ++q) {
         const long long row = row_at(q);
         if (cols) {
-          const P* src = gg2 + static_cast<size_t>(row) * w2 + 4 * qd;
+          const size_t at = static_cast<size_t>(row) * w2;
+          const P* src = gg2 + at + 4 * qd;
           add_quad(g, load_quad(src));
-          add_quad(g2, load_quad(src + E));
+          add_quad(g2, load_quad(Split ? g2s + at + 4 * qd : src + E));
         }
         if (lin_sums) {
           const float2 pr = __ldcs(reinterpret_cast<const float2*>(gg2_lin) + row);
@@ -1040,34 +1069,41 @@ enum UpdateInstance { kUpdateRows = 0, kUpdateNarrow = 1, kUpdateLinear = 2, kUp
 enum ScatterInstance { kScatterRows = 0, kScatterNarrow = 1, kScatterScalar = 2 };
 
 // ftrl_update_narrow for groups of GS lanes.
-template <typename P, typename W, int GS>
+template <typename P, typename W, int GS, bool Split>
 cudaError_t launch_narrow(const int* sids, const long long* perm, int N, const P* pay,
-                          const float* gg2_lin, float* vec_n, float* vec_z, W* w, float* lin_n,
-                          float* lin_z, float* lin_w, int R, int E, int lane, Ftrl p, int* hot,
-                          cudaStream_t stream) {
+                          const P* g2s, size_t stride, const float* gg2_lin, float* vec_n,
+                          float* vec_z, W* w, float* lin_n, float* lin_z, float* lin_w, int R,
+                          int E, int lane, Ftrl p, int* hot, cudaStream_t stream) {
   static int per_sm[kMaxDevices] = {};
   int grid = 0;
-  const cudaError_t err = persistent_grid(ftrl_update_narrow<P, W, GS>, N, per_sm, &grid);
+  const cudaError_t err =
+      persistent_grid(ftrl_update_narrow<P, W, GS, Split>, N, per_sm, &grid);
   if (err != cudaSuccess) return err;
-  ftrl_update_narrow<P, W, GS><<<grid, kThreads, 0, stream>>>(
-      sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n, lin_z, lin_w, R, E, lane, p, hot);
+  ftrl_update_narrow<P, W, GS, Split><<<grid, kThreads, 0, stream>>>(
+      sids, perm, N, pay, g2s, stride, gg2_lin, vec_n, vec_z, w, lin_n, lin_z, lin_w, R, E, lane,
+      p, hot);
   return cudaGetLastError();
 }
 
-template <typename P, typename W>
+// The update's launches for one payload layout (Split: g at gg2 and g^2 at
+// g2s, rows `stride` values apart; else the combined rows of 2E at gg2).
+template <typename P, typename W, bool Split>
 int launch_update(const int* sids, const long long* perm, int N, const void* gg2,
-                  const float* gg2_lin, float* vec_n, float* vec_z, void* vec_w, float* lin_n,
-                  float* lin_z, float* lin_w, int R, int E, int lane, Ftrl p, int* hot,
-                  int* instance, cudaStream_t stream) {
+                  const void* g2, size_t stride, const float* gg2_lin, float* vec_n,
+                  float* vec_z, void* vec_w, float* lin_n, float* lin_z, float* lin_w, int R,
+                  int E, int lane, Ftrl p, int* hot, int* instance, cudaStream_t stream) {
   const P* pay = static_cast<const P*>(gg2);
+  const P* g2s = static_cast<const P*>(g2);
   W* w = static_cast<W*>(vec_w);
   // quads need 4-column groups at 16-byte (f32) or 8-byte (bf16) addresses
   const bool quads = E % 4 == 0 && aligned(pay, 4 * sizeof(P)) && aligned(vec_n, 16) &&
-                     aligned(vec_z, 16) && aligned(w, 4 * sizeof(W)) && aligned(gg2_lin, 8);
+                     aligned(vec_z, 16) && aligned(w, 4 * sizeof(W)) && aligned(gg2_lin, 8) &&
+                     (!Split || (stride % 4 == 0 && aligned(g2s, 4 * sizeof(P))));
   if (!quads) {
     *instance = kUpdateScalar;
-    ftrl_update_scalar<P, W><<<segment_blocks(N), kThreads, 0, stream>>>(
-        sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n, lin_z, lin_w, R, E, lane, p);
+    ftrl_update_scalar<P, W, Split><<<segment_blocks(N), kThreads, 0, stream>>>(
+        sids, perm, N, pay, g2s, stride, gg2_lin, vec_n, vec_z, w, lin_n, lin_z, lin_w, R, E,
+        lane, p);
     return static_cast<int>(cudaGetLastError());
   }
   int dev = 0, sms = 0;
@@ -1078,7 +1114,8 @@ int launch_update(const int* sids, const long long* perm, int N, const void* gg2
   static bool hot_ready[kMaxDevices] = {};
   constexpr size_t bytes = hot_bytes<P>();
   if (!hot_ready[dev]) {
-    err = cudaFuncSetAttribute(&ftrl_update_hot<P, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(&ftrl_update_hot<P, W, Split>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     hot_ready[dev] = true;
@@ -1089,14 +1126,18 @@ int launch_update(const int* sids, const long long* perm, int N, const void* gg2
     // one quad a lane: groups of 1, 2, 4 or 8 lanes (E = 0: 1)
     *instance = E == 0 ? kUpdateLinear : kUpdateNarrow;
     const int q = E / 4;
-    err = q <= 1 ? launch_narrow<P, W, 1>(sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n,
-                                          lin_z, lin_w, R, E, lane, p, hot, stream)
-        : q <= 2 ? launch_narrow<P, W, 2>(sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n,
-                                          lin_z, lin_w, R, E, lane, p, hot, stream)
-        : q <= 4 ? launch_narrow<P, W, 4>(sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n,
-                                          lin_z, lin_w, R, E, lane, p, hot, stream)
-                 : launch_narrow<P, W, 8>(sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n,
-                                          lin_z, lin_w, R, E, lane, p, hot, stream);
+    err = q <= 1 ? launch_narrow<P, W, 1, Split>(sids, perm, N, pay, g2s, stride, gg2_lin, vec_n,
+                                                 vec_z, w, lin_n, lin_z, lin_w, R, E, lane, p,
+                                                 hot, stream)
+        : q <= 2 ? launch_narrow<P, W, 2, Split>(sids, perm, N, pay, g2s, stride, gg2_lin, vec_n,
+                                                 vec_z, w, lin_n, lin_z, lin_w, R, E, lane, p,
+                                                 hot, stream)
+        : q <= 4 ? launch_narrow<P, W, 4, Split>(sids, perm, N, pay, g2s, stride, gg2_lin, vec_n,
+                                                 vec_z, w, lin_n, lin_z, lin_w, R, E, lane, p,
+                                                 hot, stream)
+                 : launch_narrow<P, W, 8, Split>(sids, perm, N, pay, g2s, stride, gg2_lin, vec_n,
+                                                 vec_z, w, lin_n, lin_z, lin_w, R, E, lane, p,
+                                                 hot, stream);
   } else {
     // once per device: the main kernel's blocks per SM (its persistent
     // grid fills the card once)
@@ -1104,21 +1145,23 @@ int launch_update(const int* sids, const long long* perm, int N, const void* gg2
     static int per_sm[kMaxDevices] = {};
     if (per_sm[dev] == 0) {
       int blocks = 0;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ftrl_update_kernel<P, W>,
-                                                          kThreads, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, ftrl_update_kernel<P, W, Split>, kThreads, 0);
       if (err != cudaSuccess) return static_cast<int>(err);
       per_sm[dev] = blocks > 0 ? blocks : 1;
     }
     const int tiles = (N + 31) / 32;
     const int needed = (tiles + kWarpsPerBlock - 1) / kWarpsPerBlock;
     const int grid = needed < per_sm[dev] * sms ? needed : per_sm[dev] * sms;
-    ftrl_update_kernel<P, W><<<grid, kThreads, 0, stream>>>(
-        sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n, lin_z, lin_w, R, E, lane, p, hot);
+    ftrl_update_kernel<P, W, Split><<<grid, kThreads, 0, stream>>>(
+        sids, perm, N, pay, g2s, stride, gg2_lin, vec_n, vec_z, w, lin_n, lin_z, lin_w, R, E,
+        lane, p, hot);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  ftrl_update_hot<P, W><<<2 * sms, kThreads, bytes, stream>>>(
-      sids, perm, N, pay, gg2_lin, vec_n, vec_z, w, lin_n, lin_z, lin_w, E, lane, p, hot);
+  ftrl_update_hot<P, W, Split><<<2 * sms, kThreads, bytes, stream>>>(
+      sids, perm, N, pay, g2s, stride, gg2_lin, vec_n, vec_z, w, lin_n, lin_z, lin_w, E, lane, p,
+      hot);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1148,35 +1191,51 @@ int ftrl_update_scratch_ints(int N) { return 1 + N / (kHotRows + 1); }
 // za_scatter_hot).
 int ftrl_update_hot_rows() { return kHotRows; }
 
-// Launch on `stream`: sids [N] int32 sorted stably, perm [N] int64, gg2
-// [N, 2E] (f32, or bf16 when payload_bf16), gg2_lin [N, 2] f32 (read only
-// when lane < 0), vec tables [R, E] (unused when E = 0; vec_w f32, or bf16
-// when w_bf16) and lin tables [R] updated in place, hot
-// [ftrl_update_scratch_ints(N)] int32 scratch, all contiguous on the
-// current device.  Writes the instance it runs to *instance (an
-// UpdateInstance).  Returns the CUDA error of the launches (0 on success).
+// Launch on `stream`: sids [N] int32 sorted stably, perm [N] int64, the
+// payload, gg2_lin [N, 2] f32 (read only when lane < 0), vec tables [R, E]
+// (unused when E = 0; vec_w f32, or bf16 when w_bf16) and lin tables [R]
+// updated in place, hot [ftrl_update_scratch_ints(N)] int32 scratch, all
+// contiguous on the current device.  The payload: with split = 0, gg2
+// [N, 2E] (f32, or bf16 when payload_bf16; g2 and stride unused); with
+// split = 1, g at gg2 and g^2 at g2, f32, each row `stride` values after the
+// last (a multiple of 4 for the quad kernels).  Writes the instance it runs
+// to *instance (an UpdateInstance).  Returns the CUDA error of the launches
+// (0 on success).
 int ftrl_update_launch(const int* sids, const long long* perm, int N, const void* gg2,
-                       const float* gg2_lin, float* vec_n, float* vec_z, void* vec_w,
-                       float* lin_n, float* lin_z, float* lin_w, int R, int E, int lane,
-                       int payload_bf16, int w_bf16, float alpha, float beta, float l1,
-                       float l2, int* hot, int* instance, void* stream) {
+                       const void* g2, long long stride, int split, const float* gg2_lin,
+                       float* vec_n, float* vec_z, void* vec_w, float* lin_n, float* lin_z,
+                       float* lin_w, int R, int E, int lane, int payload_bf16, int w_bf16,
+                       float alpha, float beta, float l1, float l2, int* hot, int* instance,
+                       void* stream) {
   if (N == 0) return 0;
   const Ftrl p{alpha, beta, l1, l2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
-  if (payload_bf16) {
-    return w_bf16 ? launch_update<bf16, bf16>(sids, perm, N, gg2, gg2_lin, vec_n, vec_z, vec_w,
-                                              lin_n, lin_z, lin_w, R, E, lane, p, hot, instance,
-                                              s)
-                  : launch_update<bf16, float>(sids, perm, N, gg2, gg2_lin, vec_n, vec_z,
-                                               vec_w, lin_n, lin_z, lin_w, R, E, lane, p, hot,
-                                               instance, s);
+  if (split) {
+    // the split layout has f32 instances only (the routed payload is f32)
+    if (payload_bf16 || stride < E) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t st = static_cast<size_t>(stride);
+    return w_bf16 ? launch_update<float, bf16, true>(sids, perm, N, gg2, g2, st, gg2_lin, vec_n,
+                                                     vec_z, vec_w, lin_n, lin_z, lin_w, R, E,
+                                                     lane, p, hot, instance, s)
+                  : launch_update<float, float, true>(sids, perm, N, gg2, g2, st, gg2_lin,
+                                                      vec_n, vec_z, vec_w, lin_n, lin_z, lin_w,
+                                                      R, E, lane, p, hot, instance, s);
   }
-  return w_bf16 ? launch_update<float, bf16>(sids, perm, N, gg2, gg2_lin, vec_n, vec_z, vec_w,
-                                             lin_n, lin_z, lin_w, R, E, lane, p, hot, instance, s)
-                : launch_update<float, float>(sids, perm, N, gg2, gg2_lin, vec_n, vec_z, vec_w,
-                                              lin_n, lin_z, lin_w, R, E, lane, p, hot, instance,
-                                              s);
+  if (payload_bf16) {
+    return w_bf16 ? launch_update<bf16, bf16, false>(sids, perm, N, gg2, nullptr, 0, gg2_lin,
+                                                     vec_n, vec_z, vec_w, lin_n, lin_z, lin_w, R,
+                                                     E, lane, p, hot, instance, s)
+                  : launch_update<bf16, float, false>(sids, perm, N, gg2, nullptr, 0, gg2_lin,
+                                                      vec_n, vec_z, vec_w, lin_n, lin_z, lin_w,
+                                                      R, E, lane, p, hot, instance, s);
+  }
+  return w_bf16 ? launch_update<float, bf16, false>(sids, perm, N, gg2, nullptr, 0, gg2_lin,
+                                                    vec_n, vec_z, vec_w, lin_n, lin_z, lin_w, R,
+                                                    E, lane, p, hot, instance, s)
+                : launch_update<float, float, false>(sids, perm, N, gg2, nullptr, 0, gg2_lin,
+                                                     vec_n, vec_z, vec_w, lin_n, lin_z, lin_w, R,
+                                                     E, lane, p, hot, instance, s);
 }
 
 // Launch on `stream`: sids [N] int32 sorted stably, perm [N] int64, g and

@@ -79,7 +79,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                                      ctypes.POINTER(i)]
     lib.ffm_fused_launch.restype = i
     lib.ftrl_update_launch.argtypes = [
-        p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, f, p, ctypes.POINTER(i), p,
+        p, p, i, p, p, ctypes.c_longlong, i, p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, f, p,
+        ctypes.POINTER(i), p,
     ]
     lib.ftrl_update_launch.restype = i
     lib.ftrl_update_scratch_ints.argtypes = [i]

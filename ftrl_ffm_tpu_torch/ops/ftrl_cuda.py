@@ -9,9 +9,13 @@ by the dtypes of the kernel instance that ran in `launches_by_dtype`.
 
 - `ftrl_update`: one step's combined (g || g^2) payload applied to the
   factor and linear tables, the arguments of
-  ftrl_ffm_tpu/ftrl.py::dense_ftrl_update2_aug.  With no dead lane (`lane`
-  = -1, a row of exactly n_fields * n_factors slots) the linear stats come
-  from their own [N, 2] payload `gg2_lin`, as in
+  ftrl_ffm_tpu/ftrl.py::dense_ftrl_update2_aug, or the same step from a
+  split payload, the pair (g, g^2) of f32 [N, E] tensors read where they
+  lie (a (1, N) route mesh's received slots, parallel/sharded.py::
+  _update_routed; on the card the kernels' split instances, the same bits
+  as the combined launch of the concatenated pair).  With no dead lane
+  (`lane` = -1, a row of exactly n_fields * n_factors slots) the linear
+  stats come from their own [N, 2] payload `gg2_lin`, as in
   ftrl_ffm_tpu/models/base.py's separate linear update.  On the card it is
   the deterministic touched-rows kernel for every update kind ("dense2" and
   "sparse2" differ only in their plain versions): rows of more than 32
@@ -27,6 +31,9 @@ by the dtypes of the kernel instance that ran in `launches_by_dtype`.
   ftrl_ffm_tpu/ops/ftrl_pallas.py::_pass_kernel) over the whole table.
   `_inplace_step` runs it and then, when given, the linear tables' own
   update from one stable sort of the ids (models/base.py's in-place step).
+  It runs where the update kind is "inplace" (update_mode=inplace: the
+  port's auto never picks it), on one device and on a mesh of one data
+  rank, replicate or route.
 
 The update and the scatter read the ids sorted stably (one torch.sort a
 launch, one for both launches of `_inplace_step`), so the occurrences of
@@ -136,27 +143,35 @@ def _hot_list(lib, n: int, device) -> torch.Tensor:
     return torch.empty(lib.ftrl_update_scratch_ints(n), dtype=torch.int32, device=device)
 
 
+def _split(gg2):
+    """(g, g2) of a split payload pair (g, g2); (gg2, None) of a combined
+    payload or of None."""
+    return tuple(gg2) if isinstance(gg2, (tuple, list)) else (gg2, None)
+
+
 def _launch_update(what, ids, gg2, gg2_lin, tables, r: int, e: int, lane: int, p,
                    order=None) -> None:
     """Launch csrc/ftrl_update.cu's update on the six tables (the factor
-    ones None when e = 0), from `order` = _sort(ids) or, when None, a sort
-    of its own."""
+    ones None when e = 0) from the combined payload gg2 or a split pair
+    (g, g2), from `order` = _sort(ids) or, when None, a sort of its own."""
     from ftrl_ffm_tpu_torch.ops import _build
 
     lib = _build.lib()
     n = ids.shape[0]
     if n == 0:
         return
+    g, g2 = _split(gg2)
     sids, perm = _sort(ids) if order is None else order
     hot = _hot_list(lib, n, ids.device)
     instance = ctypes.c_int(-1)  # the launcher writes the instance it picks
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    dtypes = _short(gg2), _short(tables[2])  # the payload's and vec_w's
+    dtypes = _short(g), _short(tables[2])  # the payload's and vec_w's
     with torch.cuda.device(ids.device):
         code = lib.ftrl_update_launch(
-            sids.data_ptr(), perm.data_ptr(), n, ptr(gg2), ptr(gg2_lin),
-            *(ptr(t) for t in tables), r, e, lane, *(int(d == "bf16") for d in dtypes),
-            p.alpha, p.beta, p.l1, p.l2, hot.data_ptr(), ctypes.byref(instance), _stream(ids),
+            sids.data_ptr(), perm.data_ptr(), n, ptr(g), ptr(g2), e, int(g2 is not None),
+            ptr(gg2_lin), *(ptr(t) for t in tables), r, e, lane,
+            *(int(d == "bf16") for d in dtypes), p.alpha, p.beta, p.l1, p.l2, hot.data_ptr(),
+            ctypes.byref(instance), _stream(ids),
         )
     _build.check(code, what)
     ftrl_update.launches += 1
@@ -172,23 +187,31 @@ def ftrl_update(
     lin_z: torch.Tensor,
     lin_w: torch.Tensor,
     ids: torch.Tensor,    # [N] int32 payload row ids; ids outside [0, R) drop
-    gg2: torch.Tensor,    # [N, 2E] f32 or bf16 combined payload
+    gg2: torch.Tensor | tuple[torch.Tensor, torch.Tensor],
+                          # [N, 2E] f32 or bf16 combined payload, or the
+                          # split pair (g, g2) of [N, E] f32 tensors
     lane: int,            # the payload's linear lane, or -1
     p: FtrlParams,
     gg2_lin: torch.Tensor | None = None,  # [N, 2] f32 when lane == -1
     sparse: bool = False,  # the "sparse2" kind's plain version on the CPU
 ) -> None:
     """One FTRL step on the factor and linear tables, in place.  The same
-    input gives the same bits on every run."""
+    input gives the same bits on every run, in either payload layout."""
     tables = (vec_n, vec_z, vec_w, lin_n, lin_z, lin_w)
+    g, g2 = _split(gg2)
     if _device_kind("ftrl_update", vec_n) == "cpu":
-        vec, lin = ftrl_update_plain(*tables, ids, gg2, lane, p, gg2_lin, sparse)
+        combined = g if g2 is None else torch.cat([g, g2], dim=-1)
+        vec, lin = ftrl_update_plain(*tables, ids, combined, lane, p, gg2_lin, sparse)
         _copy_into(tables, (*vec, *lin))
         return
     r, e = vec_n.shape
     n = ids.shape[0]
     _check_lane(lane, e, gg2_lin)
     w_dtype = _f32_or_bf16("ftrl_update", "vec_w", vec_w)
+    payload = (
+        [("gg2", g, (n, 2 * e), _f32_or_bf16("ftrl_update", "gg2", g))] if g2 is None
+        else [("g", g, (n, e), torch.float32), ("g2", g2, (n, e), torch.float32)]
+    )
     specs = [
         *((name, t, (r, e), dtype)
           for name, t, dtype in zip(("vec_n", "vec_z", "vec_w"), tables[:3],
@@ -196,7 +219,7 @@ def ftrl_update(
         *((name, t, (r,), torch.float32)
           for name, t in zip(("lin_n", "lin_z", "lin_w"), tables[3:])),
         ("ids", ids, (n,), torch.int32),
-        ("gg2", gg2, (n, 2 * e), _f32_or_bf16("ftrl_update", "gg2", gg2)),
+        *payload,
     ]
     if gg2_lin is not None:
         specs.append(("gg2_lin", gg2_lin, (n, 2), torch.float32))

@@ -29,9 +29,14 @@ The table updates (one deterministic update per row and step):
   z += G, then kernel #3, closed_form_pass) or the sparse form (an
   all_gather of the (ids, payload) stream over "data", then the
   touched-rows kernel on the local rows);
-- route: the payloads summed into their send slots (za_scatter), an
-  all_to_all, then on (1, N) meshes the in-place form (za_scatter into z,
-  kernel #3) and on D > 1 the accumulator form.
+- route (routed_update_form): the payloads summed into their send slots
+  (za_scatter), an all_to_all each, then the owner's update of the slots
+  it received.  On (1, N) meshes that is the one-device kind of the
+  shard: under auto (and update_mode=dense or sparse) the touched-rows
+  kernel on the received slots, the factor and linear tables in one
+  launch from the split payload as it arrives (empty slots drop); under
+  update_mode=inplace the in-place form (za_scatter into z, kernel #3 over
+  the shard).  On D > 1 the accumulator form.
 
 The routing and the lookups are plain PyTorch, as the JAX package's are
 XLA.  FFM trains through kernel #2 (ops/ffm_cuda.py::ffm_fused_logits_grads,
@@ -64,7 +69,13 @@ from ftrl_ffm_tpu_torch.models.base import (
     widen_batch,
 )
 from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits, ffm_fused_logits_grads
-from ftrl_ffm_tpu_torch.ops.ftrl_cuda import closed_form_pass, ftrl_update_inplace, za_scatter
+from ftrl_ffm_tpu_torch.ops.ftrl_cuda import (
+    closed_form_pass,
+    ftrl_update,
+    ftrl_update_inplace,
+    ftrl_update_linear,
+    za_scatter,
+)
 from ftrl_ffm_tpu_torch.ops.interactions import fm_logits_and_grads, linear_logits
 from ftrl_ffm_tpu_torch.parallel import dist
 from ftrl_ffm_tpu_torch.parallel.mesh import Mesh, interleave_ids
@@ -152,6 +163,23 @@ def replicate_update_form(rows_local: int, row_width: int, global_nnz: int, mode
     return "sparse"
 
 
+def routed_update_form(rows_local: int, row_width: int, slots: int, mode: str,
+                       mesh_data: int) -> str:
+    """The route-mode table update of a shard: the owner's update of the
+    M*K `slots` it receives a step.
+
+    On one data rank (a (1, N) mesh) no replica shares the shard, so the
+    owner runs the one-device kind, ftrl.py::select_update_kind(rows_local,
+    row_width, slots, mode): "dense2" or "sparse2" (auto, dense, sparse:
+    the touched-rows kernel on the received slots) or "inplace"
+    (update_mode=inplace: kernel #3 over the shard).  Where data replicas
+    share the shard (D > 1) their sums must be combined over "data":
+    "accumulator"."""
+    if mesh_data > 1:
+        return "accumulator"
+    return select_update_kind(rows_local, row_width, slots, mode)
+
+
 def _col(mask: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     """A per-row mask shaped to broadcast over rows of `tab`."""
     return mask.reshape(-1, *([1] * (tab.dim() - 1)))
@@ -194,6 +222,12 @@ class ShardedStep:
             "routed" if self.mode == "route"
             else replicate_update_form(self.rows_local, width, global_nnz, cfg.update_mode,
                                        mesh.data)
+        )
+        # the owner's update of its received slots (route mode), else None
+        self.routed_form = (
+            routed_update_form(self.rows_local, width, self.n_shards * self.route_k,
+                               cfg.update_mode, mesh.data)
+            if self.mode == "route" else None
         )
         if mesh.data > 1:
             acc_bytes = 2 * self.rows_local * max(1, width) * 4
@@ -331,37 +365,69 @@ class ShardedStep:
         z.add_(acc[0])
         closed_form_pass(n, z, w, acc[1], self.params)
 
-    @tracing.spanned("route.update")
-    def _update_routed(self, tables, rt: Routing, g, g2) -> None:
-        """Route (g, g^2) to the owners (sharded.py::_table_update_routed):
-        summed into the send slots by za_scatter, an all_to_all each; then
-        the in-place form on a (1, N) mesh (no replica to combine with:
-        za_scatter into z itself, kernel #3; where JAX's dense form would
-        run there, z + G of zeroed sums G is z + the row sum, the same
-        bits), else the accumulator form."""
+    def _send(self, rt: Routing, g, g2):
+        """(g, g^2) to their owners: summed into the send slots by
+        za_scatter, an all_to_all each; the [M*K, E] sums this rank
+        received, in rt.recv's slots."""
         mk, e = self.n_shards * self.route_k, g.shape[-1]
         send = torch.zeros((2, mk, e), dtype=torch.float32, device=g.device)
         za_scatter(send[0], send[1], rt.slot, g, g2)
-        pay_g = dist.all_to_all(send[0], self.mesh.model_group)
-        pay_g2 = dist.all_to_all(send[1], self.mesh.model_group)
-        if self.mesh.data == 1:
-            ftrl_update_inplace(*tables, rt.recv, pay_g, pay_g2, self.params)
-        else:
-            self._accumulate_pass(tables, rt.recv, pay_g, pay_g2)
+        return (dist.all_to_all(send[0], self.mesh.model_group),
+                dist.all_to_all(send[1], self.mesh.model_group))
+
+    @tracing.spanned("route.update")
+    def _update_routed(self, state: ModelState, rt: Routing, payload, g_lin, g2_lin) -> None:
+        """The routed update (sharded.py::_table_update_routed): the factor
+        payload, then the linear one, sent to the owners (_send); then the
+        owner's update of its received slots by self.routed_form, counted
+        (route.update.touched or route.update.pass).
+
+        "dense2" and "sparse2": one touched-rows launch (ftrl_update) on the
+        slots, the split payload read as it arrived, the linear tables from
+        the [M*K, 2] stack of theirs (lane -1; FFM's mirror lane is updated
+        as a column of the row).  A row arrives from at most M peers, in
+        slot order, which is the order za_scatter sums them in; empty slots
+        (rows_local) drop unread.  A row no slot names keeps its bits, as
+        kernel #3 leaves it (A = 0: n and z stay, w = f(n, z) or w0).
+
+        "inplace" (a (1, N) mesh, update_mode=inplace) and "accumulator"
+        (D > 1): each table's own pass over the shard (za_scatter into z,
+        or into zeroed sums all_reduced over "data", then kernel #3)."""
+        vec = None if payload is None else (state.vec_n, state.vec_z, state.vec_w)
+        lin = (state.lin_n, state.lin_z, state.lin_w)
+        pay = None if vec is None else self._send(rt, *payload)
+        pay_lin = self._send(rt, g_lin, g2_lin)
+        form = self.routed_form
+        if form in ("dense2", "sparse2"):
+            tracing.count("route.update.touched")
+            gg2_lin = torch.cat(pay_lin, dim=-1)
+            if vec is None:
+                ftrl_update_linear(*lin, rt.recv, gg2_lin, self.params)
+            else:
+                ftrl_update(*vec, *lin, rt.recv, pay, -1, self.params, gg2_lin,
+                            sparse=form == "sparse2")
+            return
+        tracing.count("route.update.pass")
+        lin2 = tuple(t.view(-1, 1) for t in lin)
+        for tables, sums in ((vec, pay), (lin2, pay_lin)):
+            if tables is None:
+                continue
+            if form == "inplace":
+                ftrl_update_inplace(*tables, rt.recv, *sums, self.params)
+            else:
+                self._accumulate_pass(tables, rt.recv, *sums)
 
     def _update(self, state: ModelState, ids_phys, rt, payload, g_lin) -> None:
         """This step's update of the shard's tables (the module docstring's
         forms): the factor tables from `payload`, the linear ones from
         their own (g_lin, g_lin^2)."""
-        lin2 = tuple(t.view(-1, 1) for t in (state.lin_n, state.lin_z, state.lin_w))
-        vec = None if payload is None else (state.vec_n, state.vec_z, state.vec_w)
         g_lin = g_lin.reshape(-1, 1)
         g2_lin = g_lin * g_lin
         if self.form == "routed":
-            if vec is not None:
-                self._update_routed(vec, rt, *payload)
-            self._update_routed(lin2, rt, g_lin, g2_lin)
+            self._update_routed(state, rt, payload, g_lin, g2_lin)
             return
+        lin2 = tuple(t.view(-1, 1) for t in (state.lin_n, state.lin_z, state.lin_w))
+        vec = None if payload is None else (state.vec_n, state.vec_z, state.vec_w)
         lid = self._local_ids(ids_phys)
         if self.form == "accumulator":
             if vec is not None:

@@ -48,6 +48,11 @@ Counters (seconds are the host's perf_counter):
                                         (parallel/dist.py::step_role)
   init.rows                             rows of a rank's fresh init
                                         (parallel/mesh.py::init_shard)
+  route.update.touched, .pass           routed updates that took the
+                                        touched-rows launch on the received
+                                        slots, and those that took a pass
+                                        over the shard (parallel/sharded.py::
+                                        _update_routed)
 
 Spans of the mesh (parallel/sharded.py, parallel/mesh.py): route.ids,
 route.rows, route.update (the route's exchange), mesh.sums (a step's
@@ -70,7 +75,7 @@ _lock = threading.Lock()
 _counts: dict = {}
 # counters a captured CUDA graph replays: those counted on the capturing
 # thread while a step runs
-CAPTURED = ("collectives.", "mesh.")
+CAPTURED = ("collectives.", "mesh.", "route.update.")
 
 
 def span(name: str):

@@ -328,8 +328,9 @@ def estimate_hbm_bytes(cfg: Config) -> dict:
     one device (and on a shard no data replica shares) the in-place kind's
     one [R, D] accumulator, and no table-shaped accumulator for "dense2"
     and "sparse2", whose kernel updates the touched rows in place; on a
-    mesh, the [r_loc, D] sums of the routed and accumulator forms (two
-    where they are all_reduced over "data", parallel/sharded.py).  The
+    mesh, the [r_loc, D] sums of the accumulator form (two: they are
+    all_reduced over "data") and of a route's in-place form
+    (parallel/sharded.py::routed_update_form).  The
     kind is the port's (ftrl.py::select_update_kind): under auto it is
     "dense2" where the JAX package's is "inplace", so there the estimate
     holds no [R, D] term where JAX's does.  LR (row width 0) holds no
@@ -340,6 +341,7 @@ def estimate_hbm_bytes(cfg: Config) -> dict:
         replicate_update_form,
         resolves_to_route,
         route_slots,
+        routed_update_form,
     )
 
     w = cfg.row_width
@@ -355,7 +357,7 @@ def estimate_hbm_bytes(cfg: Config) -> dict:
     nnz_loc = nnz if n_dev == 1 else nnz // n_dev
     mk = shards * route_slots(cfg, shards, mesh_data) if routed else 0
     if routed:
-        form = "inplace" if mesh_data == 1 else "accumulator"
+        form = routed_update_form(r_loc, w, mk, cfg.update_mode, mesh_data)
     else:
         form = replicate_update_form(r_loc, w, nnz, cfg.update_mode, mesh_data)
     work_b = {"inplace": 1, "accumulator": 2}.get(form, 0) * r_loc * w * 4

@@ -528,6 +528,158 @@ def test_ftrl_update_linear_kernel_matches_plain_bit_for_bit(r, hot):
         assert torch.equal(got, again)
 
 
+# ---- the split payload (g and g^2 from two tensors: a (1, N) route
+# mesh's received slots, parallel/sharded.py::_update_routed) ----
+
+
+def _linear_only(tables):
+    """The six tables with [R, 0] factor tables: the update at E = 0, the
+    "linear" instance."""
+    r = tables[3].shape[0]
+    return [torch.empty((r, 0), device=tables[3].device) for _ in range(3)] + list(tables[3:])
+
+
+# (instance, R, E, N, linear lane, w dtype, hot id): ftrl_update_kernel
+# (E = 640, the dead lane or gg2_lin, a bf16 w, a segment over 64 rows),
+# ftrl_update_narrow (FM's 16, 8 with a hot id), the "linear" instance
+# (E = 0) and the scalar form (E = 15)
+SPLIT = [
+    ("rows", 64, 640, 4000, -1, torch.float32, None),
+    ("rows", 64, 640, 4000, 39, torch.float32, None),
+    ("rows", 300, 640, 3000, -1, torch.bfloat16, 5),
+    ("narrow", 300, 16, 4000, -1, torch.float32, None),
+    ("narrow", 300, 8, 4000, -1, torch.bfloat16, 5),
+    ("linear", 5000, 0, 4000, -1, torch.float32, 9),
+    ("scalar", 20, 15, 300, 4, torch.float32, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance,r,e,n,lane,wdt,hot", SPLIT,
+                         ids=[f"{c[0]}-e{c[2]}-lane{c[4]}-{str(c[5])[6:]}-hot{c[6]}"
+                              for c in SPLIT])
+def test_ftrl_update_split_payload_matches_combined(instance, r, e, n, lane, wdt, hot):
+    """The split payload (g and g^2 from two [N, E] tensors) through the
+    kernels' split instances gives the same bits, on all six tables, as the
+    combined launch of torch.cat([g, g2], -1), in the instance E and
+    alignment pick; repeats bit-identical."""
+    dev = _card()
+    tables, ids, gg2, gg2_lin, p = _update_inputs(dev, r, max(e, 1), n, lane, r + e + n)
+    _hot_ids(ids, hot, n + e)
+    if e == 0:
+        tables, gg2 = _linear_only(tables), gg2[:, :0].contiguous()
+    tables[2] = tables[2].to(wdt)
+    g, g2 = gg2[:, :e].contiguous(), gg2[:, e:].contiguous()
+    outs = []
+    for payload in (torch.cat([g, g2], dim=-1), (g, g2), (g, g2)):
+        got = [t.clone() for t in tables]
+        by_instance = dict(ftrl_update.launches_by_instance)
+        ftrl_update(*got, ids, payload, lane, p, gg2_lin)
+        torch.cuda.synchronize()
+        assert _ran(ftrl_update.launches_by_instance, by_instance) == {instance: 1}
+        outs.append(got)
+    for i, (combined, split, again) in enumerate(zip(*outs)):
+        assert torch.equal(split, combined), i
+        assert torch.equal(split, again), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [640, 16, 0])
+@pytest.mark.parametrize("empty", [1.0, 0.8])
+def test_ftrl_update_empty_slots_leave_rows_unread(e, empty):
+    """A route's empty slots (id == R, the received slots no peer filled)
+    drop: with every slot empty the six tables keep every bit; with 80%
+    empty the update equals the one of the filled slots alone, bit for
+    bit, though the empty slots' payload holds NaN."""
+    dev = _card()
+    r, n = 300, 4000
+    tables, ids, gg2, gg2_lin, p = _update_inputs(dev, r, max(e, 1), n, -1, e + n)
+    if e == 0:
+        tables, gg2 = _linear_only(tables), gg2[:, :0].contiguous()
+    rng = np.random.default_rng(e)
+    drop = torch.from_numpy(rng.random(n) < empty).to(dev)
+    ids = torch.where(drop, r, ids).to(torch.int32)
+    g, g2 = (torch.where(drop[:, None], float("nan"), x) for x in (gg2[:, :e], gg2[:, e:]))
+    lin_pay = torch.where(drop[:, None], float("nan"), gg2_lin)
+    got = [t.clone() for t in tables]
+    ftrl_update(*got, ids, (g.contiguous(), g2.contiguous()), -1, p, lin_pay)
+    keep = ~drop
+    want = [t.clone() for t in tables]
+    if keep.any():
+        ftrl_update(*want, ids[keep].contiguous(), (g[keep].contiguous(), g2[keep].contiguous()),
+                    -1, p, lin_pay[keep].contiguous())
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+    if not keep.any():
+        assert all(torch.equal(a, t) for a, t in zip(got, tables))
+
+
+def _recv_slots(rng, r: int, m: int, k: int, fill: float) -> np.ndarray:
+    """A route's received slots [M*K]: from each of M peers a block of K
+    slots, its first ~fill*K holding distinct local rows (a peer sends each
+    id once), the rest empty (r).  A row arrives from up to M peers."""
+    slots = np.full(m * k, r, np.int32)
+    for peer in range(m):
+        u = int(rng.binomial(k, fill))
+        slots[peer * k: peer * k + u] = rng.choice(r, u, replace=False)
+    return slots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,lane,wdt", [(640, 39, torch.float32), (640, 39, torch.bfloat16),
+                                        (16, -1, torch.float32)])
+def test_routed_touched_update_matches_inplace_form(e, lane, wdt):
+    """The routed update on a (1, N) mesh, the touched-rows launch on the
+    received slots (M = 4 peers, ~80% of the slots empty, a row from up to
+    4 peers), against the in-place form it replaces under auto (za_scatter
+    into z and a zeroed A, kernel #3 over the table; the linear tables the
+    same on [R, 1] views): touched rows within the in-place tests' bound,
+    every other row bit for bit."""
+    dev = _card()
+    r, m, k = 2000, 4, 1000
+    rng = np.random.default_rng(e)
+    tables, _, _, _, p = _update_inputs(dev, r, e, 8, -1, e)
+    tables[2] = tables[2].to(wdt)
+    # w as the card's closed form leaves it (the CPU's sqrt is off by an
+    # ulp on some inputs): kernel #3 with A = 0 then keeps every bit
+    for tabs in (tables[:3], [t.view(-1, 1) for t in tables[3:]]):
+        closed_form_pass(*tabs, torch.zeros_like(tabs[0]), p)
+    ids = torch.from_numpy(_recv_slots(rng, r, m, k, 0.2)).to(dev)
+    g = torch.from_numpy((rng.normal(size=(m * k, e)) * 0.2).astype(np.float32)).to(dev)
+    g2 = g * g * torch.from_numpy(rng.integers(1, 3, (m * k, 1)).astype(np.float32)).to(dev)
+    g_lin = g[:, max(lane, 0): max(lane, 0) + 1].contiguous()
+    g2_lin = g2[:, max(lane, 0): max(lane, 0) + 1].contiguous()
+    touched_form = [t.clone() for t in tables]
+    ftrl_update(*touched_form, ids, (g, g2), -1, p, torch.cat([g_lin, g2_lin], dim=-1))
+    inplace_form = [t.clone() for t in tables]
+    ftrl_update_inplace(*inplace_form[:3], ids, g, g2, p)
+    ftrl_update_inplace(*(t.view(-1, 1) for t in inplace_form[3:]), ids, g_lin, g2_lin, p)
+    torch.cuda.synchronize()
+    touched = torch.zeros(r, dtype=torch.bool, device=dev)
+    touched[ids[ids < r].long()] = True
+    assert 0 < int(touched.sum()) < r
+    for i, (got, want, before) in enumerate(zip(touched_form, inplace_form, tables)):
+        np.testing.assert_allclose(got[touched].float().cpu().numpy(),
+                                   want[touched].float().cpu().numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=str(i))
+        assert torch.equal(got[~touched], want[~touched]), i
+        assert torch.equal(got[~touched], before[~touched]), i
+
+
+@pytest.mark.cuda
+def test_ftrl_update_split_payload_checks_its_inputs():
+    dev = _card()
+    tables, ids, gg2, _, p = _update_inputs(dev, 10, 8, 12, 3, 0)
+    g, g2 = gg2[:, :8].contiguous(), gg2[:, 8:].contiguous()
+    with pytest.raises(ValueError, match="shape"):
+        ftrl_update(*tables, ids, (g, g2[:, :-1].contiguous()), 3, p)
+    with pytest.raises(ValueError, match="dtype|is torch"):
+        ftrl_update(*tables, ids, (g, g2.to(torch.bfloat16)), 3, p)
+    with pytest.raises(ValueError, match="contiguous"):
+        ftrl_update(*tables, ids, (g, gg2[:, 8:]), 3, p)
+
+
 # (R, E): odd sizes, a row width not a multiple of 4, and one float4 tail
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,e,offset", [(41, 6, 0), (333, 15, 0), (64, 640, 0), (97, 128, 1),

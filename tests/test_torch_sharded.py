@@ -42,6 +42,7 @@ BF16_CHAIN_TOL = dict(rtol=2e-3, atol=5e-5)
 _WORKER = r"""
 import json, sys
 import numpy as np, torch
+from ftrl_ffm_tpu_torch import tracing
 from ftrl_ffm_tpu_torch.config import Config
 from ftrl_ffm_tpu_torch.models import Batch, ModelState, make_model
 from ftrl_ffm_tpu_torch.parallel import ShardedStep, dist, make_mesh, shard_state, unshard_state
@@ -81,12 +82,14 @@ for case in spec["cases"]:
         st = shard_state(state_of(z), mesh)
         step = ShardedStep(cfg, mesh, model, st)
         out["form"] = np.array(step.form)
+        out["routed_form"] = np.array(str(step.routed_form))
         out["mode"] = np.array(step.mode)
         out["route_k"] = np.array(step.route_k)
         b = np.load(case["batch"])
         sl = slice(step.shard_index * step.local_batch, (step.shard_index + 1) * step.local_batch)
         batch = Batch(*(torch.from_numpy(np.ascontiguousarray(b[k][sl]))
                         for k in ("fields", "feats", "vals", "y", "sample_w")))
+        tracing.reset()
         for i in range(case.get("steps", 2)):
             dist.trace = [] if i == 0 else None
             o = step.train_step(st, batch)
@@ -96,6 +99,9 @@ for case in spec["cases"]:
             out[f"loss{i}"] = o.loss_sum.numpy()
             out[f"count{i}"] = o.count.numpy()
             out[f"overflow{i}"] = np.array(-1 if o.route_overflow is None else o.route_overflow)
+        counters = tracing.read()
+        for k in ("touched", "pass"):
+            out["route_" + k] = np.array(counters.get("route.update." + k, 0))
         ls, ct, lg, _, _, _ = step.eval_step(st, batch)
         out["eval_loss"], out["eval_count"], out["eval_logits"] = ls.numpy(), ct.numpy(), lg.numpy()
         for k in TABLES:
@@ -441,8 +447,10 @@ def test_sparse_form_matches(runs, model_type):
 @pytest.mark.parametrize("model_type", ["FM", "FFM"])
 @pytest.mark.parametrize("update_mode", ["inplace", "sparse"])
 def test_route_inplace_form_matches(runs, model_type, update_mode):
-    """(1, N) route meshes update in place (z scattered, kernel #3's
-    pass), also in the sparse2 regime (tests/test_sharded.py::
+    """(1, N) route meshes under update_mode=inplace update in place (z
+    scattered, kernel #3's pass), and in the sparse2 regime on the received
+    slots by the touched-rows update; both match the JAX package, whose
+    routed update is in place in both (tests/test_sharded.py::
     test_route_inplace_update_matches_single_device, ::
     test_route_sparse2_takes_inplace_form_and_matches)."""
     cases, outs = runs((1, 4))
@@ -450,6 +458,38 @@ def test_route_inplace_form_matches(runs, model_type, update_mode):
     assert str(outs[name][0]["mode"]) == "route"
     assert all(int(r["overflow0"]) == 0 for r in outs[name])
     _check_against_references(cases[name], outs[name], (1, 4))
+
+
+# (mesh, case, the owner's update form): auto ("dense2" at these sizes)
+# and sparse on (1, 4) take the touched-rows launch, update_mode=inplace
+# the pass over the shard, and route meshes with D > 1 the accumulator form
+_ROUTE_FORMS = [
+    *(((1, 4), f"{mt}_route", "dense2") for mt in ("LR", "FM", "FFM")),
+    *(((1, 4), f"route_sparse_{mt}", "sparse2") for mt in ("FM", "FFM")),
+    *(((1, 4), f"route_inplace_{mt}", "inplace") for mt in ("FM", "FFM")),
+    *(((2, 2), f"{mt}_route", "accumulator") for mt in ("LR", "FM", "FFM")),
+]
+
+
+@pytest.mark.parametrize("mesh_shape,name,form", _ROUTE_FORMS,
+                         ids=[f"{s[0]}x{s[1]}-{n}" for s, n, _ in _ROUTE_FORMS])
+def test_route_update_form_and_counters(runs, mesh_shape, name, form):
+    """The routed update's form follows the mesh and update_mode
+    (parallel/sharded.py::routed_update_form), and its counters say which
+    ran on every rank: route.update.touched once a train step for the
+    touched-rows launch on the received slots, route.update.pass once a
+    step for a pass over the shard (kernel #3, in place or after the
+    accumulator's all_reduce), never both; the tables match the JAX
+    package's and the one-device step's."""
+    cases, outs = runs(mesh_shape)
+    o = outs[name]
+    steps = cases[name].get("steps", 2)
+    touched = form in ("dense2", "sparse2")
+    for r in o:
+        assert str(r["mode"]) == "route" and str(r["routed_form"]) == form
+        assert int(r["route_touched"]) == (steps if touched else 0)
+        assert int(r["route_pass"]) == (0 if touched else steps)
+    _check_against_references(cases[name], o, mesh_shape)
 
 
 @pytest.mark.parametrize("lookup", ["replicate", "route"])
