@@ -776,7 +776,6 @@ def train_cells(tmp: str, device, where: str) -> dict:
     small FFM model's settings, its train and eval files)."""
     from ftrl_ffm_tpu_torch.config import Config
     from ftrl_ffm_tpu_torch.data.stream import StreamReader
-    from ftrl_ffm_tpu_torch.ftrl import select_update_kind
     from ftrl_ffm_tpu_torch.models import make_model
     from ftrl_ffm_tpu_torch.ops.ftrl_cuda import ftrl_update
     from ftrl_ffm_tpu_torch.train import Trainer
@@ -800,8 +799,7 @@ def train_cells(tmp: str, device, where: str) -> dict:
                      device="cuda", n_threads=4, device_cache="off", **extra)
         tr = Trainer(cfg)
         model = tr.model
-        kind = (select_update_kind(nf, cfg.row_width, BATCH * cfg.max_nnz, cfg.update_mode)
-                if cfg.row_width else None)
+        kind = model.form if cfg.row_width else None
         require(kind == want_kind, f"{cell}: update_mode={cfg.update_mode} resolves to {kind!r}")
         reset_counts()
         t0 = time.perf_counter()
@@ -2222,8 +2220,7 @@ def recorded(self, *a, **k):
     rec["collectives"] = dict(dist.counts)
     rec["world"] = self._proc_n
     rec["mesh"] = None if self._mesh is None else [self._mesh.data, self._mesh.model]
-    rec["form"] = None if self._sharded is None else [
-        self._sharded.mode, self._sharded.form, self._sharded.routed_form]
+    rec["form"] = None if self._sharded is None else [self._sharded.mode, self._sharded.form]
     rec["counters"] = {n: c for n, c in tracing.read().items()
                        if n.startswith(("mesh.train.", "route.update."))}
     rec["device_cache"] = {r: (e.layout if e is not None else "streamed")
@@ -2504,15 +2501,16 @@ def mesh_cards_phase(bench_100k: str, tmp: str, where: str) -> dict:
             steps, l, c = r["counters"].get("mesh.train.steps", 0), r["launches"], r["counters"]
             touched, passes = c.get("route.update.touched", 0), c.get("route.update.pass", 0)
             if routed == "touched":
-                ok = (r["form"][2] in ("dense2", "sparse2") and touched == steps and passes == 0
+                ok = (r["form"][0] == "route" and r["form"][1] in ("dense2", "sparse2")
+                      and touched == steps and passes == 0
                       and l["ftrl_update"] == steps and l["update_by_instance"] == {"rows": steps}
                       and l["closed_form_pass"] == 0)
             elif routed is not None:
-                ok = (r["form"][2] == ("inplace" if routed == "inplace" else "accumulator")
+                ok = (r["form"] == ["route", "inplace" if routed == "inplace" else "accumulator"]
                       and passes == steps and touched == 0 and l["ftrl_update"] == 0
                       and l["closed_form_pass"] == 2 * steps)
             else:
-                ok = r["form"][2] is None
+                ok = r["form"][0] == "replicate"
             require(steps > 0 and ok, f"{label}: the update's form or launches: {r['form']}, "
                                       f"{steps} train steps, counters {c}, launches {l}")
         ckpts[label] = a
@@ -2537,7 +2535,7 @@ def main() -> int:
     from ftrl_ffm_tpu_torch.data.stream import StreamReader
     from ftrl_ffm_tpu_torch.ftrl import FtrlParams
     from ftrl_ffm_tpu_torch.models import make_model
-    from ftrl_ffm_tpu_torch.models.base import widen_batch
+    from ftrl_ffm_tpu_torch.models.base import local_rows, widen_batch
     from ftrl_ffm_tpu_torch.ops import _build
     from ftrl_ffm_tpu_torch.ops.ffm_cuda import (
         ffm_fused_logits,
@@ -2545,7 +2543,7 @@ def main() -> int:
         ffm_fused_logits_grads_plain,
         ffm_fused_logits_plain,
     )
-    from ftrl_ffm_tpu_torch.ftrl import closed_form_pass_plain, select_update_kind
+    from ftrl_ffm_tpu_torch.ftrl import closed_form_pass_plain
     from ftrl_ffm_tpu_torch.ops.ftrl_cuda import (
         closed_form_pass,
         ftrl_update,
@@ -2553,7 +2551,6 @@ def main() -> int:
         za_scatter,
         za_scatter_plain,
     )
-    from ftrl_ffm_tpu_torch.ops.interactions import linear_logits
     from ftrl_ffm_tpu_torch.train import Trainer, _draw_rows
 
     device = torch.device("cuda", torch.cuda.current_device())
@@ -2578,9 +2575,10 @@ def main() -> int:
         for arrays in reader.batches():
             batch = widen_batch(trainer._place_batch(arrays))
             got = model.predict_logits(trainer.state, batch)
-            vrows = model._gather_vec(trainer.state, batch.feats.reshape(-1))
-            w = model._w_lin_from_rows(trainer.state, vrows, batch, model._lin_read_lane())
-            lin = linear_logits(w, batch.vals, model.bias_weight(trainer.state))
+            rows = local_rows(batch.feats)
+            vrows = rows(trainer.state.vec_w)
+            lin = model._lin_logits(trainer.state, batch, rows,
+                                    model.bias_weight(trainer.state), vrows)
             ref = ffm_fused_logits_plain(vrows, batch.fields, batch.vals, lin,
                                          model.field_pad, model.n_factors)
             require(torch.allclose(got, ref, rtol=RTOL, atol=ATOL),
@@ -3508,8 +3506,7 @@ def main() -> int:
         )
         btrainer = Trainer(bcfg)
         bmodel = btrainer.model
-        kind = select_update_kind(N_FEATS, bcfg.row_width, BATCH * bcfg.max_nnz,
-                                  bcfg.update_mode)
+        kind = bmodel.form
         require(kind == "inplace", f"update_mode=inplace resolves to {kind!r} at 1M")
         counted = (ffm_fused_logits_grads, za_scatter, closed_form_pass, ftrl_update,
                    ffm_fused_logits)

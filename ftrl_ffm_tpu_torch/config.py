@@ -68,19 +68,15 @@ class Config:
     # device (models/base.py::widen_batch).  Every narrowing is verified
     # exact on the host per batch, so no bit of a run changes.
     compact_transfer: bool = True
-    # FTRL table update strategy: "dense" scatter-adds the combined (g, g^2)
-    # payload into a table-shaped accumulator + one fused full-table pass
-    # (fastest while the table is not much larger than the batch's nnz);
-    # "sparse" updates touched rows only via sort/segment-sum (O(nnz) temps);
-    # "auto" picks per table (ftrl.select_update_kind), including the
-    # in-place huge-table form (g scattered straight into z); "inplace"
-    # forces that huge-table form (mainly for tests — with the FFM
-    # dead-lane mirror it also skips the separate linear-table scatter and
-    # reconciles lin tables from the mirror at checkpoint/export
-    # boundaries, see models/base.py::train_step).  In lookup_mode=route
-    # the update is the dense local-shard accumulator while it fits, and
-    # the in-place form for huge shards on (1, N) meshes
-    # (parallel/sharded.py::_table_update_routed).
+    # FTRL table update strategy, the JAX package's modes: "dense" and
+    # "sparse" force the combined-payload update of the touched rows (the
+    # port's "dense2" and "sparse2"), "inplace" the huge-table form (g
+    # scattered straight into z, then a pass over the table; with the FFM
+    # dead-lane mirror it also skips the separate linear-table update and
+    # reconciles the linear tables from the mirror at checkpoint/export
+    # boundaries, see models/base.py::train_step); "auto" picks by the
+    # table's size.  ftrl.py::update_form maps a mode to the form a step
+    # runs, on one device and on every mesh.
     update_mode: str = "auto"
     # Gradient-accumulator dtype for the combined (g || g^2) payload +
     # scatter accumulator of the "dense2" update (the port's kernel #2 and
@@ -311,30 +307,6 @@ def detect_file_type(file_path: str) -> str:
     raise ValueError("unknown file format...")
 
 
-# Later slices of the port, by their item number in ROADMAP.md's Queue 1.
-# What this port does not serve yet raises NotImplementedError naming the
-# item that brings it, never a silent substitute.
-ROADMAP_ITEMS = {
-    2: "FFM training on one device",
-    3: "checkpoint writing and reference-model import/export",
-    4: "LR and FM models",
-    5: "the transfer tiers",
-    6: "device-resident datasets",
-    7: "huge-table path",
-    8: "multi-GPU and multi-host",
-    9: "bench twin, matrix and profiling",
-}
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    """The error for a capability a later slice of the port brings."""
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet: it arrives with ROADMAP.md "
-        f"Queue 1 item {item} ({ROADMAP_ITEMS[item]}); the JAX package "
-        f"ftrl_ffm_tpu has it"
-    )
-
-
 def uses_mesh(cfg: Config) -> bool:
     """Does the config ask for a device mesh (mesh_data 0 means every
     device left over on the data axis)?"""
@@ -342,24 +314,8 @@ def uses_mesh(cfg: Config) -> bool:
 
 
 def check_ported(cfg: Config) -> None:
-    """Raise for config values the port does not serve: use_pallas=off,
-    which has no counterpart here.  Every model_type (LR, FM and FFM: item
-    4 brought LR and FM) trains and serves, on one device and on a mesh
-    (item 8: parallel/, one process a device), with every steps_per_call
-    and device_cache_layout.
-
-    steps_per_call > 1 groups S steps a dispatch (CUDA-graph replays on
-    the card; on a mesh the graphs hold the steps' NCCL collectives) and
-    feed_workers sets the feeder's threads (item 5): both give the S = 1,
-    one-thread run's bits.  compact_transfer (item 5's transfer tiers,
-    transfer.py) narrows the streamed uploads losslessly, on one device
-    and on a mesh, with the bits of compact_transfer=false; model_path,
-    save_every, async_checkpoint and compress_level write checkpoints as
-    in the JAX package (item 3).  Every table-update kind (update_mode),
-    both dtypes of table_dtype and acc_dtype, and every device_cache,
-    device_cache_compact and device_cache_layout value (item 6; on one
-    process the shard layout holds the whole dataset, as the replicate
-    one does; on more than one, each rank's slice: item 8) train."""
+    """Raise for use_pallas=off, the one config value that has no
+    counterpart in the port."""
     if cfg.use_pallas == "off":
         # the port has no user switch between kernel and plain version: the
         # tensor's device picks (ops/ffm_cuda.py::ffm_fused_logits)

@@ -1,5 +1,6 @@
 """FTRL-Proximal core: closed form, accumulator step, the dense table
-updates and the update-kind choice (the dense half of ftrl_ffm_tpu/ftrl.py).
+updates and the choice of update form (the dense half of
+ftrl_ffm_tpu/ftrl.py).
 
 Closed form (reference: src/include/model/ftrl_model.h:28-33):
 
@@ -219,29 +220,53 @@ def sparse_ftrl_update2(n_tab, z_tab, w_tab, ids, gg2, p: FtrlParams):
     return tuple(out)
 
 
-def select_update_kind(n_rows: int, row_width: int, nnz: int, mode: str = "auto") -> str:
-    """The table-update strategy: "dense2" (the combined-payload update),
-    "inplace" (the z/A scatter and the closed-form pass over the whole
-    table) or "sparse2" (tables whose one accumulator would not fit).
+def update_form(cfg, rows: int, mesh_data: int = 1, route: bool = False) -> str:
+    """The table update that a step of `cfg` runs on its `rows`-row table
+    (one device: n_feats; a mesh: the rank's shard), on a mesh of
+    `mesh_data` data ranks with routed lookups or not.  The one decision
+    of the form: the step objects hold it (Model.form,
+    parallel/sharded.py::ShardedStep.form).
 
-    The modes are ftrl_ffm_tpu/ftrl.py::select_update_kind's; "auto"
-    differs by design.  JAX's auto picks "inplace" for tables over 4 x nnz
-    rows (or a 2 GB accumulator) up to 4 GB, since its "dense2" scatters
-    into an [R, 2D] accumulator and passes over every row.  The port's
-    "dense2" updates only the rows a batch touches, with no table-shaped
-    accumulator (ops/ftrl_cuda.py::ftrl_update), and beat "inplace" with
-    the same bits at every shape measured on the card (PERF.md section 6:
-    FFM at 1M and 4M rows, FM at 2^22), so auto takes "dense2" there.
-    Tables over 4 GB take "sparse2" as in JAX, which runs the same kernel
-    on the card.  update_mode=inplace still selects "inplace".  nnz (the
-    occurrences a step) sets JAX's auto and not the port's; the signature
-    stays JAX's."""
+    Where no data replica shares the table (one device, or D = 1) the form
+    is a one-device kind: "dense2" (the touched-rows update from the
+    combined payload), "sparse2" (the same kernel on the card; on the CPU
+    the plain segment-sum form the tests hold against the JAX package) or
+    "inplace" (the z/A scatter and the closed-form pass over the whole
+    table).  The modes are ftrl_ffm_tpu/ftrl.py::select_update_kind's;
+    "auto" differs by design.  JAX's auto picks "inplace" for tables over
+    4 x nnz rows (or a 2 GB accumulator) up to 4 GB, since its "dense2"
+    scatters into an [R, 2D] accumulator and passes over every row.  The
+    port's "dense2" updates only the rows a batch touches, with no
+    table-shaped accumulator (ops/ftrl_cuda.py::ftrl_update), and beat
+    "inplace" with the same bits at every shape measured on the card
+    (PERF.md section 6: FFM at 1M and 4M rows, FM at 2^22), so auto takes
+    "dense2" up to 4 GB and "sparse2" beyond, as JAX does.  A (1, N) route
+    mesh's owner runs the same kind on the slots it receives.
+
+    Where data replicas share the shard (D > 1) their sums must be
+    combined over "data", and the reason for the port's moved threshold no
+    longer holds; there the rule is JAX's select_ftrl_update2(rows,
+    row_width, global nnz, update_mode): "accumulator" (a [rows, 2E] sum
+    all_reduced over "data"; every routed update) under update_mode=dense
+    or inplace, and under auto while the shard holds at most 4x the global
+    nnz and the accumulator at most 2 GB; "allgather" (the (ids, payload)
+    stream all_gathered over "data", then "sparse2" on the local rows)
+    under update_mode=sparse and beyond those bounds."""
+    mode, width = cfg.update_mode, cfg.row_width
+    if mesh_data > 1:
+        if route or mode in ("dense", "inplace"):
+            return "accumulator"
+        nnz = cfg.batch_size * max(1, cfg.max_nnz)
+        d = max(1, width)
+        if mode == "auto" and rows <= 4 * nnz and 2 * rows * d * 4 <= (2 << 30):
+            return "accumulator"
+        return "allgather"
     if mode == "dense":
         return "dense2"
     if mode == "sparse":
         return "sparse2"
     if mode == "inplace":
-        return "inplace" if row_width else "dense2"
-    if n_rows * max(1, row_width) * 4 <= (4 << 30):
+        return "inplace" if width else "dense2"
+    if rows * max(1, width) * 4 <= (4 << 30):
         return "dense2"
     return "sparse2"

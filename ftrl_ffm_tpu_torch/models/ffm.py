@@ -11,11 +11,13 @@ card, and in their plain versions on the CPU.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ftrl_ffm_tpu_torch.models.base import Batch, Model, ModelState, loss_grad
 from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits, ffm_fused_logits_grads
-from ftrl_ffm_tpu_torch.ops.interactions import ffm_logits_and_grads, linear_logits
+from ftrl_ffm_tpu_torch.ops.interactions import linear_logits
 from ftrl_ffm_tpu_torch.ops.layout import kmajor_to_reference, reference_to_kmajor
 
 
@@ -64,23 +66,33 @@ class FFM(Model):
         lane = self._lin_lane()
         return lane if self.cfg.table_dtype == "float32" else -1
 
-    def _w_lin_from_rows(self, state: ModelState, v: torch.Tensor, batch: Batch, lane: int):
-        """[B, F] linear weights: mirrored lane of the gathered [B*F, E]
-        rows when enabled, else the lin_w gather."""
-        if lane >= 0:
-            return v[:, lane].reshape(batch.feats.shape)
-        return self._gather_linear(state, batch.feats)
+    def _lin_logits(self, state: ModelState, batch: Batch, rows, bias_w: torch.Tensor,
+                    v: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[B] bias plus linear term: w_lin from the mirror lane of the
+        gathered [B*F, E] rows v while it is read (_lin_read_lane), else
+        the linear table's rows."""
+        lane = self._lin_read_lane()
+        if lane < 0:
+            return super()._lin_logits(state, batch, rows, bias_w)
+        return linear_logits(v[:, lane].reshape(batch.feats.shape), batch.vals, bias_w)
 
-    def _train_grads(self, state: ModelState, batch: Batch, split: bool = False,
-                     payload_dtype: torch.dtype = torch.float32):
-        """Logits and the payload from the fused kernel
-        (ftrl_ffm_tpu/models/ffm.py::FFM._train_grads, its Pallas path): a
-        flat [B*F, E] gather, w_lin from the mirror lane of those rows, and
-        the linear gradient in the dead lane when the row has one, in the
-        combined layout (f32 or bf16) or, with split, in g and g^2 apart."""
-        v = self._gather_vec(state, batch.feats.reshape(-1))
-        w = self._w_lin_from_rows(state, v, batch, self._lin_read_lane())
-        lin = linear_logits(w, batch.vals, self.bias_weight(state))
+    def forward(self, state: ModelState, batch: Batch, rows, bias_w: torch.Tensor,
+                train: bool, split: bool = False,
+                payload_dtype: torch.dtype = torch.float32):
+        """Kernel #2's logits and payload, or kernel #1's logits
+        (ftrl_ffm_tpu/models/ffm.py::FFM._train_grads, its Pallas path,
+        and _logits_and_grads): a flat [B*F, E] gather, f32 for training
+        and in the table's dtype for eval (kernel #1 widens bf16 rows
+        itself); w_lin from the mirror lane of those rows; the linear
+        gradient in the dead lane when the row has one, in the combined
+        layout (f32 or bf16) or, with split, in g and g^2 apart."""
+        v = rows(state.vec_w, widen=train)
+        lin = self._lin_logits(state, batch, rows, bias_w, v)
+        if not train:
+            logits = ffm_fused_logits(
+                v, batch.fields, batch.vals, lin, self.field_pad, self.n_factors
+            )
+            return logits, None, None, -1
         lane = self._lin_lane()
         logits, *payload = ffm_fused_logits_grads(
             v, batch.fields, batch.vals, lin, batch.y, batch.sample_w,
@@ -113,29 +125,4 @@ class FFM(Model):
             lin_n=state.vec_n[:n, lane].contiguous(),
             lin_z=state.vec_z[:n, lane].contiguous(),
             lin_w=state.vec_w[:n, lane].to(state.lin_w.dtype).contiguous(),
-        )
-
-    def _logits_and_grads(self, state: ModelState, batch: Batch, train: bool):
-        if not train:
-            # flat [B*F, E] gather: one row-major stream into the kernel,
-            # which reads a bf16 table's rows as they are
-            v = self._gather_vec(state, batch.feats.reshape(-1), widen=False)
-            w = self._w_lin_from_rows(state, v, batch, self._lin_read_lane())
-            lin = linear_logits(w, batch.vals, self.bias_weight(state))
-            logits = ffm_fused_logits(
-                v, batch.fields, batch.vals, lin, self.field_pad, self.n_factors
-            )
-            return logits, None
-        # the unfused formulation (ftrl_ffm_tpu/models/ffm.py's XLA path):
-        # d logit / d v [B, F, E], with d logit / d w_lin = x in the dead lane
-        read_lane = self._lin_read_lane()
-        if read_lane >= 0:
-            lin = self.bias_weight(state).expand(batch.y.shape)
-        else:
-            w = self._gather_linear(state, batch.feats)
-            lin = linear_logits(w, batch.vals, self.bias_weight(state))
-        return ffm_logits_and_grads(
-            self._gather_vec(state, batch.feats), batch.fields, batch.vals, lin,
-            self.field_pad, self.n_factors,
-            lin_lane=read_lane, grad_lane=self._lin_lane(),
         )

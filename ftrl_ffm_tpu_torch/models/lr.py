@@ -7,11 +7,14 @@ no factor columns on the card, its plain version on the CPU)."""
 
 from __future__ import annotations
 
-from ftrl_ffm_tpu_torch.models.base import Batch, Model, ModelState
-from ftrl_ffm_tpu_torch.ops.interactions import linear_logits
+import torch
+
+from ftrl_ffm_tpu_torch.models.base import Batch, Model, ModelState, loss_grad
 
 
 class LR(Model):
-    def _logits_and_grads(self, state: ModelState, batch: Batch, train: bool):
-        w = self._gather_linear(state, batch.feats)
-        return linear_logits(w, batch.vals, self.bias_weight(state)), None
+    def forward(self, state: ModelState, batch: Batch, rows, bias_w: torch.Tensor,
+                train: bool, split: bool = False,
+                payload_dtype: torch.dtype = torch.float32):
+        logits = self._lin_logits(state, batch, rows, bias_w)
+        return logits, (loss_grad(logits, batch) if train else None), None, -1

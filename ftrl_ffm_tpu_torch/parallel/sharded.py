@@ -19,31 +19,31 @@ returns them, and the update routes the payloads to the owners through
 the same slots.  Occurrences beyond K distinct ids a peer are dropped,
 counted (route_overflow) and, under route_overflow_policy="error", raised.
 
-The table updates (one deterministic update per row and step):
+The table updates (one deterministic update per row and step), by the form
+ftrl.py::update_form decides once (ShardedStep.form):
 - replicate on one data rank (D = 1): the one-device update on the rank's
-  rows (Model.apply_update: the touched-rows kernel, or the in-place form
-  under update_mode=inplace, whose linear tables ride stale on the mirror
-  lane as on one device);
-- replicate on D > 1 (replicate_update_form): the accumulator form
-  (za_scatter into zeroed [rows_local, E] sums, an all_reduce over "data",
-  z += G, then kernel #3, closed_form_pass) or the sparse form (an
-  all_gather of the (ids, payload) stream over "data", then the
-  touched-rows kernel on the local rows);
-- route (routed_update_form): the payloads summed into their send slots
-  (za_scatter), an all_to_all each, then the owner's update of the slots
-  it received.  On (1, N) meshes that is the one-device kind of the
-  shard: under auto (and update_mode=dense or sparse) the touched-rows
-  kernel on the received slots, the factor and linear tables in one
-  launch from the split payload as it arrives (empty slots drop); under
-  update_mode=inplace the in-place form (za_scatter into z, kernel #3 over
-  the shard).  On D > 1 the accumulator form.
+  rows (Model.apply_update: "dense2" or "sparse2", the touched-rows kernel,
+  or "inplace" under update_mode=inplace, whose linear tables ride stale
+  on the mirror lane as on one device);
+- replicate on D > 1: "accumulator" (za_scatter into zeroed [rows_local,
+  E] sums, an all_reduce over "data", z += G, then kernel #3,
+  closed_form_pass) or "allgather" (the (ids, payload) stream all_gathered
+  over "data", then the touched-rows kernel on the local rows);
+- route: the payloads summed into their send slots (za_scatter), an
+  all_to_all each, then the owner's update of the slots it received.  On
+  (1, N) meshes that is the one-device form of the shard: "dense2" or
+  "sparse2" (auto, dense, sparse), the touched-rows kernel on the received
+  slots, the factor and linear tables in one launch from the split payload
+  as it arrives (empty slots drop), or "inplace" (update_mode=inplace:
+  za_scatter into z, kernel #3 over the shard).  On D > 1 "accumulator".
 
 The routing and the lookups are plain PyTorch, as the JAX package's are
-XLA.  FFM trains through kernel #2 (ops/ffm_cuda.py::ffm_fused_logits_grads,
-the dead-lane linear mirror kept by its aug_lane) and evaluates through
-kernel #1; FM and LR through ops/interactions.py, as on one device.  The
-payload is f32 on a mesh, as the JAX package's sharded step makes it
-(acc_dtype narrows only the one-device "dense2" payload).
+XLA.  The model's own forward pass (Model.forward) runs on the rows the
+lookups return (ShardedStep._rows), as the one-device step runs it on its
+local gather: FFM through kernels #2 and #1, FM and LR through
+ops/interactions.py.  The payload is f32 on a mesh, as the JAX package's
+sharded step makes it (acc_dtype narrows only the one-device "dense2"
+payload).
 
 A collective over a group of one is skipped where it would copy a table-
 or batch-sized tensor (the row all_reduce at M = 1, the accumulator's at
@@ -52,23 +52,24 @@ D = 1); the step's one small all_reduce of its sums always runs.
 
 from __future__ import annotations
 
+import functools
 import warnings
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
 from ftrl_ffm_tpu_torch import tracing
 from ftrl_ffm_tpu_torch.config import Config
-from ftrl_ffm_tpu_torch.ftrl import FtrlParams, ftrl_accumulate, ftrl_weights, select_update_kind
+from ftrl_ffm_tpu_torch.ftrl import FtrlParams, ftrl_accumulate, ftrl_weights, update_form
+from ftrl_ffm_tpu_torch.metrics import StreamingAUC
 from ftrl_ffm_tpu_torch.models.base import (
     Batch,
     Model,
     ModelState,
+    TrainOut,
     binary_logloss,
-    loss_grad,
     widen_batch,
 )
-from ftrl_ffm_tpu_torch.ops.ffm_cuda import ffm_fused_logits, ffm_fused_logits_grads
 from ftrl_ffm_tpu_torch.ops.ftrl_cuda import (
     closed_form_pass,
     ftrl_update,
@@ -76,7 +77,6 @@ from ftrl_ffm_tpu_torch.ops.ftrl_cuda import (
     ftrl_update_linear,
     za_scatter,
 )
-from ftrl_ffm_tpu_torch.ops.interactions import fm_logits_and_grads, linear_logits
 from ftrl_ffm_tpu_torch.parallel import dist
 from ftrl_ffm_tpu_torch.parallel.mesh import Mesh, interleave_ids
 
@@ -89,16 +89,6 @@ class Routing(NamedTuple):
     valid: torch.Tensor     # [n] bool: routed
     recv: torch.Tensor      # [M*K] int32 local rows requested of this rank (rl = none)
     overflow: torch.Tensor  # 0-dim: occurrences dropped by capacity
-
-
-class StepOut(NamedTuple):
-    """A sharded train step's outputs (the JAX package's TrainOut)."""
-
-    state: ModelState
-    logits: torch.Tensor     # [b_local] this rank's pre-update logits
-    loss_sum: torch.Tensor   # global masked log-loss sum
-    count: torch.Tensor      # global real samples
-    route_overflow: Optional[torch.Tensor]  # global drops (route mode), else None
 
 
 def _resolve_lookup_mode(cfg: Config, mesh: Mesh) -> str:
@@ -132,52 +122,6 @@ def resolves_to_route(cfg: Config) -> bool:
         return False
     n_dev = max(1, cfg.mesh_data) * m
     return cfg.lookup_mode == "route" or cfg.batch_size % n_dev == 0
-
-
-def replicate_update_form(rows_local: int, row_width: int, global_nnz: int, mode: str,
-                          mesh_data: int) -> str:
-    """The replicate-mode table update of a shard (the rule of the JAX
-    package's select_ftrl_update2(rows_local, row_width, global_nnz,
-    update_mode)).
-
-    On one data rank the shard's sums need no combining, so its update is
-    the one-device kind, ftrl.py::select_update_kind's ("dense2",
-    "sparse2" or "inplace"), with the port's auto: the touched-rows kernel
-    holds no table-sized accumulator.  Where data replicas share the shard
-    (D > 1) their sums must be combined, and that reason for the port's
-    moved threshold no longer holds; there the rule is JAX's: "accumulator"
-    (a [rows_local, 2E] sum all_reduced over "data") under
-    update_mode=dense or inplace, and under auto while the shard holds at
-    most 4x the global nnz and the accumulator at most 2 GB; "sparse" (the
-    (ids, payload) stream all_gathered over "data") under update_mode=
-    sparse and beyond those bounds."""
-    if mesh_data == 1:
-        return select_update_kind(rows_local, row_width, global_nnz, mode)
-    if mode == "sparse":
-        return "sparse"
-    if mode in ("dense", "inplace"):
-        return "accumulator"
-    d = max(1, row_width)
-    if rows_local <= 4 * global_nnz and 2 * rows_local * d * 4 <= (2 << 30):
-        return "accumulator"
-    return "sparse"
-
-
-def routed_update_form(rows_local: int, row_width: int, slots: int, mode: str,
-                       mesh_data: int) -> str:
-    """The route-mode table update of a shard: the owner's update of the
-    M*K `slots` it receives a step.
-
-    On one data rank (a (1, N) mesh) no replica shares the shard, so the
-    owner runs the one-device kind, ftrl.py::select_update_kind(rows_local,
-    row_width, slots, mode): "dense2" or "sparse2" (auto, dense, sparse:
-    the touched-rows kernel on the received slots) or "inplace"
-    (update_mode=inplace: kernel #3 over the shard).  Where data replicas
-    share the shard (D > 1) their sums must be combined over "data":
-    "accumulator"."""
-    if mesh_data > 1:
-        return "accumulator"
-    return select_update_kind(rows_local, row_width, slots, mode)
 
 
 def _col(mask: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
@@ -216,21 +160,15 @@ class ShardedStep:
                 f"batch shards of the {mesh.data} x {mesh.model} mesh"
             )
         self.local_batch = cfg.batch_size // self.batch_shards
-        width = cfg.row_width
-        global_nnz = cfg.batch_size * max(1, cfg.max_nnz)
-        self.form = (
-            "routed" if self.mode == "route"
-            else replicate_update_form(self.rows_local, width, global_nnz, cfg.update_mode,
-                                       mesh.data)
-        )
-        # the owner's update of its received slots (route mode), else None
-        self.routed_form = (
-            routed_update_form(self.rows_local, width, self.n_shards * self.route_k,
-                               cfg.update_mode, mesh.data)
-            if self.mode == "route" else None
-        )
+        self.form = update_form(cfg, self.rows_local, mesh.data, self.mode == "route")
+        # the eval sums carry the route drops (Model.counts_drops)
+        self.counts_drops = self.mode == "route"
+        # the one-device update of a shard no replica shares leaves the
+        # linear tables stale as on one device (Model.lin_rides_stale)
+        self.lin_rides_stale = (self.mode == "replicate" and self.form == "inplace"
+                                and model._lin_mirror_maintained())
         if mesh.data > 1:
-            acc_bytes = 2 * self.rows_local * max(1, width) * 4
+            acc_bytes = 2 * self.rows_local * max(1, cfg.row_width) * 4
             if acc_bytes > (256 << 20):
                 warnings.warn(
                     f"mesh_data={mesh.data} replicates each table shard and "
@@ -309,49 +247,11 @@ class ShardedStep:
         out = back.index_select(0, rt.slot.clamp(max=mk - 1))
         return torch.where(_col(rt.valid, tab), out, 0)
 
-    def _rows(self, tab, ids_phys, rt, widen: bool = True):
+    def _rows(self, ids_phys, rt, tab, widen: bool = True):
+        """The rows of `tab` for this rank's occurrences: rows(tab, widen)
+        of Model.forward once ids_phys and rt are bound (_lookups)."""
         rows = self._lookup(tab, ids_phys) if rt is None else self._routed_rows(tab, rt)
         return rows.to(torch.float32) if widen else rows
-
-    @property
-    def _lin_lane(self) -> int:
-        """The dead lane of the padded FFM row that mirrors the linear
-        table (models/ffm.py::FFM._lin_lane), or -1."""
-        lane = getattr(self.model, "_lin_lane", None)
-        return -1 if lane is None else lane()
-
-    def _w_lin(self, state, v, rt, ids_phys, shape):
-        """[b_local, F] linear weights: the mirror lane of the gathered rows
-        where kept (f32 tables), else the linear table's own lookup."""
-        lane = self._lin_lane
-        if lane >= 0 and v is not None and self.cfg.table_dtype == "float32":
-            return v[:, lane].to(torch.float32).reshape(shape)
-        return self._rows(state.lin_w, ids_phys, rt).reshape(shape)
-
-    # ---- logits and payloads ----
-    def _logits_payload(self, batch: Batch, lin, v, train: bool, split: bool):
-        """(logits, payload or None): the payload combined ((gg2,)) or, with
-        split, (g, g2), already scaled by dL/dlogit."""
-        cfg = self.cfg
-        if cfg.model_type == "LR":
-            return lin, None
-        if cfg.model_type == "FFM":
-            if not train:
-                return ffm_fused_logits(v, batch.fields, batch.vals, lin, cfg.field_pad,
-                                        cfg.n_factors), None
-            logits, *payload = ffm_fused_logits_grads(
-                v, batch.fields, batch.vals, lin, batch.y, batch.sample_w,
-                cfg.field_pad, cfg.n_factors, aug_lane=self._lin_lane, combined_out=not split,
-            )
-            return logits, tuple(payload)
-        b, f = batch.feats.shape
-        logits, dv = fm_logits_and_grads(v.to(torch.float32).reshape(b, f, -1), batch.vals,
-                                         lin, compute_grads=train)
-        if not train:
-            return logits, None
-        g = (loss_grad(logits, batch)[:, None, None] * dv).reshape(b * f, -1)
-        g2 = g * g
-        return logits, ((g, g2) if split else (torch.cat([g, g2], dim=-1),))
 
     # ---- table updates ----
     def _accumulate_pass(self, tables, ids, g, g2) -> None:
@@ -379,7 +279,7 @@ class ShardedStep:
     def _update_routed(self, state: ModelState, rt: Routing, payload, g_lin, g2_lin) -> None:
         """The routed update (sharded.py::_table_update_routed): the factor
         payload, then the linear one, sent to the owners (_send); then the
-        owner's update of its received slots by self.routed_form, counted
+        owner's update of its received slots by self.form, counted
         (route.update.touched or route.update.pass).
 
         "dense2" and "sparse2": one touched-rows launch (ftrl_update) on the
@@ -397,7 +297,7 @@ class ShardedStep:
         lin = (state.lin_n, state.lin_z, state.lin_w)
         pay = None if vec is None else self._send(rt, *payload)
         pay_lin = self._send(rt, g_lin, g2_lin)
-        form = self.routed_form
+        form = self.form
         if form in ("dense2", "sparse2"):
             tracing.count("route.update.touched")
             gg2_lin = torch.cat(pay_lin, dim=-1)
@@ -417,13 +317,14 @@ class ShardedStep:
             else:
                 self._accumulate_pass(tables, rt.recv, *sums)
 
-    def _update(self, state: ModelState, ids_phys, rt, payload, g_lin) -> None:
+    def _update(self, state: ModelState, ids_phys, rt, payload, lane: int, g_lin) -> None:
         """This step's update of the shard's tables (the module docstring's
-        forms): the factor tables from `payload`, the linear ones from
-        their own (g_lin, g_lin^2)."""
+        forms): the factor tables from `payload` (its lane `lane` carrying
+        the linear gradient, or -1), the linear ones from their own
+        (g_lin, g_lin^2)."""
         g_lin = g_lin.reshape(-1, 1)
         g2_lin = g_lin * g_lin
-        if self.form == "routed":
+        if rt is not None:
             self._update_routed(state, rt, payload, g_lin, g2_lin)
             return
         lin2 = tuple(t.view(-1, 1) for t in (state.lin_n, state.lin_z, state.lin_w))
@@ -435,7 +336,7 @@ class ShardedStep:
             self._accumulate_pass(lin2, lid, g_lin, g2_lin)
             return
         gg2_lin = torch.cat([g_lin, g2_lin], dim=-1)
-        if self.form == "sparse":
+        if self.form == "allgather":
             group = self.mesh.data_group
             lid = dist.all_gather(lid, group)
             gg2_lin = dist.all_gather(gg2_lin, group)
@@ -446,7 +347,6 @@ class ShardedStep:
         # one data rank: the one-device update of this kind on the shard's
         # rows, the linear tables as there (riding stale on the in-place
         # form's mirror: Trainer.logical_state reconciles them)
-        lane = self._lin_lane
         if payload is None or lane < 0 or (
             self.form == "inplace" and not self.model._lin_mirror_maintained()
         ):
@@ -455,34 +355,29 @@ class ShardedStep:
             self.model.apply_update(state, lid, payload, lane, None, self.form)
 
     # ---- steps ----
-    def _lookups(self, state: ModelState, batch: Batch, train: bool):
+    def _lookups(self, state: ModelState, batch: Batch):
+        """(physical ids, the routing or None, rows(table, widen), the bias
+        weight) of this rank's slice."""
         ids_phys = self._phys_ids(batch.feats)
         rt = self._route(ids_phys) if self.mode == "route" else None
-        v = None
-        if state.vec_w is not None:
-            # the training kernel reads f32 rows; the eval kernel widens a
-            # bf16 table's rows itself
-            v = self._rows(state.vec_w, ids_phys, rt, widen=train or self.cfg.model_type != "FFM")
-        w_lin = self._w_lin(state, v, rt, ids_phys, batch.feats.shape)
-        bias_w = ftrl_weights(state.bias_n, state.bias_z, self.params)
-        return ids_phys, rt, v, linear_logits(w_lin, batch.vals, bias_w), bias_w
+        rows = functools.partial(self._rows, ids_phys, rt)
+        return ids_phys, rt, rows, ftrl_weights(state.bias_n, state.bias_z, self.params)
 
-    def train_step(self, state: ModelState, batch: Batch) -> StepOut:
+    def train_step(self, state: ModelState, batch: Batch) -> TrainOut:
         """One step on this rank's slice of the global batch; the tables of
         the shard are updated in place (state is returned).  Its
         collectives count under mesh.train (parallel/dist.py::step_role)."""
         with dist.step_role("train"):
             return self._train_step(state, batch)
 
-    def _train_step(self, state: ModelState, batch: Batch) -> StepOut:
+    def _train_step(self, state: ModelState, batch: Batch) -> TrainOut:
         p = self.params
         batch = widen_batch(batch)
-        ids_phys, rt, v, lin, bias_w = self._lookups(state, batch, train=True)
-        # (g, g^2) apart for the scatter's forms, combined for the
-        # touched-rows kernel's
-        split = self.form in ("routed", "accumulator", "inplace")
-        logits, payload = self._logits_payload(batch, lin, v, True, split)
-        gs = loss_grad(logits, batch)
+        ids_phys, rt, rows, bias_w = self._lookups(state, batch)
+        # (g, g^2) apart for the scatter's forms and the routed update,
+        # combined for the touched-rows kernel's
+        split = rt is not None or self.form in ("accumulator", "inplace")
+        logits, gs, payload, lane = self.model.forward(state, batch, rows, bias_w, True, split)
         per_loss = binary_logloss(logits, batch.y) * batch.sample_w
         # the bias's sums, the loss and the count, summed over the batch
         # axes in one all_reduce (and the route drops)
@@ -492,30 +387,29 @@ class ShardedStep:
         with tracing.span("mesh.sums"):
             sums = dist.all_reduce(torch.stack(parts), self.batch_group)
         bias_n, bias_z = ftrl_accumulate(state.bias_n, state.bias_z, bias_w, sums[0], sums[1], p)
-        self._update(state, ids_phys, rt, payload, gs[:, None] * batch.vals)
+        self._update(state, ids_phys, rt, payload, lane, gs[:, None] * batch.vals)
         state.bias_n.copy_(bias_n)
         state.bias_z.copy_(bias_z)
         count = sums[3]
         # inert (fully padded) global batches do not count as steps
         state.step.add_((count > 0).to(torch.int32))
-        overflow = sums[4] if rt is not None else None
-        return StepOut(state, logits, sums[2], count, overflow)
+        overflow = sums[4] if rt is not None else count.new_zeros(())
+        return TrainOut(state, logits, sums[2], count, overflow)
 
     def eval_step(self, state: ModelState, batch: Batch, bins: int = 0):
         """(loss_sum, count, local logits, route drops or None, pos, neg)
         of one eval slice, the sums over the batch axes in one all_reduce:
         with bins > 0 the AUC histograms (metrics.py::StreamingAUC.
-        bucket_counts) too, else pos and neg are None.  Its collectives
-        count under mesh.eval (parallel/dist.py::step_role)."""
+        bucket_counts) too, else pos and neg are None (Model.eval_step's
+        shape).  Its collectives count under mesh.eval (parallel/dist.py::
+        step_role)."""
         with dist.step_role("eval"):
             return self._eval_step(state, batch, bins)
 
     def _eval_step(self, state: ModelState, batch: Batch, bins: int):
-        from ftrl_ffm_tpu_torch.metrics import StreamingAUC
-
         batch = widen_batch(batch)
-        _, rt, v, lin, _ = self._lookups(state, batch, train=False)
-        logits, _ = self._logits_payload(batch, lin, v, False, False)
+        _, rt, rows, bias_w = self._lookups(state, batch)
+        logits = self.model.forward(state, batch, rows, bias_w, train=False)[0]
         per_loss = binary_logloss(logits, batch.y) * batch.sample_w
         parts = [per_loss.sum()[None], batch.sample_w.sum()[None]]
         if rt is not None:

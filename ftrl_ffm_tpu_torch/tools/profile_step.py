@@ -91,14 +91,12 @@ def build(use_pallas: str = "auto", update_mode: str = "auto", device: str = "cu
 
 
 def update_kind(cfg) -> str:
-    """The factor tables' update kind of cfg's step ("dense2" for LR, which
-    has none: its linear update is the touched-rows kernel at E = 0)."""
-    from ftrl_ffm_tpu_torch.ftrl import select_update_kind
+    """The factor tables' update form of cfg's one-device step
+    (ftrl.py::update_form; "dense2" for LR, which has none: its linear
+    update is the touched-rows kernel at E = 0)."""
+    from ftrl_ffm_tpu_torch.ftrl import update_form
 
-    if not cfg.row_width:
-        return "dense2"
-    return select_update_kind(cfg.n_feats, cfg.row_width,
-                              cfg.batch_size * cfg.max_nnz, cfg.update_mode)
+    return update_form(cfg, cfg.n_feats) if cfg.row_width else "dense2"
 
 
 def roofline_ms(cfg) -> float:
@@ -146,7 +144,7 @@ def time_infer(cfg, model, state, batch) -> float:
         t0 = time.perf_counter()
         ls = torch.zeros((), dtype=torch.float32, device=device)
         for _ in range(n):
-            loss, _, _ = model.eval_step(state, batch._replace(vals=batch.vals + ls))
+            loss = model.eval_step(state, batch._replace(vals=batch.vals + ls))[0]
             ls = loss * 1e-30
         ls.item()
         synchronize(device)

@@ -62,7 +62,7 @@ from ftrl_ffm_tpu_torch.config import (
 from ftrl_ffm_tpu_torch.data.loader import batch_iterator, count_lines, load_file
 from ftrl_ffm_tpu_torch.data.parser import sniff_max_nnz
 from ftrl_ffm_tpu_torch.data.stream import StreamReader
-from ftrl_ffm_tpu_torch.ftrl import select_update_kind
+from ftrl_ffm_tpu_torch.ftrl import update_form
 from ftrl_ffm_tpu_torch.io.checkpoint import (
     IncompatibleStateError,
     model_signature,
@@ -329,20 +329,14 @@ def estimate_hbm_bytes(cfg: Config) -> dict:
     one [R, D] accumulator, and no table-shaped accumulator for "dense2"
     and "sparse2", whose kernel updates the touched rows in place; on a
     mesh, the [r_loc, D] sums of the accumulator form (two: they are
-    all_reduced over "data") and of a route's in-place form
-    (parallel/sharded.py::routed_update_form).  The
-    kind is the port's (ftrl.py::select_update_kind): under auto it is
-    "dense2" where the JAX package's is "inplace", so there the estimate
-    holds no [R, D] term where JAX's does.  LR (row width 0) holds no
+    all_reduced over "data") and of a route's in-place form.  The form is
+    the port's (ftrl.py::update_form): under auto it is "dense2" where the
+    JAX package's is "inplace", so there the estimate holds no [R, D] term
+    where JAX's does.  LR (row width 0) holds no
     factor tables: its state is the three linear tables, where the JAX
     package counts a one-wide factor table too.  Approximate by design:
     the big allocations only."""
-    from ftrl_ffm_tpu_torch.parallel.sharded import (
-        replicate_update_form,
-        resolves_to_route,
-        route_slots,
-        routed_update_form,
-    )
+    from ftrl_ffm_tpu_torch.parallel.sharded import resolves_to_route, route_slots
 
     w = cfg.row_width
     shards = max(1, cfg.mesh_model)
@@ -356,10 +350,7 @@ def estimate_hbm_bytes(cfg: Config) -> dict:
     n_dev = shards * mesh_data
     nnz_loc = nnz if n_dev == 1 else nnz // n_dev
     mk = shards * route_slots(cfg, shards, mesh_data) if routed else 0
-    if routed:
-        form = routed_update_form(r_loc, w, mk, cfg.update_mode, mesh_data)
-    else:
-        form = replicate_update_form(r_loc, w, nnz, cfg.update_mode, mesh_data)
+    form = update_form(cfg, r_loc, mesh_data, routed)
     work_b = {"inplace": 1, "accumulator": 2}.get(form, 0) * r_loc * w * 4
     # gathered rows + the (g, g^2) payload of the batch slice (LR: the
     # gathered linear weights and their [N, 2] payload)
@@ -482,6 +473,11 @@ class _GroupGraph:
 
 class Trainer(TransferTiers):
     """Training and serving of one config (ftrl_ffm_tpu/train.py::Trainer).
+
+    Every step goes through one interface, self._step: the model itself
+    on one device (Model.train_step, Model.eval_step), the sharded step
+    on a mesh (self._sharded, parallel/sharded.py::ShardedStep), each
+    holding its update form (ftrl.py::update_form).
 
     On a mesh every rank feeds its own slice of each global batch of
     B = batch_size rows: local_batch = B / S rows, S the batch shards (D in
@@ -617,11 +613,13 @@ class Trainer(TransferTiers):
         is (parallel/mesh.py::place_state)."""
         if self._mesh is None:
             self.state = ModelState(*(None if t is None else t.to(self.device) for t in state))
+            # the one-device step: the model's train_step and eval_step
+            self._step = self.model
             return
         from ftrl_ffm_tpu_torch.parallel import ShardedStep, place_state
 
         self.state = place_state(state, self._mesh, self.cfg.n_feats)
-        self._sharded = ShardedStep(self.cfg, self._mesh, self.model, self.state)
+        self._sharded = self._step = ShardedStep(self.cfg, self._mesh, self.model, self.state)
 
     def _warn_if_oversized(self) -> None:
         """Warn before the first step when the estimated state and update
@@ -661,28 +659,10 @@ class Trainer(TransferTiers):
             return unshard_state(self.state, self._mesh, self.cfg.n_feats)
         return self.state
 
-    def _lin_rides_stale(self) -> bool:
-        """True when train steps skip the linear tables and leave them
-        stale: the in-place kind with the dead-lane mirror
-        (Model._lin_mirror_maintained).  The port's auto never picks the
-        in-place kind (ftrl.py::select_update_kind), so only
-        update_mode=inplace leaves them stale."""
-        st = self.state
-        if st.vec_n is None:
-            return False
-        if self._sharded is not None:
-            # only the one-device update of a shard no replica shares
-            return self._sharded.form == "inplace" and self.model._lin_mirror_maintained()
-        nnz = self.cfg.batch_size * max(1, self.cfg.max_nnz)
-        kind = select_update_kind(
-            st.vec_n.shape[0], st.vec_n.shape[-1], nnz, self.cfg.update_mode
-        )
-        return kind == "inplace" and self.model._lin_mirror_maintained()
-
     def _maybe_sync_lin(self) -> None:
         """Reconcile stale linear tables from the mirror lane; idempotent,
         at boundaries only."""
-        if self._lin_rides_stale():
+        if self._step.lin_rides_stale:
             self.state = self.model.sync_lin_from_mirror(self.state)
 
     # ---- batch plumbing ----
@@ -1319,12 +1299,11 @@ class Trainer(TransferTiers):
     def _train_one(self, batch: Batch) -> torch.Tensor:
         """One train step: its [2] (loss sum, count), or on a mesh its [3]
         (loss sum, count, route drops) over the batch axes."""
-        if self._sharded is None:
-            out = self.model.train_step(self.state, batch)
-            return torch.stack([out.loss_sum, out.count])
-        out = self._sharded.train_step(self.state, batch)
-        of = out.route_overflow
-        return torch.stack([out.loss_sum, out.count, out.count.new_zeros(()) if of is None else of])
+        out = self._step.train_step(self.state, batch)
+        sums = [out.loss_sum, out.count]
+        if out.route_overflow is not None:
+            sums.append(out.route_overflow)
+        return torch.stack(sums)
 
     def _multi_eval_impl(self, *args) -> tuple:
         """S eval batches of a stacked group, chained into the running
@@ -1344,13 +1323,7 @@ class Trainer(TransferTiers):
         with bins > 0, else (loss sum, count, logits); on a mesh summed
         over the batch axes, with the route drops after the count in
         route mode (ShardedStep.eval_step)."""
-        if self._sharded is None:
-            ls, ct, logits = self.model.eval_step(self.state, batch)
-            if not bins:
-                return ls[None], ct[None], logits
-            return (ls[None], ct[None],
-                    *StreamingAUC.bucket_counts(logits, batch.y, batch.sample_w, bins))
-        ls, ct, logits, of, pos, neg = self._sharded.eval_step(self.state, batch, bins)
+        ls, ct, logits, of, pos, neg = self._step.eval_step(self.state, batch, bins)
         head = (ls[None], ct[None]) if of is None else (ls[None], ct[None], of[None])
         return (*head, pos, neg) if bins else (*head, logits)
 
@@ -1822,7 +1795,7 @@ class Trainer(TransferTiers):
         and neg histograms where they were counted, else AUC nan): one
         readback; the route drops reported (_flush_eval_overflow)."""
         sums = sums.cpu().numpy()
-        head = 3 if self._sharded is not None and self._sharded.mode == "route" else 2
+        head = 3 if self._step.counts_drops else 2
         if head == 3:
             self._flush_eval_overflow(sums[2], "eval")
         loss = LossAccumulator()
@@ -1863,7 +1836,7 @@ class Trainer(TransferTiers):
             key, fn = ("multi",), self._multi_eval_impl
             groups = ((tuple(b), real) for b, real in
                       self._device_feed_multi(self._grouped(self._eval_batches(), s), "eval"))
-        head = 3 if self._sharded is not None and self._sharded.mode == "route" else 2
+        head = 3 if self._step.counts_drops else 2
         acc = None
         for inputs, real in groups:
             with span("eval.group"):
@@ -1909,11 +1882,7 @@ class Trainer(TransferTiers):
         )
         with out_cm as f:
             for arrays in reader.batches():
-                batch = self._device_batch(arrays, "predict")
-                if self._sharded is not None:
-                    logits = self._sharded.eval_step(self.state, batch)[2]
-                else:
-                    _, _, logits = self.model.eval_step(self.state, batch)
+                logits = self._step.eval_step(self.state, self._device_batch(arrays, "predict"))[2]
                 probs = torch.sigmoid(logits).cpu().numpy().astype(np.float64)
                 mask = arrays[4] > 0  # drop padded tail samples
                 f.write("".join(f"{p:.6f}\n" for p in probs[mask]))
@@ -1940,7 +1909,7 @@ class Trainer(TransferTiers):
         lines_local = count_lines(data_path, br, nonblank=True)
         counts = pdist.process_allgather(np.array([lines_local], np.int64), self.device)[:, 0]
         # one rank a shard: replicate mode's model groups read one range
-        m = 1 if self._sharded.mode == "route" else self._mesh.model
+        m = self._mesh.data * self._mesh.model // shards
         counts = counts[::m]
         starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
         total = int(counts.sum())
@@ -1959,7 +1928,7 @@ class Trainer(TransferTiers):
         overflow = None
         try:
             for b_idx, arrays in enumerate(self._pad_to_steps(reader.batches(), n_steps)):
-                _, _, logits, of, _, _ = self._sharded.eval_step(
+                _, _, logits, of, _, _ = self._step.eval_step(
                     self.state, self._device_batch(arrays, "predict"))
                 if of is not None:
                     overflow = of if overflow is None else overflow + of

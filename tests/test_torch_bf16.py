@@ -38,7 +38,6 @@ from ftrl_ffm_tpu.train import Trainer as JTrainer
 from ftrl_ffm_tpu_torch import ftrl as tftrl
 from ftrl_ffm_tpu_torch.cli import main as torch_main
 from ftrl_ffm_tpu_torch.config import Config as TConfig
-from ftrl_ffm_tpu_torch.ftrl import select_update_kind
 from ftrl_ffm_tpu_torch.io.checkpoint import load_checkpoint, state_from_jax_arrays
 from ftrl_ffm_tpu_torch.models import make_model as t_make_model
 from ftrl_ffm_tpu_torch.models.base import Batch as TBatch
@@ -269,9 +268,9 @@ def test_chained_train_steps_match_jax(interpret, shape, kind, table_dtype, acc_
     mode = {"dense2": "dense", "inplace": "inplace", "sparse2": "sparse"}[kind]
     b, f, r, c = shape["batch_size"], 6, shape["n_feats"], shape["n_fields"]
     kw = dict(max_nnz=f, update_mode=mode, table_dtype=table_dtype, acc_dtype=acc_dtype, **shape)
-    assert select_update_kind(r, 128, b * f, mode) == kind
     jm = j_make_model(JConfig(use_pallas="on", **kw))
     tm = t_make_model(TConfig(device="cpu", **kw))
+    assert tm.form == kind
     j_state = jm.init()
     t_state = state_from_jax_arrays(j_state, "cpu")
     assert t_state.vec_w.dtype == getattr(torch, table_dtype)
@@ -386,7 +385,7 @@ def test_bf16_checkpoint_serves_like_jax(bf16_served, tmp_path):
     [{"table_dtype": "bfloat16"}, {"table_dtype": "bfloat16", "acc_dtype": "bfloat16"},
      {"table_dtype": "bfloat16", "update_mode": "inplace"},
      # auto at 100k rows: JAX's takes "inplace", the port's "dense2"
-     # (ftrl.py::select_update_kind): the two runs' histories agree
+     # (ftrl.py::update_form): the two runs' histories agree
      {"table_dtype": "bfloat16", "n_feats": 100_000}],
     ids=["dense2", "dense2_bf16_payload", "inplace", "auto_inplace_100k"],
 )

@@ -4,6 +4,8 @@ ops/ftrl_cuda.py on the CPU) against the JAX package's, on the same numpy
 inputs with duplicate and sentinel ids.  rtol=1e-6, atol=1e-7: the same f32
 operations, with duplicate sums in another order."""
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,12 +156,14 @@ def test_update_wants_exactly_one_source_of_linear_stats():
     ],
 )
 def test_select_update_kind_matches_jax(n_rows, width, nnz, mode):
-    """The port's kinds are the JAX package's, but for its deliberate
-    choice under auto: where JAX picks "inplace", the port picks "dense2"
-    (its touched-rows update keeps no table-shaped accumulator and beat
-    "inplace" on the card at every shape measured, PERF.md section 6);
-    update_mode=inplace still selects "inplace"."""
+    """The port's one-device forms (ftrl.py::update_form) are the JAX
+    package's kinds, but for its deliberate choice under auto: where JAX
+    picks "inplace", the port picks "dense2" (its touched-rows update keeps
+    no table-shaped accumulator and beat "inplace" on the card at every
+    shape measured, PERF.md section 6); update_mode=inplace still selects
+    "inplace"."""
     want = jftrl.select_update_kind(n_rows, width, nnz, mode)
     if mode == "auto" and want == "inplace":
         want = "dense2"
-    assert tftrl.select_update_kind(n_rows, width, nnz, mode) == want
+    cfg = SimpleNamespace(update_mode=mode, row_width=width, batch_size=nnz, max_nnz=1)
+    assert tftrl.update_form(cfg, n_rows) == want

@@ -299,11 +299,11 @@ def test_inplace_skips_lin_update_and_syncs_from_mirror(tmp_path):
     t_in = Trainer(TConfig(device="cpu", **_mirror_cfg(train, update_mode="inplace")),
                    state=_clone(init))
     assert t_in.model._lin_mirror_maintained()
-    assert t_in._lin_rides_stale()
+    assert t_in._step.lin_rides_stale
     h_in = t_in.train()
     t_dn = Trainer(TConfig(device="cpu", **_mirror_cfg(train, update_mode="dense")),
                    state=_clone(init))
-    assert not t_dn._lin_rides_stale()
+    assert not t_dn._step.lin_rides_stale
     h_dn = t_dn.train()
     np.testing.assert_allclose(h_in["train_loss"], h_dn["train_loss"], rtol=1e-6)
     assert (t_in.state.lin_z == 0).all()
@@ -331,7 +331,7 @@ def test_mirror_off_keeps_exact_lin(tmp_path):
     jtr = JTrainer(JConfig(**kw))
     t = Trainer(TConfig(device="cpu", **kw), state=state_from_jax_arrays(jtr.state, "cpu"))
     assert t.model._lin_lane() == -1
-    assert not t._lin_rides_stale()
+    assert not t._step.lin_rides_stale
     h = t.train()
     assert (t.state.lin_z != 0).any()
     assert all(np.isfinite(h["train_loss"]))
@@ -395,7 +395,7 @@ def test_estimate_hbm_bytes_single_device_regimes():
     accumulator as the JAX package's; "dense2" allocates no [R, 2D]
     accumulator in the port (its kernel updates the touched rows in
     place), and the port's auto takes "dense2" at 1.2M rows, where JAX's
-    takes "inplace" (ftrl.py::select_update_kind); forced, the in-place
+    takes "inplace" (ftrl.py::update_form); forced, the in-place
     kind's working set is JAX's."""
     kw = dict(model_type="FFM", n_fields=39, n_factors=16, max_nnz=39, batch_size=8192)
     w = TConfig(**kw).row_width

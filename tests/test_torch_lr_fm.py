@@ -121,7 +121,7 @@ def test_fm_logits_and_grads_matches_jax(b, f, k):
         ("FM", {"update_mode": "sparse"}),
         ("FM", {"update_mode": "inplace"}),
         # n_feats=100k at B=16: the in-place form at JAX auto's shape (the
-        # port's auto takes "dense2" there: ftrl.py::select_update_kind)
+        # port's auto takes "dense2" there: ftrl.py::update_form)
         ("FM", {"n_feats": 100_000, "update_mode": "inplace"}),
         ("FM", {"update_mode": "dense", "table_dtype": "bfloat16"}),
         ("FM", {"update_mode": "sparse", "table_dtype": "bfloat16"}),

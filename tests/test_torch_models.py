@@ -162,7 +162,7 @@ def test_ffm_predict_logits_and_eval_step_match_jax(trained, tmp_path):
         got = tmodel.predict_logits(tstate, tb)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
         jls, jct, _ = jtr.model.eval_step(jtr.state, jb)
-        tls, tct, _ = tmodel.eval_step(tstate, tb)
+        tls, tct, *_ = tmodel.eval_step(tstate, tb)
         np.testing.assert_allclose(float(tls), float(jls), rtol=RTOL, atol=ATOL)
         assert float(tct) == float(jct)
 

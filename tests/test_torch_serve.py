@@ -2,8 +2,7 @@
 and Python API serve it (--device cpu) and must agree with the JAX CLI's
 serve-only run on the same checkpoint: the same `eval loss`/`eval auc` line,
 eval numbers within 1e-5, and predictions equal line by line within 2e-6
-(one unit in the sixth decimal, plus a rounding flip).  Flags and settings
-the port does not take yet raise, naming their ROADMAP item."""
+(one unit in the sixth decimal, plus a rounding flip)."""
 
 import functools
 import io
@@ -162,10 +161,10 @@ def test_train_raises_naming_roadmap(served, tmp_path):
     ],
 )
 def test_cli_training_flags_raise(served, flags, item, monkeypatch, capsys, tmp_path):
-    """A flag whose capability a later slice brings raises, naming its
-    ROADMAP item; the training flags train (item 8's on a mesh too), the
-    checkpoint and reference-model flags write (or read) their file, and
-    --profile_dir (item 9) writes epoch 1's trace."""
+    """The flags of the port's later slices work: the training flags
+    train (item 8's on a mesh too), the checkpoint and reference-model
+    flags write (or read) their file, and --profile_dir (item 9) writes
+    epoch 1's trace."""
     train = served[0] / "train.ffm"
     argv = [str(train) if a == "TRAIN" else a for a in flags]
     argv += [*MODEL_FLAGS, "--file_type", "libffm", "--max_nnz", "7", "--device", "cpu"]
@@ -216,9 +215,6 @@ def test_cli_training_flags_raise(served, flags, item, monkeypatch, capsys, tmp_
             assert lin_w.shape == (60,) and vec_w.shape == (60, 112)
         else:
             assert "imported reference model" in out
-        return
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        torch_main(argv)
 
 
 def test_cli_requires_a_model_to_serve(capsys):

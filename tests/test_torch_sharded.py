@@ -82,7 +82,6 @@ for case in spec["cases"]:
         st = shard_state(state_of(z), mesh)
         step = ShardedStep(cfg, mesh, model, st)
         out["form"] = np.array(step.form)
-        out["routed_form"] = np.array(str(step.routed_form))
         out["mode"] = np.array(step.mode)
         out["route_k"] = np.array(step.route_k)
         b = np.load(case["batch"])
@@ -440,7 +439,7 @@ def test_sparse_form_matches(runs, model_type):
     test_sharded_sparse_update_matches_single_device)."""
     cases, outs = runs((2, 2))
     name = f"sparse_{model_type}"
-    assert str(outs[name][0]["form"]) == "sparse"
+    assert str(outs[name][0]["form"]) == "allgather"
     _check_against_references(cases[name], outs[name], (2, 2))
 
 
@@ -475,7 +474,7 @@ _ROUTE_FORMS = [
                          ids=[f"{s[0]}x{s[1]}-{n}" for s, n, _ in _ROUTE_FORMS])
 def test_route_update_form_and_counters(runs, mesh_shape, name, form):
     """The routed update's form follows the mesh and update_mode
-    (parallel/sharded.py::routed_update_form), and its counters say which
+    (ftrl.py::update_form, ShardedStep.form), and its counters say which
     ran on every rank: route.update.touched once a train step for the
     touched-rows launch on the received slots, route.update.pass once a
     step for a pass over the shard (kernel #3, in place or after the
@@ -486,7 +485,7 @@ def test_route_update_form_and_counters(runs, mesh_shape, name, form):
     steps = cases[name].get("steps", 2)
     touched = form in ("dense2", "sparse2")
     for r in o:
-        assert str(r["mode"]) == "route" and str(r["routed_form"]) == form
+        assert str(r["mode"]) == "route" and str(r["form"]) == form
         assert int(r["route_touched"]) == (steps if touched else 0)
         assert int(r["route_pass"]) == (0 if touched else steps)
     _check_against_references(cases[name], o, mesh_shape)

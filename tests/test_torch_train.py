@@ -89,27 +89,6 @@ def test_train_step_matches_jax(monkeypatch, shape, pallas):
     _assert_states_close(t_state, j_state)
 
 
-def test_logits_and_grads_train_matches_jax():
-    """The unfused train=True formulation (the JAX XLA path's
-    _logits_and_grads): logits and d logit / d v with the mirror lane."""
-    b, f = 16, 6
-    jm = j_make_model(JConfig(use_pallas="off", max_nnz=f, **SEVEN))
-    tm = t_make_model(TConfig(device="cpu", max_nnz=f, **SEVEN))
-    rng = np.random.default_rng(3)
-    j_state = jm.init()
-    # a trained-looking state: nonzero linear weights in lin_w and the mirror
-    lin_w = (rng.normal(size=60) * 0.1).astype(np.float32)
-    vec_w = np.asarray(j_state.vec_w).copy()
-    vec_w[:, 7] = lin_w
-    j_state = j_state._replace(lin_w=jnp.asarray(lin_w), vec_w=jnp.asarray(vec_w))
-    t_state = state_from_jax_arrays(j_state, "cpu")
-    arrays = _batch(rng, b, f, 7, 60)
-    j_logits, j_dv = jm._logits_and_grads(j_state, JBatch(*(jnp.asarray(a) for a in arrays)), True)
-    t_logits, t_dv = tm._logits_and_grads(t_state, TBatch(*(torch.from_numpy(a) for a in arrays)), True)
-    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(t_dv.numpy(), np.asarray(j_dv), rtol=1e-4, atol=1e-6)
-
-
 @pytest.mark.parametrize("semantics", ["keep_init", "reference"])
 def test_b1_trajectory_matches_oracle(semantics):
     """Twin of tests/test_models.py::test_b1_trajectory_matches_oracle for
@@ -198,14 +177,11 @@ def test_train_step_takes_every_update_kind(monkeypatch, kw, kind):
     """The updates the port once refused train and match the JAX step from
     one JAX-made init; the in-place form also at n_feats=100k, B=16 (the
     shape where JAX's auto takes it; the port's auto takes "dense2",
-    ftrl.py::select_update_kind, so both sides force it).  A bf16 payload is held against the JAX step through its fused
+    ftrl.py::update_form, so both sides force it).  A bf16 payload is held against the JAX step through its fused
     Pallas kernel (interpret mode), the only JAX path that emits one; a
     bf16 w within one bf16 ulp (rtol 2^-7): an f32 w one ulp off can round
     to the neighbouring bf16."""
-    from ftrl_ffm_tpu_torch.ftrl import select_update_kind
-
     cfg = {**SEVEN, **kw}
-    assert select_update_kind(cfg["n_feats"], 128, 16 * 6, cfg.get("update_mode", "auto")) == kind
     pallas = "on" if "acc_dtype" in kw else "off"
     if pallas == "on":
         for fn_name in ("ffm_fused_logits_grads", "ffm_fused_logits"):
@@ -214,6 +190,7 @@ def test_train_step_takes_every_update_kind(monkeypatch, kw, kind):
             )
     jm = j_make_model(JConfig(use_pallas=pallas, max_nnz=6, **cfg))
     model = t_make_model(TConfig(device="cpu", max_nnz=6, **cfg))
+    assert model.form == kind
     j_state = jm.init()
     state = state_from_jax_arrays(j_state, "cpu")
     arrays = _batch(np.random.default_rng(0), 16, 6, 7, 60)
